@@ -5,17 +5,31 @@
 
 Needs one CUDA GPU (sm_90a: H100/H200) and nvcc; fails without them, and
 never falls back to the CPU. Phases, each of which must pass:
-  1. build the folded flash-attention forward kernel (K1) from
-     onetrainer_tpu_torch/csrc with nvcc;
+  1. build the folded flash-attention kernels K1 (forward), K2 (dq) and K3
+     (dk, dv) from onetrainer_tpu_torch/csrc with nvcc, into one library;
   2. K1 against its plain PyTorch version in bf16: the two SDXL shapes,
      head dims 40/80/128, ragged Sq/Skv with a kv keep mask, zero q rows;
-     max |do| and |dlse| against stated bounds, median times of both;
-  3. one full-width SDXL UNet forward (128x128 latent, CFG batch 2) with
+     max |do| and |dlse| against stated bounds, median times of both and
+     of PyTorch's flash SDPA forward at the SDXL shapes;
+  3. K2 and K3 against their plain versions in bf16: the two SDXL shapes,
+     head dims 40/80/128, ragged Sq/Skv with the kv keep mask, and 8192
+     tokens at d=128 (the TPU's streaming dk/dv domain); max |ddq|,
+     |ddk|, |ddv| and relative L2 against stated bounds, median times of the kernels, the
+     plain versions and PyTorch's flash SDPA backward;
+  4. one full-width SDXL UNet forward (128x128 latent, CFG batch 2) with
      K1 and with plain attention: relative L2 difference of the outputs;
-  4. full-width SDXL text-to-image through the family registry
+  5. full-width SDXL text-to-image through the family registry
      (1024x1024, DDIM, 4 steps, CFG 7, seeded random weights): K1 must be
      launched exactly 70 times per step; the image must be uint8
-     1024x1024x3 and not constant.
+     1024x1024x3 and not constant;
+  6. full-width SDXL LoRA training through the family registry (rank 16,
+     alpha 16, batch 2 at 1024x1024 from a seeded image and prompt through
+     the port's latent and text-embedding caches, tx_only gradient
+     checkpointing, AdamW, clip 1.0): one warm-up step, then timed steps
+     with exact launch counts per step (K1 140, K2 70, K3 70); finite loss
+     and grad norm, lora_up non-zero after the first step, one step's
+     LoRA gradients with K1-K3 against plain attention (relative L2), and
+     a torch.profiler split of one more step's device time by kernel class.
 The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
 """
@@ -32,17 +46,38 @@ import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# bounds, bf16 operands on both sides (the plain version computes in fp32
+# bounds, bf16 operands on both sides (the plain versions compute in fp32
 # from the same bf16 inputs):
 # - o: both round o to bf16 (relative 2^-9) and K1 rounds P to bf16 before
 #   P.V; 2e-2 absolute is the reference package's own flash-test bound
 # - lse: fp32 on both sides, only summation order and exp differ
 O_BOUND = 2e-2
 LSE_BOUND = 1e-3
+# dq, dk, dv, each against its own scale: at the SDXL shapes max|dq|,
+# |dk|, |dv| are only 0.2-0.3 (a typical element ~0.03), so an absolute
+# bound would not catch a wrong kernel. Both sides round dS and P to bf16
+# before their products and the results to bf16 (relative 2^-9); the
+# kernels sum S, dP and the products in another order (mma.sync fp32
+# fragments vs one fp32 matmul), so an element can round across one bf16
+# step: up to 0.34% of max|ref| measured. Most elements round alike on
+# both sides, so the relative L2 difference is small: 1.2e-4 to 2.9e-4
+# measured over these cases on an H100. Bounds: max error 2% of max|ref|,
+# relative L2 2e-3 over the tensor
+DGRAD_MAX_REL = 2e-2
+DGRAD_REL_L2 = 2e-3
 # UNet output, K1 vs plain attention: 70 attention outputs that differ by
 # bf16 roundings, carried through a bf16 network of random weights
 UNET_REL_L2_BOUND = 5e-2
+# LoRA gradients of one training step, K1-K3 vs plain attention: the same
+# bf16 attention roundings as DGRAD_REL_L2, through the forward and the
+# backward of the network (2.1e-3 measured at full width)
+GRAD_REL_L2_BOUND = 1e-2
 SELF_ATTN_PER_UNET_PASS = 70   # SDXL at a 128x128 latent: 10 at 4096, 60 at 1024 tokens
+TRAIN_STEPS = 3                # timed steps after one warm-up step
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 # name, batch, sq, skv, heads, head dim, keep mask, first zero q row
 K1_CASES = [
@@ -54,6 +89,17 @@ K1_CASES = [
     ("ragged_keep_b2_sq1000_skv777_h4_d64", 2, 1000, 777, 4, 64, True, None),
     ("zero_q_rows_b2_s300_h4_d64", 2, 300, 300, 4, 64, False, 250),
 ]
+# name, batch, sq, skv, heads, head dim, keep mask
+K23_CASES = [
+    ("sdxl_b2_s4096_h10_d64", 2, 4096, 4096, 10, 64, False),
+    ("sdxl_b2_s1024_h20_d64", 2, 1024, 1024, 20, 64, False),
+    ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False),
+    ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False),
+    ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
+    ("ragged_keep_b2_sq1000_skv777_h4_d64", 2, 1000, 777, 4, 64, True),
+    ("stream_b1_s8192_h8_d128", 1, 8192, 8192, 8, 128, False),
+]
+SDXL_SHAPES = ("sdxl_b2_s4096_h10_d64", "sdxl_b2_s1024_h20_d64")
 
 
 def _median_ms(torch, fn, reps: int = 20) -> float:
@@ -71,6 +117,33 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: FLOPs at the bf16 tensor-core
+    peak or bytes at the HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attn_bounds(b, sq, skv, h, d) -> dict:
+    """bound_ms of K1, K2, K3 at one shape: FLOPs 4/6/8 * B*H*Sq*Skv*d
+    (the TPU kernels' cost estimates); bytes: each bf16 [B, S, H*d] input
+    read once and output written once, lse fp32 [B, H, Sq]."""
+    q_bytes, kv_bytes, lse_bytes = 2 * b * sq * h * d, 2 * b * skv * h * d, 4 * b * h * sq
+    work = b * h * sq * skv * d
+    return {
+        "K1": _bound_ms(4 * work, 2 * q_bytes + 2 * kv_bytes + lse_bytes),
+        "K2": _bound_ms(6 * work, 4 * q_bytes + 2 * kv_bytes + lse_bytes),
+        "K3": _bound_ms(8 * work, 3 * q_bytes + 4 * kv_bytes + lse_bytes),
+    }
+
+
+def _heads4(t, h):
+    """[B, S, H*d] -> a [B, H, S, d] view (what SDPA takes)."""
+    b, s, inner = t.shape
+    return t.view(b, s, h, inner // h).transpose(1, 2)
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,32 +156,41 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
-    print(f"[build] K1 library {os.path.relpath(path, REPO)} ready in "
+    print(f"[build] K1-K3 library {os.path.relpath(path, REPO)} ready in "
           f"{time.perf_counter() - t0:.2f} s")
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
 
 
+def _rand_case(torch, gen, b, sq, skv, h, d, with_keep):
+    def rand(s):
+        return torch.randn((b, s, h * d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = rand(sq), rand(skv), rand(skv)
+    keep = None
+    if with_keep:
+        keep = torch.ones((b, skv), dtype=torch.bool, device="cuda")
+        keep[:, 700:] = False      # text-padding style tail
+        keep[0, :64] = False       # a fully masked leading kv tile
+        keep[1, 300:340] = False   # a hole
+    return q, k, v, keep
+
+
 def phase_k1_cases(torch) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+
     from onetrainer_tpu_torch.ops import flash_folded as ff
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
     for name, b, sq, skv, h, d, with_keep, zero_from in K1_CASES:
-        def rand(s):
-            return torch.randn((b, s, h * d), generator=gen, device="cuda",
-                               dtype=torch.float32).to(torch.bfloat16)
-        q, k, v = rand(sq), rand(skv), rand(skv)
+        q, k, v, keep = _rand_case(torch, gen, b, sq, skv, h, d, with_keep)
         if zero_from is not None:
             q[:, zero_from:] = 0
-        keep = None
-        if with_keep:
-            keep = torch.ones((b, skv), dtype=torch.bool, device="cuda")
-            keep[:, 700:] = False      # text-padding style tail
-            keep[0, :64] = False       # a fully masked leading kv tile
-            keep[1, 300:340] = False   # a hole
         scale = 1.0 / d ** 0.5
         o, lse = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
         o_ref, lse_ref = ff.flash_attention_folded_reference(
@@ -121,14 +203,89 @@ def phase_k1_cases(torch) -> dict:
             q, k, v, h, sm_scale=scale, kv_keep=keep))
         plain_ms = _median_ms(torch, lambda: ff.flash_attention_folded_reference(
             q, k, v, h, sm_scale=scale, kv_keep=keep))
+        library_ms = None
+        if name in SDXL_SHAPES:
+            q4, k4, v4 = (_heads4(t, h) for t in (q, k, v))
+
+            def sdpa():
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            library_ms = _median_ms(torch, sdpa)
         ok = finite and err_o <= O_BOUND and err_lse <= LSE_BOUND
-        results[name] = dict(err_o=err_o, err_lse=err_lse, ms=ms, plain_ms=plain_ms)
+        bound_ms, bound_by = _attn_bounds(b, sq, skv, h, d)["K1"]
+        results[name] = dict(err_o=err_o, err_lse=err_lse, ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms)
+        lib = "" if library_ms is None else f" SDPA flash fwd {library_ms:.4f} ms"
         print(f"[k1] {name}: max|do|={err_o:.3e} (bound {O_BOUND:g}) "
               f"max|dlse|={err_lse:.3e} (bound {LSE_BOUND:g}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} "
+              f"(least time {bound_ms:.4f} ms, {bound_by}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 case {name} disagrees with the plain version")
+    return results
+
+
+def phase_k23_cases(torch) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = {}
+    for name, b, sq, skv, h, d, with_keep in K23_CASES:
+        q, k, v, keep = _rand_case(torch, gen, b, sq, skv, h, d, with_keep)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = 1.0 / d ** 0.5
+        o, lse = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
+        args = (q, k, v, o, lse, do, h)
+        kw = dict(sm_scale=scale, kv_keep=keep)
+        dq = ff.flash_attention_folded_dq(*args, **kw)
+        dk, dv = ff.flash_attention_folded_dkv(*args, **kw)
+        dq_ref = ff.flash_attention_folded_dq_reference(*args, **kw)
+        dk_ref, dv_ref = ff.flash_attention_folded_dkv_reference(*args, **kw)
+        torch.cuda.synchronize()
+        errs, scales, rels = {}, {}, {}
+        for n, a, r in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            diff = a.float() - r.float()
+            errs[n] = diff.abs().max().item()
+            scales[n] = r.float().abs().max().item()
+            rels[n] = (diff.norm() / r.float().norm()).item()
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv))
+        del dq_ref, dk_ref, dv_ref
+        k2_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **kw))
+        k3_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv(*args, **kw))
+        plain_dq_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq_reference(
+            *args, **kw), reps=5)
+        plain_dkv_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv_reference(
+            *args, **kw), reps=5)
+        library_ms = None
+        if name in SDXL_SHAPES:
+            q4, k4, v4 = (_heads4(t, h).detach().requires_grad_() for t in (q, k, v))
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            do4 = _heads4(do, h)
+            library_ms = _median_ms(torch, lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True))
+        ok = finite and all(errs[n] <= DGRAD_MAX_REL * scales[n]
+                            and rels[n] <= DGRAD_REL_L2 for n in errs)
+        results[name] = dict(errs=errs, k2_ms=k2_ms, k3_ms=k3_ms,
+                             plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
+                             library_ms=library_ms)
+        lib = "" if library_ms is None else \
+            f" SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms"
+        bounds = _attn_bounds(b, sq, skv, h, d)
+        print(f"[k23] {name}: " + " ".join(
+                  f"max|d{n}|={errs[n]:.3e} (bound {DGRAD_MAX_REL:g} x max|{n}| "
+                  f"{scales[n]:.3e}) rel L2 {rels[n]:.3e} (bound {DGRAD_REL_L2:g})"
+                  for n in errs) + " "
+              f"K2 {k2_ms:.4f} ms (plain {plain_dq_ms:.4f} ms, least time "
+              f"{bounds['K2'][0]:.4f} ms, {bounds['K2'][1]}) "
+              f"K3 {k3_ms:.4f} ms (plain {plain_dkv_ms:.4f} ms, least time "
+              f"{bounds['K3'][0]:.4f} ms, {bounds['K3'][1]}){lib} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2/K3 case {name} disagrees with the plain versions")
     return results
 
 
@@ -144,8 +301,11 @@ def build_model(torch):
     from onetrainer_tpu_torch.models.sdxl import create_sdxl_model
     from onetrainer_tpu_torch.util.enums import ModelType
     t0 = time.perf_counter()
+    # checkpointing acts only where autograd records: the inference phases
+    # run the plain forward, the training phase recomputes per tx_only
     model = create_sdxl_model(ModelType.STABLE_DIFFUSION_XL_10_BASE,
-                              dtype=torch.bfloat16, device="meta")
+                              dtype=torch.bfloat16, gradient_checkpointing=True,
+                              remat_policy="tx_only", device="meta")
     init_sdxl_weights(model, seed=0, device="cuda")
     torch.cuda.synchronize()
     n = sum(p.numel() for m in model.modules().values() for p in m.parameters())
@@ -198,7 +358,13 @@ def phase_unet(torch, model):
         raise AssertionError("UNet with K1 disagrees with plain attention")
 
 
-def phase_sample(torch, model) -> int:
+def _launch_counts(ff) -> dict:
+    return {"K1": ff.flash_attention_folded_fwd.launches,
+            "K2": ff.flash_attention_folded_dq.launches,
+            "K3": ff.flash_attention_folded_dkv.launches}
+
+
+def phase_sample(torch, model) -> dict:
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.ops import flash_folded as ff
@@ -228,30 +394,257 @@ def phase_sample(torch, model) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ff.flash_attention_folded_fwd.launches = 0
+    ff.reset_launch_counts()
     t0 = time.perf_counter()
     out = family.sample(setup, sc, on_progress)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = ff.flash_attention_folded_fwd.launches
+    launches = _launch_counts(ff)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     expected = SELF_ATTN_PER_UNET_PASS * sc.diffusion_steps
     image = out.image
     # NaN latents would decode to a constant image, so it must vary
-    ok = (launches == expected and image.dtype.name == "uint8"
+    ok = (launches["K1"] == expected and image.dtype.name == "uint8"
           and image.shape == (1024, 1024, 3) and image.std() > 0)
     print(f"[sample] SDXL 1024x1024 DDIM {sc.diffusion_steps} steps CFG "
           f"{sc.cfg_scale:g}: total {total_s:.3f} s, UNet step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms), peak "
-          f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches} "
+          f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches['K1']} "
           f"(expected {expected}), image {image.shape} {image.dtype} "
           f"mean {image.mean():.2f} std {image.std():.2f} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("text-to-image run failed its checks")
     return launches
+
+
+def _train_batch(torch, family, setup, batch_size: int) -> dict:
+    """A 1024x1024 batch through the port's caches: a seeded image through
+    the VAE encoder and a prompt through both text encoders, tiled."""
+    encode_images, encode_text = family.make_encode_fns(setup)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    image = torch.rand((1, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    latents = encode_images(image)
+    text = encode_text("a photograph of an astronaut riding a horse")
+
+    def tile(t):
+        return t.expand(batch_size, *t.shape[1:]).contiguous()
+    return {
+        "latent_image": tile(latents["latent_image"]),
+        "latent_logvar": tile(latents["latent_logvar"]),
+        "text_encoder_hidden_state": tile(text["text_encoder_hidden_state"][None]),
+        "text_encoder_2_hidden_state": tile(text["text_encoder_2_hidden_state"][None]),
+        "text_encoder_2_pooled_state": tile(text["text_encoder_2_pooled_state"][None]),
+        "original_resolution": torch.full((batch_size, 2), 1024, device="cuda"),
+        "crop_offset": torch.zeros((batch_size, 2), device="cuda"),
+        "crop_resolution": torch.full((batch_size, 2), 1024, device="cuda"),
+        "loss_weight": torch.ones((batch_size,), device="cuda"),
+    }
+
+
+def _lora_grads(torch, setup, batch, timestep, noise, latent_noise):
+    """The LoRA gradients of one step's loss at fixed randomness, without
+    the update (the step's own forward and backward)."""
+    from onetrainer_tpu_torch.math.losses import diffusion_losses
+    from onetrainer_tpu_torch.train.sdxl_train_step import (
+        _coefficients_on, sdxl_predict,
+    )
+    from onetrainer_tpu_torch.train.train_state import param_groups
+    coefficients = _coefficients_on(setup.model, torch.device("cuda"))
+    flat = [t for g in param_groups(setup.state.params).values() for t in g]
+    data = sdxl_predict(setup.model, batch, None, setup.step_cfg, coefficients,
+                        timestep=timestep, noise=noise, latent_noise=latent_noise)
+    loss = diffusion_losses(batch, data, setup.step_cfg.loss, coefficients).mean()
+    return torch.cat([g.flatten() for g in torch.autograd.grad(loss, flat)])
+
+
+def phase_train(torch, model) -> dict:
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import ModelType, TrainingMethod
+
+    batch_size = 2
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
+    config.training_method = TrainingMethod.LORA
+    config.lora_rank = 16
+    config.lora_alpha = 16.0
+    config.batch_size = batch_size
+    config.learning_rate = 1e-4           # bench.py's SDXL stage: adamw(1e-4)
+    config.learning_rate_warmup_steps = 0.0
+    config.clip_grad_norm = 1.0
+    config.text_encoder.train = False     # cached text embeddings
+    config.text_encoder_2.train = False
+    family = get_family(config.model_type)
+    t0 = time.perf_counter()
+    setup = family.create_setup(model, config, 100)
+    batch = _train_batch(torch, family, setup, batch_size)
+    torch.cuda.synchronize()
+    n_lora = sum(t.numel() for e in setup.state.params["unet_lora"].values()
+                 for t in e.values())
+    print(f"[train] LoRA r{config.lora_rank} a{config.lora_alpha:g} on "
+          f"{len(setup.state.params['unet_lora'])} UNet layers ({n_lora} params), "
+          f"batch {batch_size} at 1024x1024 cached through the VAE encoder and "
+          f"both text encoders in {time.perf_counter() - t0:.2f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    metrics = setup.train_step(setup.state, batch, gen)
+    loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+    warm_s = time.perf_counter() - t0
+    up_max = max(e["lora_up"].abs().max().item()
+                 for e in setup.state.params["unet_lora"].values())
+    print(f"[train] warm-up step {warm_s:.3f} s: loss {loss:.6f} grad_norm "
+          f"{gnorm:.6f}, max |lora_up| after it {up_max:.3e}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launch_counts()
+    step_s, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = setup.train_step(setup.state, batch, gen)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        step_s.append(time.perf_counter() - t0)
+    launches = _launch_counts(ff)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {"K1": 2 * SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS,
+                "K2": SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS,
+                "K3": SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS}
+    med = statistics.median(step_s)
+    finite = all(map(lambda x: x == x and abs(x) != float("inf"),
+                     [loss, gnorm] + losses + norms))
+    print(f"[train] {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
+          f"(min {min(step_s):.4f}, max {max(step_s):.4f}; "
+          f"{', '.join(f'{s:.4f}' for s in step_s)}), images/s "
+          f"{batch_size / med:.3f}, peak max_memory_allocated {peak_gib:.2f} GiB, "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}, grad_norms "
+          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches} "
+          f"(expected {expected})")
+
+    # one step's gradients with K1-K3 against plain attention, at fixed
+    # timesteps and noise
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    timestep = torch.tensor([250, 750], dtype=torch.int32, device="cuda")
+    noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
+    latent_noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
+    g_kernel = _lora_grads(torch, setup, batch, timestep, noise, latent_noise)
+    kernel_fn = ff.flash_attention_folded
+    ff.flash_attention_folded = _plain_attention(ff)
+    try:
+        g_plain = _lora_grads(torch, setup, batch, timestep, noise, latent_noise)
+    finally:
+        ff.flash_attention_folded = kernel_fn
+    rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
+    grads_finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
+    print(f"[train] LoRA gradients, K1-K3 vs plain attention: rel L2 {rel:.3e} "
+          f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values")
+
+    ok = (finite and grads_finite and up_max > 0 and launches == expected
+          and rel <= GRAD_REL_L2_BOUND)
+    print(f"[train] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("LoRA training run failed its checks")
+    profile_train_step(torch, setup, batch, gen)
+    return {"launches": launches, "steps": TRAIN_STEPS, "sec_per_step": med}
+
+
+_PROFILE_CLASSES = (
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("cuBLAS GEMMs", ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass", "ampere_",
+                      "sm80_")),
+    ("cuDNN convolutions", ("conv", "Conv", "cudnn", "nchwToNhwc", "nhwcToNchw",
+                            "implicit_", "dgrad", "wgrad")),
+    ("norms", ("norm", "Norm", "welford", "Welford")),
+    # "copy" only: "cast" would also match gpu_kernel_impl_nocast, the
+    # launcher of every plain elementwise kernel
+    ("dtype copies/casts", ("copy", "Copy")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach", "Foreach")),
+    ("reductions", ("reduce", "Reduce")),
+)
+
+
+def _classify(name: str) -> str:
+    for label, keys in _PROFILE_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other elementwise"
+
+
+def profile_train_step(torch, setup, batch, gen):
+    """torch.profiler over one training step (after the timed ones): the
+    device time per kernel class and the device's busy share of the step's
+    host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sums: dict = {}
+    counts: dict = {}
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue   # kernels only: an op's row repeats its kernels' time
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if not dev_us:
+            continue
+        label = _classify(evt.key)
+        sums[label] = sums.get(label, 0.0) + dev_us / 1e3
+        counts[label] = counts.get(label, 0) + evt.count
+        kernels.append((dev_us / 1e3, evt.count, label, evt.key))
+    total = sum(sums.values())
+    print(f"[profile] one LoRA step under torch.profiler: host {wall_ms:.3f} ms, "
+          f"device time {total:.3f} ms in {sum(counts.values())} launches "
+          f"({100 * total / wall_ms:.1f}% busy)")
+    for label, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {label}: {ms:.3f} ms in {counts[label]} launches "
+              f"({100 * ms / total:.1f}%)")
+    for ms, count, label, key in sorted(kernels, reverse=True)[:15]:
+        print(f"[profile] kernel {ms:.3f} ms in {count} launches [{label}]: {key[:110]}")
+    if total == 0:
+        raise AssertionError("the profiler saw no device time")
+
+
+def _kernel_table(k1, k23, sample_launches, train_launches) -> dict:
+    head = "sdxl_b2_s4096_h10_d64"
+    bounds = _attn_bounds(2, 4096, 4096, 10, 64)
+    rows = [
+        ("flash_attention_folded_fwd (K1)", "K1", "onetrainer_tpu_torch/csrc/flash_fwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:93",
+         max(c["err_o"] for c in k1.values()), k1[head]["ms"],
+         k1[head]["plain_ms"], k1[head]["library_ms"]),
+        ("flash_attention_folded_dq (K2)", "K2", "onetrainer_tpu_torch/csrc/flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:196",
+         max(c["errs"]["dq"] for c in k23.values()), k23[head]["k2_ms"],
+         k23[head]["plain_dq_ms"], k23[head]["library_ms"]),
+        ("flash_attention_folded_dkv (K3)", "K3", "onetrainer_tpu_torch/csrc/flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:248",
+         max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
+         k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], k23[head]["library_ms"]),
+    ]
+    kernels = []
+    for name, tag, source, replaces, err, ms, plain_ms, library_ms in rows:
+        bound_ms, bound_by = bounds[tag]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[tag], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": head,
+            "launches_by_path": {"sample": sample_launches[tag],
+                                 "train": train_launches[tag]},
+        })
+    return {"kernels": kernels}
 
 
 def main() -> int:
@@ -282,27 +675,19 @@ def main() -> int:
     if gpu is not None:
         print(gpu)
     run("build", phase_build)
-    cases = run("k1", phase_k1_cases, torch) or {}
+    k1 = run("k1", phase_k1_cases, torch) or {}
+    k23 = run("k23", phase_k23_cases, torch) or {}
     model = run("model", build_model, torch)
-    launches = 0
+    sample_launches, train = {}, None
     if model is not None:
         run("unet", phase_unet, torch, model)
-        launches = run("sample", phase_sample, torch, model) or 0
+        sample_launches = run("sample", phase_sample, torch, model) or {}
+        train = run("train", phase_train, torch, model)
 
     if failures:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
-    head = cases["sdxl_b2_s4096_h10_d64"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_folded_fwd (K1)",
-        "route": "cuda",
-        "source": "onetrainer_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "onetrainer_tpu/ops/flash_folded.py:93",
-        "launches": launches,
-        "max_abs_err": max(c["err_o"] for c in cases.values()),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-    }]}))
+    print(json.dumps(_kernel_table(k1, k23, sample_launches, train["launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

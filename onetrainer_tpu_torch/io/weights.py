@@ -1,8 +1,10 @@
 """Weight carry for the port's SDXL modules.
 
 - `sdxl_params_from_flax` loads the reference's flax param trees (as numpy
-  arrays) into the port's modules through the reference's own key maps
-  (`onetrainer_tpu/io/torch_flax.py`), strictly: every key must match.
+  arrays) into the port's modules through the port's copy of the reference's
+  key maps (`io/torch_flax.py`), strictly: every key must match.
+- `lora_params_from_jax` turns the reference's LoRA adapter tree into the
+  port's adapters (same keys, same torch layout).
 - `init_sdxl_weights` materialises full-width weights on a device from a
   seeded `torch.Generator`, for runs without a checkpoint.
 """
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from onetrainer_tpu.io.torch_flax import (
+from onetrainer_tpu_torch.io.torch_flax import (
     clip_flax_to_state_dict, unet_flax_to_state_dict, vae_flax_to_state_dict,
 )
 
@@ -31,6 +33,22 @@ def sdxl_params_from_flax(model, unet: dict, te: dict, te2: dict,
     _load(model.text_encoder, clip_flax_to_state_dict(te))
     _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
     _load(model.vae, vae_flax_to_state_dict(vae))
+
+
+def lora_params_from_jax(adapters: dict,
+                         device: torch.device | str = "cuda") -> dict:
+    """The reference's adapter tree {module_key: {"lora_down", "lora_up"}}
+    (numpy; down [r, in] or [r, in, kh, kw], up [out, r]) as the port's
+    fp32 adapters on `device`."""
+    out = {}
+    for key, entry in adapters.items():
+        if set(entry) != {"lora_down", "lora_up"}:
+            raise NotImplementedError(
+                f"{key}: only LoRA adapters are ported, got {sorted(entry)}")
+        out[key] = {name: torch.as_tensor(np.array(value, dtype=np.float32),
+                                          device=device)
+                    for name, value in entry.items()}
+    return out
 
 
 @torch.no_grad()

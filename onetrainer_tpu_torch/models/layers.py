@@ -5,6 +5,10 @@ compute dtype (bf16 by default), casting per op (onetrainer_tpu/models/
 unet.py). These helpers apply a plain `nn.Linear`/`nn.Conv2d`/norm module
 that way: inputs and weights cast to `dtype`; norm statistics in fp32 with
 the result cast to `dtype`, as flax's norms do.
+
+`linear` and `conv` also add a layer's LoRA term when a PEFT adapter is
+attached to it (peft/layers.py), as the reference's LoraDense/LoraConv do
+inside the layer.
 """
 
 from __future__ import annotations
@@ -13,18 +17,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onetrainer_tpu_torch.peft.layers import adapter_of
+
 
 def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if t is None else t.to(dtype)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), _cast(layer.bias, dtype))
+    xp = x.to(dtype)
+    y = F.linear(xp, layer.weight.to(dtype), _cast(layer.bias, dtype))
+    adapter = adapter_of(layer)
+    return y if adapter is None else y + adapter.linear(xp, dtype)
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), _cast(layer.bias, dtype),
-                    layer.stride, layer.padding)
+    xp = x.to(dtype)
+    y = F.conv2d(xp, layer.weight.to(dtype), _cast(layer.bias, dtype),
+                 layer.stride, layer.padding)
+    adapter = adapter_of(layer)
+    if adapter is None:
+        return y
+    return y + adapter.conv(xp, dtype, layer.stride, layer.padding)
 
 
 def group_norm(layer: nn.GroupNorm, x: torch.Tensor,

@@ -39,7 +39,7 @@ class StableDiffusionXLModel:
     vae: AutoencoderKL | None = None
     text_encoder: CLIPTextModel | None = None
     text_encoder_2: CLIPTextModel | None = None
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
 
     betas: torch.Tensor | None = None
     prediction_type: str = "epsilon"
@@ -78,12 +78,18 @@ class StableDiffusionXLModel:
 
 
 def create_sdxl_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16,
-                      device: torch.device | str = "cpu") -> StableDiffusionXLModel:
-    """SDXL at its published widths (diffusers sdxl-base-1.0 configs)."""
+                      gradient_checkpointing: bool = False,
+                      remat_policy: str | None = None,
+                      device: torch.device | str = "cuda") -> StableDiffusionXLModel:
+    """SDXL at its published widths (diffusers sdxl-base-1.0 configs), built
+    on `device` (the card unless the caller passes another). The remat
+    policy defaults to the reference's UNet default, "tx_only"."""
+    common = dict(dtype=dtype, gradient_checkpointing=gradient_checkpointing,
+                  remat_policy=remat_policy or "tx_only")
     if model_type == ModelType.STABLE_DIFFUSION_XL_10_BASE_INPAINTING:
-        unet_cfg = sdxl_inpaint_unet_config(dtype=dtype)
+        unet_cfg = sdxl_inpaint_unet_config(**common)
     else:
-        unet_cfg = sdxl_unet_config(dtype=dtype)
+        unet_cfg = sdxl_unet_config(**common)
     return StableDiffusionXLModel(
         model_type=model_type,
         unet_config=unet_cfg,

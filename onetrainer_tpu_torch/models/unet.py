@@ -6,8 +6,17 @@ run NCHW inside. Parameters are fp32 and every op computes in `cfg.dtype`
 (bf16 by default), cast per op. Module names follow diffusers
 (`down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q`), so the
 reference's `io/torch_flax.py` maps a flax tree onto `state_dict()` keys
-one to one. Weights are plain `nn.Linear`/`nn.Conv2d`; PEFT layers come
-with training.
+one to one. Weights are plain `nn.Linear`/`nn.Conv2d`; LoRA adapters
+attach to them (peft/lora.py) and `models/layers.py` applies them.
+
+Gradient checkpointing (`cfg.gradient_checkpointing`) follows the
+reference's remat policies with `torch.utils.checkpoint` (non-reentrant):
+"tx_only" (the reference's SDXL default) recomputes each
+BasicTransformerBlock in the backward and saves resnet activations; "full"
+recomputes resnets too. The reference's other policies ("tx_attn", "dots",
+"dots_nb", "attn", "dots_nb_attn", "depth") save chosen matmul or
+attention outputs inside a remat region, which has no counterpart here
+yet: they raise NotImplementedError.
 
 Numerics kept from the reference: GEGLU's gate uses the tanh-approximate
 gelu (flax's `nn.gelu` default); GroupNorm eps is 1e-6 in Transformer2D
@@ -23,6 +32,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from onetrainer_tpu_torch.models.layers import conv, group_norm, layer_norm, linear
 from onetrainer_tpu_torch.ops.attention import attention
@@ -43,7 +53,24 @@ class UNetConfig:
     addition_embed_dim: int | None = None        # SDXL: 256
     addition_pooled_dim: int | None = None       # SDXL: 1280 (TE2 pooled)
     addition_time_ids: int = 6                   # SDXL micro-conditioning ids
+    gradient_checkpointing: bool = False
+    remat_policy: str = "full"                   # "full" or "tx_only"
     dtype: torch.dtype = torch.bfloat16
+
+
+_REMAT_POLICIES = ("full", "tx_only")
+
+
+def _maybe_checkpoint(fn, enabled: bool, *args):
+    """fn(*args), recomputed in the backward when `enabled` and autograd
+    records (a no-grad or inference call runs it plainly)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _checkpoint_resnets(cfg: UNetConfig) -> bool:
+    return cfg.gradient_checkpointing and cfg.remat_policy == "full"
 
 
 def sdxl_unet_config(**overrides) -> UNetConfig:
@@ -184,10 +211,11 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     def __init__(self, channels: int, context_dim: int, num_heads: int,
                  num_layers: int, use_linear_projection: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, gradient_checkpointing: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_linear_projection = use_linear_projection
+        self.gradient_checkpointing = gradient_checkpointing
         self.norm = nn.GroupNorm(32, channels, eps=1e-6)
         proj = (nn.Linear if use_linear_projection
                 else (lambda i, o: nn.Conv2d(i, o, 1)))
@@ -207,7 +235,7 @@ class Transformer2D(nn.Module):
         else:
             x = conv(self.proj_in, x, dt).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
-            x = block(x, context)
+            x = _maybe_checkpoint(block, self.gradient_checkpointing, x, context)
         if self.use_linear_projection:
             x = linear(self.proj_out, x, dt).reshape(b, h, w, c).permute(0, 3, 1, 2)
         else:
@@ -250,16 +278,18 @@ class DownBlock(nn.Module):
                 Transformer2D(out_ch, cfg.cross_attention_dim,
                               cfg.num_heads[block_index],
                               cfg.transformer_layers_per_block[block_index],
-                              cfg.use_linear_projection, cfg.dtype)
+                              cfg.use_linear_projection, cfg.dtype,
+                              cfg.gradient_checkpointing)
                 for _ in range(cfg.layers_per_block))
         self.downsamplers = None
         if block_index != len(cfg.block_out_channels) - 1:
             self.downsamplers = nn.ModuleList([Downsample(out_ch, cfg.dtype)])
+        self.checkpoint_resnets = _checkpoint_resnets(cfg)
 
     def forward(self, x, temb, context):
         hidden_states = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = _maybe_checkpoint(resnet, self.checkpoint_resnets, x, temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
             hidden_states.append(x)
@@ -279,12 +309,14 @@ class MidBlock(nn.Module):
         self.attentions = nn.ModuleList([Transformer2D(
             ch, cfg.cross_attention_dim, cfg.num_heads[-1],
             cfg.transformer_layers_per_block[-1], cfg.use_linear_projection,
-            cfg.dtype)])
+            cfg.dtype, cfg.gradient_checkpointing)])
+        self.checkpoint_resnets = _checkpoint_resnets(cfg)
 
     def forward(self, x, temb, context):
-        x = self.resnets[0](x, temb)
+        ckpt = self.checkpoint_resnets
+        x = _maybe_checkpoint(self.resnets[0], ckpt, x, temb)
         x = self.attentions[0](x, context)
-        return self.resnets[1](x, temb)
+        return _maybe_checkpoint(self.resnets[1], ckpt, x, temb)
 
 
 class UpBlock(nn.Module):
@@ -303,15 +335,19 @@ class UpBlock(nn.Module):
                 Transformer2D(out_ch, cfg.cross_attention_dim,
                               cfg.num_heads[mirror],
                               cfg.transformer_layers_per_block[mirror],
-                              cfg.use_linear_projection, cfg.dtype)
+                              cfg.use_linear_projection, cfg.dtype,
+                              cfg.gradient_checkpointing)
                 for _ in resnet_in_channels)
         self.upsamplers = None
         if block_index != n - 1:
             self.upsamplers = nn.ModuleList([Upsample(out_ch, cfg.dtype)])
+        self.checkpoint_resnets = _checkpoint_resnets(cfg)
 
     def forward(self, x, skips, temb, context):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips.pop().to(x.dtype)], dim=1), temb)
+            x = _maybe_checkpoint(
+                resnet, self.checkpoint_resnets,
+                torch.cat([x, skips.pop().to(x.dtype)], dim=1), temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
         if self.upsamplers is not None:
@@ -322,6 +358,10 @@ class UpBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
+        if cfg.gradient_checkpointing and cfg.remat_policy not in _REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat policy {cfg.remat_policy!r} is not ported yet "
+                f"(ported: {', '.join(_REMAT_POLICIES)})")
         self.cfg = cfg
         boc = cfg.block_out_channels
         ch0 = boc[0]

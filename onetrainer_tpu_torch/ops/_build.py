@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "flash_fwd.cu",)
+_SOURCES = (_PKG / "csrc" / "flash_fwd.cu", _PKG / "csrc" / "flash_bwd.cu")
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -74,5 +74,11 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32,
                                      ctypes.c_float, ptr]
         lib.ot_flash_fwd.restype = i32
+        lib.ot_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [
+            ctypes.c_float, ptr]
+        lib.ot_flash_bwd_dq.restype = i32
+        lib.ot_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [
+            ctypes.c_float, ptr]
+        lib.ot_flash_bwd_dkv.restype = i32
         _LIB = lib
     return _LIB

@@ -14,7 +14,8 @@ dropped:
 - no num_heads rule (the reference's 128-lane head grouping is a TPU
   tiling constraint) and no sequence padding: the kernel masks ragged
   edges and zero-fills the slot itself.
-A kernel failure raises; nothing falls back silently.
+A kernel failure raises; nothing falls back silently. Both paths are
+differentiable: the folded one runs K2 and K3 in its backward.
 """
 
 from __future__ import annotations

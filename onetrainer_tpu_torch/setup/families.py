@@ -2,8 +2,9 @@
 sampler.
 
 Counterpart of onetrainer_tpu/setup/families.py, SDXL only so far. The
-calls mirror scripts/sample.py: `get_family(...)`, then `family.load`,
-`family.create_setup` and `family.sample`.
+calls mirror the reference's scripts: `get_family(...)`, then
+`family.load`, `family.create_setup`, `family.make_encode_fns` (the data
+caches) and `setup.train_step` or `family.sample`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ class ModelFamily:
     name: str
     load: Callable          # (base_dir, config) -> model
     create_setup: Callable  # (model, config, total_steps) -> setup
+    make_encode_fns: Callable  # setup -> (encode_images, encode_text)
     sample: Callable        # (setup, sample_config, on_progress) -> SamplerOutput
 
 
@@ -31,6 +33,11 @@ def _sdxl_load(base_dir, config):
 def _sdxl_create_setup(model, config, total_steps, steps_per_epoch=100):
     from onetrainer_tpu_torch.setup.sdxl_setup import create_sdxl_setup
     return create_sdxl_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _sdxl_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.sdxl_setup import make_sdxl_encode_fns
+    return make_sdxl_encode_fns(setup)
 
 
 def _sdxl_sample(setup, sample_config, on_progress):
@@ -47,7 +54,7 @@ def get_family(model_type: ModelType) -> ModelFamily:
         return ModelFamily(
             name="sdxl",
             load=_sdxl_load, create_setup=_sdxl_create_setup,
-            sample=_sdxl_sample,
+            make_encode_fns=_sdxl_encode_fns, sample=_sdxl_sample,
         )
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")

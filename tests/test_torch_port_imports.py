@@ -1,8 +1,9 @@
 """The torch port stands without JAX: every module of onetrainer_tpu_torch
-imports, and the SDXL slice samples, with jax, flax, optax, ml_dtypes,
-transformers, PIL and safetensors blocked (none of them is installed on the
-machine with the card). chip_smoke.py refuses to run without a CUDA device
-(printing no result)."""
+imports, the SDXL slice samples and takes two LoRA training steps, with
+the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
+transformers, PIL and safetensors blocked (none but the port's own code is
+installed on the machine with the card). chip_smoke.py refuses to run
+without a CUDA device (printing no result)."""
 
 import os
 import subprocess
@@ -10,8 +11,8 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "optax", "ml_dtypes", "transformers", "PIL",
-           "safetensors")
+BLOCKED = ("onetrainer_tpu", "jax", "flax", "optax", "ml_dtypes",
+           "transformers", "PIL", "safetensors")
 
 _SCRIPT = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -34,7 +35,7 @@ _SCRIPT = textwrap.dedent(f"""
     from onetrainer_tpu_torch.models.unet import UNetConfig
     from onetrainer_tpu_torch.models.vae import VAEConfig
     from onetrainer_tpu_torch.setup.families import get_family
-    from onetrainer_tpu_torch.util.enums import ModelType
+    from onetrainer_tpu_torch.util.enums import ModelType, TrainingMethod
 
     te = dict(vocab_size=100, intermediate_size=64, num_layers=2, num_heads=4,
               max_position_embeddings=16, eos_token_id=99)
@@ -45,7 +46,8 @@ _SCRIPT = textwrap.dedent(f"""
             layers_per_block=1, transformer_layers_per_block=(1, 2),
             num_heads=(4, 4), cross_attention_dim=80,
             use_linear_projection=True, addition_embed_dim=8,
-            addition_pooled_dim=48),
+            addition_pooled_dim=48, gradient_checkpointing=True,
+            remat_policy="tx_only"),
         vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
         te_config=CLIPTextConfig(hidden_size=32, **te),
         te2_config=CLIPTextConfig(hidden_size=48, projection_dim=48, **te),
@@ -58,6 +60,26 @@ _SCRIPT = textwrap.dedent(f"""
     sc.prompt, sc.height, sc.width, sc.diffusion_steps = "a cat", 32, 32, 2
     image = family.sample(family.create_setup(model, config, 1), sc, None).image
     assert image.shape == (32, 32, 3) and image.dtype.name == "uint8"
+
+    config.training_method = TrainingMethod.LORA
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    config.text_encoder.train = config.text_encoder_2.train = False
+    setup = family.create_setup(model, config, 10)
+    encode_images, encode_text = family.make_encode_fns(setup)
+    latents = encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1)
+    text = encode_text("a cat")
+    batch = dict(latents, loss_weight=torch.ones(2),
+                 original_resolution=torch.full((2, 2), 32),
+                 crop_offset=torch.zeros((2, 2)), crop_resolution=torch.full((2, 2), 32))
+    for name in ("text_encoder_hidden_state", "text_encoder_2_hidden_state",
+                 "text_encoder_2_pooled_state"):
+        batch[name] = text[name].expand(2, *text[name].shape)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert setup.state.step == 2
+    assert any(e["lora_up"].abs().max() > 0 for e in setup.state.params["unet_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked

@@ -26,6 +26,7 @@ from onetrainer_tpu_torch.models import clip as pt_clip
 from onetrainer_tpu_torch.models import unet as pt_unet
 from onetrainer_tpu_torch.models import vae as pt_vae
 from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
+from onetrainer_tpu_torch.util.enums import ModelType
 from tests.test_sdxl import tiny_sdxl_model
 
 ATOL = RTOL = 1e-4
@@ -40,7 +41,7 @@ def _port_config(cls, ref_cfg):
 def port_model_like(jax_model, device="cpu") -> StableDiffusionXLModel:
     """The port's model with the reference model's (tiny) configs."""
     return StableDiffusionXLModel(
-        model_type=jax_model.model_type,
+        model_type=ModelType(jax_model.model_type.value),
         unet_config=_port_config(pt_unet.UNetConfig, jax_model.unet_config),
         vae_config=_port_config(pt_vae.VAEConfig, jax_model.vae_config),
         te_config=_port_config(pt_clip.CLIPTextConfig, jax_model.te_config),

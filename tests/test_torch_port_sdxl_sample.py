@@ -30,17 +30,20 @@ import pytest
 import torch
 
 from onetrainer_tpu.config.sample_config import SampleConfig
-from onetrainer_tpu.config.train_config import TrainConfig
 from onetrainer_tpu.math import schedules as jax_schedules
 from onetrainer_tpu.ops import attention as jax_attn
 from onetrainer_tpu.sampling import schedulers as jax_sched
 from onetrainer_tpu.sampling.sdxl_sampler import sample_stable_diffusion_xl
 from onetrainer_tpu.setup.tokenizer import SDTokenizer
-from onetrainer_tpu.util.enums import ModelType, NoiseScheduler, TrainingMethod
+from onetrainer_tpu.util.enums import NoiseScheduler
+from onetrainer_tpu_torch.config.sample_config import SampleConfig as PortSampleConfig
+from onetrainer_tpu_torch.config.train_config import TrainConfig as PortTrainConfig
 from onetrainer_tpu_torch.math import schedules as pt_schedules
 from onetrainer_tpu_torch.sampling import schedulers as pt_sched
 from onetrainer_tpu_torch.sampling import sdxl_sampler as pt_sampler
 from onetrainer_tpu_torch.setup.families import get_family
+from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer as PortSDTokenizer
+from onetrainer_tpu_torch.util import enums as pt_enums
 from tests.test_torch_port_models import tiny_pair
 
 LATENT_ATOL = 1e-3
@@ -103,12 +106,16 @@ def test_sdxl_sample_matches_jax(monkeypatch, size, force_flash):
                         torch.from_numpy(noise).to(device))
     port_latents = _record_steps(monkeypatch, pt_sched)
 
-    config = TrainConfig.default_values()
-    config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
-    config.training_method = TrainingMethod.FINE_TUNE
-    port.tokenizer = port.tokenizer_2 = tok
+    # the port takes its own configs, enums and tokenizer (copies of the
+    # reference's), filled from the reference's
+    config = PortTrainConfig.default_values()
+    config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE
+    config.training_method = pt_enums.TrainingMethod.FINE_TUNE
+    port.tokenizer = port.tokenizer_2 = PortSDTokenizer(
+        None, max_length=16, vocab_size=100, bos=98, eos=99)
     family = get_family(config.model_type)
-    out = family.sample(family.create_setup(port, config, 1), sc, None)
+    port_sc = PortSampleConfig.default_values().from_dict(sc.to_dict())
+    out = family.sample(family.create_setup(port, config, 1), port_sc, None)
 
     assert len(port_latents) == len(jax_latents) == sc.diffusion_steps
     np.testing.assert_allclose(port_latents[-1].numpy(), np.asarray(jax_latents[-1]),
@@ -119,13 +126,22 @@ def test_sdxl_sample_matches_jax(monkeypatch, size, force_flash):
 
 
 def test_setup_refuses_peft_methods():
+    """LoRA is ported; EMBEDDING training and the other PEFT types
+    (LoHa, DoRA) are not, and the setup refuses them."""
     _, _, port = tiny_pair()
-    config = TrainConfig.default_values()
-    config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
-    for method in (TrainingMethod.LORA, TrainingMethod.EMBEDDING):
-        config.training_method = method
+    config = PortTrainConfig.default_values()
+    config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE
+    refused = [dict(training_method=pt_enums.TrainingMethod.EMBEDDING),
+               dict(training_method=pt_enums.TrainingMethod.LORA,
+                    peft_type=pt_enums.PeftType.LOHA),
+               dict(training_method=pt_enums.TrainingMethod.LORA,
+                    lora_decompose=True)]
+    for fields in refused:
+        case = config.clone()
+        for name, value in fields.items():
+            setattr(case, name, value)
         with pytest.raises(NotImplementedError):
-            get_family(config.model_type).create_setup(port, config, 1)
+            get_family(case.model_type).create_setup(port, case, 1)
 
 
 @pytest.mark.parametrize("schedule", ["scaled_linear", "linear", "squaredcos_cap_v2"])
@@ -156,7 +172,8 @@ def test_scheduler_steps_match_jax(kind, prediction_type):
     steps = 6
     betas = jax_schedules.make_betas()
     jstate = jax_sched.create_scheduler(kind, betas, steps, prediction_type)
-    pstate = pt_sched.create_scheduler(kind, torch.from_numpy(np.array(betas)),
+    pstate = pt_sched.create_scheduler(pt_enums.NoiseScheduler(kind.value),
+                                       torch.from_numpy(np.array(betas)),
                                        steps, prediction_type)
     np.testing.assert_array_equal(pstate.timesteps, jstate.timesteps)
     if jstate.sigmas is None:
@@ -186,7 +203,7 @@ def test_force_last_timestep_matches_jax():
     for steps in (4, 7, 25):
         ref = jax_sched.create_scheduler(NoiseScheduler.DDIM, betas, steps,
                                          force_last_timestep=True)
-        ours = pt_sched.create_scheduler(NoiseScheduler.DDIM,
+        ours = pt_sched.create_scheduler(pt_enums.NoiseScheduler.DDIM,
                                          torch.from_numpy(np.array(betas)),
                                          steps, force_last_timestep=True)
         np.testing.assert_array_equal(ours.timesteps, ref.timesteps)
@@ -195,7 +212,7 @@ def test_force_last_timestep_matches_jax():
 def test_euler_ancestral_noise_is_seeded_unit_normal():
     """Euler-A adds sigma_up * N(0, 1) from the caller's generator: the
     same seed repeats the draw, and the draw is unit normal."""
-    state = pt_sched.create_scheduler(NoiseScheduler.EULER_A,
+    state = pt_sched.create_scheduler(pt_enums.NoiseScheduler.EULER_A,
                                       pt_schedules.make_betas(), 10)
     x = torch.randn((1, 64, 64, 4), generator=torch.Generator().manual_seed(0))
     out = torch.zeros_like(x)
