@@ -5,8 +5,10 @@
 
 Needs one CUDA GPU (sm_90a: H100/H200) and nvcc; fails without them, and
 never falls back to the CPU. Phases, each of which must pass:
-  1. build the folded flash-attention kernels K1 (forward), K2 (dq) and K3
-     (dk, dv) from onetrainer_tpu_torch/csrc with nvcc, into one library;
+  1. build the kernels from onetrainer_tpu_torch/csrc with nvcc, one
+     process per source, into one library: K1 (flash-attention forward),
+     K2 (dq), K3 (dk, dv), K4 (NF4 dequant), K5 (stochastic-rounding
+     update);
   2. K1 against its plain PyTorch version in bf16: the two SDXL shapes,
      head dims 40/80/128, ragged Sq/Skv with a kv keep mask, zero q rows;
      max |do| and |dlse| against stated bounds, median times of both and
@@ -29,13 +31,32 @@ never falls back to the CPU. Phases, each of which must pass:
      with exact launch counts per step (K1 140, K2 70, K3 70); finite loss
      and grad norm, lora_up non-zero after the first step, one step's
      LoRA gradients with K1-K3 against plain attention (relative L2), and
-     a torch.profiler split of one more step's device time by kernel class.
+     a torch.profiler split of one more step's device time by kernel class;
+  7. K4 against its plain version, bitwise, at a feed-forward projection
+     (1280x10240), the largest conv weight (1280x2560x3x3) and a size that
+     needs padding; times of the first two against the byte bound;
+  8. K5 bit for bit against its plain version on the same Philox bits
+     (fp32 and bf16 u) at 2^20 + 3, 1,000,003 and the step's largest
+     adapter (368,640) elements; then the properties of stochastic
+     rounding at the first two sizes: every output one of the two bf16
+     neighbours of p + u, exact where p + u is representable, mean error
+     within 5 sigma of 0 and up-rounding rate within 5 sigma of 1/4 for
+     p = 1, u = 2^-9, one seed one output and another seed another;
+     median times;
+  9. QLoRA: the training step of phase 6 on a UNet loaded in bf16 and
+     quantized to NF4, with bf16 adapters and stochastic rounding: one
+     warm-up and three timed steps with exact K1-K5 launch counts per
+     step, the LoRA gradients with K4 against the plain dequant, and a
+     torch.profiler split of one more step;
+ 10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
+     (the reference's bench.py headline stage): three timed steps, finite.
 The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -72,8 +93,23 @@ UNET_REL_L2_BOUND = 5e-2
 # bf16 attention roundings as DGRAD_REL_L2, through the forward and the
 # backward of the network (2.1e-3 measured at full width)
 GRAD_REL_L2_BOUND = 1e-2
+# LoRA gradients of one QLoRA step, K4 vs the plain dequant: K4 is
+# bitwise equal to it (phase k4), so only the step's own run-to-run noise
+# remains (cuDNN and cuBLAS pick their algorithms per call)
+QLORA_GRAD_REL_L2_BOUND = 1e-3
 SELF_ATTN_PER_UNET_PASS = 70   # SDXL at a 128x128 latent: 10 at 4096, 60 at 1024 tokens
 TRAIN_STEPS = 3                # timed steps after one warm-up step
+# K4 cases: name, logical shape (the reference's kernel layout)
+K4_CASES = [
+    ("ff_1280x10240", (1280, 10240)),           # GEGLU projection of a 1280 block
+    ("conv_3x3x2560x1280", (3, 3, 2560, 1280)),  # largest conv weight (29.5M)
+    ("padded_1000x777", (1000, 777)),            # 777,000: both halves padded
+]
+K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280")   # the UNet's shapes
+K5_SIZES = ((1 << 20) + 3, 1_000_003)
+# the step's largest bf16 adapter tensor: lora_down of a 2560->1280 3x3 conv
+K5_LARGEST_ADAPTER_SHAPE = (16, 2560, 3, 3)
+K5_LARGEST_ADAPTER = 16 * 2560 * 3 * 3
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -100,6 +136,9 @@ K23_CASES = [
     ("stream_b1_s8192_h8_d128", 1, 8192, 8192, 8, 128, False),
 ]
 SDXL_SHAPES = ("sdxl_b2_s4096_h10_d64", "sdxl_b2_s1024_h20_d64")
+# K2/K3 cases timed against SDPA's backward: the SDXL shapes and the
+# streaming domain of the TPU's K3b
+SDPA_BWD_CASES = SDXL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
 def _median_ms(torch, fn, reps: int = 20) -> float:
@@ -115,6 +154,38 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+    """Device time per launch of the CUDA kernel whose name contains
+    `kernel`, from torch.profiler over `reps` calls of `fn`, each after a
+    write of 64 MB that evicts the 50 MB L2 cache (the step finds a
+    layer's codes cold). Left out: the wrapper's host time, which an event
+    pair around one short call would count. The profiler has returned no
+    events for a session of 2.5 us kernels on an H100 now and then, so a
+    session that sees another count than `reps` is run again, up to three
+    times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+                total += getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
+                count += evt.count
+        if count == reps:
+            return total / count / 1e3
+        print(f"[profile] session {attempt + 1} saw {count} launches of {kernel}, "
+              f"expected {reps}")
+    raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {reps}")
 
 
 def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -156,7 +227,7 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
-    print(f"[build] K1-K3 library {os.path.relpath(path, REPO)} ready in "
+    print(f"[build] K1-K5 library {os.path.relpath(path, REPO)} ready in "
           f"{time.perf_counter() - t0:.2f} s")
     log = path.with_suffix(".log")
     if log.exists():
@@ -260,7 +331,7 @@ def phase_k23_cases(torch) -> dict:
         plain_dkv_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv_reference(
             *args, **kw), reps=5)
         library_ms = None
-        if name in SDXL_SHAPES:
+        if name in SDPA_BWD_CASES:
             q4, k4, v4 = (_heads4(t, h).detach().requires_grad_() for t in (q, k, v))
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                 out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
@@ -289,6 +360,143 @@ def phase_k23_cases(torch) -> dict:
     return results
 
 
+def _k4_bound(n_half: int, out_bytes: int) -> tuple[float, str]:
+    """K4 moves n_half code bytes, n_half / 32 fp32 scales and 2 * n_half
+    outputs; one multiply per output."""
+    return _bound_ms(0.0, n_half + 4 * (n_half // 32) + out_bytes * 2 * n_half)
+
+
+def phase_k4(torch) -> dict:
+    from onetrainer_tpu_torch.ops import nf4
+    from onetrainer_tpu_torch.ops.quant import quantize_nf4
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    results = {}
+    for name, shape in K4_CASES:
+        w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        q = quantize_nf4(w)
+        n_half = q.q.numel()
+        ok, err = True, 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            out = nf4.nf4_dequant_flat(q.q, q.scales, dtype)
+            ref = nf4.nf4_dequant_reference(q.q, q.scales, dtype)
+            torch.cuda.synchronize()
+            int_view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            same = bool(torch.equal(out.view(int_view), ref.view(int_view)))
+            ok = ok and same
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+            print(f"[k4] {name} {tuple(shape)} -> {dtype}: bitwise equal {same}")
+        if not ok:
+            raise AssertionError(f"K4 case {name} differs from the plain version")
+        if name not in K4_TIMED:
+            results[name] = dict(n=w.numel(), max_abs_err=err)
+            continue
+        ms = _device_ms(torch, lambda: nf4.nf4_dequant_flat(q.q, q.scales, torch.bfloat16),
+                        "nf4_dequant_kernel")
+        call_ms = _median_ms(torch, lambda: nf4.nf4_dequant_flat(q.q, q.scales, torch.bfloat16))
+        plain_ms = _median_ms(torch, lambda: nf4.nf4_dequant_reference(
+            q.q, q.scales, torch.bfloat16), reps=5)
+        bound_ms, bound_by = _k4_bound(n_half, 2)
+        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, n=w.numel(), max_abs_err=err)
+        print(f"[k4] {name}: {w.numel()} elements, kernel {ms:.4f} ms of device time "
+              f"({call_ms:.4f} ms per call with the wrapper, events), plain "
+              f"{plain_ms:.4f} ms, least time {bound_ms:.4f} ms ({bound_by}, "
+              f"{n_half * 2.5625 / 1e6:.1f} MB), no single PyTorch call ok")
+    return results
+
+
+def _bf16_neighbours(torch, s):
+    """(lower, upper) bf16 neighbours of fp32 s by magnitude, as int32 bit
+    patterns of fp32: s truncated to bf16, and one bf16 step beyond."""
+    bits = s.view(torch.int32)
+    low = bits & ~0xFFFF
+    return low, low + 0x10000
+
+
+def phase_k5(torch) -> dict:
+    from onetrainer_tpu_torch.ops.sr_update import sr_update
+    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    # a seed with both 32-bit halves set and the sign bit: the key layout
+    seed_a = torch.tensor([-0x123456789ABCDEF], dtype=torch.int64, device="cuda")
+    seed_b = torch.tensor([1235], dtype=torch.int64, device="cuda")
+
+    def plain(p, u, seed):
+        return stochastic_round_to_bf16(
+            p.float() + u.float(), philox_bits(seed, p.numel(), p.device).view(p.shape))
+
+    ok, max_err = True, 0.0
+    # bit for bit against the plain rounding on the kernel's Philox bits,
+    # fp32 and bf16 u, at the stated sizes and the step's largest adapter
+    for n in K5_SIZES + (K5_LARGEST_ADAPTER,):
+        p = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+        u32 = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        for u in (u32, u32.to(torch.bfloat16)):
+            out, ref = sr_update(p, u, seed_a), plain(p, u, seed_a)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out.view(torch.int16), ref.view(torch.int16)))
+            max_err = max(max_err, (out.float() - ref.float()).abs().max().item())
+            ok = ok and same
+            print(f"[k5] n={n}, {u.dtype} u: bitwise equal to the plain rounding on "
+                  f"Philox bits {same}")
+    for n in K5_SIZES:
+        p = (torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16)
+        u = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        u[: n // 4] = 0.0          # p + u representable: exact
+        s = p.float() + u
+        out = sr_update(p, u, seed_a)
+        low, high = _bf16_neighbours(torch, s)
+        got = out.float().view(torch.int32)
+        neighbour = bool(((got == low) | (got == high)).all())
+        exact = bool(torch.equal(out[: n // 4], p[: n // 4]))
+        same = bool(torch.equal(sr_update(p, u, seed_a), out))
+        other = not bool(torch.equal(sr_update(p, u, seed_b), out))
+        # p = 1, u = 2^-9: one bf16 step is 2^-7, so up with probability 1/4
+        ones = torch.ones(n, dtype=torch.bfloat16, device="cuda")
+        quarter = torch.full((n,), 2.0 ** -9, device="cuda")
+        r = sr_update(ones, quarter, seed_a).float()
+        err = r - (1.0 + 2.0 ** -9)
+        mean, sigma = err.mean().item(), (3.0 ** 0.5) * 2.0 ** -9 / n ** 0.5
+        up = (r > 1.0).float().mean().item()
+        up_sigma = (0.25 * 0.75 / n) ** 0.5
+        unbiased = abs(mean) <= 5 * sigma and abs(up - 0.25) <= 5 * up_sigma
+        torch.cuda.synchronize()
+        case_ok = neighbour and exact and same and other and unbiased
+        ok = ok and case_ok
+        print(f"[k5] n={n}: neighbours {neighbour}, exact where representable "
+              f"{exact}, same seed same output {same}, other seed other output "
+              f"{other}; p=1 u=2^-9: mean error {mean:.3e} (5 sigma {5 * sigma:.3e}), "
+              f"up rate {up:.5f} (1/4 +- {5 * up_sigma:.5f}) {'ok' if case_ok else 'FAIL'}")
+    n = K5_SIZES[0]
+    p = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+    u32 = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    ms_fp32_u = _device_ms(torch, lambda: sr_update(p, u32, seed_a), "sr_update_kernel")
+    bound_fp32_u = _bound_ms(0.0, 8 * n)
+    plain_fp32_u = _median_ms(torch, lambda: plain(p, u32, 1234), reps=5)
+    print(f"[k5] n={n}, fp32 u: kernel {ms_fp32_u:.4f} ms of device time, plain "
+          f"{plain_fp32_u:.4f} ms, "
+          f"least time {bound_fp32_u[0]:.4f} ms (bytes, 8 per element)")
+    shape = K5_LARGEST_ADAPTER_SHAPE
+    p = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    u = (torch.randn(shape, generator=gen, device="cuda") * 1e-4).to(torch.bfloat16)
+    ms = _device_ms(torch, lambda: sr_update(p, u, seed_a, out=p), "sr_update_kernel")
+    call_ms = _median_ms(torch, lambda: sr_update(p, u, seed_a, out=p))
+    plain_ms = _median_ms(torch, lambda: p.copy_(plain(p, u, 1234)), reps=5)
+    bound_ms, bound_by = _bound_ms(0.0, 6 * p.numel())
+    print(f"[k5] step's largest adapter {shape} ({p.numel()} elements), bf16 u: "
+          f"kernel {ms:.4f} ms of device time ({call_ms:.4f} ms per call with the "
+          f"wrapper, events), plain {plain_ms:.4f} ms, least time {bound_ms:.4f} ms "
+          f"({bound_by}, 6 bytes per element), no single PyTorch call "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K5 differs from the plain rounding or fails a property "
+                             "of stochastic rounding")
+    print(f"[k5] max |K5 - plain| {max_err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max_err, shape=shape, ms_fp32_u=ms_fp32_u, plain_fp32_u=plain_fp32_u,
+                bound_fp32_u=bound_fp32_u[0])
+
+
 def _plain_attention(ff):
     def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
         return ff.flash_attention_folded_reference(
@@ -296,21 +504,24 @@ def _plain_attention(ff):
     return plain
 
 
-def build_model(torch):
+def build_model(torch, unet_weight_dtype=None):
     from onetrainer_tpu_torch.io.weights import init_sdxl_weights
     from onetrainer_tpu_torch.models.sdxl import create_sdxl_model
     from onetrainer_tpu_torch.util.enums import ModelType
+    unet_weight_dtype = unet_weight_dtype or torch.float32
     t0 = time.perf_counter()
     # checkpointing acts only where autograd records: the inference phases
     # run the plain forward, the training phase recomputes per tx_only
     model = create_sdxl_model(ModelType.STABLE_DIFFUSION_XL_10_BASE,
                               dtype=torch.bfloat16, gradient_checkpointing=True,
-                              remat_policy="tx_only", device="meta")
+                              remat_policy="tx_only", device="meta",
+                              unet_weight_dtype=unet_weight_dtype)
     init_sdxl_weights(model, seed=0, device="cuda")
     torch.cuda.synchronize()
     n = sum(p.numel() for m in model.modules().values() for p in m.parameters())
-    print(f"[model] SDXL base, {n} params (fp32, compute bf16), seeded "
-          f"weights on the card in {time.perf_counter() - t0:.2f} s")
+    print(f"[model] SDXL base, {n} params (UNet {unet_weight_dtype}, the rest "
+          f"fp32, compute bf16), seeded weights on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
     return model
 
 
@@ -358,10 +569,21 @@ def phase_unet(torch, model):
         raise AssertionError("UNet with K1 disagrees with plain attention")
 
 
-def _launch_counts(ff) -> dict:
-    return {"K1": ff.flash_attention_folded_fwd.launches,
-            "K2": ff.flash_attention_folded_dq.launches,
-            "K3": ff.flash_attention_folded_dkv.launches}
+def _kernel_wrappers() -> dict:
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_flat
+    from onetrainer_tpu_torch.ops.sr_update import sr_update
+    return {"K1": ff.flash_attention_folded_fwd, "K2": ff.flash_attention_folded_dq,
+            "K3": ff.flash_attention_folded_dkv, "K4": nf4_dequant_flat, "K5": sr_update}
+
+
+def _reset_launch_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _launch_counts() -> dict:
+    return {tag: fn.launches for tag, fn in _kernel_wrappers().items()}
 
 
 def phase_sample(torch, model) -> dict:
@@ -394,18 +616,19 @@ def phase_sample(torch, model) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ff.reset_launch_counts()
+    _reset_launch_counts()
     t0 = time.perf_counter()
     out = family.sample(setup, sc, on_progress)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = _launch_counts(ff)
+    launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     expected = SELF_ATTN_PER_UNET_PASS * sc.diffusion_steps
     image = out.image
     # NaN latents would decode to a constant image, so it must vary
-    ok = (launches["K1"] == expected and image.dtype.name == "uint8"
+    ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+          and image.dtype.name == "uint8"
           and image.shape == (1024, 1024, 3) and image.std() > 0)
     print(f"[sample] SDXL 1024x1024 DDIM {sc.diffusion_steps} steps CFG "
           f"{sc.cfg_scale:g}: total {total_s:.3f} s, UNet step median "
@@ -460,49 +683,59 @@ def _lora_grads(torch, setup, batch, timestep, noise, latent_noise):
     return torch.cat([g.flatten() for g in torch.autograd.grad(loss, flat)])
 
 
-def phase_train(torch, model) -> dict:
+def _lora_config(batch_size: int):
+    """bench.py's SDXL stage as a training config: LoRA r16 a16 on the
+    UNet, AdamW lr 1e-4, clip 1.0, text encoders frozen (cached text)."""
     from onetrainer_tpu_torch.config.train_config import TrainConfig
-    from onetrainer_tpu_torch.ops import flash_folded as ff
-    from onetrainer_tpu_torch.setup.families import get_family
     from onetrainer_tpu_torch.util.enums import ModelType, TrainingMethod
-
-    batch_size = 2
     config = TrainConfig.default_values()
     config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
     config.training_method = TrainingMethod.LORA
     config.lora_rank = 16
     config.lora_alpha = 16.0
     config.batch_size = batch_size
-    config.learning_rate = 1e-4           # bench.py's SDXL stage: adamw(1e-4)
+    config.learning_rate = 1e-4
     config.learning_rate_warmup_steps = 0.0
     config.clip_grad_norm = 1.0
-    config.text_encoder.train = False     # cached text embeddings
+    config.text_encoder.train = False
     config.text_encoder_2.train = False
+    return config
+
+
+def _finite(values) -> bool:
+    return all(x == x and abs(x) != float("inf") for x in values)
+
+
+def _setup_and_steps(torch, model, config, tag: str) -> dict:
+    """Setup through the family registry, the cached batch, one warm-up
+    step, then TRAIN_STEPS timed steps with every launch count zeroed just
+    before them and read just after."""
+    from onetrainer_tpu_torch.setup.families import get_family
     family = get_family(config.model_type)
     t0 = time.perf_counter()
     setup = family.create_setup(model, config, 100)
-    batch = _train_batch(torch, family, setup, batch_size)
+    batch = _train_batch(torch, family, setup, config.batch_size)
     torch.cuda.synchronize()
-    n_lora = sum(t.numel() for e in setup.state.params["unet_lora"].values()
-                 for t in e.values())
-    print(f"[train] LoRA r{config.lora_rank} a{config.lora_alpha:g} on "
-          f"{len(setup.state.params['unet_lora'])} UNet layers ({n_lora} params), "
-          f"batch {batch_size} at 1024x1024 cached through the VAE encoder and "
-          f"both text encoders in {time.perf_counter() - t0:.2f} s")
+    adapters = setup.state.params["unet_lora"]
+    n_lora = sum(t.numel() for e in adapters.values() for t in e.values())
+    dtype = next(iter(adapters.values()))["lora_up"].dtype
+    print(f"[{tag}] LoRA r{config.lora_rank} a{config.lora_alpha:g} ({dtype}) on "
+          f"{len(adapters)} UNet layers ({n_lora} params), batch {config.batch_size} "
+          f"at 1024x1024 cached through the VAE encoder and both text encoders, "
+          f"set up in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     t0 = time.perf_counter()
     metrics = setup.train_step(setup.state, batch, gen)
-    loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+    first = [metrics["loss"].item(), metrics["grad_norm"].item()]
     warm_s = time.perf_counter() - t0
-    up_max = max(e["lora_up"].abs().max().item()
-                 for e in setup.state.params["unet_lora"].values())
-    print(f"[train] warm-up step {warm_s:.3f} s: loss {loss:.6f} grad_norm "
-          f"{gnorm:.6f}, max |lora_up| after it {up_max:.3e}")
+    up_max = max(e["lora_up"].abs().max().item() for e in adapters.values())
+    print(f"[{tag}] warm-up step {warm_s:.3f} s: loss {first[0]:.6f} grad_norm "
+          f"{first[1]:.6f}, max |lora_up| after it {up_max:.3e}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ff.reset_launch_counts()
+    _reset_launch_counts()
     step_s, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -510,53 +743,146 @@ def phase_train(torch, model) -> dict:
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
         step_s.append(time.perf_counter() - t0)
-    launches = _launch_counts(ff)
+    launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"K1": 2 * SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS,
-                "K2": SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS,
-                "K3": SELF_ATTN_PER_UNET_PASS * TRAIN_STEPS}
     med = statistics.median(step_s)
-    finite = all(map(lambda x: x == x and abs(x) != float("inf"),
-                     [loss, gnorm] + losses + norms))
-    print(f"[train] {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
+    print(f"[{tag}] {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
           f"(min {min(step_s):.4f}, max {max(step_s):.4f}; "
-          f"{', '.join(f'{s:.4f}' for s in step_s)}), images/s "
-          f"{batch_size / med:.3f}, peak max_memory_allocated {peak_gib:.2f} GiB, "
+          f"{', '.join(f'{x:.4f}' for x in step_s)}), images/s "
+          f"{config.batch_size / med:.3f}, peak max_memory_allocated {peak_gib:.2f} GiB, "
           f"losses {', '.join(f'{x:.6f}' for x in losses)}, grad_norms "
-          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches} "
-          f"(expected {expected})")
+          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches}")
+    return dict(setup=setup, batch=batch, gen=gen, launches=launches, sec_per_step=med,
+                peak_gib=peak_gib, finite=_finite(first + losses + norms), up_max=up_max)
+
+
+def _fixed_draws(torch, batch):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b = batch["latent_image"].shape[0]
+    timestep = torch.tensor([250, 750] * (b // 2), dtype=torch.int32, device="cuda")
+    noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
+    latent_noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
+    return timestep, noise, latent_noise
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_train(torch, model) -> dict:
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    run = _setup_and_steps(torch, model, _lora_config(2), "train")
+    n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K4": 0, "K5": 0}
 
     # one step's gradients with K1-K3 against plain attention, at fixed
     # timesteps and noise
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    timestep = torch.tensor([250, 750], dtype=torch.int32, device="cuda")
-    noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
-    latent_noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
-    g_kernel = _lora_grads(torch, setup, batch, timestep, noise, latent_noise)
+    setup, batch = run["setup"], run["batch"]
+    draws = _fixed_draws(torch, batch)
+    g_kernel = _lora_grads(torch, setup, batch, *draws)
     kernel_fn = ff.flash_attention_folded
     ff.flash_attention_folded = _plain_attention(ff)
     try:
-        g_plain = _lora_grads(torch, setup, batch, timestep, noise, latent_noise)
+        g_plain = _lora_grads(torch, setup, batch, *draws)
     finally:
         ff.flash_attention_folded = kernel_fn
-    rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
+    rel = _rel_l2(g_kernel, g_plain)
     grads_finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
     print(f"[train] LoRA gradients, K1-K3 vs plain attention: rel L2 {rel:.3e} "
           f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values")
-
-    ok = (finite and grads_finite and up_max > 0 and launches == expected
-          and rel <= GRAD_REL_L2_BOUND)
-    print(f"[train] {'ok' if ok else 'FAIL'}")
+    ok = (run["finite"] and grads_finite and run["up_max"] > 0
+          and run["launches"] == expected and rel <= GRAD_REL_L2_BOUND)
+    print(f"[train] launches {run['launches']} (expected {expected}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("LoRA training run failed its checks")
-    profile_train_step(torch, setup, batch, gen)
-    return {"launches": launches, "steps": TRAIN_STEPS, "sec_per_step": med}
+    profile_train_step(torch, setup, batch, run["gen"], "train")
+    return {"launches": run["launches"], "steps": TRAIN_STEPS,
+            "sec_per_step": run["sec_per_step"]}
+
+
+def _quantized_layers(torch, unet) -> tuple[int, int]:
+    """(quantized layers of the UNet, those inside a transformer block,
+    which tx_only checkpointing runs a second time in the backward)."""
+    from onetrainer_tpu_torch.models.unet import BasicTransformerBlock
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+
+    def count(module):
+        return sum(is_quantized(getattr(m, "weight", None)) for m in module.modules())
+    in_blocks = sum(count(m) for m in unet.modules() if isinstance(m, BasicTransformerBlock))
+    return count(unet), in_blocks
+
+
+def phase_qlora(torch) -> dict:
+    from onetrainer_tpu_torch.ops import quant
+    from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_reference
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _lora_config(2)
+    config.unet.weight_dtype = DataType.NFLOAT_4
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    config.optimizer.stochastic_rounding = True
+    model = build_model(torch, config.weight_dtypes().unet.to_load_dtype())
+    run = _setup_and_steps(torch, model, config, "qlora")
+    setup, batch = run["setup"], run["batch"]
+    n_quant, n_in_blocks = _quantized_layers(torch, model.unet)
+    n_tensors = sum(len(e) for e in setup.state.params["unet_lora"].values())
+    nf4_bytes = sum(w.q.numel() + 4 * w.scales.numel() for m in model.unet.modules()
+                    if quant.is_quantized(w := getattr(m, "weight", None)))
+    n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
+    expected = {"K1": 2 * n, "K2": n, "K3": n,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS * n_tensors}
+    print(f"[qlora] UNet NF4: {n_quant} quantized layers ({n_in_blocks} inside "
+          f"transformer blocks), {nf4_bytes / 2 ** 30:.3f} GiB of codes and scales; "
+          f"{n_tensors} bf16 adapter tensors; per step K1 {2 * SELF_ATTN_PER_UNET_PASS}, "
+          f"K2 {SELF_ATTN_PER_UNET_PASS}, K3 {SELF_ATTN_PER_UNET_PASS}, "
+          f"K4 {n_quant + n_in_blocks}, K5 {n_tensors} launches expected")
+
+    # one step's LoRA gradients with K4 against the plain dequant
+    draws = _fixed_draws(torch, batch)
+    g_kernel = _lora_grads(torch, setup, batch, *draws)
+    g_again = _lora_grads(torch, setup, batch, *draws)
+    kernel_fn = quant.nf4_dequant_flat
+    quant.nf4_dequant_flat = nf4_dequant_reference
+    try:
+        g_plain = _lora_grads(torch, setup, batch, *draws)
+    finally:
+        quant.nf4_dequant_flat = kernel_fn
+    rel, noise = _rel_l2(g_kernel, g_plain), _rel_l2(g_again, g_kernel)
+    grads_finite = bool(torch.isfinite(g_kernel.float()).all())
+    print(f"[qlora] LoRA gradients, K4 vs plain dequant: rel L2 {rel:.3e} (bound "
+          f"{QLORA_GRAD_REL_L2_BOUND:g}; K4 against itself {noise:.3e}) over "
+          f"{g_kernel.numel()} values")
+    ok = (run["finite"] and grads_finite and run["up_max"] > 0
+          and run["launches"] == expected and rel <= QLORA_GRAD_REL_L2_BOUND)
+    print(f"[qlora] launches {run['launches']} (expected {expected}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("QLoRA training run failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], "qlora")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def phase_fp8(torch) -> dict:
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _lora_config(4)
+    config.unet.weight_dtype = DataType.FLOAT_8
+    model = build_model(torch, config.weight_dtypes().unet.to_load_dtype())
+    run = _setup_and_steps(torch, model, config, "fp8")
+    ok = run["finite"] and run["up_max"] > 0 and run["launches"]["K4"] == 0
+    print(f"[fp8] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fp8-base training run failed its checks")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
 
 
 _PROFILE_CLASSES = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K4 nf4_dequant", ("nf4_dequant_kernel",)),
+    ("K5 sr_update", ("sr_update_kernel",)),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass", "ampere_",
                       "sm80_")),
     ("cuDNN convolutions", ("conv", "Conv", "cudnn", "nchwToNhwc", "nhwcToNchw",
@@ -577,7 +903,7 @@ def _classify(name: str) -> str:
     return "other elementwise"
 
 
-def profile_train_step(torch, setup, batch, gen):
+def profile_train_step(torch, setup, batch, gen, tag: str):
     """torch.profiler over one training step (after the timed ones): the
     device time per kernel class and the device's busy share of the step's
     host time."""
@@ -604,7 +930,7 @@ def profile_train_step(torch, setup, batch, gen):
         counts[label] = counts.get(label, 0) + evt.count
         kernels.append((dev_us / 1e3, evt.count, label, evt.key))
     total = sum(sums.values())
-    print(f"[profile] one LoRA step under torch.profiler: host {wall_ms:.3f} ms, "
+    print(f"[profile] one {tag} step under torch.profiler: host {wall_ms:.3f} ms, "
           f"device time {total:.3f} ms in {sum(counts.values())} launches "
           f"({100 * total / wall_ms:.1f}% busy)")
     for label, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
@@ -616,33 +942,45 @@ def profile_train_step(torch, setup, batch, gen):
         raise AssertionError("the profiler saw no device time")
 
 
-def _kernel_table(k1, k23, sample_launches, train_launches) -> dict:
+def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
+    """One row per kernel: `launches` from the path that runs it (K1-K3
+    the fp32-base LoRA step, K4-K5 the QLoRA step), the time at that
+    path's shape, and the counts of every path."""
     head = "sdxl_b2_s4096_h10_d64"
     bounds = _attn_bounds(2, 4096, 4096, 10, 64)
+    ff = K4_CASES[0][0]
     rows = [
-        ("flash_attention_folded_fwd (K1)", "K1", "onetrainer_tpu_torch/csrc/flash_fwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:93",
-         max(c["err_o"] for c in k1.values()), k1[head]["ms"],
-         k1[head]["plain_ms"], k1[head]["library_ms"]),
-        ("flash_attention_folded_dq (K2)", "K2", "onetrainer_tpu_torch/csrc/flash_bwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:196",
+        ("flash_attention_folded_fwd (K1)", "K1", "flash_fwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:93", "train",
+         max(c["err_o"] for c in k1.values()), k1[head]["ms"], k1[head]["plain_ms"],
+         *bounds["K1"], k1[head]["library_ms"], head),
+        ("flash_attention_folded_dq (K2)", "K2", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:196", "train",
          max(c["errs"]["dq"] for c in k23.values()), k23[head]["k2_ms"],
-         k23[head]["plain_dq_ms"], k23[head]["library_ms"]),
-        ("flash_attention_folded_dkv (K3)", "K3", "onetrainer_tpu_torch/csrc/flash_bwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:248",
+         k23[head]["plain_dq_ms"], *bounds["K2"], k23[head]["library_ms"], head),
+        ("flash_attention_folded_dkv (K3)", "K3", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:248", "train",
          max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
-         k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], k23[head]["library_ms"]),
+         k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], *bounds["K3"],
+         k23[head]["library_ms"], head),
+        ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
+         "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
+         max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
+         k4[ff]["plain_ms"], k4[ff]["bound_ms"], k4[ff]["bound_by"], None, ff),
+        ("sr_update (K5)", "K5", "sr_update.cu",
+         "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["ms"],
+         k5["plain_ms"], k5["bound_ms"], k5["bound_by"], None,
+         "x".join(map(str, k5["shape"]))),
     ]
     kernels = []
-    for name, tag, source, replaces, err, ms, plain_ms, library_ms in rows:
-        bound_ms, bound_by = bounds[tag]
+    for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,
+         library_ms, shape) in rows:
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[tag], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": head,
-            "launches_by_path": {"sample": sample_launches[tag],
-                                 "train": train_launches[tag]},
+            "name": name, "route": "cuda", "source": f"onetrainer_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[path][tag], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": shape,
+            "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
     return {"kernels": kernels}
 
@@ -662,10 +1000,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     failures = []
+    results: dict = {}
 
     def run(name, fn, *args):
         try:
-            return fn(*args)
+            results[name] = fn(*args)
+            return results[name]
         except Exception:
             failures.append(name)
             print(f"[{name}] FAILED\n{traceback.format_exc()}", file=sys.stderr)
@@ -675,19 +1015,30 @@ def main() -> int:
     if gpu is not None:
         print(gpu)
     run("build", phase_build)
-    k1 = run("k1", phase_k1_cases, torch) or {}
-    k23 = run("k23", phase_k23_cases, torch) or {}
+    run("k1", phase_k1_cases, torch)
+    run("k23", phase_k23_cases, torch)
+    run("k4", phase_k4, torch)
+    run("k5", phase_k5, torch)
     model = run("model", build_model, torch)
-    sample_launches, train = {}, None
     if model is not None:
         run("unet", phase_unet, torch, model)
-        sample_launches = run("sample", phase_sample, torch, model) or {}
-        train = run("train", phase_train, torch, model)
+        run("sample", phase_sample, torch, model)
+        run("train", phase_train, torch, model)
+    # the fp32 model must not stay alive into the later phases' peak memory
+    del model
+    results.pop("model", None)
+    for name, fn in (("qlora", phase_qlora), ("fp8", phase_fp8)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run(name, fn, torch)
 
     if failures:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
-    print(json.dumps(_kernel_table(k1, k23, sample_launches, train["launches"])))
+    launches = {"sample": results["sample"],
+                **{p: results[p]["launches"] for p in ("train", "qlora", "fp8")}}
+    print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
+                                   results["k5"], launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,10 @@
   arrays) into the port's modules through the port's copy of the reference's
   key maps (`io/torch_flax.py`), strictly: every key must match.
 - `lora_params_from_jax` turns the reference's LoRA adapter tree into the
-  port's adapters (same keys, same torch layout).
+  port's adapters (same keys, same torch layout, same dtype).
+- `quantized_params_from_jax` loads a part the reference quantized
+  (setup/quantize.py there): NF4 codes and scales and fp8/int8 codes and
+  scale carried unchanged, every other leaf in its own dtype.
 - `init_sdxl_weights` materialises full-width weights on a device from a
   seeded `torch.Generator`, for runs without a checkpoint.
 """
@@ -16,8 +19,26 @@ import torch
 from torch import nn
 
 from onetrainer_tpu_torch.io.torch_flax import (
-    clip_flax_to_state_dict, unet_flax_to_state_dict, vae_flax_to_state_dict,
+    _nest, clip_flax_to_state_dict, unet_flax_to_state_dict, vae_flax_to_state_dict,
 )
+from onetrainer_tpu_torch.ops.nf4 import NF4_BLOCK
+from onetrainer_tpu_torch.ops.quant import NF4Array, QuantizedArray, logical_shape
+
+# numpy dtypes without a torch counterpart in numpy (ml_dtypes' bf16 and
+# fp8), carried by their bit patterns
+_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def tensor_from_numpy(value, device: torch.device | str = "cpu") -> torch.Tensor:
+    """A numpy (or numpy-convertible) array as a tensor of the same dtype
+    and values, bf16 and fp8 included."""
+    a = np.asarray(value)
+    if a.dtype.name in _VIEWS:
+        view, dtype = _VIEWS[a.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(a).view(view).copy()
+                                ).view(dtype).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _load(module: nn.Module, state_dict: dict) -> None:
@@ -39,16 +60,66 @@ def lora_params_from_jax(adapters: dict,
                          device: torch.device | str = "cuda") -> dict:
     """The reference's adapter tree {module_key: {"lora_down", "lora_up"}}
     (numpy; down [r, in] or [r, in, kh, kw], up [out, r]) as the port's
-    fp32 adapters on `device`."""
+    adapters on `device`, in the reference's dtype (fp32 or bf16)."""
     out = {}
     for key, entry in adapters.items():
         if set(entry) != {"lora_down", "lora_up"}:
             raise NotImplementedError(
                 f"{key}: only LoRA adapters are ported, got {sorted(entry)}")
-        out[key] = {name: torch.as_tensor(np.array(value, dtype=np.float32),
-                                          device=device)
+        out[key] = {name: tensor_from_numpy(value, device)
                     for name, value in entry.items()}
     return out
+
+
+def _quantized_from_jax(value, device):
+    """A reference NF4Array / QuantizedArray as the port's, or None."""
+    if hasattr(value, "scales") and hasattr(value, "block"):
+        if value.block != NF4_BLOCK:
+            raise NotImplementedError(f"NF4 block {value.block} is not ported (64 only)")
+        return NF4Array(tensor_from_numpy(value.q, device),
+                        tensor_from_numpy(value.scales, device), tuple(value.shape))
+    if hasattr(value, "q") and hasattr(value, "scale"):
+        return QuantizedArray(tensor_from_numpy(value.q, device),
+                              tensor_from_numpy(value.scale, device))
+    return None
+
+
+@torch.no_grad()
+def quantized_params_from_jax(module: nn.Module, tree: dict, to_state_dict,
+                              device: torch.device | str = "cpu") -> None:
+    """Load a reference param tree whose kernels are quantized into
+    `module` exactly: each quantized kernel becomes the layer's quantized
+    weight (kernel layout, codes and scales as they are), every other
+    leaf a parameter of its own dtype (bf16 under the reference's
+    policy). `to_state_dict` is the part's key map, e.g.
+    `unet_flax_to_state_dict`."""
+    plain, quantized = {}, {}
+    for path, value in _leaves(tree):
+        q = _quantized_from_jax(value, device)
+        if q is None:
+            plain[path] = value
+            continue
+        # the layer's state-dict key, through the part's own key map
+        stand_in = np.broadcast_to(np.float32(0), logical_shape(q))
+        (key,) = to_state_dict(_nest({path: stand_in}))
+        quantized[key] = q
+    state = {k: tensor_from_numpy(v, device) for k, v in to_state_dict(_nest(plain)).items()}
+    missing, unexpected = module.load_state_dict(state, strict=False, assign=True)
+    if unexpected or set(missing) != set(quantized):
+        raise KeyError(f"tree does not match the module: missing {sorted(missing)[:8]}, "
+                       f"unexpected {sorted(unexpected)[:8]}")
+    for key, q in quantized.items():
+        layer = module.get_submodule(key.removesuffix(".weight"))
+        del layer.weight
+        layer.weight = q
+
+
+def _leaves(tree: dict, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
 
 
 @torch.no_grad()

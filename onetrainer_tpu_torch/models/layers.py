@@ -8,7 +8,11 @@ the result cast to `dtype`, as flax's norms do.
 
 `linear` and `conv` also add a layer's LoRA term when a PEFT adapter is
 attached to it (peft/layers.py), as the reference's LoraDense/LoraConv do
-inside the layer.
+inside the layer, and dequantize a quantized frozen weight (ops/quant.py:
+fp8, int8, NF4 through K4) to the compute dtype at each use, as the
+reference's `_get_kernel` does. Autograd saves that dequantized weight for
+the input gradient like any cast weight; under gradient checkpointing the
+recompute dequantizes again.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onetrainer_tpu_torch.ops.quant import dequantized_weight
 from onetrainer_tpu_torch.peft.layers import adapter_of
 
 
@@ -26,14 +31,14 @@ def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     xp = x.to(dtype)
-    y = F.linear(xp, layer.weight.to(dtype), _cast(layer.bias, dtype))
+    y = F.linear(xp, dequantized_weight(layer.weight, dtype), _cast(layer.bias, dtype))
     adapter = adapter_of(layer)
     return y if adapter is None else y + adapter.linear(xp, dtype)
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     xp = x.to(dtype)
-    y = F.conv2d(xp, layer.weight.to(dtype), _cast(layer.bias, dtype),
+    y = F.conv2d(xp, dequantized_weight(layer.weight, dtype), _cast(layer.bias, dtype),
                  layer.stride, layer.padding)
     adapter = adapter_of(layer)
     if adapter is None:

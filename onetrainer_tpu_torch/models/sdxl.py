@@ -80,17 +80,22 @@ class StableDiffusionXLModel:
 def create_sdxl_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16,
                       gradient_checkpointing: bool = False,
                       remat_policy: str | None = None,
-                      device: torch.device | str = "cuda") -> StableDiffusionXLModel:
+                      device: torch.device | str = "cuda",
+                      unet_weight_dtype: torch.dtype = torch.float32,
+                      ) -> StableDiffusionXLModel:
     """SDXL at its published widths (diffusers sdxl-base-1.0 configs), built
     on `device` (the card unless the caller passes another). The remat
-    policy defaults to the reference's UNet default, "tx_only"."""
+    policy defaults to the reference's UNet default, "tx_only". The UNet's
+    parameters are held in `unet_weight_dtype`: a training config's
+    `weight_dtypes().unet.to_load_dtype()` (bf16 for a quantized UNet,
+    which the setup then quantizes), as the reference's loader casts."""
     common = dict(dtype=dtype, gradient_checkpointing=gradient_checkpointing,
                   remat_policy=remat_policy or "tx_only")
     if model_type == ModelType.STABLE_DIFFUSION_XL_10_BASE_INPAINTING:
         unet_cfg = sdxl_inpaint_unet_config(**common)
     else:
         unet_cfg = sdxl_unet_config(**common)
-    return StableDiffusionXLModel(
+    model = StableDiffusionXLModel(
         model_type=model_type,
         unet_config=unet_cfg,
         vae_config=sdxl_vae_config(dtype=dtype),
@@ -98,3 +103,5 @@ def create_sdxl_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16
         te2_config=open_clip_vit_bigg_config(dtype=dtype),
         device=device,
     )
+    model.unet.to(unet_weight_dtype)
+    return model

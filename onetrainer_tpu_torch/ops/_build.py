@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The kernels are plain-C-interface `.cu` files under `csrc/`, compiled with
-`nvcc` for sm_90a into one shared library at first use and bound with
-`ctypes`. The library lands in `<repo>/build/`, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time: CPU-only installs (no nvcc) can
-import every module of the port.
+The kernels are plain-C-interface `.cu` files under `csrc/`: K1
+(`flash_fwd.cu`), K2 and K3 (`flash_bwd.cu`), K4 (`nf4_dequant.cu`) and K5
+(`sr_update.cu`). At first use each source is compiled with `nvcc` for
+sm_90a into an object file, all at once in parallel processes, and the
+objects are linked into one shared library bound with `ctypes`. The
+library lands in `<repo>/build/`, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing here runs at import time: CPU-only installs (no nvcc) can import
+every module of the port.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "flash_fwd.cu", _PKG / "csrc" / "flash_bwd.cu")
+_SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "flash_fwd.cu", "flash_bwd.cu", "nf4_dequant.cu", "sr_update.cu"))
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: ctypes.CDLL | None = None
 
@@ -46,21 +50,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    The compiler's report (registers, shared memory, spills) is kept
-    beside the library as `<name>.log`."""
+    """Compile the kernels unless a library for these sources exists: one
+    `nvcc -c` per source, all started together, then one link. The
+    compiler's report (registers, shared memory, spills) is kept beside
+    the library as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_SOURCES, objs)]
+    reports = [(src.name, *proc.communicate(), proc.returncode)
+               for src, proc in zip(_SOURCES, procs)]
+    log = "".join(f"== {name}\n{text}" for name, text, _, _ in reports)
+    failed = [(name, text, rc) for name, text, _, rc in reports if rc != 0]
+    tmp = out.with_name(f"{stem}.tmp.so")
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed = [("link", link.stderr, link.returncode)]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        name, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{text[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -80,5 +100,10 @@ def load_library() -> ctypes.CDLL:
         lib.ot_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [
             ctypes.c_float, ptr]
         lib.ot_flash_bwd_dkv.restype = i32
+        i64 = ctypes.c_longlong
+        lib.ot_nf4_dequant.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+        lib.ot_nf4_dequant.restype = i32
+        lib.ot_sr_update.argtypes = [ptr, ptr, ptr, i32, ptr, i64, ptr]
+        lib.ot_sr_update.restype = i32
         _LIB = lib
     return _LIB

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from onetrainer_tpu_torch.io.torch_flax import merge_int_tokens
+from onetrainer_tpu_torch.ops.quant import is_quantized, module_is_quantized, weight_shape
 from onetrainer_tpu_torch.peft.layers import LoraAdapter, attach_adapter
 from onetrainer_tpu_torch.util.enums import PeftType
 
@@ -79,7 +80,9 @@ def module_key(name: str, key_map: KeyMap | None = None) -> str | None:
 def _adaptable(module: nn.Module, key_map: KeyMap | None,
                layer_filter: tuple[str, ...]):
     """(key, layer) for every layer the reference's `_kernel_paths` adapts:
-    dense and conv kernels, minus grouped/depthwise convs."""
+    dense and conv kernels, minus grouped/depthwise convs. A quantized
+    frozen weight (QLoRA) is selected like any other: skipping it would
+    leave an empty adapter set and a step that only runs forward."""
     for name, layer in module.named_modules():
         if isinstance(layer, nn.Conv2d):
             if layer.groups != 1:
@@ -104,18 +107,20 @@ def init_peft_params(generator: torch.Generator, module: nn.Module,
                      cfg: PeftConfig, key_map: KeyMap | None = None) -> dict:
     """Create the adapters {module_key: {"lora_down", "lora_up"}} on the
     module's device: down ~ U(+-1/sqrt(fan_in)) (kaiming_uniform(a=sqrt(5))),
-    up = 0, in `cfg.weight_dtype`. `generator` must live on that device."""
+    up = 0, in `cfg.weight_dtype`. `generator` must live on that device.
+    Shapes come from each weight's logical (torch-layout) shape, so a
+    quantized base gets the adapters of its unquantized form."""
     cfg.check_supported()
     adapters = {}
     for key, layer in _adaptable(module, key_map, cfg.layer_filter):
         weight = layer.weight
-        fan_in = weight[0].numel()
-        bound = 1.0 / math.sqrt(fan_in)
-        down = torch.empty((cfg.rank,) + tuple(weight.shape[1:]),
-                           dtype=cfg.weight_dtype, device=weight.device)
+        shape = weight_shape(weight)
+        device = (weight.q if is_quantized(weight) else weight).device
+        bound = 1.0 / math.sqrt(math.prod(shape[1:]))
+        down = torch.empty((cfg.rank,) + shape[1:], dtype=cfg.weight_dtype,
+                           device=device)
         down.uniform_(-bound, bound, generator=generator)
-        up = torch.zeros((weight.shape[0], cfg.rank), dtype=cfg.weight_dtype,
-                         device=weight.device)
+        up = torch.zeros((shape[0], cfg.rank), dtype=cfg.weight_dtype, device=device)
         adapters[key] = {"lora_down": down, "lora_up": up}
     return adapters
 
@@ -144,6 +149,8 @@ def apply_peft(module: nn.Module, adapters: dict, cfg: PeftConfig,
     """The module's state_dict with every adapter merged into its weight,
     W + up.down.alpha/r (fp32, then the weight's dtype)."""
     cfg.check_supported()
+    if module_is_quantized(module):
+        raise NotImplementedError("merging into a quantized base is not ported yet")
     names = {key: name for name, _ in module.named_modules()
              if (key := module_key(name, key_map)) is not None}
     out = dict(module.state_dict())

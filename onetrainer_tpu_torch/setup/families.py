@@ -27,7 +27,8 @@ class ModelFamily:
 def _sdxl_load(base_dir, config):
     raise NotImplementedError(
         "loading SDXL checkpoints is not ported yet; build the model with "
-        "models.sdxl.create_sdxl_model and io.weights")
+        "models.sdxl.create_sdxl_model (its UNet in "
+        "config.weight_dtypes().unet.to_load_dtype()) and io.weights")
 
 
 def _sdxl_create_setup(model, config, total_steps, steps_per_epoch=100):

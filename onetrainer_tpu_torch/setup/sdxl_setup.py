@@ -4,8 +4,11 @@ Counterpart of onetrainer_tpu/setup/sdxl_setup.py: schedule flags,
 tokenizer wrapping, the LoRA training branch of `create_sdxl_setup`
 (adapters, per-group schedules, the clipped AdamW, the train step),
 `merged_inference_params`, and `make_sdxl_encode_fns` for latent and
-text-embedding caching. FINE_TUNE builds no trainer yet (it serves
-sampling); EMBEDDING training and continuing from a LoRA file raise.
+text-embedding caching. Frozen parts whose weight dtype is FLOAT_8, INT_8
+or NFLOAT_4 are quantized after the adapters exist (setup/quantize.py;
+QLoRA is LoRA over an NF4 UNet with bf16 adapters). FINE_TUNE builds no
+trainer yet (it serves sampling); EMBEDDING training and continuing from a
+LoRA file raise.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
 from onetrainer_tpu_torch.peft.lora import (
     PeftConfig, attach_peft, init_peft_params,
 )
+from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
 from onetrainer_tpu_torch.setup.sd_setup import _group_schedule
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer
 from onetrainer_tpu_torch.train.optimizers import create_group_optimizer
@@ -28,6 +32,9 @@ from onetrainer_tpu_torch.train.sdxl_train_step import make_sdxl_train_step
 from onetrainer_tpu_torch.train.train_state import create_train_state
 from onetrainer_tpu_torch.util.enums import TrainingMethod
 
+# frozen part -> its ModelWeightDtypes attribute
+_QUANTIZABLE = {"unet": "unet", "text_encoder": "text_encoder",
+                "text_encoder_2": "text_encoder_2"}
 # trainable LoRA group -> (model attribute, adapter key map, init seed)
 _LORA_GROUPS = {
     "unet_lora": ("unet", None, 0),
@@ -65,8 +72,10 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
                       steps_per_epoch: int = 100) -> SDXLSetup:
     """Bind `model` and `config`. For LoRA: adapters for the UNet and each
     trained text encoder, drawn on the model's device from a generator
-    seeded per group (0, 1, 2, as the reference's PRNGKeys) and attached to
-    the layers; the frozen base stops requiring grads."""
+    seeded per group (0, 1, 2, as the reference's PRNGKeys) in the LoRA
+    weight dtype and attached to the layers; the frozen base stops
+    requiring grads, and frozen parts configured with a quantized weight
+    dtype are quantized in place."""
     method = config.training_method
     if method == TrainingMethod.EMBEDDING:
         raise NotImplementedError("EMBEDDING training is not ported yet")
@@ -97,20 +106,22 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
     })
     setup = SDXLSetup(model=model, config=config, tokenizer=model.tokenizer,
                       tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
+    modules = model.modules()
     if method != TrainingMethod.LORA:
+        parts = {"unet": config.unet, "text_encoder": config.text_encoder,
+                 "text_encoder_2": config.text_encoder_2}
+        quantize_frozen_parts({k: modules[k] for k, part in parts.items() if not part.train},
+                              config.weight_dtypes(), _QUANTIZABLE)
         return setup
     if config.lora_model_name:
         raise NotImplementedError("continuing from a LoRA file is not ported yet")
 
     peft_cfg = PeftConfig.from_train_config(config)
-    if peft_cfg.weight_dtype != torch.float32:
-        # the reference rounds the updates of bf16 LoRA weights stochastically
-        # (ops/pallas_sr.py, not ported); fp32 updates need no rounding
+    if peft_cfg.weight_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"{peft_cfg.weight_dtype} LoRA weights are not ported yet (fp32 only)")
+            f"{peft_cfg.weight_dtype} LoRA weights are not ported yet (fp32, bf16)")
     parts = {"unet_lora": config.unet, "te_lora": config.text_encoder,
              "te2_lora": config.text_encoder_2}
-    modules = model.modules()
     for module in modules.values():
         module.requires_grad_(False)
     trainable, group_schedules = {}, {}
@@ -128,6 +139,9 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
         trainable[group] = adapters
         group_schedules[group] = _group_schedule(
             config, part.learning_rate, total_steps, part, steps_per_epoch)
+    # after the adapters, as the reference (their shapes are the logical ones)
+    quantize_frozen_parts({k: modules[k] for k in _QUANTIZABLE}, config.weight_dtypes(),
+                          _QUANTIZABLE)
 
     tx = create_group_optimizer(group_schedules, config.optimizer.optimizer,
                                 config.optimizer, config.clip_grad_norm)

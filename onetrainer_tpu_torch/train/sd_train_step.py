@@ -33,6 +33,7 @@ class SDStepConfig:
     te_dropout: float = 0.0
     te2_dropout: float = 0.0
     te2_layer_skip: int = 0
+    stochastic_rounding: bool = False
 
     @staticmethod
     def from_train_config(config, prediction_type: str = "epsilon",
@@ -62,6 +63,7 @@ class SDStepConfig:
             te_dropout=_part_dropout("text_encoder"),
             te2_dropout=_part_dropout("text_encoder_2"),
             te2_layer_skip=int(getattr(config, "text_encoder_2_layer_skip", 0) or 0),
+            stochastic_rounding=config.optimizer.stochastic_rounding,
         )
 
 

@@ -11,6 +11,14 @@ Where the reference's step is a pure jitted function of an immutable
 state, this one updates the trainable tensors and the optimizer state in
 place, draws its randomness from an explicit `torch.Generator`, and runs
 eagerly on the device the model lives on. LoRA is the ported method.
+
+The optimizer returns its updates and the step adds them, as
+optax.apply_updates does (a bf16 tensor rounds p + u to nearest). With
+`stochastic_rounding` (the reference's `optimizer.stochastic_rounding`)
+and bf16 trainable tensors, it adds them through
+`ops/stochastic.py:apply_updates_stochastic` instead (K5 on the card, one
+seed per tensor from the step's generator); fp32 tensors add their update
+exactly either way, so an fp32 run draws no seeds.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from onetrainer_tpu_torch.math.noise import add_noise_discrete, create_noise
 from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.math.timesteps import sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
+from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic
 from onetrainer_tpu_torch.train.optimizers import global_norm
 from onetrainer_tpu_torch.train.sd_train_step import (
     SDStepConfig, conditioning_dropout_mask,
@@ -148,12 +157,15 @@ def make_sdxl_train_step(model, cfg: SDStepConfig, tx):
     carry the adapters (setup/sdxl_setup.py attaches them).
 
         train_step(state, batch, generator, *, timestep=None, noise=None,
-                   latent_noise=None) -> {"loss", "grad_norm"}
+                   latent_noise=None, round_bits=None) -> {"loss", "grad_norm"}
 
     The step updates `state.params` (the adapter tensors) and
     `state.opt_state` in place and advances `state.step`; the returned
-    loss and pre-clip global gradient norm are 0-dim fp32 tensors on the
-    model's device (reading them synchronises)."""
+    loss (fp32, on the model's device: reading it synchronises) and
+    pre-clip global gradient norm (fp32 on the device; for bf16 adapters
+    bf16 on the host, as optax computes it) are 0-dim tensors. `round_bits`, shaped like `state.params`, gives
+    the 16 random low bits of each bf16 tensor's stochastic rounding in
+    place of the generator's draws (CPU only)."""
     if cfg.training_method != TrainingMethod.LORA:
         raise NotImplementedError(
             f"{cfg.training_method} training is not ported yet (LoRA only)")
@@ -161,7 +173,8 @@ def make_sdxl_train_step(model, cfg: SDStepConfig, tx):
     coefficients = _coefficients_on(model, device)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
-                   *, timestep=None, noise=None, latent_noise=None) -> dict:
+                   *, timestep=None, noise=None, latent_noise=None,
+                   round_bits=None) -> dict:
         batch = _on_device(batch, device)
         groups = param_groups(state.params)
         flat = [t.requires_grad_() for g in groups.values() for t in g]
@@ -179,7 +192,16 @@ def make_sdxl_train_step(model, cfg: SDStepConfig, tx):
         for name, tensors in groups.items():
             grouped[name] = grads[i:i + len(tensors)]
             i += len(tensors)
-        tx.update_(groups, grouped, state.opt_state, norm)
+        updates = [u for g in tx.updates(groups, grouped, state.opt_state, norm).values()
+                   for u in g]
+        if cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat):
+            bits = None if round_bits is None else [
+                round_bits[group][key][name] for group, tree in state.params.items()
+                for key in tree for name in sorted(tree[key])]
+            apply_updates_stochastic(flat, updates, generator, bits)
+        else:
+            with torch.no_grad():
+                torch._foreach_add_(flat, updates)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": norm}
 

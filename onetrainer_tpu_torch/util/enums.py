@@ -212,6 +212,16 @@ class DataType(_StrEnum):
     def is_quantized(self) -> bool:
         return self in (DataType.FLOAT_8, DataType.INT_8, DataType.NFLOAT_4)
 
+    def to_load_dtype(self) -> torch.dtype | None:
+        """Load-cast dtype of a part. Quantized types load at bf16 and are
+        quantized by the setup afterwards (setup/quantize.py): casting raw
+        weights to the storage dtype would truncate them (no absmax
+        scale). fp16 maps to bf16, as the reference's compute dtype does."""
+        if self.is_quantized():
+            return torch.bfloat16
+        dt = self.to_torch_dtype()
+        return torch.bfloat16 if dt == torch.float16 else dt
+
     def enable_loss_scaling(self) -> bool:
         # fp16 needs loss scaling; bf16/fp32 never do. On TPU the default
         # train dtype is bf16 so this is normally False.

@@ -150,3 +150,15 @@ def test_key_maps_give_equal_trees():
                 "text_model.encoder.layers.0.self_attn.q_proj.weight",
                 "text_projection.weight", "logit_scale"):
         assert pt_tf.clip_torch_key_map(key) == jax_tf.clip_torch_key_map(key)
+
+
+def test_nf4_code_table_is_the_reference_copy():
+    """The NF4 codebook the port's quantizer, plain dequant and kernel use
+    (ops/nf4.py) is the reference's (ops/quant.py), and the padding of the
+    packed layout is its nf4_pad_len."""
+    from onetrainer_tpu.ops.nf4_pallas import nf4_pad_len
+    from onetrainer_tpu.ops.quant import NF4_BLOCK, NF4_CODE
+    from onetrainer_tpu_torch.ops import nf4 as pt_nf4
+    assert pt_nf4.NF4_CODE == NF4_CODE and pt_nf4.NF4_BLOCK == NF4_BLOCK
+    for n in (1, 1023, 2048, 2049, 13_107_200, 29_491_200):
+        assert pt_nf4.nf4_pad_len(n) == nf4_pad_len(n)

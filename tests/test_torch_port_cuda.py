@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 forward, K2 dq, K3 dk/dv) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (K1 forward, K2 dq, K3 dk/dv, K4 NF4 dequant, K5
+stochastic-rounding update) against their plain PyTorch versions, on the
+card.
 
 Needs a CUDA device and nvcc; every test here skips without one. This file
 imports no JAX, so it runs on a machine that has only torch; --noconftest
@@ -12,6 +13,10 @@ import pytest
 import torch
 
 from onetrainer_tpu_torch.ops import flash_folded as pt_ff
+from onetrainer_tpu_torch.ops import nf4 as pt_nf4
+from onetrainer_tpu_torch.ops.quant import dequantize_nf4, quantize_nf4
+from onetrainer_tpu_torch.ops.sr_update import sr_update
+from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
 
 
 @pytest.fixture
@@ -113,3 +118,69 @@ def test_autograd_function_launches_k1_to_k3_on_card(cuda_device):
             pt_ff.flash_attention_folded_dkv.launches) == (1, 1, 1)
     assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
                for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1280, 10240), (3, 3, 320, 640), (1000, 777)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nf4_dequant_is_bitwise_equal_on_card(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = quantize_nf4(torch.randn(shape, generator=gen, device=cuda_device) * 0.02)
+    before = pt_nf4.nf4_dequant_flat.launches
+    out = pt_nf4.nf4_dequant_flat(q.q, q.scales, dtype)
+    ref = pt_nf4.nf4_dequant_reference(q.q, q.scales, dtype)
+    torch.cuda.synchronize()
+    assert pt_nf4.nf4_dequant_flat.launches == before + 1
+    # the same fp32 multiply and one round-to-nearest cast on both sides
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(view), ref.view(view))
+    assert dequantize_nf4(q, dtype).shape == shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 3, 1_000_003, 16 * 2560 * 3 * 3, 5])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_sr_update_matches_the_plain_rounding_on_card(cuda_device, n, u_dtype):
+    """K5 bit for bit against the plain rounding on the Philox bits of the
+    same seed (both 32-bit halves and the sign bit set: the key layout)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    p = torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16)
+    u = (torch.randn(n, generator=gen, device=cuda_device) * 1e-3).to(u_dtype)
+    seed = torch.tensor([-0x123456789ABCDEF], dtype=torch.int64, device=cuda_device)
+    out = sr_update(p, u, seed)
+    ref = stochastic_round_to_bf16(p.float() + u.float(), philox_bits(seed, n))
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 3, 1_000_003, 5])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_sr_update_keeps_the_properties_on_card(cuda_device, n, u_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    p = torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16)
+    u = (torch.randn(n, generator=gen, device=cuda_device) * 1e-3).to(u_dtype)
+    u[: n // 4] = 0
+    seed = torch.tensor([77], dtype=torch.int64, device=cuda_device)
+    before = sr_update.launches
+    out = sr_update(p, u, seed)
+    torch.cuda.synchronize()
+    assert sr_update.launches == before + 1
+    s = p.float() + u.float()
+    low = s.view(torch.int32) & ~0xFFFF
+    got = out.float().view(torch.int32)
+    # one of the two bf16 neighbours; exact where representable; seeded
+    assert bool(((got == low) | (got == low + 0x10000)).all())
+    assert torch.equal(out[: n // 4], p[: n // 4])
+    assert torch.equal(sr_update(p, u, seed), out)
+    if n > 1000:
+        assert not torch.equal(sr_update(p, u, seed + 1), out)
+        r = sr_update(torch.ones(n, dtype=torch.bfloat16, device=cuda_device),
+                      torch.full((n,), 2.0 ** -9, device=cuda_device), seed).float()
+        # p = 1, u = 2^-9 rounds up (by 2^-7) with probability 1/4
+        up = (r > 1).float().mean().item()
+        assert abs(up - 0.25) <= 5 * (0.25 * 0.75 / n) ** 0.5
+        err = (r - (1 + 2.0 ** -9)).mean().item()
+        assert abs(err) <= 5 * 3 ** 0.5 * 2.0 ** -9 / n ** 0.5
+    in_place = p.clone()
+    sr_update(in_place, u, seed, out=in_place)
+    assert torch.equal(in_place, out)

@@ -1,5 +1,6 @@
 """The torch port stands without JAX: every module of onetrainer_tpu_torch
-imports, the SDXL slice samples and takes two LoRA training steps, with
+imports, the SDXL slice samples and takes two LoRA training steps and two
+QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
 installed on the machine with the card). chip_smoke.py refuses to run
@@ -20,6 +21,7 @@ _SCRIPT = textwrap.dedent(f"""
         sys.modules[name] = None
     sys.path.insert(0, {REPO!r})
     import torch
+    torch.set_num_threads(1)   # tiny models; the suite runs beside other workers
     import onetrainer_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(
         onetrainer_tpu_torch.__path__, "onetrainer_tpu_torch.")]
@@ -80,6 +82,20 @@ _SCRIPT = textwrap.dedent(f"""
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     assert setup.state.step == 2
     assert any(e["lora_up"].abs().max() > 0 for e in setup.state.params["unet_lora"].values())
+
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+    from onetrainer_tpu_torch.util.enums import DataType
+    config.unet.weight_dtype = DataType.NFLOAT_4
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    model.unet = model.unet.__class__(model.unet_config)
+    init_sdxl_weights(model, seed=1, device="cpu")
+    setup = family.create_setup(model, config, 10)
+    assert sum(is_quantized(getattr(m, "weight", None)) for m in model.unet.modules()) > 10
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"].dtype == torch.bfloat16
+    assert all(t.dtype == torch.bfloat16 for e in setup.state.params["unet_lora"].values()
+               for t in e.values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked
