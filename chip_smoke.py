@@ -7,17 +7,21 @@ Needs one CUDA GPU (sm_90a: H100/H200) and nvcc; fails without them, and
 never falls back to the CPU. Phases, each of which must pass:
   1. build the kernels from onetrainer_tpu_torch/csrc with nvcc, one
      process per source, into one library: K1 (flash-attention forward),
-     K2 (dq), K3 (dk, dv), K4 (NF4 dequant), K5 (stochastic-rounding
-     update);
+     K2 (dq), K3 (dk, dv) and its delta pre-pass, K4 (NF4 dequant), K5
+     (stochastic-rounding update); the build's wall time and ptxas's
+     registers and spills per kernel;
   2. K1 against its plain PyTorch version in bf16: the two SDXL shapes,
      head dims 40/80/128, ragged Sq/Skv with a kv keep mask, zero q rows;
      max |do| and |dlse| against stated bounds, median times of both and
-     of PyTorch's flash SDPA forward at the SDXL shapes;
+     of PyTorch's flash SDPA forward at the SDXL shapes, K1's share of its
+     bound and its ratio to SDPA;
   3. K2 and K3 against their plain versions in bf16: the two SDXL shapes,
      head dims 40/80/128, ragged Sq/Skv with the kv keep mask, and 8192
      tokens at d=128 (the TPU's streaming dk/dv domain); max |ddq|,
-     |ddk|, |ddv| and relative L2 against stated bounds, median times of the kernels, the
-     plain versions and PyTorch's flash SDPA backward;
+     |ddk|, |ddv| and relative L2 against stated bounds, K3's delta
+     pre-pass against its plain version, K3 bitwise equal across two runs,
+     median times of the kernels, the plain versions and PyTorch's flash
+     SDPA backward, K3's share of its bound and its ratio to SDPA;
   4. one full-width SDXL UNet forward (128x128 latent, CFG batch 2) with
      K1 and with plain attention: relative L2 difference of the outputs;
   5. full-width SDXL text-to-image through the family registry
@@ -28,7 +32,8 @@ never falls back to the CPU. Phases, each of which must pass:
      alpha 16, batch 2 at 1024x1024 from a seeded image and prompt through
      the port's latent and text-embedding caches, tx_only gradient
      checkpointing, AdamW, clip 1.0): one warm-up step, then timed steps
-     with exact launch counts per step (K1 140, K2 70, K3 70); finite loss
+     with exact launch counts per step (K1 140, K2 70, K3 70, K3's
+     pre-pass 70); finite loss
      and grad norm, lora_up non-zero after the first step, one step's
      LoRA gradients with K1-K3 against plain attention (relative L2), and
      a torch.profiler split of one more step's device time by kernel class;
@@ -45,8 +50,8 @@ never falls back to the CPU. Phases, each of which must pass:
      median times;
   9. QLoRA: the training step of phase 6 on a UNet loaded in bf16 and
      quantized to NF4, with bf16 adapters and stochastic rounding: one
-     warm-up and three timed steps with exact K1-K5 launch counts per
-     step, the LoRA gradients with K4 against the plain dequant, and a
+     warm-up and three timed steps with exact K1-K5 (and pre-pass)
+     launch counts per step, the LoRA gradients with K4 against the plain dequant, and a
      torch.profiler split of one more step;
  10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
      (the reference's bench.py headline stage): three timed steps, finite.
@@ -86,6 +91,9 @@ LSE_BOUND = 1e-3
 # relative L2 2e-3 over the tensor
 DGRAD_MAX_REL = 2e-2
 DGRAD_REL_L2 = 2e-3
+# K3's delta pre-pass: fp32 sums of the same bf16 products on both sides,
+# only the order of at most 128 terms differs
+DELTA_MAX_REL = 1e-4
 # UNet output, K1 vs plain attention: 70 attention outputs that differ by
 # bf16 roundings, carried through a bf16 network of random weights
 UNET_REL_L2_BOUND = 5e-2
@@ -199,13 +207,15 @@ def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 def _attn_bounds(b, sq, skv, h, d) -> dict:
     """bound_ms of K1, K2, K3 at one shape: FLOPs 4/6/8 * B*H*Sq*Skv*d
     (the TPU kernels' cost estimates); bytes: each bf16 [B, S, H*d] input
-    read once and output written once, lse fp32 [B, H, Sq]."""
+    read once and output written once, lse fp32 [B, H, Sq]. K3's pre-pass
+    reads o and dO and writes delta [B, H, Sq] fp32 (2 FLOPs per lane)."""
     q_bytes, kv_bytes, lse_bytes = 2 * b * sq * h * d, 2 * b * skv * h * d, 4 * b * h * sq
     work = b * h * sq * skv * d
     return {
         "K1": _bound_ms(4 * work, 2 * q_bytes + 2 * kv_bytes + lse_bytes),
         "K2": _bound_ms(6 * work, 4 * q_bytes + 2 * kv_bytes + lse_bytes),
         "K3": _bound_ms(8 * work, 3 * q_bytes + 4 * kv_bytes + lse_bytes),
+        "delta": _bound_ms(2 * b * sq * h * d, 2 * q_bytes + lse_bytes),
     }
 
 
@@ -286,12 +296,13 @@ def phase_k1_cases(torch) -> dict:
         bound_ms, bound_by = _attn_bounds(b, sq, skv, h, d)["K1"]
         results[name] = dict(err_o=err_o, err_lse=err_lse, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms)
-        lib = "" if library_ms is None else f" SDPA flash fwd {library_ms:.4f} ms"
+        lib = "" if library_ms is None else \
+            f" SDPA flash fwd {library_ms:.4f} ms (K1 / SDPA {ms / library_ms:.3f})"
         print(f"[k1] {name}: max|do|={err_o:.3e} (bound {O_BOUND:g}) "
               f"max|dlse|={err_lse:.3e} (bound {LSE_BOUND:g}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} "
-              f"(least time {bound_ms:.4f} ms, {bound_by}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"(least time {bound_ms:.4f} ms, {bound_by}; {100 * bound_ms / ms:.1f}% "
+              f"of it) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 case {name} disagrees with the plain version")
     return results
@@ -313,9 +324,16 @@ def phase_k23_cases(torch) -> dict:
         kw = dict(sm_scale=scale, kv_keep=keep)
         dq = ff.flash_attention_folded_dq(*args, **kw)
         dk, dv = ff.flash_attention_folded_dkv(*args, **kw)
+        dk2, dv2 = ff.flash_attention_folded_dkv(*args, **kw)
+        delta = ff.flash_attention_folded_delta(o, do, h)
         dq_ref = ff.flash_attention_folded_dq_reference(*args, **kw)
         dk_ref, dv_ref = ff.flash_attention_folded_dkv_reference(*args, **kw)
+        delta_ref = ff.flash_attention_folded_delta_reference(o, do, h)
         torch.cuda.synchronize()
+        deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        err_delta = (delta - delta_ref).abs().max().item()
+        delta_scale = delta_ref.abs().max().item()
+        del dk2, dv2
         errs, scales, rels = {}, {}, {}
         for n, a, r in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
             diff = a.float() - r.float()
@@ -326,6 +344,9 @@ def phase_k23_cases(torch) -> dict:
         del dq_ref, dk_ref, dv_ref
         k2_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **kw))
         k3_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv(*args, **kw))
+        delta_ms = _median_ms(torch, lambda: ff.flash_attention_folded_delta(o, do, h))
+        plain_delta_ms = _median_ms(
+            torch, lambda: ff.flash_attention_folded_delta_reference(o, do, h), reps=5)
         plain_dq_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq_reference(
             *args, **kw), reps=5)
         plain_dkv_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv_reference(
@@ -340,11 +361,14 @@ def phase_k23_cases(torch) -> dict:
                 out4, (q4, k4, v4), do4, retain_graph=True))
         ok = finite and all(errs[n] <= DGRAD_MAX_REL * scales[n]
                             and rels[n] <= DGRAD_REL_L2 for n in errs)
+        ok = ok and deterministic and err_delta <= DELTA_MAX_REL * delta_scale
         results[name] = dict(errs=errs, k2_ms=k2_ms, k3_ms=k3_ms,
                              plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
-                             library_ms=library_ms)
+                             library_ms=library_ms, err_delta=err_delta,
+                             delta_ms=delta_ms, plain_delta_ms=plain_delta_ms)
         lib = "" if library_ms is None else \
-            f" SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms"
+            f" SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms (K3 / SDPA " \
+            f"{k3_ms / library_ms:.3f})"
         bounds = _attn_bounds(b, sq, skv, h, d)
         print(f"[k23] {name}: " + " ".join(
                   f"max|d{n}|={errs[n]:.3e} (bound {DGRAD_MAX_REL:g} x max|{n}| "
@@ -352,9 +376,14 @@ def phase_k23_cases(torch) -> dict:
                   for n in errs) + " "
               f"K2 {k2_ms:.4f} ms (plain {plain_dq_ms:.4f} ms, least time "
               f"{bounds['K2'][0]:.4f} ms, {bounds['K2'][1]}) "
-              f"K3 {k3_ms:.4f} ms (plain {plain_dkv_ms:.4f} ms, least time "
-              f"{bounds['K3'][0]:.4f} ms, {bounds['K3'][1]}){lib} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"K3 {k3_ms:.4f} ms with its pre-pass (plain {plain_dkv_ms:.4f} ms, "
+              f"least time {bounds['K3'][0]:.4f} ms, {bounds['K3'][1]}; "
+              f"{100 * bounds['K3'][0] / k3_ms:.1f}% of it){lib}; "
+              f"pre-pass max|ddelta|={err_delta:.3e} (bound {DELTA_MAX_REL:g} x "
+              f"max|delta| {delta_scale:.3e}) {delta_ms:.4f} ms (plain "
+              f"{plain_delta_ms:.4f} ms, least time {bounds['delta'][0]:.4f} ms, "
+              f"{bounds['delta'][1]}); K3 bitwise equal across two runs "
+              f"{deterministic} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2/K3 case {name} disagrees with the plain versions")
     return results
@@ -574,7 +603,8 @@ def _kernel_wrappers() -> dict:
     from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_flat
     from onetrainer_tpu_torch.ops.sr_update import sr_update
     return {"K1": ff.flash_attention_folded_fwd, "K2": ff.flash_attention_folded_dq,
-            "K3": ff.flash_attention_folded_dkv, "K4": nf4_dequant_flat, "K5": sr_update}
+            "K3": ff.flash_attention_folded_dkv, "K3pre": ff.flash_attention_folded_delta,
+            "K4": nf4_dequant_flat, "K5": sr_update}
 
 
 def _reset_launch_counts() -> None:
@@ -627,7 +657,7 @@ def phase_sample(torch, model) -> dict:
     expected = SELF_ATTN_PER_UNET_PASS * sc.diffusion_steps
     image = out.image
     # NaN latents would decode to a constant image, so it must vary
-    ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K3pre": 0, "K4": 0, "K5": 0}
           and image.dtype.name == "uint8"
           and image.shape == (1024, 1024, 3) and image.std() > 0)
     print(f"[sample] SDXL 1024x1024 DDIM {sc.diffusion_steps} steps CFG "
@@ -773,7 +803,7 @@ def phase_train(torch, model) -> dict:
     from onetrainer_tpu_torch.ops import flash_folded as ff
     run = _setup_and_steps(torch, model, _lora_config(2), "train")
     n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
-    expected = {"K1": 2 * n, "K2": n, "K3": n, "K4": 0, "K5": 0}
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
 
     # one step's gradients with K1-K3 against plain attention, at fixed
     # timesteps and noise
@@ -829,12 +859,13 @@ def phase_qlora(torch) -> dict:
     nf4_bytes = sum(w.q.numel() + 4 * w.scales.numel() for m in model.unet.modules()
                     if quant.is_quantized(w := getattr(m, "weight", None)))
     n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
-    expected = {"K1": 2 * n, "K2": n, "K3": n,
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
                 "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS * n_tensors}
     print(f"[qlora] UNet NF4: {n_quant} quantized layers ({n_in_blocks} inside "
           f"transformer blocks), {nf4_bytes / 2 ** 30:.3f} GiB of codes and scales; "
           f"{n_tensors} bf16 adapter tensors; per step K1 {2 * SELF_ATTN_PER_UNET_PASS}, "
           f"K2 {SELF_ATTN_PER_UNET_PASS}, K3 {SELF_ATTN_PER_UNET_PASS}, "
+          f"K3's pre-pass {SELF_ATTN_PER_UNET_PASS}, "
           f"K4 {n_quant + n_in_blocks}, K5 {n_tensors} launches expected")
 
     # one step's LoRA gradients with K4 against the plain dequant
@@ -881,6 +912,7 @@ _PROFILE_CLASSES = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K3 flash_bwd_dkv pre-pass (delta)", ("flash_bwd_delta_kernel",)),
     ("K4 nf4_dequant", ("nf4_dequant_kernel",)),
     ("K5 sr_update", ("sr_update_kernel",)),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass", "ampere_",
@@ -958,11 +990,15 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
          "onetrainer_tpu/ops/flash_folded.py:196", "train",
          max(c["errs"]["dq"] for c in k23.values()), k23[head]["k2_ms"],
          k23[head]["plain_dq_ms"], *bounds["K2"], k23[head]["library_ms"], head),
-        ("flash_attention_folded_dkv (K3)", "K3", "flash_bwd.cu",
+        ("flash_attention_folded_dkv (K3, its pre-pass included)", "K3", "flash_bwd.cu",
          "onetrainer_tpu/ops/flash_folded.py:248", "train",
          max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
          k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], *bounds["K3"],
          k23[head]["library_ms"], head),
+        ("flash_attention_folded_delta (K3's pre-pass)", "K3pre", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:276", "train",
+         max(c["err_delta"] for c in k23.values()), k23[head]["delta_ms"],
+         k23[head]["plain_delta_ms"], *bounds["delta"], None, head),
         ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
          max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],

@@ -1,4 +1,4 @@
-// Folded-layout flash-attention forward for Hopper (sm_90a).
+// Folded-layout flash-attention forward for Hopper (sm_90a): K1.
 //
 // Replaces onetrainer_tpu/ops/flash_folded.py:_fwd_kernel (launched by
 // `_fwd`), the Pallas TPU kernel behind every UNet self-attention of the SD
@@ -14,269 +14,351 @@
 // arrives).
 //
 // Design:
-// - Grid (ceil(Sq/64), H, B), 4 warps per block; each warp owns 16 q rows.
-//   Heads are read by stride straight from the packed layout (row stride
-//   H*d): no transpose and no [B, H, S, d] copy.
+// - Grid (ceil(Sq/128), H, B), 256 threads = two warpgroups of 64 q rows
+//   each. Heads are read by stride straight from the packed layout (row
+//   stride H*d): no transpose and no [B, H, S, d] copy.
 // - d is a runtime value <= 128 (multiple of 8) placed in a 64- or
-//   128-wide template slot; lanes d..slot are zero-filled on load, so
-//   SD 1.5's d=40/80 need no padded copy. Ragged Sq/Skv edges are masked in
-//   the kernel (rows past Sq are zero-filled and never stored; kv columns
-//   past Skv get -inf and contribute exactly zero).
-// - The q tile is loaded once into registers as mma A fragments. The block
-//   loops over 64-row kv tiles staged in shared memory and keeps fp32
-//   running max, sum and accumulator (online softmax) in registers.
-// - Matrix products use mma.sync m16n8k16 bf16 -> fp32. P is rounded to
-//   bf16 for the P.V product, as the TPU kernel does (p.astype(v.dtype)).
+//   128-wide template slot; lanes d..slot are zero-filled by the copies,
+//   so SD 1.5's d=40/80 need no padded copy. Ragged Sq/Skv edges are
+//   masked in the kernel (rows past Sq are zero-filled and never stored;
+//   kv columns past Skv get -inf and contribute exactly zero).
+// - TMA copies the q tile once and streams K and V tiles of 64 kv rows
+//   through a 4-stage ring into swizzled shared memory (the 128-byte
+//   swizzle of wgmma's descriptors, csrc/hopper_mma.cuh), completing on
+//   mbarriers: tiles t+1..t+3 land while tile t computes. The tensor maps
+//   are 4-D (lane, head, row, batch) over the packed layout, so lanes past
+//   d and rows past S are out of bounds and TMA fills them with zeros.
+//   One thread issues the copies; the two warpgroups never wait for each
+//   other except when a stage is refilled, so they drift apart and one's
+//   softmax overlaps the other's products.
+// - S = Q K^T is a wgmma with both operands in shared memory; the online
+//   softmax (fp32 running max and sum, in log2 units) runs in registers; P
+//   is packed to bf16 (as the TPU kernel rounds p to v.dtype) and fed as
+//   the register A operand of O += P V, V being a MN-major B operand.
+//   Within a warpgroup, tile t+1's scores and tile t's P V are issued
+//   together, and tile t+1's softmax runs while P V does.
+// - In the 64 slot a thread stays under 128 registers, so two blocks share
+//   an SM.
 //
 // Bound: at SDXL's S=4096, d=64 the work is 4*S*S*d FLOPs per (b, h)
 // against 4*S*d*2 bytes of q/k/v/o, about S/2 = 2048 FLOP per byte, far
-// above the H100's ~295 FLOP/byte ridge: tensor-core FLOPs bound it.
-// What this simple design gives up: wgmma (warpgroup MMA, the only path to
-// full Hopper tensor-core rate), TMA and cp.async pipelining of kv tiles
-// (loads here are synchronous, so tensor cores idle while a tile lands),
-// warp specialisation, and ldmatrix for the V operand (gathered with
-// 16-bit shared loads). Those are later work.
+// above the H100's ~295 FLOP/byte ridge: tensor-core FLOPs bound it. At d=64
+// the exponentials come close: one per score against 256 FLOPs, and the
+// SM's 16 exp per clock against its 4096 bf16 FLOPs per clock.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;  // 4 warps x 16 q rows
 constexpr float kNegInit = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// kv rows per tile, in both slots: in the 64 slot this keeps a thread
+// under 128 registers, so two blocks share an SM (measured faster than 128
+// kv rows with one block per SM)
+constexpr int kBlockK = 64;
 
 template <int DSLOT>
-struct Tile {
-  // +8 bf16 of row padding keeps the strided fragment reads off one bank
-  static constexpr int kStride = DSLOT + 8;
-  static constexpr int kElems = kBlockQ * kStride;
-  static constexpr size_t kSmemBytes = 3 * kElems * sizeof(__nv_bfloat16);
+struct FwdLayout {
+  static constexpr int kQRows = 128;
+  static constexpr int kThreads = 256;
+  static constexpr int kStages = 4;
+  static constexpr int kQTile = kQRows * DSLOT * 2;   // bytes
+  static constexpr int kKvTile = kBlockK * DSLOT * 2; // bytes of K (or V)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQTile;               // kStages K tiles
+  static constexpr int kV = kK + kStages * kKvTile;    // kStages V tiles
+  static constexpr int kFull = kV + kStages * kKvTile; // kStages mbarriers
+  static constexpr int kEmpty = kFull + kStages * 8;   // kStages mbarriers
+  static constexpr int kQBar = kEmpty + kStages * 8;
+  static constexpr int kBytes = kQBar + 8;
+  // + slack to align the dynamic shared memory to one swizzle atom
+  static constexpr size_t kSmemBytes = kBytes + hopper::kAtomBytes;
 };
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + 64) x lanes [0, DSLOT) of one head into shared
-// memory, 16 bytes per thread per step. Rows >= nrows and lanes >= d are
-// zero-filled (d % 8 == 0, so a 16-byte chunk is wholly in or out).
 template <int DSLOT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* head_base,
-                                          int row0, int nrows, int row_stride,
-                                          int d) {
-  constexpr int kChunks = DSLOT / 8;
-  for (int idx = threadIdx.x; idx < kBlockQ * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int col = (idx % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows && col < d) {
-      val = *reinterpret_cast<const uint4*>(
-          head_base + static_cast<size_t>(row) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(smem + r * Tile<DSLOT>::kStride + col) = val;
-  }
-}
+constexpr int kBlocksPerSm = DSLOT == 64 ? 2 : 1;
 
-template <int DSLOT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ bias,  // [B, Skv] or nullptr
+template <int DSLOT, bool HAS_BIAS>
+__global__ void __launch_bounds__(256, kBlocksPerSm<DSLOT>)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const float* __restrict__ bias,  // [B, Skv] (HAS_BIAS)
                  __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse,  // [B, H, Sq]
                  int sq, int skv, int num_heads, int d, float sm_scale) {
-  constexpr int kStride = Tile<DSLOT>::kStride;
-  constexpr int kDSteps = DSLOT / 16;  // k-steps of Q.K^T
-  constexpr int kDTiles = DSLOT / 8;   // n-tiles of the P.V output
-  constexpr int kKTiles = kBlockK / 8; // n-tiles of the score block
+  using L = FwdLayout<DSLOT>;
+  using hopper::Wgmma;
+  constexpr int BK = kBlockK;
+  constexpr int kDSteps = DSLOT / 16;   // k-steps of Q K^T
+  constexpr int kKSteps = BK / 16;      // k-steps of P V
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + Tile<DSLOT>::kElems;
-  __nv_bfloat16* v_s = k_s + Tile<DSLOT>::kElems;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + hopper::kAtomBytes - 1) & ~(hopper::kAtomBytes - 1);
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;             // consumer warpgroup: q rows wg*64..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+
+  const int q0 = blockIdx.x * L::kQRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int inner = num_heads * d;
   const size_t q_head = static_cast<size_t>(b) * sq * inner + static_cast<size_t>(h) * d;
-  const size_t kv_head = static_cast<size_t>(b) * skv * inner + static_cast<size_t>(h) * d;
-  const float* bias_row = bias ? bias + static_cast<size_t>(b) * skv : nullptr;
+  const float* bias_row = HAS_BIAS ? bias + static_cast<size_t>(b) * skv : nullptr;
+  const int nk = (skv + BK - 1) / BK;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int c = lane % 4;  // fragment column pair
-  const int wrow = warp * 16;
-
-  load_tile<DSLOT>(q_s, q + q_head, q0, sq, inner, d);
-  __syncthreads();
-
-  // q rows (wrow + g, wrow + g + 8) as A fragments, kept for the whole loop
-  uint32_t qf[kDSteps][4];
+  // kv tile t (K and V, DSLOT/64 panels each) into ring stage t % kStages
+  // by TMA; one thread issues it
+  auto issue_kv_tile = [&](int t) {
+    const int s = t % L::kStages;
+    const uint32_t full = base + L::kFull + 8 * s;
+    hopper::mbar_arrive_expect_tx(full, 2 * L::kKvTile);
 #pragma unroll
-  for (int ks = 0; ks < kDSteps; ++ks) {
-    const __nv_bfloat16* p = q_s + (wrow + g) * kStride + ks * 16 + 2 * c;
-    qf[ks][0] = ld_u32(p);
-    qf[ks][1] = ld_u32(p + 8 * kStride);
-    qf[ks][2] = ld_u32(p + 8);
-    qf[ks][3] = ld_u32(p + 8 * kStride + 8);
-  }
+    for (int p = 0; p < DSLOT / 64; ++p) {
+      const uint32_t off = s * L::kKvTile + p * BK * hopper::kSwizzleBytes;
+      hopper::tma_load_4d(base + L::kK + off, &k_map, full, 64 * p, h, t * BK, b);
+      hopper::tma_load_4d(base + L::kV + off, &v_map, full, 64 * p, h, t * BK, b);
+    }
+  };
 
-  float m_run[2] = {kNegInit, kNegInit};
-  float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
-  float acc[kDTiles][4];
+  // this warpgroup's 64 q rows (the K-major A operand)
+  const uint32_t q_rows = base + L::kQ + wg * 64 * hopper::kSwizzleBytes;
+  constexpr uint32_t kQPanel = L::kQRows * hopper::kSwizzleBytes;
+  constexpr uint32_t kKvPanel = BK * hopper::kSwizzleBytes;
+
+  // S = Q K^T of kv tile t, for 64 q rows x BK kv columns (asynchronous)
+  auto issue_scores = [&](float (&sc)[BK / 2], int t) {
+    const uint32_t k_tile = base + L::kK + (t % L::kStages) * L::kKvTile;
 #pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      Wgmma<BK>::ss(sc, hopper::desc_k_major(q_rows + (ks / 4) * kQPanel + (ks % 4) * 32),
+                    hopper::desc_k_major(k_tile + (ks / 4) * kKvPanel + (ks % 4) * 32),
+                    ks > 0);
+    }
+  };
 
-  const uint16_t* v_u16 = reinterpret_cast<const uint16_t*>(v_s);
-
-  for (int kv0 = 0; kv0 < skv; kv0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<DSLOT>(k_s, k + kv_head, kv0, skv, inner, d);
-    load_tile<DSLOT>(v_s, v + kv_head, kv0, skv, inner, d);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float s[kKTiles][4];
+  // O += bf16(P) V of kv tile t (asynchronous; V is a MN-major B)
+  auto issue_pv = [&](float (&acc)[DSLOT / 2], const uint32_t (&pa)[kKSteps][4], int t) {
+    const uint32_t v_tile = base + L::kV + (t % L::kStages) * L::kKvTile;
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      Wgmma<DSLOT>::rs(acc, pa[kk],
+                       hopper::desc_mn_major(v_tile + kk * 16 * hopper::kSwizzleBytes, kKvPanel),
+                       1);
+    }
+  };
+
+  const float scale_l2 = sm_scale * kLog2e;
+  float m_run[2] = {kNegInit, kNegInit};   // running max, log2 units
+  float l_run[2] = {0.f, 0.f};             // per-thread partial row sums
+
+  // The online softmax of kv tile t's scores (raw q.k in sc): the new
+  // running max and sum, P = exp(s*scale + bias - max) in sc (fp32), and
+  // alpha, the factor that rescales the earlier O.
+  auto softmax = [&](float (&sc)[BK / 2], int t, float (&alpha)[2]) {
+    const int kv0 = t * BK;
+    if (kv0 + BK > skv) {   // ragged last tile: -inf, exactly zero weight
 #pragma unroll
-      for (int ks = 0; ks < kDSteps; ++ks) {
-        const __nv_bfloat16* p = k_s + (nt * 8 + g) * kStride + ks * 16 + 2 * c;
-        mma_16816(s[nt], qf[ks], ld_u32(p), ld_u32(p + 8));
+      for (int i = 0; i < BK / 2; ++i) {
+        if (kv0 + 8 * (i / 4) + 2 * c + (i & 1) >= skv) sc[i] = __int_as_float(0xff800000);
       }
     }
-
-    // scale, bias, ragged-edge mask; running max over this tile
-    float mx[2] = {m_run[0], m_run[1]};
+    float mx[2];
+    if (HAS_BIAS) {
+      mx[0] = mx[1] = __int_as_float(0xff800000);
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
+      for (int j = 0; j < BK / 8; ++j) {
+        float bj[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nt * 8 + 2 * c + (e & 1);
-        float x = s[nt][e] * sm_scale;
-        if (col >= skv) {
-          x = __int_as_float(0xff800000);  // -inf: exactly zero weight
-        } else if (bias_row) {
-          x += bias_row[col];
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + 8 * j + 2 * c + e;
+          bj[e] = col < skv ? __ldg(bias_row + col) * kLog2e : 0.f;
         }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fmaf(sc[4 * j + e], scale_l2, bj[e & 1]);
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
+    } else {
+      // scale > 0: the max of the raw scores, scaled once per row
+      mx[0] = mx[1] = __int_as_float(0xff800000);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      mx[0] *= scale_l2;
+      mx[1] *= scale_l2;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(mx[r], m_run[r]);
+      alpha[r] = hopper::exp2_approx(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
     }
-    const float alpha[2] = {__expf(m_run[0] - mx[0]), __expf(m_run[1] - mx[1])};
-    m_run[0] = mx[0];
-    m_run[1] = mx[1];
-
     float rsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = p;
-        rsum[e >> 1] += p;
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = HAS_BIAS ? hopper::exp2_approx(sc[i] - mx[r])
+                               : hopper::exp2_approx(fmaf(sc[i], scale_l2, -mx[r]));
+      sc[i] = p;
+      rsum[r] += p;
     }
     l_run[0] = l_run[0] * alpha[0] + rsum[0];
     l_run[1] = l_run[1] * alpha[1] + rsum[1];
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
+  };
 
-    // O += P V: the score C fragments are re-used as A fragments
+  float acc[DSLOT / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int r0 = kk * 16 + 2 * c;
+  for (int i = 0; i < DSLOT / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];
+  uint32_t pa[kKSteps][4];
+  float alpha[2];
+
+  const int lead = nk < L::kStages ? nk : L::kStages;
+  if (tid == 0) {
 #pragma unroll
-      for (int nt = 0; nt < kDTiles; ++nt) {
-        const int n = nt * 8 + g;
-        const uint32_t b0 = static_cast<uint32_t>(v_u16[r0 * kStride + n]) |
-                            (static_cast<uint32_t>(v_u16[(r0 + 1) * kStride + n]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(v_u16[(r0 + 8) * kStride + n]) |
-                            (static_cast<uint32_t>(v_u16[(r0 + 9) * kStride + n]) << 16);
-        mma_16816(acc[nt], pa, b0, b1);
-      }
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(base + L::kFull + 8 * s, 1);
+      hopper::mbar_init(base + L::kEmpty + 8 * s, L::kThreads);
     }
+    hopper::mbar_init(base + L::kQBar, 1);
+    hopper::mbar_init_fence();
+    hopper::mbar_arrive_expect_tx(base + L::kQBar, L::kQTile);
+#pragma unroll
+    for (int p = 0; p < DSLOT / 64; ++p) {
+      hopper::tma_load_4d(base + L::kQ + p * L::kQRows * hopper::kSwizzleBytes, &q_map,
+                          base + L::kQBar, 64 * p, h, q0, b);
+    }
+    for (int t = 0; t < lead; ++t) issue_kv_tile(t);
   }
+  __syncthreads();   // the barriers are initialised
+  auto wait_tile = [&](int t) {
+    hopper::mbar_wait(base + L::kFull + 8 * (t % L::kStages), (t / L::kStages) & 1);
+  };
+  hopper::mbar_wait(base + L::kQBar, 0);
+  wait_tile(0);
+
+  // tile 0's scores and softmax; then each step t issues tile t+1's scores
+  // and tile t's P V, and runs tile t+1's softmax while P V runs; the last
+  // tile's P V follows the loop (no wgmma is issued under a condition)
+  hopper::wgmma_fence();
+  issue_scores(sc, 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  softmax(sc, 0, alpha);
+  hopper::acc_to_a<BK / 2>(pa, sc);
+
+  // rescale O by tile t's alpha, then O += P V (asynchronous). Once the
+  // running max settles, alpha is exactly 1 for a whole warp's rows and
+  // the multiplies are skipped (a product with 1 changes no bit).
+  auto rescale_and_issue_pv = [&](int t) {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DSLOT / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    hopper::wgmma_fence();
+    issue_pv(acc, pa, t);
+    hopper::wgmma_commit();
+  };
+  // tile t+1 landed; thread 0 refills the stage of tile t-1 once every
+  // thread has released it
+  auto next_tile = [&](int t) {
+    if (tid == 0 && t >= 1 && t - 1 + L::kStages < nk) {
+      const int s = (t - 1) % L::kStages;
+      hopper::mbar_wait(base + L::kEmpty + 8 * s, ((t - 1) / L::kStages) & 1);
+      issue_kv_tile(t - 1 + L::kStages);
+    }
+    wait_tile(t + 1);
+  };
+  // every thread is done with tile t's stage (K read by S(t), V by P V(t))
+  auto release_tile = [&](int t) {
+    hopper::mbar_arrive(base + L::kEmpty + 8 * (t % L::kStages));
+  };
+
+  for (int t = 0; t + 1 < nk; ++t) {
+    next_tile(t);
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+    issue_scores(sc, t + 1);
+    hopper::wgmma_commit();
+    rescale_and_issue_pv(t);
+    hopper::wgmma_wait<1>();   // the scores; P V may still run
+    hopper::fence_regs(sc);
+    softmax(sc, t + 1, alpha);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    release_tile(t);
+    hopper::acc_to_a<BK / 2>(pa, sc);
+  }
+  rescale_and_issue_pv(nk - 1);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::fence_regs(pa);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= sq) continue;
-    __nv_bfloat16* orow = o + q_head + static_cast<size_t>(rows[r]) * inner;
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    const float inv = 1.f / l_run[r];
+    __nv_bfloat16* orow = o + q_head + static_cast<size_t>(row) * inner;
 #pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-      const int col = nt * 8 + 2 * c;
+    for (int j = 0; j < DSLOT / 8; ++j) {
+      const int col = 8 * j + 2 * c;
       if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-            acc[nt][2 * r] * inv[r], acc[nt][2 * r + 1] * inv[r]);
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
       }
     }
     if (c == 0) {
-      lse[(static_cast<size_t>(b) * num_heads + h) * sq + rows[r]] =
-          m_run[r] + logf(l_run[r]);
+      lse[(static_cast<size_t>(b) * num_heads + h) * sq + row] =
+          m_run[r] * kLn2 + logf(l_run[r]);
     }
   }
 }
 
-template <int DSLOT>
+template <int DSLOT, bool HAS_BIAS>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* o, void* lse, int batch, int sq, int skv, int num_heads,
            int head_dim, float sm_scale, cudaStream_t stream) {
-  const size_t smem = Tile<DSLOT>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DSLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  flash_fwd_kernel<DSLOT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+  using L = FwdLayout<DSLOT>;
+  // the dynamic shared memory limit, set once per template instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<DSLOT, HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmemBytes));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap q_map, k_map, v_map;
+  if (!hopper::head_map(&q_map, q, batch, sq, num_heads, head_dim, L::kQRows) ||
+      !hopper::head_map(&k_map, k, batch, skv, num_heads, head_dim, kBlockK) ||
+      !hopper::head_map(&v_map, v, batch, skv, num_heads, head_dim, kBlockK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((sq + L::kQRows - 1) / L::kQRows, num_heads, batch);
+  flash_fwd_kernel<DSLOT, HAS_BIAS><<<grid, L::kThreads, L::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), sq, skv,
       num_heads, head_dim, sm_scale);
   return static_cast<int>(cudaGetLastError());
@@ -292,10 +374,11 @@ extern "C" int ot_flash_fwd(const void* q, const void* k, const void* v,
                             int sq, int skv, int num_heads, int head_dim,
                             float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim <= 64) {
-    return launch<64>(q, k, v, bias, o, lse, batch, sq, skv, num_heads,
-                      head_dim, sm_scale, s);
+  const bool slot64 = head_dim <= 64;
+  if (bias) {
+    return (slot64 ? launch<64, true> : launch<128, true>)(
+        q, k, v, bias, o, lse, batch, sq, skv, num_heads, head_dim, sm_scale, s);
   }
-  return launch<128>(q, k, v, bias, o, lse, batch, sq, skv, num_heads,
-                     head_dim, sm_scale, s);
+  return (slot64 ? launch<64, false> : launch<128, false>)(
+      q, k, v, bias, o, lse, batch, sq, skv, num_heads, head_dim, sm_scale, s);
 }

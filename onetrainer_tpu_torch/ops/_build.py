@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 The kernels are plain-C-interface `.cu` files under `csrc/`: K1
-(`flash_fwd.cu`), K2 and K3 (`flash_bwd.cu`), K4 (`nf4_dequant.cu`) and K5
-(`sr_update.cu`). At first use each source is compiled with `nvcc` for
-sm_90a into an object file, all at once in parallel processes, and the
-objects are linked into one shared library bound with `ctypes`. The
-library lands in `<repo>/build/`, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+(`flash_fwd.cu`), K2, K3 and K3's delta pre-pass (`flash_bwd.cu`), K4
+(`nf4_dequant.cu`) and K5 (`sr_update.cu`); `hopper_mma.cuh` holds the
+Hopper building blocks K1 and K3 share. At first use each `.cu` file is
+compiled with `nvcc` for sm_90a into an object file, all at once in
+parallel processes, and the objects are linked into one shared library
+bound with `ctypes`. The library lands in `<repo>/build/`, named by a hash
+of every file under `csrc/` (sources and headers) and the flags, so an
+edited source or header rebuilds and an unchanged tree is reused.
 Nothing here runs at import time: CPU-only installs (no nvcc) can import
 every module of the port.
 """
@@ -21,8 +23,7 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = tuple(_PKG / "csrc" / name for name in (
-    "flash_fwd.cu", "flash_bwd.cu", "nf4_dequant.cu", "sr_update.cu"))
+_CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,10 +42,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources() -> list[Path]:
+    """The `.cu` files that are compiled, one object each."""
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def hashed_files() -> list[Path]:
+    """Every file under `csrc/` whose bytes name the library."""
+    return sorted(p for p in _CSRC.rglob("*") if p.is_file())
+
+
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
+    for path in hashed_files():
+        digest.update(path.relative_to(_CSRC).as_posix().encode())
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libot_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -59,12 +71,13 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _SOURCES]
+    srcs = sources()
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in srcs]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(_SOURCES, objs)]
+             for src, obj in zip(srcs, objs)]
     reports = [(src.name, *proc.communicate(), proc.returncode)
-               for src, proc in zip(_SOURCES, procs)]
+               for src, proc in zip(srcs, procs)]
     log = "".join(f"== {name}\n{text}" for name, text, _, _ in reports)
     failed = [(name, text, rc) for name, text, _, rc in reports if rc != 0]
     tmp = out.with_name(f"{stem}.tmp.so")
@@ -97,6 +110,8 @@ def load_library() -> ctypes.CDLL:
         lib.ot_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [
             ctypes.c_float, ptr]
         lib.ot_flash_bwd_dq.restype = i32
+        lib.ot_flash_bwd_delta.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.ot_flash_bwd_delta.restype = i32
         lib.ot_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [
             ctypes.c_float, ptr]
         lib.ot_flash_bwd_dkv.restype = i32

@@ -10,7 +10,10 @@ function beside it:
 - `flash_attention_folded_dq` (K2, `csrc/flash_bwd.cu`) -> dq; plain
   version `flash_attention_folded_dq_reference`;
 - `flash_attention_folded_dkv` (K3, `csrc/flash_bwd.cu`) -> (dk, dv);
-  plain version `flash_attention_folded_dkv_reference`.
+  plain version `flash_attention_folded_dkv_reference`. It first launches
+  the pre-pass `flash_attention_folded_delta` (delta = rowsum(dO * O),
+  [B, H, Sq] fp32, once per call; plain version
+  `flash_attention_folded_delta_reference`), then K3 itself.
 
 `flash_attention_folded` ties them into a `torch.autograd.Function`: its
 forward runs K1 and saves (q, k, v, kv_keep, o, lse), its backward runs K2
@@ -81,15 +84,21 @@ def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep):
     """(P, dS) [B, H, Sq, Skv] fp32, dS rounded to k's dtype."""
     qf, kf, vf = (_heads(t, num_heads) for t in (q, k, v))
-    dof, of = _heads(do, num_heads), _heads(o, num_heads)
+    dof = _heads(do, num_heads)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
     if kv_keep is not None:
         s = s + _kv_bias(kv_keep)[:, None, None, :]
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    delta = (dof * of).sum(dim=-1, keepdim=True)
+    delta = flash_attention_folded_delta_reference(o, do, num_heads)[..., None]
     ds = (p * (dp - delta) * sm_scale).to(k.dtype).float()
     return p, ds
+
+
+def flash_attention_folded_delta_reference(o, do, num_heads: int) -> torch.Tensor:
+    """Plain delta [B, H, Sq] fp32: sum over the head dim of dO * O (the TPU
+    `_dkv_kernel`'s and `_dkv_stream_kernel`'s delta)."""
+    return (_heads(do, num_heads) * _heads(o, num_heads)).sum(dim=-1)
 
 
 def flash_attention_folded_dq_reference(
@@ -163,7 +172,10 @@ def _check_bwd_cuda(q, o, lse, do):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (the attention
+    steps are host-bound: `torch.cuda.current_stream` builds a Stream object
+    per call, about 5 us on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def flash_attention_folded_fwd(
@@ -234,11 +246,38 @@ def flash_attention_folded_dq(q, k, v, o, lse, do, num_heads: int, *,
 flash_attention_folded_dq.launches = 0
 
 
+def flash_attention_folded_delta(o, do, num_heads: int) -> torch.Tensor:
+    """delta [B, H, Sq] fp32 = rowsum(dO * O) per head, K3's pre-pass."""
+    if not o.is_cuda:
+        return flash_attention_folded_delta_reference(o, do, num_heads)
+    if do.shape != o.shape or o.dim() != 3 or o.shape[2] % num_heads:
+        raise ValueError(f"o and do must be one packed [B, Sq, H*d] shape, got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    d = o.shape[2] // num_heads
+    if d > _MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"head dim {d} unsupported (need d <= 128, d % 8 == 0)")
+    _check_operands(o=o, do=do)
+    from onetrainer_tpu_torch.ops._build import load_library
+
+    b, sq, _ = o.shape
+    delta = torch.empty((b, num_heads, sq), dtype=torch.float32, device=o.device)
+    rc = load_library().ot_flash_bwd_delta(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, num_heads, d, _stream(o))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_delta kernel launch failed: cudaError {rc}")
+    flash_attention_folded_delta.launches += 1
+    return delta
+
+
+flash_attention_folded_delta.launches = 0
+
+
 def flash_attention_folded_dkv(
         q, k, v, o, lse, do, num_heads: int, *, sm_scale: float,
         kv_keep: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [B, Skv, H*d] of flash attention over folded tensors."""
+    """(dk, dv) [B, Skv, H*d] of flash attention over folded tensors: the
+    delta pre-pass, then K3."""
     _check(q, k, v, num_heads, kv_keep)
     if not q.is_cuda:
         return flash_attention_folded_dkv_reference(
@@ -248,11 +287,12 @@ def flash_attention_folded_dkv(
     from onetrainer_tpu_torch.ops._build import load_library
 
     b, sq, inner = q.shape
+    delta = flash_attention_folded_delta(o, do, num_heads)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bias = _kv_bias(kv_keep) if kv_keep is not None else None
     rc = load_library().ot_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), bias.data_ptr() if bias is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), bias.data_ptr() if bias is not None else None,
         dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], num_heads,
         inner // num_heads, float(sm_scale), _stream(q))
     if rc != 0:
@@ -265,9 +305,9 @@ flash_attention_folded_dkv.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counters of K1, K2 and K3."""
+    """Zero the launch counters of K1, K2, K3 and K3's pre-pass."""
     for fn in (flash_attention_folded_fwd, flash_attention_folded_dq,
-               flash_attention_folded_dkv):
+               flash_attention_folded_dkv, flash_attention_folded_delta):
         fn.launches = 0
 
 

@@ -1,6 +1,10 @@
-"""The port's CUDA kernels (K1 forward, K2 dq, K3 dk/dv, K4 NF4 dequant, K5
-stochastic-rounding update) against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels (K1 forward, K2 dq, K3 dk/dv and its delta
+pre-pass, K4 NF4 dequant, K5 stochastic-rounding update) against their plain
+PyTorch versions, on the card. The attention cases include tile edges of K1
+and K3 (128-row blocks, 64- or 128-row streamed tiles): sequences shorter
+than one tile, lengths that are no multiple of 128, and head dims 40 and 80,
+whose slot lanes past d would read the neighbouring head's (random) values
+if the copies did not zero them.
 
 Needs a CUDA device and nvcc; every test here skips without one. This file
 imports no JAX, so it runs on a machine that has only torch; --noconftest
@@ -33,6 +37,10 @@ def cuda_device():
     (2, 1024, 1024, 20, 64, False),
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 128, True),
+    (1, 50, 77, 3, 40, True),       # both below one tile
+    (1, 77, 50, 3, 80, False),
+    (2, 200, 130, 2, 80, True),
+    (2, 129, 300, 2, 128, True),
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
                                               with_keep):
@@ -66,6 +74,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 80, True),
     (1, 8192, 8192, 2, 128, False),   # the TPU's q-streaming dk/dv domain
+    (1, 50, 77, 3, 40, True),         # both below one tile
+    (1, 77, 50, 3, 80, False),
+    (2, 200, 130, 2, 80, True),
+    (2, 129, 300, 2, 128, True),
 ])
 def test_backward_kernels_match_plain_versions_on_card(cuda_device, b, sq, skv, h, d,
                                                        with_keep):
@@ -115,9 +127,49 @@ def test_autograd_function_launches_k1_to_k3_on_card(cuda_device):
     torch.cuda.synchronize()
     assert (pt_ff.flash_attention_folded_fwd.launches,
             pt_ff.flash_attention_folded_dq.launches,
-            pt_ff.flash_attention_folded_dkv.launches) == (1, 1, 1)
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (1, 1, 1, 1)
     assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
                for g in grads)
+
+
+def _bwd_inputs(device, seed, b, sq, skv, h, d):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(s):
+        return torch.randn((b, s, h * d), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v, do = rand(sq), rand(skv), rand(skv), rand(sq)
+    o, lse = pt_ff.flash_attention_folded_reference(q, k, v, h, sm_scale=d ** -0.5)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,d", [(2, 4096, 10, 64), (1, 50, 3, 40),
+                                      (2, 300, 2, 80), (1, 129, 4, 128)])
+def test_delta_prepass_matches_plain_version_on_card(cuda_device, b, sq, h, d):
+    _, _, _, o, _, do = _bwd_inputs(cuda_device, 6, b, sq, sq, h, d)
+    before = pt_ff.flash_attention_folded_delta.launches
+    delta = pt_ff.flash_attention_folded_delta(o, do, h)
+    ref = pt_ff.flash_attention_folded_delta_reference(o, do, h)
+    torch.cuda.synchronize()
+    assert pt_ff.flash_attention_folded_delta.launches == before + 1
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, sq)
+    # fp32 sums of the same bf16 products, at most 128 terms in another order
+    assert (delta - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d", [(2, 1024, 1024, 4, 64), (1, 300, 77, 2, 40),
+                                          (1, 1000, 777, 2, 128)])
+def test_dkv_is_bitwise_deterministic_on_card(cuda_device, b, sq, skv, h, d):
+    """K3 sums over q tiles in a fixed order, with no atomics: two runs on
+    the same inputs give the same bits."""
+    args = (*_bwd_inputs(cuda_device, 7, b, sq, skv, h, d), h)
+    dk, dv = pt_ff.flash_attention_folded_dkv(*args, sm_scale=d ** -0.5)
+    dk2, dv2 = pt_ff.flash_attention_folded_dkv(*args, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dk.view(torch.int16), dk2.view(torch.int16))
+    assert torch.equal(dv.view(torch.int16), dv2.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -116,11 +116,38 @@ def test_cpu_backward_counts_no_launch():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(3, 1, 64, 64, 2 * 64))
     q.requires_grad_()
     before = (pt_ff.flash_attention_folded_dq.launches,
-              pt_ff.flash_attention_folded_dkv.launches)
+              pt_ff.flash_attention_folded_dkv.launches,
+              pt_ff.flash_attention_folded_delta.launches)
     out = pt_ff.flash_attention_folded(q, k, v, 2, sm_scale=0.125)
     torch.autograd.grad(out, q, do)
     assert (pt_ff.flash_attention_folded_dq.launches,
-            pt_ff.flash_attention_folded_dkv.launches) == before
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == before
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_delta_reference_matches_jax_formula(d):
+    """K3's pre-pass computes the delta that the JAX `_dkv_kernel` and
+    `_dkv_stream_kernel` compute per head slice:
+    jnp.sum(do.astype(f32) * o.astype(f32), axis=1). Inputs are bf16 (the
+    kernels' operand type); both sides sum fp32 products, in another order:
+    1e-5 relative, 1e-5 absolute."""
+    b, sq, nh = 2, 77, 3
+    rng = np.random.default_rng(d)
+    o, do = (rng.standard_normal((b, sq, nh * d), dtype=np.float32) for _ in range(2))
+    jo, jdo = jnp.asarray(o, jnp.bfloat16), jnp.asarray(do, jnp.bfloat16)
+    ref = np.stack([np.stack([np.asarray(
+        jnp.sum(jdo[i, :, j * d:(j + 1) * d].astype(jnp.float32)
+                * jo[i, :, j * d:(j + 1) * d].astype(jnp.float32), axis=1))
+        for j in range(nh)]) for i in range(b)])                     # [B, H, Sq]
+    to, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (o, do))
+    before = pt_ff.flash_attention_folded_delta.launches
+    got = pt_ff.flash_attention_folded_delta(to, tdo, nh)
+    assert pt_ff.flash_attention_folded_delta.launches == before   # CPU: plain
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, nh, sq)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        got.numpy(), pt_ff.flash_attention_folded_delta_reference(to, tdo, nh).numpy())
 
 
 def _set_jax_force_flash(monkeypatch, d):
