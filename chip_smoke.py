@@ -15,13 +15,15 @@ never falls back to the CPU. Phases, each of which must pass:
      max |do| and |dlse| against stated bounds, median times of both and
      of PyTorch's flash SDPA forward at the SDXL shapes, K1's share of its
      bound and its ratio to SDPA;
-  3. K2 and K3 against their plain versions in bf16: the two SDXL shapes,
-     head dims 40/80/128, ragged Sq/Skv with the kv keep mask, and 8192
-     tokens at d=128 (the TPU's streaming dk/dv domain); max |ddq|,
-     |ddk|, |ddv| and relative L2 against stated bounds, K3's delta
-     pre-pass against its plain version, K3 bitwise equal across two runs,
-     median times of the kernels, the plain versions and PyTorch's flash
-     SDPA backward, K3's share of its bound and its ratio to SDPA;
+  3. K2 and K3, on the delta of their shared pre-pass, against their plain
+     versions in bf16: the two SDXL shapes, head dims 40/80/128, ragged
+     Sq/Skv with the kv keep mask, and 8192 tokens at d=128 (the TPU's
+     streaming dk/dv domain); max |ddq|, |ddk|, |ddv| and relative L2
+     against stated bounds, the pre-pass against its plain version, K2 and
+     K3 each bitwise equal across two runs; median times of K2 alone, K3
+     alone, the pre-pass, the whole backward (pre-pass + K2 + K3), the
+     plain versions and PyTorch's flash SDPA backward, K2's device time
+     from the profiler, each kernel's share of its bound;
   4. one full-width SDXL UNet forward (128x128 latent, CFG batch 2) with
      K1 and with plain attention: relative L2 difference of the outputs;
   5. full-width SDXL text-to-image through the family registry
@@ -47,11 +49,15 @@ never falls back to the CPU. Phases, each of which must pass:
      neighbours of p + u, exact where p + u is representable, mean error
      within 5 sigma of 0 and up-rounding rate within 5 sigma of 1/4 for
      p = 1, u = 2^-9, one seed one output and another seed another;
-     median times;
+     median times; then one launch over the QLoRA step's 1588 adapter
+     tensors (bf16 p and u, out = p), bit for bit against the plain
+     rounding of every leaf, its device time against its byte bound and
+     the wrapper's host time per call;
   9. QLoRA: the training step of phase 6 on a UNet loaded in bf16 and
      quantized to NF4, with bf16 adapters and stochastic rounding: one
      warm-up and three timed steps with exact K1-K5 (and pre-pass)
-     launch counts per step, the LoRA gradients with K4 against the plain dequant, and a
+     launch counts per step (K5 once), its adapters of the shapes phase 8
+     rounds, the LoRA gradients with K4 against the plain dequant, and a
      torch.profiler split of one more step;
  10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
      (the reference's bench.py headline stage): three timed steps, finite.
@@ -83,10 +89,10 @@ LSE_BOUND = 1e-3
 # |dk|, |dv| are only 0.2-0.3 (a typical element ~0.03), so an absolute
 # bound would not catch a wrong kernel. Both sides round dS and P to bf16
 # before their products and the results to bf16 (relative 2^-9); the
-# kernels sum S, dP and the products in another order (mma.sync fp32
-# fragments vs one fp32 matmul), so an element can round across one bf16
-# step: up to 0.34% of max|ref| measured. Most elements round alike on
-# both sides, so the relative L2 difference is small: 1.2e-4 to 2.9e-4
+# kernels sum S, dP and the products in another order (wgmma fp32
+# accumulators vs one fp32 matmul), so an element can round across one bf16
+# step: up to 0.40% of max|ref| measured. Most elements round alike on
+# both sides, so the relative L2 difference is small: 1.3e-4 to 3.0e-4
 # measured over these cases on an H100. Bounds: max error 2% of max|ref|,
 # relative L2 2e-3 over the tensor
 DGRAD_MAX_REL = 2e-2
@@ -207,15 +213,20 @@ def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 def _attn_bounds(b, sq, skv, h, d) -> dict:
     """bound_ms of K1, K2, K3 at one shape: FLOPs 4/6/8 * B*H*Sq*Skv*d
     (the TPU kernels' cost estimates); bytes: each bf16 [B, S, H*d] input
-    read once and output written once, lse fp32 [B, H, Sq]. K3's pre-pass
-    reads o and dO and writes delta [B, H, Sq] fp32 (2 FLOPs per lane)."""
+    read once and output written once, lse and delta fp32 [B, H, Sq]. K1
+    reads q, k, v and writes o, lse; K2 reads q, dO, k, v, lse, delta and
+    writes dq; K3 reads q, dO, k, v, lse, delta and writes dk, dv. The
+    pre-pass reads o and dO and writes delta (2 FLOPs per lane). The whole
+    backward reads q, k, v, o, dO, lse and writes dq, dk, dv."""
     q_bytes, kv_bytes, lse_bytes = 2 * b * sq * h * d, 2 * b * skv * h * d, 4 * b * h * sq
     work = b * h * sq * skv * d
     return {
         "K1": _bound_ms(4 * work, 2 * q_bytes + 2 * kv_bytes + lse_bytes),
-        "K2": _bound_ms(6 * work, 4 * q_bytes + 2 * kv_bytes + lse_bytes),
-        "K3": _bound_ms(8 * work, 3 * q_bytes + 4 * kv_bytes + lse_bytes),
+        "K2": _bound_ms(6 * work, 3 * q_bytes + 2 * kv_bytes + 2 * lse_bytes),
+        "K3": _bound_ms(8 * work, 2 * q_bytes + 4 * kv_bytes + 2 * lse_bytes),
         "delta": _bound_ms(2 * b * sq * h * d, 2 * q_bytes + lse_bytes),
+        "bwd": _bound_ms(14 * work + 2 * b * sq * h * d,
+                         4 * q_bytes + 4 * kv_bytes + lse_bytes),
     }
 
 
@@ -322,18 +333,22 @@ def phase_k23_cases(torch) -> dict:
         o, lse = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
         args = (q, k, v, o, lse, do, h)
         kw = dict(sm_scale=scale, kv_keep=keep)
-        dq = ff.flash_attention_folded_dq(*args, **kw)
-        dk, dv = ff.flash_attention_folded_dkv(*args, **kw)
-        dk2, dv2 = ff.flash_attention_folded_dkv(*args, **kw)
+        # K2 and K3 on the pre-pass's delta, as the autograd backward runs them
         delta = ff.flash_attention_folded_delta(o, do, h)
+        dkw = dict(kw, delta=delta)
+        dq = ff.flash_attention_folded_dq(*args, **dkw)
+        dq2 = ff.flash_attention_folded_dq(*args, **dkw)
+        dk, dv = ff.flash_attention_folded_dkv(*args, **dkw)
+        dk2, dv2 = ff.flash_attention_folded_dkv(*args, **dkw)
         dq_ref = ff.flash_attention_folded_dq_reference(*args, **kw)
         dk_ref, dv_ref = ff.flash_attention_folded_dkv_reference(*args, **kw)
         delta_ref = ff.flash_attention_folded_delta_reference(o, do, h)
         torch.cuda.synchronize()
-        deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        k2_same = bool(torch.equal(dq, dq2))
+        k3_same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
         err_delta = (delta - delta_ref).abs().max().item()
         delta_scale = delta_ref.abs().max().item()
-        del dk2, dv2
+        del dq2, dk2, dv2
         errs, scales, rels = {}, {}, {}
         for n, a, r in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
             diff = a.float() - r.float()
@@ -342,9 +357,17 @@ def phase_k23_cases(torch) -> dict:
             rels[n] = (diff.norm() / r.float().norm()).item()
         finite = all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv))
         del dq_ref, dk_ref, dv_ref
-        k2_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **kw))
-        k3_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv(*args, **kw))
+
+        def backward():
+            dl = ff.flash_attention_folded_delta(o, do, h)
+            ff.flash_attention_folded_dq(*args, **kw, delta=dl)
+            ff.flash_attention_folded_dkv(*args, **kw, delta=dl)
+        k2_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **dkw))
+        k3_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv(*args, **dkw))
         delta_ms = _median_ms(torch, lambda: ff.flash_attention_folded_delta(o, do, h))
+        bwd_ms = _median_ms(torch, backward)
+        k2_device_ms = _device_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **dkw),
+                                  "flash_bwd_dq_kernel")
         plain_delta_ms = _median_ms(
             torch, lambda: ff.flash_attention_folded_delta_reference(o, do, h), reps=5)
         plain_dq_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq_reference(
@@ -361,29 +384,31 @@ def phase_k23_cases(torch) -> dict:
                 out4, (q4, k4, v4), do4, retain_graph=True))
         ok = finite and all(errs[n] <= DGRAD_MAX_REL * scales[n]
                             and rels[n] <= DGRAD_REL_L2 for n in errs)
-        ok = ok and deterministic and err_delta <= DELTA_MAX_REL * delta_scale
-        results[name] = dict(errs=errs, k2_ms=k2_ms, k3_ms=k3_ms,
+        ok = ok and k2_same and k3_same and err_delta <= DELTA_MAX_REL * delta_scale
+        results[name] = dict(errs=errs, k2_ms=k2_ms, k3_ms=k3_ms, bwd_ms=bwd_ms,
+                             k2_device_ms=k2_device_ms,
                              plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
                              library_ms=library_ms, err_delta=err_delta,
                              delta_ms=delta_ms, plain_delta_ms=plain_delta_ms)
-        lib = "" if library_ms is None else \
-            f" SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms (K3 / SDPA " \
-            f"{k3_ms / library_ms:.3f})"
         bounds = _attn_bounds(b, sq, skv, h, d)
+
+        def share(tag, ms):
+            return (f"least time {bounds[tag][0]:.4f} ms, {bounds[tag][1]}; "
+                    f"{100 * bounds[tag][0] / ms:.1f}% of it")
+        lib = "" if library_ms is None else \
+            f"; SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms (whole backward / SDPA " \
+            f"{bwd_ms / library_ms:.3f})"
         print(f"[k23] {name}: " + " ".join(
                   f"max|d{n}|={errs[n]:.3e} (bound {DGRAD_MAX_REL:g} x max|{n}| "
                   f"{scales[n]:.3e}) rel L2 {rels[n]:.3e} (bound {DGRAD_REL_L2:g})"
-                  for n in errs) + " "
-              f"K2 {k2_ms:.4f} ms (plain {plain_dq_ms:.4f} ms, least time "
-              f"{bounds['K2'][0]:.4f} ms, {bounds['K2'][1]}) "
-              f"K3 {k3_ms:.4f} ms with its pre-pass (plain {plain_dkv_ms:.4f} ms, "
-              f"least time {bounds['K3'][0]:.4f} ms, {bounds['K3'][1]}; "
-              f"{100 * bounds['K3'][0] / k3_ms:.1f}% of it){lib}; "
-              f"pre-pass max|ddelta|={err_delta:.3e} (bound {DELTA_MAX_REL:g} x "
-              f"max|delta| {delta_scale:.3e}) {delta_ms:.4f} ms (plain "
-              f"{plain_delta_ms:.4f} ms, least time {bounds['delta'][0]:.4f} ms, "
-              f"{bounds['delta'][1]}); K3 bitwise equal across two runs "
-              f"{deterministic} {'ok' if ok else 'FAIL'}")
+                  for n in errs) + "; "
+              f"K2 {k2_ms:.4f} ms, device {k2_device_ms:.4f} ms (plain {plain_dq_ms:.4f} ms, "
+              f"{share('K2', k2_ms)}); K3 {k3_ms:.4f} ms (plain {plain_dkv_ms:.4f} ms, "
+              f"{share('K3', k3_ms)}); pre-pass max|ddelta|={err_delta:.3e} (bound "
+              f"{DELTA_MAX_REL:g} x max|delta| {delta_scale:.3e}) {delta_ms:.4f} ms (plain "
+              f"{plain_delta_ms:.4f} ms, {share('delta', delta_ms)}); whole backward "
+              f"{bwd_ms:.4f} ms ({share('bwd', bwd_ms)}){lib}; bitwise equal across two "
+              f"runs K2 {k2_same} K3 {k3_same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2/K3 case {name} disagrees with the plain versions")
     return results
@@ -442,8 +467,19 @@ def _bf16_neighbours(torch, s):
     return low, low + 0x10000
 
 
+def _qlora_adapter_shapes(torch) -> list:
+    """The shapes of the SDXL QLoRA step's adapter tensors (LoRA rank 16 on
+    every UNet dense and conv layer), from a UNet built on "meta"."""
+    from onetrainer_tpu_torch.models.unet import UNet2DCondition, sdxl_unet_config
+    from onetrainer_tpu_torch.peft.lora import PeftConfig, adapter_shapes
+    with torch.device("meta"):
+        unet = UNet2DCondition(sdxl_unet_config())
+    return [shape for entry in adapter_shapes(unet, PeftConfig(rank=16)).values()
+            for shape in entry.values()]
+
+
 def phase_k5(torch) -> dict:
-    from onetrainer_tpu_torch.ops.sr_update import sr_update
+    from onetrainer_tpu_torch.ops.sr_update import sr_update, sr_update_leaves
     from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
     gen = torch.Generator(device="cuda").manual_seed(55)
     # a seed with both 32-bit halves set and the sign bit: the key layout
@@ -517,13 +553,57 @@ def phase_k5(torch) -> dict:
           f"wrapper, events), plain {plain_ms:.4f} ms, least time {bound_ms:.4f} ms "
           f"({bound_by}, 6 bytes per element), no single PyTorch call "
           f"{'ok' if ok else 'FAIL'}")
+
+    # one launch over the QLoRA step's adapter set, as the step runs it:
+    # bf16 p and u, out = p, a seed per leaf
+    shapes = _qlora_adapter_shapes(torch)
+    ps = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+    us = [(torch.randn(s, generator=gen, device="cuda") * 1e-4).to(torch.bfloat16)
+          for s in shapes]
+    seeds = torch.empty(len(shapes), dtype=torch.int64, device="cuda")
+    seeds.random_(generator=gen)
+    n_el = sum(p.numel() for p in ps)
+    before = sr_update_leaves.launches
+    outs = sr_update_leaves(ps, us, seeds)
+    launches = sr_update_leaves.launches - before
+    same = True
+    for i, (p, u, out) in enumerate(zip(ps, us, outs)):
+        ref = plain(p, u, seeds[i:i + 1])
+        same = same and bool(torch.equal(out.view(torch.int16), ref.view(torch.int16)))
+        max_err = max(max_err, (out.float() - ref.float()).abs().max().item())
+    del outs
+    list_ok = same and launches == 1
+    ok = ok and list_ok
+    list_ms = _device_ms(torch, lambda: sr_update_leaves(ps, us, seeds, outs=ps),
+                         "sr_update_kernel")
+    list_call_ms = _median_ms(torch, lambda: sr_update_leaves(ps, us, seeds, outs=ps))
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sr_update_leaves(ps, us, seeds, outs=ps)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    list_host_ms = statistics.median(host)
+    list_plain_ms = _median_ms(torch, lambda: [
+        p.copy_(plain(p, u, seeds[i:i + 1])) for i, (p, u) in enumerate(zip(ps, us))], reps=3)
+    list_bound = _bound_ms(0.0, 6 * n_el)
+    print(f"[k5] QLoRA adapter set: {len(shapes)} bf16 tensors, {n_el} elements, bf16 u, "
+          f"out = p: {launches} launch, bitwise equal to the plain rounding of every leaf "
+          f"{same}; kernel {list_ms:.4f} ms of device time ({list_call_ms:.4f} ms per call "
+          f"with the wrapper, events; wrapper host time {list_host_ms:.4f} ms per call), "
+          f"plain {list_plain_ms:.4f} ms, least time {list_bound[0]:.4f} ms ({list_bound[1]}, "
+          f"6 bytes per element; {100 * list_bound[0] / list_ms:.1f}% of it) "
+          f"{'ok' if list_ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K5 differs from the plain rounding or fails a property "
                              "of stochastic rounding")
     print(f"[k5] max |K5 - plain| {max_err:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=max_err, shape=shape, ms_fp32_u=ms_fp32_u, plain_fp32_u=plain_fp32_u,
-                bound_fp32_u=bound_fp32_u[0])
+                bound_fp32_u=bound_fp32_u[0], list_ms=list_ms, list_call_ms=list_call_ms,
+                list_host_ms=list_host_ms, list_plain_ms=list_plain_ms,
+                list_bound_ms=list_bound[0], list_bound_by=list_bound[1],
+                n_leaves=len(shapes), n_elements=n_el)
 
 
 def _plain_attention(ff):
@@ -601,10 +681,10 @@ def phase_unet(torch, model):
 def _kernel_wrappers() -> dict:
     from onetrainer_tpu_torch.ops import flash_folded as ff
     from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_flat
-    from onetrainer_tpu_torch.ops.sr_update import sr_update
+    from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
     return {"K1": ff.flash_attention_folded_fwd, "K2": ff.flash_attention_folded_dq,
             "K3": ff.flash_attention_folded_dkv, "K3pre": ff.flash_attention_folded_delta,
-            "K4": nf4_dequant_flat, "K5": sr_update}
+            "K4": nf4_dequant_flat, "K5": sr_update_leaves}
 
 
 def _reset_launch_counts() -> None:
@@ -855,18 +935,22 @@ def phase_qlora(torch) -> dict:
     run = _setup_and_steps(torch, model, config, "qlora")
     setup, batch = run["setup"], run["batch"]
     n_quant, n_in_blocks = _quantized_layers(torch, model.unet)
-    n_tensors = sum(len(e) for e in setup.state.params["unet_lora"].values())
+    shapes = [tuple(t.shape) for e in setup.state.params["unet_lora"].values()
+              for t in e.values()]
+    k5_shapes = _qlora_adapter_shapes(torch)
+    n_tensors = len(shapes)
     nf4_bytes = sum(w.q.numel() + 4 * w.scales.numel() for m in model.unet.modules()
                     if quant.is_quantized(w := getattr(m, "weight", None)))
     n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
     expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
-                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS * n_tensors}
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS}
     print(f"[qlora] UNet NF4: {n_quant} quantized layers ({n_in_blocks} inside "
           f"transformer blocks), {nf4_bytes / 2 ** 30:.3f} GiB of codes and scales; "
           f"{n_tensors} bf16 adapter tensors; per step K1 {2 * SELF_ATTN_PER_UNET_PASS}, "
           f"K2 {SELF_ATTN_PER_UNET_PASS}, K3 {SELF_ATTN_PER_UNET_PASS}, "
           f"K3's pre-pass {SELF_ATTN_PER_UNET_PASS}, "
-          f"K4 {n_quant + n_in_blocks}, K5 {n_tensors} launches expected")
+          f"K4 {n_quant + n_in_blocks}, K5 1 launches expected; adapter shapes those "
+          f"phase k5 rounds {shapes == k5_shapes}")
 
     # one step's LoRA gradients with K4 against the plain dequant
     draws = _fixed_draws(torch, batch)
@@ -883,7 +967,7 @@ def phase_qlora(torch) -> dict:
     print(f"[qlora] LoRA gradients, K4 vs plain dequant: rel L2 {rel:.3e} (bound "
           f"{QLORA_GRAD_REL_L2_BOUND:g}; K4 against itself {noise:.3e}) over "
           f"{g_kernel.numel()} values")
-    ok = (run["finite"] and grads_finite and run["up_max"] > 0
+    ok = (run["finite"] and grads_finite and run["up_max"] > 0 and shapes == k5_shapes
           and run["launches"] == expected and rel <= QLORA_GRAD_REL_L2_BOUND)
     print(f"[qlora] launches {run['launches']} (expected {expected}) "
           f"{'ok' if ok else 'FAIL'}")
@@ -986,11 +1070,11 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
          "onetrainer_tpu/ops/flash_folded.py:93", "train",
          max(c["err_o"] for c in k1.values()), k1[head]["ms"], k1[head]["plain_ms"],
          *bounds["K1"], k1[head]["library_ms"], head),
-        ("flash_attention_folded_dq (K2)", "K2", "flash_bwd.cu",
+        ("flash_attention_folded_dq (K2, delta given)", "K2", "flash_bwd.cu",
          "onetrainer_tpu/ops/flash_folded.py:196", "train",
          max(c["errs"]["dq"] for c in k23.values()), k23[head]["k2_ms"],
          k23[head]["plain_dq_ms"], *bounds["K2"], k23[head]["library_ms"], head),
-        ("flash_attention_folded_dkv (K3, its pre-pass included)", "K3", "flash_bwd.cu",
+        ("flash_attention_folded_dkv (K3, delta given)", "K3", "flash_bwd.cu",
          "onetrainer_tpu/ops/flash_folded.py:248", "train",
          max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
          k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], *bounds["K3"],
@@ -1003,10 +1087,10 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
          max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
          k4[ff]["plain_ms"], k4[ff]["bound_ms"], k4[ff]["bound_by"], None, ff),
-        ("sr_update (K5)", "K5", "sr_update.cu",
-         "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["ms"],
-         k5["plain_ms"], k5["bound_ms"], k5["bound_by"], None,
-         "x".join(map(str, k5["shape"]))),
+        ("sr_update_leaves (K5, one launch per step)", "K5", "sr_update.cu",
+         "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["list_ms"],
+         k5["list_plain_ms"], k5["list_bound_ms"], k5["list_bound_by"], None,
+         f"{k5['n_leaves']} QLoRA adapter tensors, {k5['n_elements']} elements"),
     ]
     kernels = []
     for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,

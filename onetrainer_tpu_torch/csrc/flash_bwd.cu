@@ -3,8 +3,10 @@
 //
 // Replaces, in onetrainer_tpu/ops/flash_folded.py (all launched by `_bwd`):
 //   K2  _dq_kernel          (:196, launch :401)  -> flash_bwd_dq_kernel
-//   K3a _dkv_kernel         (:248, launch :447)  -> flash_bwd_delta_kernel
-//   K3b _dkv_stream_kernel  (:305, launch :494)     + flash_bwd_dkv_kernel
+//   K3a _dkv_kernel         (:248, launch :447)  -> flash_bwd_dkv_kernel
+//   K3b _dkv_stream_kernel  (:305, launch :494)     (one kernel for both)
+// Each TPU kernel recomputes delta per block; here flash_bwd_delta_kernel
+// writes delta [B, H, Sq] once per backward, and K2 and K3 read it.
 // It computes the same function as the TPU kernels, not the same blocks.
 // With S = q k^T * sm_scale + bias[b, j], P = exp(S - lse) (lse saved by
 // the forward, csrc/flash_fwd.cu), delta_i = sum_d dO[i, d] * O[i, d]:
@@ -19,16 +21,27 @@
 // 64- or 128-wide slot whose lanes past d are zero-filled on load; ragged
 // Sq/Skv are masked in the kernel.
 //
-// K2 (mma.sync m16n8k16 bf16 -> fp32): grid (ceil(Sq/64), H, B), 4 warps x
-// 16 q rows. q and dO rows stay in shared memory; the block loops over kv
-// tiles (32 rows in the 128 slot) and keeps dq in fp32 registers. delta
-// comes from the block's own dO and O rows. Bound by tensor-core FLOPs:
-// 6*B*H*Sq*Skv*d. Left for later: wgmma and pipelined tile copies.
+// K2: grid (ceil(Sq/128), H, B), 256 threads = two warpgroups of 64 q rows
+// each. Bound by tensor-core FLOPs: 6*B*H*Sq*Skv*d (S = q k^T, dP = dO v^T,
+// dq = dS k) against ~5 bf16 [B, S, H*d] tensors of traffic, far above the
+// H100's ~295 FLOP/byte ridge at SDXL's S = 1024 and 4096, d = 64. So the
+// design feeds the tensor cores: TMA copies the block's q and dO rows once
+// into 128-byte-swizzled panels, and K and V tiles of 64 kv rows stream
+// through a 4-stage TMA ring on mbarriers, refilled by one thread once all
+// 256 threads have released a stage (no block barrier in the loop, the
+// warpgroups drift apart and one's exponentials overlap the other's
+// products). Per kv tile each warpgroup issues S = q K^T and dP = dO V^T as
+// wgmma from shared memory, forms P = exp2(S*scale*log2e + bias - lse) and
+// dS = P (dP - delta) * scale in registers (bias read once per column, kv
+// columns past Skv get P = 0), packs dS to bf16 and feeds it as the register
+// A operand of dq += dS K, K being the MN-major B (the same tile that served
+// S as a K-major B). The next tile's S and dP are issued with this tile's
+// dq product, and its dS formed while dq runs. delta comes from
+// flash_bwd_delta_kernel, shared with K3; lse and delta of a thread's two
+// rows sit in registers. No atomics: dq sums over kv tiles in a fixed order
+// (deterministic).
 //
-// K3 is two launches:
-// - flash_bwd_delta_kernel computes delta [B, H, Sq] once (the TPU kernels
-//   recompute it for every kv block);
-// - flash_bwd_dkv_kernel: grid (ceil(Skv/128), H, B), 256 threads = two
+// K3, flash_bwd_dkv_kernel: grid (ceil(Skv/128), H, B), 256 threads = two
 //   warpgroups of 64 kv rows each. K and V rows stay in swizzled shared
 //   memory; q, dO, lse and delta tiles of 64 q rows stream through a
 //   4-stage TMA ring (csrc/hopper_mma.cuh) that completes on mbarriers, so
@@ -61,260 +74,268 @@
 
 namespace {
 
-constexpr int kRows = 64;       // K2: q rows per block
-constexpr int kThreads = 128;   // K2: 4 warps x 16 rows
-
-template <int DSLOT>
-struct Slot {
-  static constexpr int kStride = DSLOT + 8;     // +8 bf16 keeps banks apart
-  static constexpr int kInner = DSLOT == 128 ? 32 : 64;   // inner tile rows
-  static constexpr size_t kSmemBytes =
-      static_cast<size_t>(2 * kRows + 2 * kInner) * kStride * sizeof(__nv_bfloat16) +
-      2 * kInner * sizeof(float);
-};
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + nrows_tile) x lanes [0, DSLOT) of one head into
-// shared memory, 16 bytes per thread per step; rows >= nrows and lanes >= d
-// are zero-filled.
-template <int DSLOT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, int nrows_tile,
-                                          const __nv_bfloat16* head_base,
-                                          int row0, int nrows, int row_stride,
-                                          int d) {
-  constexpr int kChunks = DSLOT / 8;
-  for (int idx = threadIdx.x; idx < nrows_tile * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int col = (idx % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows && col < d) {
-      val = *reinterpret_cast<const uint4*>(
-          head_base + static_cast<size_t>(row) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(smem + r * Slot<DSLOT>::kStride + col) = val;
-  }
-}
-
-// A fragment (m16 x k16, row-major) of rows [row0, row0 + 16), k-step ks.
-template <int DSLOT>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
-                                       int row0, int ks, int g, int c) {
-  constexpr int kStride = Slot<DSLOT>::kStride;
-  const __nv_bfloat16* p = s + (row0 + g) * kStride + ks * 16 + 2 * c;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * kStride);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * kStride + 8);
-}
-
-// acc[nt] += X[rows] . Y[nt*8 .. nt*8+8)^T over the head dim, where X rows
-// (16 per warp, from row0) and Y rows live in shared memory as [row][d].
-template <int DSLOT, int NT>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[NT][4],
-                                              const __nv_bfloat16* x, int row0,
-                                              const __nv_bfloat16* y, int g, int c) {
-  constexpr int kStride = Slot<DSLOT>::kStride;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int ks = 0; ks < DSLOT / 16; ++ks) {
-    uint32_t a[4];
-    load_a<DSLOT>(a, x, row0, ks, g, c);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* p = y + (nt * 8 + g) * kStride + ks * 16 + 2 * c;
-      mma_16816(acc[nt], a, ld_u32(p), ld_u32(p + 8));
-    }
-  }
-}
-
-// out[nt] += W . Z over NT8*8 inner rows, where W is a 16 x (NT8*8) score
-// tile held as C fragments (rounded to bf16 here) and Z [inner][d] lives in
-// shared memory; out covers the head dim in 8-wide tiles.
-template <int DSLOT, int NT8>
-__device__ __forceinline__ void scores_times_rows(float (&out)[DSLOT / 8][4],
-                                                  float (&w)[NT8][4],
-                                                  const __nv_bfloat16* z, int g,
-                                                  int c) {
-  constexpr int kStride = Slot<DSLOT>::kStride;
-  const uint16_t* z16 = reinterpret_cast<const uint16_t*>(z);
-#pragma unroll
-  for (int kk = 0; kk < NT8 / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16x2(w[2 * kk][0], w[2 * kk][1]);
-    a[1] = pack_bf16x2(w[2 * kk][2], w[2 * kk][3]);
-    a[2] = pack_bf16x2(w[2 * kk + 1][0], w[2 * kk + 1][1]);
-    a[3] = pack_bf16x2(w[2 * kk + 1][2], w[2 * kk + 1][3]);
-    const int r0 = kk * 16 + 2 * c;
-#pragma unroll
-    for (int nt = 0; nt < DSLOT / 8; ++nt) {
-      const int n = nt * 8 + g;
-      const uint32_t b0 = static_cast<uint32_t>(z16[r0 * kStride + n]) |
-                          (static_cast<uint32_t>(z16[(r0 + 1) * kStride + n]) << 16);
-      const uint32_t b1 = static_cast<uint32_t>(z16[(r0 + 8) * kStride + n]) |
-                          (static_cast<uint32_t>(z16[(r0 + 9) * kStride + n]) << 16);
-      mma_16816(out[nt], a, b0, b1);
-    }
-  }
-}
-
-// sum_d dO[row, d] * O[row, d] in fp32 over this thread's share of the
-// lanes (chunks of 8 starting at chunk `part`, every `parts` chunks).
-__device__ __forceinline__ float partial_delta(const __nv_bfloat16* dorow,
-                                               const __nv_bfloat16* orow, int d,
-                                               int part, int parts) {
-  float sum = 0.f;
-  for (int col = part * 8; col < d; col += parts * 8) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dorow + col);
-    const uint4 b = *reinterpret_cast<const uint4*>(orow + col);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(a2[i]);
-      const float2 fb = __bfloat1622float2(b2[i]);
-      sum += fa.x * fb.x + fa.y * fb.y;
-    }
-  }
-  return sum;
-}
-
-template <int DSLOT>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out_head,
-                                           const float (&acc)[DSLOT / 8][4],
-                                           int row_base, int nrows, int inner,
-                                           int d, int c) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_base + 8 * r;
-    if (row >= nrows) continue;
-    __nv_bfloat16* orow = out_head + static_cast<size_t>(row) * inner;
-#pragma unroll
-    for (int nt = 0; nt < DSLOT / 8; ++nt) {
-      const int col = nt * 8 + 2 * c;
-      if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-      }
-    }
-  }
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ K2: dq
 
+// kv rows per streamed tile, in both slots
+constexpr int kBlockKv = 64;
+
 template <int DSLOT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,   // [B, H, Sq]
-                    const float* __restrict__ bias,  // [B, Skv] or nullptr
+struct DqLayout {
+  static constexpr int kQRows = 128;
+  static constexpr int kThreads = 256;
+  static constexpr int kStages = 4;
+  static constexpr int kQTile = kQRows * DSLOT * 2;      // bytes of q (or dO)
+  static constexpr int kKvTile = kBlockKv * DSLOT * 2;   // bytes of K (or V)
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kQTile;
+  static constexpr int kK = kDo + kQTile;                // kStages K tiles
+  static constexpr int kV = kK + kStages * kKvTile;      // kStages V tiles
+  static constexpr int kFull = kV + kStages * kKvTile;   // kStages mbarriers
+  static constexpr int kEmpty = kFull + kStages * 8;     // kStages mbarriers
+  static constexpr int kQBar = kEmpty + kStages * 8;
+  static constexpr int kBytes = kQBar + 8;
+  // + slack to align the dynamic shared memory to one swizzle atom
+  static constexpr size_t kSmemBytes = kBytes + hopper::kAtomBytes;
+};
+
+// One block per SM in both slots (64 slot: 164 registers, 128 slot: 216, no
+// spills). Capped at 128 registers for two blocks per SM, the 64 slot
+// spilled, with each tile's products in turn or with the overlap below,
+// and was no faster at S = 1024.
+template <int DSLOT>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,    // box 128 rows
+                    const __grid_constant__ CUtensorMap do_map,   // box 128 rows
+                    const __grid_constant__ CUtensorMap k_map,    // box 64 rows
+                    const __grid_constant__ CUtensorMap v_map,    // box 64 rows
+                    const float* __restrict__ lse,     // [B, H, Sq]
+                    const float* __restrict__ delta,   // [B, H, Sq]
+                    const float* __restrict__ bias,    // [B, Skv] or nullptr
                     __nv_bfloat16* __restrict__ dq,
                     int sq, int skv, int num_heads, int d, float sm_scale) {
-  constexpr int kStride = Slot<DSLOT>::kStride;
-  constexpr int kBlockK = Slot<DSLOT>::kInner;
-  constexpr int kKTiles = kBlockK / 8;
+  using L = DqLayout<DSLOT>;
+  using hopper::Wgmma;
+  constexpr int BK = kBlockKv;
+  constexpr int kDSteps = DSLOT / 16;   // k-steps of S and dP
+  constexpr int kKSteps = BK / 16;      // k-steps of dq
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + kRows * kStride;
-  __nv_bfloat16* k_s = do_s + kRows * kStride;
-  __nv_bfloat16* v_s = k_s + kBlockK * kStride;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + hopper::kAtomBytes - 1) & ~(hopper::kAtomBytes - 1);
 
-  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;             // consumer warpgroup: q rows wg*64..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+
+  const int q0 = blockIdx.x * L::kQRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int inner = num_heads * d;
   const size_t q_head = static_cast<size_t>(b) * sq * inner + static_cast<size_t>(h) * d;
-  const size_t kv_head = static_cast<size_t>(b) * skv * inner + static_cast<size_t>(h) * d;
+  const size_t bh = (static_cast<size_t>(b) * num_heads + h) * sq;
   const float* bias_row = bias ? bias + static_cast<size_t>(b) * skv : nullptr;
+  const int nk = (skv + BK - 1) / BK;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int c = lane % 4;
-  const int wrow = warp * 16;
+  // kv tile t (K and V, DSLOT/64 panels each) into ring stage t % kStages
+  // by TMA; one thread issues it
+  auto issue_kv_tile = [&](int t) {
+    const int s = t % L::kStages;
+    const uint32_t full = base + L::kFull + 8 * s;
+    hopper::mbar_arrive_expect_tx(full, 2 * L::kKvTile);
+#pragma unroll
+    for (int p = 0; p < DSLOT / 64; ++p) {
+      const uint32_t off = s * L::kKvTile + p * BK * hopper::kSwizzleBytes;
+      hopper::tma_load_4d(base + L::kK + off, &k_map, full, 64 * p, h, t * BK, b);
+      hopper::tma_load_4d(base + L::kV + off, &v_map, full, 64 * p, h, t * BK, b);
+    }
+  };
 
-  load_tile<DSLOT>(q_s, kRows, q + q_head, q0, sq, inner, d);
-  load_tile<DSLOT>(do_s, kRows, dout + q_head, q0, sq, inner, d);
+  const int lead = nk < L::kStages ? nk : L::kStages;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(base + L::kFull + 8 * s, 1);
+      hopper::mbar_init(base + L::kEmpty + 8 * s, L::kThreads);
+    }
+    hopper::mbar_init(base + L::kQBar, 1);
+    hopper::mbar_init_fence();
+    hopper::mbar_arrive_expect_tx(base + L::kQBar, 2 * L::kQTile);
+#pragma unroll
+    for (int p = 0; p < DSLOT / 64; ++p) {
+      const uint32_t off = p * L::kQRows * hopper::kSwizzleBytes;
+      hopper::tma_load_4d(base + L::kQ + off, &q_map, base + L::kQBar, 64 * p, h, q0, b);
+      hopper::tma_load_4d(base + L::kDo + off, &do_map, base + L::kQBar, 64 * p, h, q0, b);
+    }
+    for (int t = 0; t < lead; ++t) issue_kv_tile(t);
+  }
 
-  // per-thread rows wrow+g and wrow+g+8: lse and delta (the quad of lanes
-  // sharing a row splits its lanes and sums with two shuffles)
-  float lse_r[2], delta_r[2];
+  // this thread's q rows (q0 + wg*64 + warp*16 + g + 8r): lse in log2
+  // units and delta; rows past Sq are zero-filled and never stored
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+  float lse_l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wrow + g + 8 * r;
-    float part = 0.f;
-    lse_r[r] = 0.f;
+    const int row = row0 + 8 * r;
     if (row < sq) {
-      const size_t off = q_head + static_cast<size_t>(row) * inner;
-      part = partial_delta(dout + off, o + off, d, c, 4);
-      lse_r[r] = lse[(static_cast<size_t>(b) * num_heads + h) * sq + row];
+      lse_l2[r] = lse[bh + row] * kLog2e;
+      dl[r] = delta[bh + row];
     }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    delta_r[r] = part;
   }
+  const float scale_l2 = sm_scale * kLog2e;
 
-  float acc[DSLOT / 8][4];
+  // this warpgroup's 64 rows of q and dO (K-major A operands)
+  const uint32_t q_rows = base + L::kQ + wg * 64 * hopper::kSwizzleBytes;
+  const uint32_t do_rows = base + L::kDo + wg * 64 * hopper::kSwizzleBytes;
+  constexpr uint32_t kQPanel = L::kQRows * hopper::kSwizzleBytes;
+  constexpr uint32_t kKvPanel = BK * hopper::kSwizzleBytes;
+
+  // S = q K^T and dP = dO V^T of kv tile t, 64 q rows x BK kv columns:
+  // two asynchronous groups, S first
+  auto issue_scores = [&](float (&s)[BK / 2], float (&dp)[BK / 2], int t) {
+    const uint32_t k_tile = base + L::kK + (t % L::kStages) * L::kKvTile;
+    const uint32_t v_tile = base + L::kV + (t % L::kStages) * L::kKvTile;
 #pragma unroll
-  for (int nt = 0; nt < DSLOT / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < skv; kv0 += kBlockK) {
-    __syncthreads();  // q/dO staged; every warp is done with the last k/v tile
-    load_tile<DSLOT>(k_s, kBlockK, k + kv_head, kv0, skv, inner, d);
-    load_tile<DSLOT>(v_s, kBlockK, v + kv_head, kv0, skv, inner, d);
-    __syncthreads();
-
-    float s[kKTiles][4], dp[kKTiles][4];
-    rows_dot_rows<DSLOT, kKTiles>(s, q_s, wrow, k_s, g, c);
-    rows_dot_rows<DSLOT, kKTiles>(dp, do_s, wrow, v_s, g, c);
-
-    // P and dS for this warp's 16 rows x kBlockK kv columns; columns past
-    // Skv get exactly zero weight
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      const uint32_t off = (ks / 4) * kQPanel + (ks % 4) * 32;
+      const uint32_t kv_off = (ks / 4) * kKvPanel + (ks % 4) * 32;
+      Wgmma<BK>::ss(s, hopper::desc_k_major(q_rows + off),
+                    hopper::desc_k_major(k_tile + kv_off), ks > 0);
+    }
+    hopper::wgmma_commit();
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      const uint32_t off = (ks / 4) * kQPanel + (ks % 4) * 32;
+      const uint32_t kv_off = (ks / 4) * kKvPanel + (ks % 4) * 32;
+      Wgmma<BK>::ss(dp, hopper::desc_k_major(do_rows + off),
+                    hopper::desc_k_major(v_tile + kv_off), ks > 0);
+    }
+    hopper::wgmma_commit();
+  };
+
+  // P = exp(S * scale + bias - lse) in s; kv columns past Skv get a bias of
+  // -inf, so P = 0 there exactly
+  auto probs = [&](float (&s)[BK / 2], int t) {
+    const int kv0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float bj[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = kv0 + 8 * j + 2 * c + e;
+        bj[e] = col >= skv ? __int_as_float(0xff800000)
+                           : (bias_row ? __ldg(bias_row + col) * kLog2e : 0.f);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nt * 8 + 2 * c + (e & 1);
-        float p = 0.f;
-        if (col < skv) {
-          float x = s[nt][e] * sm_scale;
-          if (bias_row) x += bias_row[col];
-          p = __expf(x - lse_r[e >> 1]);
-        }
-        dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]) * sm_scale;
+        s[4 * j + e] = hopper::exp2_approx(
+            fmaf(s[4 * j + e], scale_l2, bj[e & 1] - lse_l2[e >> 1]));
       }
     }
-    // dq += dS k
-    scores_times_rows<DSLOT, kKTiles>(acc, dp, k_s, g, c);
-  }
+  };
 
-  store_rows<DSLOT>(dq + q_head, acc, q0 + wrow + g, sq, inner, d, c);
+  // dS = P (dP - delta) * scale in dp (fp32; rounded to bf16 by acc_to_a)
+  auto dscores = [&](const float (&p)[BK / 2], float (&dp)[BK / 2]) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp[i] = p[i] * (dp[i] - dl[(i >> 1) & 1]) * sm_scale;
+  };
+
+  float acc[DSLOT / 2];
+#pragma unroll
+  for (int i = 0; i < DSLOT / 2; ++i) acc[i] = 0.f;
+
+  // dq += bf16(dS) K of kv tile t (asynchronous; K is a MN-major B)
+  auto issue_dq = [&](const uint32_t (&dsa)[kKSteps][4], int t) {
+    const uint32_t k_tile = base + L::kK + (t % L::kStages) * L::kKvTile;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      Wgmma<DSLOT>::rs(acc, dsa[kk],
+                       hopper::desc_mn_major(k_tile + kk * 16 * hopper::kSwizzleBytes, kKvPanel),
+                       1);
+    }
+    hopper::wgmma_commit();
+  };
+
+  __syncthreads();   // the barriers are initialised
+  auto wait_tile = [&](int t) {
+    hopper::mbar_wait(base + L::kFull + 8 * (t % L::kStages), (t / L::kStages) & 1);
+  };
+  // thread 0 refills the stage of tile t-1 once every thread released it
+  auto refill = [&](int t) {
+    if (tid == 0 && t >= 1 && t - 1 + L::kStages < nk) {
+      const int s = (t - 1) % L::kStages;
+      hopper::mbar_wait(base + L::kEmpty + 8 * s, ((t - 1) / L::kStages) & 1);
+      issue_kv_tile(t - 1 + L::kStages);
+    }
+  };
+  // every thread is done with tile t's stage (K read by S and dq, V by dP)
+  auto release_tile = [&](int t) {
+    hopper::mbar_arrive(base + L::kEmpty + 8 * (t % L::kStages));
+  };
+  hopper::mbar_wait(base + L::kQBar, 0);
+
+  // tile 0's scores; then step t issues tile t+1's S and dP with tile t's
+  // dq product and forms tile t+1's dS while dq runs; the last tile's dq
+  // product follows the loop (no wgmma is issued under a condition)
+  float s[BK / 2], dp[BK / 2];
+  uint32_t dsa[kKSteps][4];
+  wait_tile(0);
+  hopper::wgmma_fence();
+  issue_scores(s, dp, 0);
+  hopper::wgmma_wait<1>();
+  hopper::fence_regs(s);
+  probs(s, 0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dp);
+  dscores(s, dp);
+  hopper::acc_to_a<BK / 2>(dsa, dp);
+  for (int t = 0; t + 1 < nk; ++t) {
+    refill(t);
+    wait_tile(t + 1);
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(dsa);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    issue_scores(s, dp, t + 1);
+    issue_dq(dsa, t);
+    hopper::wgmma_wait<2>();   // S; dP and dq may still run
+    hopper::fence_regs(s);
+    probs(s, t + 1);
+    hopper::wgmma_wait<1>();   // dP
+    hopper::fence_regs(dp);
+    dscores(s, dp);
+    hopper::wgmma_wait<0>();   // dq: dsa is free again
+    hopper::fence_regs(acc);
+    hopper::fence_regs(dsa);
+    release_tile(t);
+    hopper::acc_to_a<BK / 2>(dsa, dp);
+  }
+  hopper::fence_regs(dsa);
+  hopper::wgmma_fence();
+  issue_dq(dsa, nk - 1);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // rows past Sq and lanes past d are never stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    __nv_bfloat16* dq_row = dq + q_head + static_cast<size_t>(row) * inner;
+#pragma unroll
+    for (int j = 0; j < DSLOT / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dq_row + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------- K3 pre-pass: delta
@@ -401,7 +422,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,    // box BQ row
   constexpr int BQ = kBlockQ;
   constexpr int kDSteps = DSLOT / 16;   // k-steps of S^T and dP^T
   constexpr int kQSteps = BQ / 16;      // k-steps of dV and dK
-  constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -605,23 +625,27 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,    // box BQ row
 }
 
 template <int DSLOT>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, const void* bias, void* dq,
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* bias, void* dq,
               int batch, int sq, int skv, int num_heads, int head_dim,
               float sm_scale, cudaStream_t stream) {
-  const size_t smem = Slot<DSLOT>::kSmemBytes;
+  using L = DqLayout<DSLOT>;
   // the dynamic shared memory limit, set once per template instance
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DSLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<DSLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kSmemBytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((sq + kRows - 1) / kRows, num_heads, batch);
-  flash_bwd_dq_kernel<DSLOT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(dq), sq, skv,
-      num_heads, head_dim, sm_scale);
+  CUtensorMap q_map, do_map, k_map, v_map;
+  if (!hopper::head_map(&q_map, q, batch, sq, num_heads, head_dim, L::kQRows) ||
+      !hopper::head_map(&do_map, dout, batch, sq, num_heads, head_dim, L::kQRows) ||
+      !hopper::head_map(&k_map, k, batch, skv, num_heads, head_dim, kBlockKv) ||
+      !hopper::head_map(&v_map, v, batch, skv, num_heads, head_dim, kBlockKv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((sq + L::kQRows - 1) / L::kQRows, num_heads, batch);
+  flash_bwd_dq_kernel<DSLOT><<<grid, L::kThreads, L::kSmemBytes, stream>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(dq), sq, skv, num_heads, head_dim, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -659,16 +683,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // contiguous tensors; the wrapper checks shapes, dtypes and alignment.
 // Each returns the launch's cudaError_t (0 on success).
 extern "C" int ot_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* o, const void* dout, const void* lse,
+                               const void* dout, const void* lse, const void* delta,
                                const void* bias, void* dq, int batch, int sq,
                                int skv, int num_heads, int head_dim,
                                float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim <= 64) {
-    return launch_dq<64>(q, k, v, o, dout, lse, bias, dq, batch, sq, skv,
+    return launch_dq<64>(q, k, v, dout, lse, delta, bias, dq, batch, sq, skv,
                          num_heads, head_dim, sm_scale, s);
   }
-  return launch_dq<128>(q, k, v, o, dout, lse, bias, dq, batch, sq, skv,
+  return launch_dq<128>(q, k, v, dout, lse, delta, bias, dq, batch, sq, skv,
                         num_heads, head_dim, sm_scale, s);
 }
 

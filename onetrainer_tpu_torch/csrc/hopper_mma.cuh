@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (csrc/flash_fwd.cu: K1; csrc/flash_bwd.cu: K3):
+// (csrc/flash_fwd.cu: K1; csrc/flash_bwd.cu: K2 and K3):
 //
 // - tiles in shared memory with the 128-byte swizzle that both TMA and
 //   wgmma's matrix descriptors describe: a tile of R rows by DSLOT bf16

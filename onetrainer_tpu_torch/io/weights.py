@@ -86,13 +86,13 @@ def _quantized_from_jax(value, device):
 
 @torch.no_grad()
 def quantized_params_from_jax(module: nn.Module, tree: dict, to_state_dict,
-                              device: torch.device | str = "cpu") -> None:
+                              device: torch.device | str = "cuda") -> None:
     """Load a reference param tree whose kernels are quantized into
     `module` exactly: each quantized kernel becomes the layer's quantized
     weight (kernel layout, codes and scales as they are), every other
     leaf a parameter of its own dtype (bf16 under the reference's
-    policy). `to_state_dict` is the part's key map, e.g.
-    `unet_flax_to_state_dict`."""
+    policy), on `device` (the card unless the caller passes another).
+    `to_state_dict` is the part's key map, e.g. `unet_flax_to_state_dict`."""
     plain, quantized = {}, {}
     for path, value in _leaves(tree):
         q = _quantized_from_jax(value, device)

@@ -1,16 +1,17 @@
 """Build and load the port's CUDA kernels.
 
 The kernels are plain-C-interface `.cu` files under `csrc/`: K1
-(`flash_fwd.cu`), K2, K3 and K3's delta pre-pass (`flash_bwd.cu`), K4
+(`flash_fwd.cu`), K2, K3 and their delta pre-pass (`flash_bwd.cu`), K4
 (`nf4_dequant.cu`) and K5 (`sr_update.cu`); `hopper_mma.cuh` holds the
-Hopper building blocks K1 and K3 share. At first use each `.cu` file is
+Hopper building blocks K1, K2 and K3 share. At first use each `.cu` file is
 compiled with `nvcc` for sm_90a into an object file, all at once in
 parallel processes, and the objects are linked into one shared library
 bound with `ctypes`. The library lands in `<repo>/build/`, named by a hash
 of every file under `csrc/` (sources and headers) and the flags, so an
 edited source or header rebuilds and an unchanged tree is reused.
 Nothing here runs at import time: CPU-only installs (no nvcc) can import
-every module of the port.
+every module of the port. `raw_stream` gives every wrapper the handle of
+the stream its kernel launches on.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -98,6 +101,13 @@ def build() -> Path:
     return out
 
 
+def raw_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on t's device. The training
+    steps are host-bound, and `torch.cuda.current_stream` builds a Stream
+    object per call, about 5 us on the card's host."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
@@ -118,7 +128,7 @@ def load_library() -> ctypes.CDLL:
         i64 = ctypes.c_longlong
         lib.ot_nf4_dequant.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
         lib.ot_nf4_dequant.restype = i32
-        lib.ot_sr_update.argtypes = [ptr, ptr, ptr, i32, ptr, i64, ptr]
+        lib.ot_sr_update.argtypes = [ptr, i32, i64, i32, ptr, ptr]
         lib.ot_sr_update.restype = i32
         _LIB = lib
     return _LIB

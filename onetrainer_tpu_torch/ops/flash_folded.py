@@ -7,17 +7,20 @@ function beside it:
 
 - `flash_attention_folded_fwd` (K1, `csrc/flash_fwd.cu`) -> (o, lse);
   plain version `flash_attention_folded_reference`;
+- `flash_attention_folded_delta` (the pre-pass, `csrc/flash_bwd.cu`) ->
+  delta = rowsum(dO * O), [B, H, Sq] fp32, which K2 and K3 read; plain
+  version `flash_attention_folded_delta_reference`;
 - `flash_attention_folded_dq` (K2, `csrc/flash_bwd.cu`) -> dq; plain
   version `flash_attention_folded_dq_reference`;
 - `flash_attention_folded_dkv` (K3, `csrc/flash_bwd.cu`) -> (dk, dv);
-  plain version `flash_attention_folded_dkv_reference`. It first launches
-  the pre-pass `flash_attention_folded_delta` (delta = rowsum(dO * O),
-  [B, H, Sq] fp32, once per call; plain version
-  `flash_attention_folded_delta_reference`), then K3 itself.
+  plain version `flash_attention_folded_dkv_reference`.
+K2 and K3 take delta as `delta=`; without it each computes its own (the
+pre-pass on the card) first.
 
 `flash_attention_folded` ties them into a `torch.autograd.Function`: its
-forward runs K1 and saves (q, k, v, kv_keep, o, lse), its backward runs K2
-and K3. The kv mask gets no gradient.
+forward runs K1 and saves (q, k, v, kv_keep, o, lse), its backward runs the
+pre-pass once and hands its delta to K2 and K3. The kv mask gets no
+gradient.
 
 Semantics (shared by kernels and plain versions): non-causal softmax
 attention per head, fp32 softmax statistics, `sm_scale` from the caller
@@ -33,6 +36,8 @@ dS rounded to the operands' dtype before their products.
 from __future__ import annotations
 
 import torch
+
+from onetrainer_tpu_torch.ops._build import load_library, raw_stream
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
@@ -81,8 +86,9 @@ def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d).to(dtype)
 
 
-def _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep):
-    """(P, dS) [B, H, Sq, Skv] fp32, dS rounded to k's dtype."""
+def _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep, delta):
+    """(P, dS) [B, H, Sq, Skv] fp32, dS rounded to k's dtype; delta
+    [B, H, Sq] is computed from o and do when None."""
     qf, kf, vf = (_heads(t, num_heads) for t in (q, k, v))
     dof = _heads(do, num_heads)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
@@ -90,8 +96,9 @@ def _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep):
         s = s + _kv_bias(kv_keep)[:, None, None, :]
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    delta = flash_attention_folded_delta_reference(o, do, num_heads)[..., None]
-    ds = (p * (dp - delta) * sm_scale).to(k.dtype).float()
+    if delta is None:
+        delta = flash_attention_folded_delta_reference(o, do, num_heads)
+    ds = (p * (dp - delta[..., None]) * sm_scale).to(k.dtype).float()
     return p, ds
 
 
@@ -103,19 +110,21 @@ def flash_attention_folded_delta_reference(o, do, num_heads: int) -> torch.Tenso
 
 def flash_attention_folded_dq_reference(
         q, k, v, o, lse, do, num_heads: int, *, sm_scale: float,
-        kv_keep: torch.Tensor | None = None) -> torch.Tensor:
+        kv_keep: torch.Tensor | None = None,
+        delta: torch.Tensor | None = None) -> torch.Tensor:
     """Plain fp32 dq [B, Sq, H*d] in q's dtype (the TPU `_dq_kernel`)."""
-    _, ds = _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep)
+    _, ds = _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep, delta)
     return _merge_heads(torch.matmul(ds, _heads(k, num_heads)), q.dtype)
 
 
 def flash_attention_folded_dkv_reference(
         q, k, v, o, lse, do, num_heads: int, *, sm_scale: float,
         kv_keep: torch.Tensor | None = None,
+        delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain fp32 (dk, dv) [B, Skv, H*d] in k's and v's dtype (the TPU
     `_dkv_kernel` / `_dkv_stream_kernel`)."""
-    p, ds = _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep)
+    p, ds = _bwd_scores(q, k, v, o, lse, do, num_heads, sm_scale, kv_keep, delta)
     p = p.to(do.dtype).float()
     dk = torch.matmul(ds.transpose(-1, -2), _heads(q, num_heads))
     dv = torch.matmul(p.transpose(-1, -2), _heads(do, num_heads))
@@ -158,24 +167,26 @@ def _check_cuda(q, k, v, num_heads, kv_keep):
         raise ValueError("kv_keep must be on q's device")
 
 
-def _check_bwd_cuda(q, o, lse, do):
+def _check_stats(name, t, b, sq):
+    if t.dtype != torch.float32 or t.dim() != 3 or t.shape[0] != b \
+            or t.shape[2] != sq or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous fp32 [B, H, Sq], got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_bwd_cuda(q, o, lse, do, delta):
     b, sq, _ = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
     _check_operands(o=o, do=do)
-    if lse.dtype != torch.float32 or lse.dim() != 3 or lse.shape[0] != b \
-            or lse.shape[2] != sq or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous fp32 [B, H, Sq], got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream on t's device (the attention
-    steps are host-bound: `torch.cuda.current_stream` builds a Stream object
-    per call, about 5 us on the card's host)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+    _check_stats("lse", lse, b, sq)
+    if delta is not None:
+        _check_stats("delta", delta, b, sq)
+        if delta.shape != lse.shape or delta.device != q.device:
+            raise ValueError(f"delta must be lse's shape {tuple(lse.shape)} on q's "
+                             f"device, got {tuple(delta.shape)} on {delta.device}")
 
 
 def flash_attention_folded_fwd(
@@ -193,8 +204,6 @@ def flash_attention_folded_fwd(
         return flash_attention_folded_reference(
             q, k, v, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)
     _check_cuda(q, k, v, num_heads, kv_keep)
-    from onetrainer_tpu_torch.ops._build import load_library
-
     b, sq, inner = q.shape
     skv = k.shape[1]
     if sq == 0 or skv == 0:
@@ -206,7 +215,7 @@ def flash_attention_folded_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         o.data_ptr(), lse.data_ptr(),
-        b, sq, skv, num_heads, inner // num_heads, float(sm_scale), _stream(q))
+        b, sq, skv, num_heads, inner // num_heads, float(sm_scale), raw_stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc}")
     flash_attention_folded_fwd.launches += 1
@@ -219,24 +228,28 @@ flash_attention_folded_fwd.launches = 0
 
 def flash_attention_folded_dq(q, k, v, o, lse, do, num_heads: int, *,
                               sm_scale: float,
-                              kv_keep: torch.Tensor | None = None) -> torch.Tensor:
-    """dq [B, Sq, H*d] of flash attention over folded tensors."""
+                              kv_keep: torch.Tensor | None = None,
+                              delta: torch.Tensor | None = None) -> torch.Tensor:
+    """dq [B, Sq, H*d] of flash attention over folded tensors. `delta`
+    ([B, H, Sq] fp32, `flash_attention_folded_delta`) is computed from o
+    and do when not given."""
     _check(q, k, v, num_heads, kv_keep)
     if not q.is_cuda:
         return flash_attention_folded_dq_reference(
-            q, k, v, o, lse, do, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)
+            q, k, v, o, lse, do, num_heads, sm_scale=sm_scale, kv_keep=kv_keep,
+            delta=delta)
     _check_cuda(q, k, v, num_heads, kv_keep)
-    _check_bwd_cuda(q, o, lse, do)
-    from onetrainer_tpu_torch.ops._build import load_library
-
+    _check_bwd_cuda(q, o, lse, do, delta)
+    if delta is None:
+        delta = flash_attention_folded_delta(o, do, num_heads)
     b, sq, inner = q.shape
     dq = torch.empty_like(q)
     bias = _kv_bias(kv_keep) if kv_keep is not None else None
     rc = load_library().ot_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), bias.data_ptr() if bias is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), bias.data_ptr() if bias is not None else None,
         dq.data_ptr(), b, sq, k.shape[1], num_heads, inner // num_heads,
-        float(sm_scale), _stream(q))
+        float(sm_scale), raw_stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {rc}")
     flash_attention_folded_dq.launches += 1
@@ -247,7 +260,8 @@ flash_attention_folded_dq.launches = 0
 
 
 def flash_attention_folded_delta(o, do, num_heads: int) -> torch.Tensor:
-    """delta [B, H, Sq] fp32 = rowsum(dO * O) per head, K3's pre-pass."""
+    """delta [B, H, Sq] fp32 = rowsum(dO * O) per head, the pre-pass of K2
+    and K3."""
     if not o.is_cuda:
         return flash_attention_folded_delta_reference(o, do, num_heads)
     if do.shape != o.shape or o.dim() != 3 or o.shape[2] % num_heads:
@@ -257,12 +271,10 @@ def flash_attention_folded_delta(o, do, num_heads: int) -> torch.Tensor:
     if d > _MAX_HEAD_DIM or d % 8:
         raise ValueError(f"head dim {d} unsupported (need d <= 128, d % 8 == 0)")
     _check_operands(o=o, do=do)
-    from onetrainer_tpu_torch.ops._build import load_library
-
     b, sq, _ = o.shape
     delta = torch.empty((b, num_heads, sq), dtype=torch.float32, device=o.device)
     rc = load_library().ot_flash_bwd_delta(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, num_heads, d, _stream(o))
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, num_heads, d, raw_stream(o))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_delta kernel launch failed: cudaError {rc}")
     flash_attention_folded_delta.launches += 1
@@ -275,26 +287,28 @@ flash_attention_folded_delta.launches = 0
 def flash_attention_folded_dkv(
         q, k, v, o, lse, do, num_heads: int, *, sm_scale: float,
         kv_keep: torch.Tensor | None = None,
+        delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [B, Skv, H*d] of flash attention over folded tensors: the
-    delta pre-pass, then K3."""
+    """(dk, dv) [B, Skv, H*d] of flash attention over folded tensors.
+    `delta` ([B, H, Sq] fp32, `flash_attention_folded_delta`) is computed
+    from o and do when not given."""
     _check(q, k, v, num_heads, kv_keep)
     if not q.is_cuda:
         return flash_attention_folded_dkv_reference(
-            q, k, v, o, lse, do, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)
+            q, k, v, o, lse, do, num_heads, sm_scale=sm_scale, kv_keep=kv_keep,
+            delta=delta)
     _check_cuda(q, k, v, num_heads, kv_keep)
-    _check_bwd_cuda(q, o, lse, do)
-    from onetrainer_tpu_torch.ops._build import load_library
-
+    _check_bwd_cuda(q, o, lse, do, delta)
     b, sq, inner = q.shape
-    delta = flash_attention_folded_delta(o, do, num_heads)
+    if delta is None:
+        delta = flash_attention_folded_delta(o, do, num_heads)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bias = _kv_bias(kv_keep) if kv_keep is not None else None
     rc = load_library().ot_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias.data_ptr() if bias is not None else None,
         dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], num_heads,
-        inner // num_heads, float(sm_scale), _stream(q))
+        inner // num_heads, float(sm_scale), raw_stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {rc}")
     flash_attention_folded_dkv.launches += 1
@@ -312,7 +326,8 @@ def reset_launch_counts() -> None:
 
 
 class _FlashFolded(torch.autograd.Function):
-    """K1 forward, K2 + K3 backward; kv_keep gets no gradient."""
+    """K1 forward; backward: the delta pre-pass once, then K2 and K3 on its
+    delta. kv_keep gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_keep, num_heads, sm_scale):
@@ -326,7 +341,8 @@ class _FlashFolded(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kv_keep, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        kwargs = dict(sm_scale=ctx.sm_scale, kv_keep=kv_keep)
+        delta = flash_attention_folded_delta(o, do, ctx.num_heads)
+        kwargs = dict(sm_scale=ctx.sm_scale, kv_keep=kv_keep, delta=delta)
         dq = flash_attention_folded_dq(q, k, v, o, lse, do, ctx.num_heads, **kwargs)
         dk, dv = flash_attention_folded_dkv(q, k, v, o, lse, do, ctx.num_heads,
                                             **kwargs)
@@ -343,5 +359,5 @@ def flash_attention_folded(
         kv_keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Flash attention over folded [B, S, H*d] tensors -> o, differentiable
-    in q, k and v (K2 and K3 in the backward)."""
+    in q, k and v (the delta pre-pass, K2 and K3 in the backward)."""
     return _FlashFolded.apply(q, k, v, kv_keep, num_heads, sm_scale)

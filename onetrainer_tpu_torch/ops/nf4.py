@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from onetrainer_tpu_torch.ops._build import load_library, raw_stream
+
 # the 16-level NF4 codebook (Dettmers et al., QLoRA arXiv:2305.14314;
 # quantiles of N(0,1) normalized to [-1, 1]; identical to bitsandbytes)
 NF4_CODE = (
@@ -80,14 +82,11 @@ def nf4_dequant_flat(packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError("packed and scales must be contiguous")
     if packed.data_ptr() % 8 or scales.data_ptr() % 4:
         raise ValueError("packed must be 8-byte and scales 4-byte aligned")
-    from onetrainer_tpu_torch.ops._build import load_library
-
     n_half = packed.shape[0]
     out = torch.empty(2 * n_half, dtype=out_dtype, device=packed.device)
     rc = load_library().ot_nf4_dequant(
         packed.data_ptr(), scales.data_ptr(), out.data_ptr(), n_half,
-        int(out_dtype == torch.float32),
-        torch.cuda.current_stream(packed.device).cuda_stream)
+        int(out_dtype == torch.float32), raw_stream(packed))
     if rc != 0:
         raise RuntimeError(f"nf4_dequant kernel launch failed: cudaError {rc}")
     nf4_dequant_flat.launches += 1

@@ -16,9 +16,9 @@ weights train without fp32 master copies.
   bit;
 - `apply_updates_stochastic` applies one optimizer step in place: fp32
   leaves add their update exactly, bf16 leaves go through K5
-  (`ops/sr_update.py`, p + u in fp32 rounded stochastically) with a seed
-  per leaf drawn from the step's generator, as the reference splits one
-  key per leaf.
+  (`ops/sr_update.py`, p + u in fp32 rounded stochastically, one launch
+  for all of them) with a seed per leaf drawn from the step's generator,
+  as the reference splits one key per leaf.
 
 Unsigned 32-bit arithmetic is done in int64 with masks (torch's uint32
 support is thin).
@@ -91,22 +91,26 @@ def apply_updates_stochastic(params: list[torch.Tensor], updates: list[torch.Ten
     """params[i] += updates[i] in place; bf16 params round stochastically.
 
     Each leaf gets its own seed, drawn from `generator` on its device (no
-    host sync), and K5 rounds a bf16 leaf on the card. `bits` (one tensor
-    of 16 random low bits per bf16 leaf, CPU only) replaces the seeds with
-    given bits."""
-    from onetrainer_tpu_torch.ops.sr_update import sr_update
-    if bits is None:
-        seeds = torch.empty(len(params), dtype=torch.int64, device=generator.device)
-        seeds.random_(generator=generator)
-    for i, (p, u) in enumerate(zip(params, updates)):
+    host sync), and one K5 launch rounds every bf16 leaf on the card. `bits`
+    (one tensor of 16 random low bits per bf16 leaf, CPU only) replaces the
+    seeds with given bits."""
+    from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
+    rounded = [i for i, p in enumerate(params) if p.dtype == torch.bfloat16]
+    for p, u in zip(params, updates):
         if p.dtype != torch.bfloat16:
             p.add_(u.to(p.dtype))
-        elif bits is not None:
+    if bits is not None:
+        for i in rounded:
+            p, u = params[i], updates[i]
             if p.is_cuda:
                 raise ValueError("given rounding bits take the plain version, "
                                  "which a CUDA tensor never does")
             p.copy_(stochastic_round_to_bf16(p.float() + u.float(), bits[i]))
-        else:
-            # a gradient, and so its update, may come in the conv weight's
-            # channels-last strides; K5 walks both tensors in one order
-            sr_update(p, u.contiguous(), seeds[i:i + 1], out=p)
+        return
+    seeds = torch.empty(len(params), dtype=torch.int64, device=generator.device)
+    seeds.random_(generator=generator)
+    ps = [params[i] for i in rounded]
+    # a gradient, and so its update, may come in the conv weight's
+    # channels-last strides; K5 walks both tensors in one order
+    sr_update_leaves(ps, [updates[i].contiguous() for i in rounded], seeds,
+                     seed_index=rounded, outs=ps)

@@ -103,6 +103,18 @@ def peft_module_keys(module: nn.Module, cfg: PeftConfig,
     return [key for key, _ in _adaptable(module, key_map, cfg.layer_filter)]
 
 
+def adapter_shapes(module: nn.Module, cfg: PeftConfig,
+                   key_map: KeyMap | None = None) -> dict:
+    """{module_key: {"lora_down": shape, "lora_up": shape}}: the shapes
+    init_peft_params gives the adapters, from each weight's logical shape
+    (a module on the "meta" device will do)."""
+    shapes = {}
+    for key, layer in _adaptable(module, key_map, cfg.layer_filter):
+        shape = tuple(weight_shape(layer.weight))
+        shapes[key] = {"lora_down": (cfg.rank,) + shape[1:], "lora_up": (shape[0], cfg.rank)}
+    return shapes
+
+
 def init_peft_params(generator: torch.Generator, module: nn.Module,
                      cfg: PeftConfig, key_map: KeyMap | None = None) -> dict:
     """Create the adapters {module_key: {"lora_down", "lora_up"}} on the

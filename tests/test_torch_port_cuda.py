@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 forward, K2 dq, K3 dk/dv and its delta
-pre-pass, K4 NF4 dequant, K5 stochastic-rounding update) against their plain
-PyTorch versions, on the card. The attention cases include tile edges of K1
+"""The port's CUDA kernels (K1 forward, K2 dq and K3 dk/dv on the delta of
+their shared pre-pass, K4 NF4 dequant, K5 stochastic-rounding update, one
+launch over a list of leaves) against their plain PyTorch versions, on the
+card. The attention cases include tile edges of K1
 and K3 (128-row blocks, 64- or 128-row streamed tiles): sequences shorter
 than one tile, lengths that are no multiple of 128, and head dims 40 and 80,
 whose slot lanes past d would read the neighbouring head's (random) values
@@ -18,8 +19,11 @@ import torch
 
 from onetrainer_tpu_torch.ops import flash_folded as pt_ff
 from onetrainer_tpu_torch.ops import nf4 as pt_nf4
+from onetrainer_tpu_torch.models.unet import UNet2DCondition, sdxl_unet_config
 from onetrainer_tpu_torch.ops.quant import dequantize_nf4, quantize_nf4
-from onetrainer_tpu_torch.ops.sr_update import sr_update
+from onetrainer_tpu_torch.peft.lora import PeftConfig, adapter_shapes
+from onetrainer_tpu_torch.ops import sr_update as pt_sr
+from onetrainer_tpu_torch.ops.sr_update import sr_update, sr_update_leaves
 from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
 
 
@@ -95,15 +99,26 @@ def test_backward_kernels_match_plain_versions_on_card(cuda_device, b, sq, skv, 
     kw = dict(sm_scale=d ** -0.5, kv_keep=keep)
     o, lse = pt_ff.flash_attention_folded_fwd(q, k, v, h, **kw)
     args = (q, k, v, o, lse, do, h)
+    delta = pt_ff.flash_attention_folded_delta(o, do, h)
     before = (pt_ff.flash_attention_folded_dq.launches,
-              pt_ff.flash_attention_folded_dkv.launches)
-    dq = pt_ff.flash_attention_folded_dq(*args, **kw)
-    dk, dv = pt_ff.flash_attention_folded_dkv(*args, **kw)
+              pt_ff.flash_attention_folded_dkv.launches,
+              pt_ff.flash_attention_folded_delta.launches)
+    # K2 and K3 on the pre-pass's delta, as the autograd backward runs them
+    dq = pt_ff.flash_attention_folded_dq(*args, **kw, delta=delta)
+    dk, dv = pt_ff.flash_attention_folded_dkv(*args, **kw, delta=delta)
+    dq_again = pt_ff.flash_attention_folded_dq(*args, **kw, delta=delta)
+    dq_own_delta = pt_ff.flash_attention_folded_dq(*args, **kw)
     refs = (pt_ff.flash_attention_folded_dq_reference(*args, **kw),
             *pt_ff.flash_attention_folded_dkv_reference(*args, **kw))
     torch.cuda.synchronize()
     assert (pt_ff.flash_attention_folded_dq.launches,
-            pt_ff.flash_attention_folded_dkv.launches) == (before[0] + 1, before[1] + 1)
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) \
+        == (before[0] + 3, before[1] + 1, before[2] + 1)
+    # K2 sums over kv tiles in a fixed order with no atomics: the same bits
+    # on every run, and the pre-pass it runs itself is the one handed to it
+    assert torch.equal(dq.view(torch.int16), dq_again.view(torch.int16))
+    assert torch.equal(dq.view(torch.int16), dq_own_delta.view(torch.int16))
     # bf16 outputs on both sides, dS and P rounded to bf16 before their
     # products, sums in another order. The gradients are small (max ~0.3 at
     # 4096 tokens), so each is held to its own scale: max error 2% of
@@ -213,10 +228,10 @@ def test_sr_update_keeps_the_properties_on_card(cuda_device, n, u_dtype):
     u = (torch.randn(n, generator=gen, device=cuda_device) * 1e-3).to(u_dtype)
     u[: n // 4] = 0
     seed = torch.tensor([77], dtype=torch.int64, device=cuda_device)
-    before = sr_update.launches
+    before = sr_update_leaves.launches
     out = sr_update(p, u, seed)
     torch.cuda.synchronize()
-    assert sr_update.launches == before + 1
+    assert sr_update_leaves.launches == before + 1
     s = p.float() + u.float()
     low = s.view(torch.int32) & ~0xFFFF
     got = out.float().view(torch.int32)
@@ -236,3 +251,65 @@ def test_sr_update_keeps_the_properties_on_card(cuda_device, n, u_dtype):
     in_place = p.clone()
     sr_update(in_place, u, seed, out=in_place)
     assert torch.equal(in_place, out)
+
+
+def _leaf_shapes(name):
+    if name == "odd_sizes":
+        return [(1,), (3,), (5,), (4,), ((1 << 20) + 3,), (7, 9), (2,), (16, 2560, 3, 3)]
+    # the SDXL QLoRA step's adapters at rank 16: 1588 tensors
+    with torch.device("meta"):
+        unet = UNet2DCondition(sdxl_unet_config())
+    return [s for e in adapter_shapes(unet, PeftConfig(rank=16)).values()
+            for s in e.values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", [False, True], ids=["new_out", "out_is_p"])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaves", ["qlora_adapters", "odd_sizes"])
+def test_sr_update_leaves_matches_the_plain_rounding_on_card(cuda_device, leaves, u_dtype,
+                                                             alias):
+    """One K5 launch over a list of leaves, bit for bit against the plain
+    rounding on each leaf's own Philox bits (seeds[seed_index[i]])."""
+    shapes = _leaf_shapes(leaves)
+    if leaves == "qlora_adapters":
+        assert len(shapes) == 1588
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    ps = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+          for s in shapes]
+    us = [(torch.randn(s, generator=gen, device=cuda_device) * 1e-3).to(u_dtype)
+          for s in shapes]
+    seeds = torch.empty(len(shapes) + 3, dtype=torch.int64, device=cuda_device)
+    seeds.random_(generator=gen)
+    seed_index = [(3 * i + 2) % len(seeds) for i in range(len(shapes))]
+    want = [stochastic_round_to_bf16(p.float() + u.float(),
+                                     philox_bits(seeds[j], p.numel()).view(p.shape))
+            for p, u, j in zip(ps, us, seed_index)]
+    outs = [p.clone() for p in ps] if alias else None
+    before = sr_update_leaves.launches
+    got = sr_update_leaves(outs or ps, us, seeds, seed_index=seed_index, outs=outs)
+    torch.cuda.synchronize()
+    assert sr_update_leaves.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_sr_update_leaves_splits_long_lists_on_card(cuda_device, monkeypatch):
+    """A list longer than one launch's leaf table takes one launch per
+    MAX_LEAVES leaves and per u dtype, with the same bits."""
+    monkeypatch.setattr(pt_sr, "MAX_LEAVES", 3)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    sizes = (1, 5, 4099, 3, 8, 2, 77)
+    ps = [torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16) for n in sizes]
+    us = [torch.randn(n, generator=gen, device=cuda_device).to(dt) * 1e-3
+          for n, dt in zip(sizes, [torch.float32, torch.bfloat16] * 4)]
+    seeds = torch.arange(len(sizes), dtype=torch.int64, device=cuda_device) * 977 - 5
+    before = sr_update_leaves.launches
+    got = sr_update_leaves(ps, us, seeds)
+    torch.cuda.synchronize()
+    # fp32 u: 4 leaves in two launches; bf16 u: 3 leaves in one
+    assert sr_update_leaves.launches == before + 3
+    for i, (p, u, g) in enumerate(zip(ps, us, got)):
+        want = stochastic_round_to_bf16(p.float() + u.float(), philox_bits(seeds[i], p.numel()))
+        assert torch.equal(g.view(torch.int16), want.view(torch.int16))

@@ -95,6 +95,53 @@ def test_plain_backward_matches_jax_vjp(monkeypatch, stream, dp, nh, sq, skv, ma
         np.testing.assert_allclose(port, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dp,nh,sq,skv,mask", CASES)
+def test_given_delta_matches_jax_vjp(dp, nh, sq, skv, mask):
+    """K2 and K3 on the pre-pass's delta (`delta=`, as the backward hands
+    it to both) give what they give without it, bit for bit on the CPU,
+    and agree with the JAX `_dq_kernel` / `_dkv_kernel` in interpret mode."""
+    b = 2
+    q, k, v, do = _inputs(dp + sq + skv + 1, b, sq, skv, nh * dp)
+    keep = _keep(mask, b, skv)
+    sm = 1.0 / np.sqrt(dp)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    tkeep = None if keep is None else torch.from_numpy(keep)
+    o, lse = pt_ff.flash_attention_folded_fwd(*t[:3], nh, sm_scale=sm, kv_keep=tkeep)
+    args = (*t[:3], o, lse, t[3], nh)
+    delta = pt_ff.flash_attention_folded_delta(o, t[3], nh)
+    kw = dict(sm_scale=sm, kv_keep=tkeep)
+    given = (pt_ff.flash_attention_folded_dq(*args, **kw, delta=delta),
+             *pt_ff.flash_attention_folded_dkv(*args, **kw, delta=delta))
+    computed = (pt_ff.flash_attention_folded_dq(*args, **kw),
+                *pt_ff.flash_attention_folded_dkv(*args, **kw))
+    for g, c in zip(given, computed):
+        torch.testing.assert_close(g, c, atol=0, rtol=0)
+    for g, ref in zip(given, _jax_grads(q, k, v, do, nh, sm, keep)):
+        np.testing.assert_allclose(g.numpy(), ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_backward_computes_delta_once(monkeypatch, with_keep):
+    """The autograd backward runs the delta pre-pass once and hands its
+    delta to K2 and K3 (on the CPU: the plain delta, counted here)."""
+    calls = []
+    plain_delta = pt_ff.flash_attention_folded_delta_reference
+
+    def counted(o, do, num_heads):
+        calls.append(num_heads)
+        return plain_delta(o, do, num_heads)
+    monkeypatch.setattr(pt_ff, "flash_attention_folded_delta_reference", counted)
+    b, sq, skv, nh, d = 2, 96, 80, 3, 24
+    q, k, v, do = (torch.from_numpy(a).requires_grad_(i < 3)
+                   for i, a in enumerate(_inputs(22, b, sq, skv, nh * d)))
+    keep = torch.from_numpy(_keep("tail", b, skv)) if with_keep else None
+    out = pt_ff.flash_attention_folded(q, k, v, nh, sm_scale=d ** -0.5, kv_keep=keep)
+    assert calls == []
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert calls == [nh]
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_autograd_function_matches_autograd_through_plain_forward(with_keep):
     b, sq, skv, nh, d = 2, 96, 80, 3, 24

@@ -76,6 +76,30 @@ def test_adapted_module_keys_and_shapes_match_jax(tiny, layer_filter):
             == sorted(jax_lora.peft_module_keys(te, jcfg))
 
 
+@pytest.mark.parametrize("layer_filter", [(), ("attn1", "proj_in")])
+def test_adapter_shapes_are_the_init_shapes_of_jax(tiny, layer_filter):
+    """`adapter_shapes` (what the card's K5 checks size their leaves by)
+    gives the shapes of the reference's adapters, without creating them."""
+    _, (unet, _, _, _), port = tiny
+    jcfg, pcfg = _cfgs(layer_filter=layer_filter)
+    ref = jax_lora.init_peft_params(jax.random.PRNGKey(0), unet, jcfg)
+    assert pt_lora.adapter_shapes(port.unet, pcfg) \
+        == {k: {n: tuple(t.shape) for n, t in e.items()} for k, e in ref.items()}
+
+
+def test_sdxl_unet_adapter_set_on_meta():
+    """The SDXL QLoRA step's adapter set at rank 16, from a UNet built on
+    the "meta" device: 794 layers, 1588 tensors, 49,412,736 elements."""
+    from onetrainer_tpu_torch.models.unet import UNet2DCondition, sdxl_unet_config
+    with torch.device("meta"):
+        unet = UNet2DCondition(sdxl_unet_config())
+    shapes = pt_lora.adapter_shapes(unet, pt_lora.PeftConfig(rank=16))
+    assert len(shapes) == 794
+    assert sum(int(np.prod(s)) for e in shapes.values() for s in e.values()) == 49_412_736
+    assert shapes["down_blocks_1/attentions_0/transformer_blocks_0/attn1/to_q"] \
+        == {"lora_down": (16, 640), "lora_up": (640, 16)}
+
+
 def test_init_up_zero_down_bounded_and_seeded(tiny):
     port = tiny[2]
     _, pcfg = _cfgs()

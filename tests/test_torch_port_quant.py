@@ -255,7 +255,8 @@ def test_quantize_frozen_parts_policy_matches_jax():
                                ("text_encoder_2", port.text_encoder_2,
                                 clip_flax_to_state_dict)):
         carried = port_model_like(jax_model).modules()[key]
-        quantized_params_from_jax(carried, jax.device_get(frozen[key]), to_sd)
+        quantized_params_from_jax(carried, jax.device_get(frozen[key]), to_sd,
+                                  device="cpu")
         n_quantized = 0
         for name, layer in module.named_modules():
             w = getattr(layer, "weight", None)

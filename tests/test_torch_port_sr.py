@@ -39,7 +39,7 @@ from jax.experimental.pallas import tpu as pltpu
 from onetrainer_tpu.ops.pallas_sr import sr_update_pallas
 from onetrainer_tpu.ops.stochastic import apply_updates_stochastic as jax_apply
 from onetrainer_tpu.ops.stochastic import stochastic_round_to_bf16 as jax_round
-from onetrainer_tpu_torch.ops.sr_update import sr_update
+from onetrainer_tpu_torch.ops.sr_update import leaf_table, sr_update, sr_update_leaves
 from onetrainer_tpu_torch.ops.stochastic import (
     apply_updates_stochastic, philox4x32_10, philox_bits, stochastic_round_to_bf16,
 )
@@ -139,7 +139,7 @@ def test_sr_update_cpu_path_keeps_the_properties():
     p = torch.randn(n, generator=gen).to(torch.bfloat16)
     u = torch.randn(n, generator=gen) * 1e-3
     u[:100] = 0.0
-    before = sr_update.launches
+    before = sr_update_leaves.launches
     out = sr_update(p, u, torch.tensor([5]))
     s = p.float() + u
     low = s.view(torch.int32) & ~0xFFFF
@@ -155,7 +155,136 @@ def test_sr_update_cpu_path_keeps_the_properties():
     in_place = p.clone()
     assert sr_update(in_place, u, torch.tensor([5]), out=in_place) is in_place
     assert torch.equal(in_place, out)
-    assert sr_update.launches == before
+    assert sr_update_leaves.launches == before
+
+
+# mixed leaf sizes: single elements, a tail of 1-3 after whole groups, and
+# one leaf of 2^20 + 3 elements
+LEAF_SIZES = (1, 3, 5, 4, 1000, (1 << 20) + 3, 7, 2)
+
+
+@pytest.mark.parametrize("alias", [False, True], ids=["new_out", "out_is_p"])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_leaf_list_is_the_per_leaf_call(u_dtype, alias):
+    """The list form of K5's wrapper on the CPU is, leaf by leaf and bit
+    for bit, `sr_update` on that leaf with its own seed: the plain rounding
+    on the Philox bits of seeds[seed_index[i]]."""
+    gen = torch.Generator().manual_seed(8)
+    ps = [torch.randn(n, generator=gen).to(torch.bfloat16) for n in LEAF_SIZES]
+    us = [(torch.randn(n, generator=gen) * 1e-3).to(u_dtype) for n in LEAF_SIZES]
+    seeds = torch.tensor([-0x123456789ABCDEF, 5, 1 << 40, -1, 77, 0, 3, 9, 11, 12],
+                         dtype=torch.int64)
+    seed_index = [9, 0, 2, 3, 1, 4, 6, 8]
+    want = [sr_update(p, u, seeds[j:j + 1]) for p, u, j in zip(ps, us, seed_index)]
+    for p, u, j, w in zip(ps, us, seed_index, want):
+        bits = philox_bits(seeds[j], p.numel())
+        np.testing.assert_array_equal(
+            _bf16_bits(w), _bf16_bits(stochastic_round_to_bf16(p.float() + u.float(), bits)))
+    before = sr_update_leaves.launches
+    outs = [p.clone() for p in ps] if alias else None
+    got = sr_update_leaves(outs or ps, us, seeds, seed_index=seed_index, outs=outs)
+    assert sr_update_leaves.launches == before
+    if alias:
+        assert all(g is o for g, o in zip(got, outs))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        np.testing.assert_array_equal(_bf16_bits(g), _bf16_bits(w))
+
+
+def _kernel_walk(first: np.ndarray, blocks: int, threads: int):
+    """(leaf, local group) of every group of the flat range, as
+    csrc/sr_update.cu's threads find them: each block takes a contiguous
+    share, a thread binary-searches the leaf of its first group and then
+    steps by `threads`, moving to the next non-empty leaf when it crosses."""
+    groups, n_leaves = int(first[-1]), len(first) - 1
+    leaf_of = np.full(groups, -1)
+    local_of = np.full(groups, -1)
+    per_block = -(-groups // blocks)
+    for blk in range(blocks):
+        begin, end = blk * per_block, min((blk + 1) * per_block, groups)
+        for t in range(threads):
+            g = begin + t
+            if g >= end:
+                continue
+            lo, hi = 0, n_leaves
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = (mid, hi) if first[mid] <= g else (lo, mid)
+            leaf = lo
+            while g < end:
+                while g >= first[leaf + 1]:
+                    leaf += 1
+                assert leaf_of[g] == -1
+                leaf_of[g], local_of[g] = leaf, g - first[leaf]
+                g += threads
+    return leaf_of, local_of
+
+
+@pytest.mark.parametrize("sizes", [LEAF_SIZES[:5] + (9, 1030),
+                                   (0, 4, 0, 0, 5, 1, 0, 64, 3, 0)],
+                         ids=["mixed", "with_empty_leaves"])
+def test_leaf_table_maps_every_group_to_its_leaf(sizes):
+    """The leaf table's first groups, walked as the kernel walks them, send
+    every 4-element group of the flat range to its own leaf and local
+    index, at every leaf boundary; the rest of the table holds each leaf's
+    pointers, element count and seed index."""
+    ps = [torch.zeros(n, dtype=torch.bfloat16) for n in sizes]
+    us = [torch.zeros(n, dtype=torch.float32) for n in sizes]
+    outs = [torch.zeros(n, dtype=torch.bfloat16) for n in sizes]
+    seed_index = np.arange(len(sizes))[::-1].copy()
+    table = leaf_table(outs, ps, us, seed_index)
+    n_leaves = len(sizes)
+    first, rows = table[:n_leaves + 1], table[n_leaves + 1:].reshape(n_leaves, 5)
+    want_leaf = np.concatenate([np.full(-(-n // 4), i) for i, n in enumerate(sizes)])
+    want_local = np.concatenate([np.arange(-(-n // 4)) for n in sizes])
+    assert first[0] == 0 and first[-1] == len(want_leaf)
+    for blocks, threads in ((1, 1), (1, 4), (3, 2), (5, 8), (64, 3)):
+        leaf, local = _kernel_walk(first, blocks, threads)
+        np.testing.assert_array_equal(leaf, want_leaf)
+        np.testing.assert_array_equal(local, want_local)
+    np.testing.assert_array_equal(rows[:, 0], [t.data_ptr() for t in outs])
+    np.testing.assert_array_equal(rows[:, 1], [t.data_ptr() for t in ps])
+    np.testing.assert_array_equal(rows[:, 2], [t.data_ptr() for t in us])
+    np.testing.assert_array_equal(rows[:, 3], sizes)
+    np.testing.assert_array_equal(rows[:, 4], seed_index)
+
+
+def test_leaf_list_refuses_what_the_kernel_cannot_take():
+    p = torch.zeros(8, dtype=torch.bfloat16)
+    seeds = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        sr_update_leaves([p.float()], [p], seeds)
+    with pytest.raises(ValueError):
+        sr_update_leaves([p], [torch.zeros(9)], seeds)
+    with pytest.raises(ValueError):
+        sr_update_leaves([p], [p], seeds, seed_index=[2])
+    with pytest.raises(ValueError):
+        sr_update_leaves([p, p], [p], seeds)
+    with pytest.raises(ValueError):
+        sr_update_leaves([p], [p], seeds.int())
+
+
+def test_apply_updates_stochastic_gives_each_leaf_its_seed():
+    """With interleaved fp32 leaves, bf16 leaf i rounds on seed i of the
+    step's draw (one seed per leaf, as before the list kernel), and fp32
+    leaves add exactly."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(8, 33), (50,), (4, 3, 3), (1,), (7,)]
+    dtypes = [torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16, torch.float32]
+    params = [torch.randn(s, generator=gen).to(dt) for s, dt in zip(shapes, dtypes)]
+    updates = [(torch.randn(s, generator=gen) * 1e-3).to(dt) for s, dt in zip(shapes, dtypes)]
+    step = torch.Generator().manual_seed(21)
+    seeds = torch.empty(len(params), dtype=torch.int64)
+    seeds.random_(generator=torch.Generator().manual_seed(21))
+    want = [p + u if p.dtype == torch.float32 else sr_update(p, u, seeds[i:i + 1])
+            for i, (p, u) in enumerate(zip(params, updates))]
+    got = [p.clone() for p in params]
+    apply_updates_stochastic(got, updates, step)
+    for g, w in zip(got, want):
+        if g.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(_bf16_bits(g), _bf16_bits(w))
+        else:
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
 def test_apply_updates_stochastic_matches_jax():
@@ -248,10 +377,10 @@ def test_bf16_adapters_without_stochastic_rounding_match_jax(bf16_nearest_refere
     ref = bf16_nearest_reference
     assert all(np.asarray(t).dtype.name == "bfloat16"
                for e in ref["init"]["unet_lora"].values() for t in e.values())
-    launches = sr_update.launches
+    launches = sr_update_leaves.launches
     setup, metrics, up_max, _ = train_sdxl._port_run(ref)
     assert not setup.step_cfg.stochastic_rounding
-    assert sr_update.launches == launches
+    assert sr_update_leaves.launches == launches
     assert up_max > 0.0     # gradient-flow canary
     assert all(t.dtype == torch.bfloat16 for v in setup.state.params.values()
                for e in v.values() for t in e.values())

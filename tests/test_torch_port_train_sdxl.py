@@ -79,7 +79,7 @@ from onetrainer_tpu_torch.io.torch_flax import merge_int_tokens, unet_state_dict
 from onetrainer_tpu_torch.models.unet import BasicTransformerBlock
 from onetrainer_tpu_torch.ops import quant as pt_quant
 from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_flat
-from onetrainer_tpu_torch.ops.sr_update import sr_update
+from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
 from onetrainer_tpu_torch.sampling import schedulers as pt_sched
 from onetrainer_tpu_torch.sampling import sdxl_sampler as pt_sampler
 from onetrainer_tpu_torch.setup.families import get_family
@@ -422,10 +422,10 @@ def test_qlora_steps_match_jax(qlora_reference):
     assert set(ref["init"]) == {"unet_lora"}
     assert all(np.asarray(t).dtype.name == "bfloat16"
                for e in ref["init"]["unet_lora"].values() for t in e.values())
-    launches = (nf4_dequant_flat.launches, sr_update.launches)
+    launches = (nf4_dequant_flat.launches, sr_update_leaves.launches)
     setup, metrics, up_max, _ = _port_run(ref)
     assert up_max > 0.0     # gradient-flow canary through the quantized base
-    assert (nf4_dequant_flat.launches, sr_update.launches) == launches
+    assert (nf4_dequant_flat.launches, sr_update_leaves.launches) == launches
 
     frozen = ref["setup"].frozen["unet"]
     unet = setup.model.unet
