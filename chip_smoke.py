@@ -11,12 +11,14 @@ never falls back to the CPU. Phases, each of which must pass:
      (stochastic-rounding update); the build's wall time and ptxas's
      registers and spills per kernel;
   2. K1 against its plain PyTorch version in bf16: the two SDXL shapes,
-     head dims 40/80/128, ragged Sq/Skv with a kv keep mask, zero q rows;
-     max |do| and |dlse| against stated bounds, median times of both and
-     of PyTorch's flash SDPA forward at the SDXL shapes, K1's share of its
-     bound and its ratio to SDPA;
+     SD 1.5's d=40 level at batch 4 (B4 S4096 H8 d40) and SD 2.1's 768
+     level at batch 2 (B2 S9216 H5 d64), head dims 40/80/128, ragged
+     Sq/Skv with a kv keep mask, zero q rows; max |do| and |dlse| against
+     stated bounds, median times of both and of PyTorch's flash SDPA
+     forward at the model shapes, K1's share of its bound and its ratio to
+     SDPA;
   3. K2 and K3, on the delta of their shared pre-pass, against their plain
-     versions in bf16: the two SDXL shapes, head dims 40/80/128, ragged
+     versions in bf16: the same model shapes, head dims 40/80/128, ragged
      Sq/Skv with the kv keep mask, and 8192 tokens at d=128 (the TPU's
      streaming dk/dv domain); max |ddq|, |ddk|, |ddv| and relative L2
      against stated bounds, the pre-pass against its plain version, K2 and
@@ -60,8 +62,24 @@ never falls back to the CPU. Phases, each of which must pass:
      rounds, the LoRA gradients with K4 against the plain dequant, and a
      torch.profiler split of one more step;
  10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
-     (the reference's bench.py headline stage): three timed steps, finite.
-The last stdout line is one JSON object, {"ok": true, "device": {...}};
+     (the reference's bench.py headline stage): three timed steps, finite;
+ 11. SD 1.5 at its published widths (seeded weights, fp32 base, bf16
+     compute) through get_family -> create_sd_model -> init_sd_weights ->
+     create_setup: text-to-image at 512x512 (DDIM, 4 steps, CFG 7), K1
+     exactly 5 times per UNet pass (the d=40 self-attentions at 4096
+     tokens), the image uint8 512x512x3 and not constant; then the
+     reference's bench.py SD 1.5 stage as a LoRA step (rank 16, alpha 16,
+     batch 4 at 512x512 through the port's caches, no gradient
+     checkpointing, AdamW 1e-4, clip 1.0): one warm-up step, timed steps
+     with exactly K1, K2, K3 and the pre-pass 5 each per step, the LoRA
+     gradients with K1-K3 against plain attention, and a torch.profiler
+     split of one more step;
+ 12. SD 2.1 (768-v) at its published widths, v-prediction, the same LoRA
+     step at batch 2 at 768x768: K1, K2, K3 and the pre-pass exactly 15
+     each per step (5 of each at 9216 tokens, 5 at 2304, 5 at 576), the
+     LoRA gradients against plain attention, a profiler split.
+Each model is freed before the next phase; every phase prints its peak
+device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
 """
 
@@ -111,8 +129,14 @@ GRAD_REL_L2_BOUND = 1e-2
 # bitwise equal to it (phase k4), so only the step's own run-to-run noise
 # remains (cuDNN and cuBLAS pick their algorithms per call)
 QLORA_GRAD_REL_L2_BOUND = 1e-3
-SELF_ATTN_PER_UNET_PASS = 70   # SDXL at a 128x128 latent: 10 at 4096, 60 at 1024 tokens
 TRAIN_STEPS = 3                # timed steps after one warm-up step
+# the self-attentions K1 takes per UNet pass, {sequence length: count}:
+# SDXL at a 128x128 latent; SD 1.5 at a 64x64 latent, the d=40 level (d=80
+# at 1024 and d=160 at 256 tokens stay on SDPA); SD 2.1 at a 96x96 latent,
+# d=64 throughout (the 144-token mid block stays on SDPA)
+SDXL_SELF_ATTN = {4096: 10, 1024: 60}
+SD15_SELF_ATTN = {4096: 5}
+SD21_SELF_ATTN = {9216: 5, 2304: 5, 576: 5}
 # K4 cases: name, logical shape (the reference's kernel layout)
 K4_CASES = [
     ("ff_1280x10240", (1280, 10240)),           # GEGLU projection of a 1280 block
@@ -133,6 +157,8 @@ PEAK_BYTES_PER_S = 3.35e12
 K1_CASES = [
     ("sdxl_b2_s4096_h10_d64", 2, 4096, 4096, 10, 64, False, None),
     ("sdxl_b2_s1024_h20_d64", 2, 1024, 1024, 20, 64, False, None),
+    ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False, None),
+    ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False, None),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False, None),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False, None),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False, None),
@@ -143,6 +169,8 @@ K1_CASES = [
 K23_CASES = [
     ("sdxl_b2_s4096_h10_d64", 2, 4096, 4096, 10, 64, False),
     ("sdxl_b2_s1024_h20_d64", 2, 1024, 1024, 20, 64, False),
+    ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False),
+    ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
@@ -150,9 +178,11 @@ K23_CASES = [
     ("stream_b1_s8192_h8_d128", 1, 8192, 8192, 8, 128, False),
 ]
 SDXL_SHAPES = ("sdxl_b2_s4096_h10_d64", "sdxl_b2_s1024_h20_d64")
-# K2/K3 cases timed against SDPA's backward: the SDXL shapes and the
-# streaming domain of the TPU's K3b
-SDPA_BWD_CASES = SDXL_SHAPES + ("stream_b1_s8192_h8_d128",)
+SD15_SHAPE, SD21_SHAPE = "sd15_b4_s4096_h8_d40", "sd21_b2_s9216_h5_d64"
+# cases timed against SDPA: the model shapes, and for K2/K3 the streaming
+# domain of the TPU's K3b
+MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE)
+SDPA_BWD_CASES = MODEL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
 def _median_ms(torch, fn, reps: int = 20) -> float:
@@ -296,7 +326,7 @@ def phase_k1_cases(torch) -> dict:
         plain_ms = _median_ms(torch, lambda: ff.flash_attention_folded_reference(
             q, k, v, h, sm_scale=scale, kv_keep=keep))
         library_ms = None
-        if name in SDXL_SHAPES:
+        if name in MODEL_SHAPES:
             q4, k4, v4 = (_heads4(t, h) for t in (q, k, v))
 
             def sdpa():
@@ -607,29 +637,53 @@ def phase_k5(torch) -> dict:
 
 
 def _plain_attention(ff):
-    def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
+    """The plain version in place of `flash_attention_folded`. Under autograd
+    it is recomputed in the backward (torch.utils.checkpoint) rather than
+    keeping its [B, H, Sq, Skv] fp32 scores and probabilities, 3.4 GB each
+    per attention at SD 2.1's 9216 tokens."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    def reference(q, k, v, num_heads, sm_scale, kv_keep):
         return ff.flash_attention_folded_reference(
             q, k, v, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)[0]
+
+    def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
+        if torch.is_grad_enabled():
+            return checkpoint(reference, q, k, v, num_heads, sm_scale, kv_keep,
+                              use_reentrant=False)
+        return reference(q, k, v, num_heads, sm_scale, kv_keep)
     return plain
 
 
-def build_model(torch, unet_weight_dtype=None):
-    from onetrainer_tpu_torch.io.weights import init_sdxl_weights
+def build_model(torch, unet_weight_dtype=None, model_type=None):
+    """A model at its published widths with seeded weights on the card,
+    compute bf16, the UNet's parameters in `unet_weight_dtype` (fp32 by
+    default), the rest fp32. SDXL (the default) is built with tx_only
+    gradient checkpointing, which acts only where autograd records: the
+    inference phases run the plain forward, the training phases recompute.
+    SD 1.5/2.x is built without it, as the reference's bench.py SD 1.5
+    stage trains."""
+    from onetrainer_tpu_torch.io.weights import init_sd_weights
+    from onetrainer_tpu_torch.models.sd import create_sd_model
     from onetrainer_tpu_torch.models.sdxl import create_sdxl_model
     from onetrainer_tpu_torch.util.enums import ModelType
+    model_type = model_type or ModelType.STABLE_DIFFUSION_XL_10_BASE
     unet_weight_dtype = unet_weight_dtype or torch.float32
     t0 = time.perf_counter()
-    # checkpointing acts only where autograd records: the inference phases
-    # run the plain forward, the training phase recomputes per tx_only
-    model = create_sdxl_model(ModelType.STABLE_DIFFUSION_XL_10_BASE,
-                              dtype=torch.bfloat16, gradient_checkpointing=True,
-                              remat_policy="tx_only", device="meta",
-                              unet_weight_dtype=unet_weight_dtype)
-    init_sdxl_weights(model, seed=0, device="cuda")
+    if model_type.is_stable_diffusion_xl():
+        model = create_sdxl_model(model_type, dtype=torch.bfloat16,
+                                  gradient_checkpointing=True, remat_policy="tx_only",
+                                  device="meta", unet_weight_dtype=unet_weight_dtype)
+    else:
+        model = create_sd_model(model_type, dtype=torch.bfloat16, device="meta",
+                                unet_weight_dtype=unet_weight_dtype)
+    init_sd_weights(model, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n = sum(p.numel() for m in model.modules().values() for p in m.parameters())
-    print(f"[model] SDXL base, {n} params (UNet {unet_weight_dtype}, the rest "
-          f"fp32, compute bf16), seeded weights on the card in "
+    counts = ", ".join(f"{name} {sum(p.numel() for p in m.parameters())}"
+                       for name, m in model.modules().items())
+    print(f"[model] {model_type.value}: params {counts} (UNet {unet_weight_dtype}, "
+          f"the rest fp32, compute bf16), seeded weights on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     return model
 
@@ -668,7 +722,7 @@ def phase_unet(torch, model):
     rel = ((out_k1 - out_plain).norm() / out_plain.norm()).item()
     finite = bool(torch.isfinite(out_k1).all() and torch.isfinite(out_plain).all())
     ok = (finite and rel <= UNET_REL_L2_BOUND
-          and launches == SELF_ATTN_PER_UNET_PASS
+          and launches == sum(SDXL_SELF_ATTN.values())
           and tuple(out_k1.shape) == (2, 128, 128, 4))
     print(f"[unet] full-width SDXL UNet forward, latent 2x128x128x4: "
           f"K1 {k1_s * 1e3:.2f} ms ({launches} K1 launches), plain attention "
@@ -696,15 +750,18 @@ def _launch_counts() -> dict:
     return {tag: fn.launches for tag, fn in _kernel_wrappers().items()}
 
 
-def phase_sample(torch, model) -> dict:
+def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
+    """Text-to-image through the family registry at size x size, DDIM 4
+    steps, CFG 7: K1 exactly once per self-attention of `self_attn` per
+    UNet pass and nothing else launched; a uint8 image that is not
+    constant."""
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
-    from onetrainer_tpu_torch.ops import flash_folded as ff
     from onetrainer_tpu_torch.setup.families import get_family
-    from onetrainer_tpu_torch.util.enums import ModelType, NoiseScheduler, TrainingMethod
+    from onetrainer_tpu_torch.util.enums import NoiseScheduler, TrainingMethod
 
     config = TrainConfig.default_values()
-    config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
+    config.model_type = model.model_type
     config.training_method = TrainingMethod.FINE_TUNE
     family = get_family(config.model_type)
     setup = family.create_setup(model, config, 1)
@@ -712,7 +769,7 @@ def phase_sample(torch, model) -> dict:
     sc = SampleConfig.default_values()
     sc.prompt = "a photograph of an astronaut riding a horse"
     sc.negative_prompt = ""
-    sc.height = sc.width = 1024
+    sc.height = sc.width = size
     sc.diffusion_steps = 4
     sc.cfg_scale = 7.0
     sc.seed = 42
@@ -734,13 +791,13 @@ def phase_sample(torch, model) -> dict:
     launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    expected = SELF_ATTN_PER_UNET_PASS * sc.diffusion_steps
+    expected = sum(self_attn.values()) * sc.diffusion_steps
     image = out.image
     # NaN latents would decode to a constant image, so it must vary
     ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K3pre": 0, "K4": 0, "K5": 0}
           and image.dtype.name == "uint8"
-          and image.shape == (1024, 1024, 3) and image.std() > 0)
-    print(f"[sample] SDXL 1024x1024 DDIM {sc.diffusion_steps} steps CFG "
+          and image.shape == (size, size, 3) and image.std() > 0)
+    print(f"[{tag}] {model.model_type.value} {size}x{size} DDIM {sc.diffusion_steps} steps CFG "
           f"{sc.cfg_scale:g}: total {total_s:.3f} s, UNet step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms), peak "
@@ -753,53 +810,51 @@ def phase_sample(torch, model) -> dict:
     return launches
 
 
-def _train_batch(torch, family, setup, batch_size: int) -> dict:
-    """A 1024x1024 batch through the port's caches: a seeded image through
-    the VAE encoder and a prompt through both text encoders, tiled."""
+def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
+    """A size x size batch through the port's caches: a seeded image
+    through the VAE encoder and a prompt through the text encoder(s),
+    tiled; SDXL's also carries TE2's states and the crop metadata."""
     encode_images, encode_text = family.make_encode_fns(setup)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    image = torch.rand((1, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
     latents = encode_images(image)
     text = encode_text("a photograph of an astronaut riding a horse")
 
     def tile(t):
         return t.expand(batch_size, *t.shape[1:]).contiguous()
-    return {
+    batch = {
         "latent_image": tile(latents["latent_image"]),
         "latent_logvar": tile(latents["latent_logvar"]),
-        "text_encoder_hidden_state": tile(text["text_encoder_hidden_state"][None]),
-        "text_encoder_2_hidden_state": tile(text["text_encoder_2_hidden_state"][None]),
-        "text_encoder_2_pooled_state": tile(text["text_encoder_2_pooled_state"][None]),
-        "original_resolution": torch.full((batch_size, 2), 1024, device="cuda"),
-        "crop_offset": torch.zeros((batch_size, 2), device="cuda"),
-        "crop_resolution": torch.full((batch_size, 2), 1024, device="cuda"),
         "loss_weight": torch.ones((batch_size,), device="cuda"),
     }
+    for name, value in text.items():
+        if name.endswith("_state"):
+            batch[name] = tile(value[None])
+    if setup.config.model_type.is_stable_diffusion_xl():
+        batch["original_resolution"] = torch.full((batch_size, 2), size, device="cuda")
+        batch["crop_offset"] = torch.zeros((batch_size, 2), device="cuda")
+        batch["crop_resolution"] = torch.full((batch_size, 2), size, device="cuda")
+    return batch
 
 
 def _lora_grads(torch, setup, batch, timestep, noise, latent_noise):
     """The LoRA gradients of one step's loss at fixed randomness, without
     the update (the step's own forward and backward)."""
-    from onetrainer_tpu_torch.math.losses import diffusion_losses
-    from onetrainer_tpu_torch.train.sdxl_train_step import (
-        _coefficients_on, sdxl_predict,
-    )
     from onetrainer_tpu_torch.train.train_state import param_groups
-    coefficients = _coefficients_on(setup.model, torch.device("cuda"))
     flat = [t for g in param_groups(setup.state.params).values() for t in g]
-    data = sdxl_predict(setup.model, batch, None, setup.step_cfg, coefficients,
-                        timestep=timestep, noise=noise, latent_noise=latent_noise)
-    loss = diffusion_losses(batch, data, setup.step_cfg.loss, coefficients).mean()
+    loss = setup.train_step.loss(batch, None, timestep=timestep, noise=noise,
+                                 latent_noise=latent_noise)
     return torch.cat([g.flatten() for g in torch.autograd.grad(loss, flat)])
 
 
-def _lora_config(batch_size: int):
-    """bench.py's SDXL stage as a training config: LoRA r16 a16 on the
-    UNet, AdamW lr 1e-4, clip 1.0, text encoders frozen (cached text)."""
+def _lora_config(batch_size: int, model_type=None):
+    """bench.py's SDXL and SD 1.5 stages as a training config: LoRA r16 a16
+    on the UNet, AdamW lr 1e-4, clip 1.0, text encoders frozen (cached
+    text); SDXL unless `model_type` names another."""
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.util.enums import ModelType, TrainingMethod
     config = TrainConfig.default_values()
-    config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
+    config.model_type = model_type or ModelType.STABLE_DIFFUSION_XL_10_BASE
     config.training_method = TrainingMethod.LORA
     config.lora_rank = 16
     config.lora_alpha = 16.0
@@ -816,23 +871,23 @@ def _finite(values) -> bool:
     return all(x == x and abs(x) != float("inf") for x in values)
 
 
-def _setup_and_steps(torch, model, config, tag: str) -> dict:
-    """Setup through the family registry, the cached batch, one warm-up
-    step, then TRAIN_STEPS timed steps with every launch count zeroed just
-    before them and read just after."""
+def _setup_and_steps(torch, model, config, tag: str, size: int = 1024) -> dict:
+    """Setup through the family registry, the cached batch at size x size,
+    one warm-up step, then TRAIN_STEPS timed steps with every launch count
+    zeroed just before them and read just after."""
     from onetrainer_tpu_torch.setup.families import get_family
     family = get_family(config.model_type)
     t0 = time.perf_counter()
     setup = family.create_setup(model, config, 100)
-    batch = _train_batch(torch, family, setup, config.batch_size)
+    batch = _train_batch(torch, family, setup, config.batch_size, size)
     torch.cuda.synchronize()
     adapters = setup.state.params["unet_lora"]
     n_lora = sum(t.numel() for e in adapters.values() for t in e.values())
     dtype = next(iter(adapters.values()))["lora_up"].dtype
     print(f"[{tag}] LoRA r{config.lora_rank} a{config.lora_alpha:g} ({dtype}) on "
           f"{len(adapters)} UNet layers ({n_lora} params), batch {config.batch_size} "
-          f"at 1024x1024 cached through the VAE encoder and both text encoders, "
-          f"set up in {time.perf_counter() - t0:.2f} s")
+          f"at {size}x{size} cached through the VAE encoder and the text encoders, "
+          f"{setup.model.prediction_type}, set up in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     t0 = time.perf_counter()
@@ -879,36 +934,62 @@ def _rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_train(torch, model) -> dict:
+def _grads_against_plain(torch, setup, batch, tag: str) -> dict:
+    """One step's LoRA gradients with K1-K3 against plain attention, at
+    fixed timesteps and noise; the sequence length of each K1 launch of the
+    kernel run."""
     from onetrainer_tpu_torch.ops import flash_folded as ff
-    run = _setup_and_steps(torch, model, _lora_config(2), "train")
-    n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
-    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
-
-    # one step's gradients with K1-K3 against plain attention, at fixed
-    # timesteps and noise
-    setup, batch = run["setup"], run["batch"]
     draws = _fixed_draws(torch, batch)
-    g_kernel = _lora_grads(torch, setup, batch, *draws)
+    seqs = []
     kernel_fn = ff.flash_attention_folded
+
+    def recorded(q, *args, **kwargs):
+        seqs.append(q.shape[1])
+        return kernel_fn(q, *args, **kwargs)
+    ff.flash_attention_folded = recorded
+    try:
+        g_kernel = _lora_grads(torch, setup, batch, *draws)
+    finally:
+        ff.flash_attention_folded = kernel_fn
     ff.flash_attention_folded = _plain_attention(ff)
     try:
         g_plain = _lora_grads(torch, setup, batch, *draws)
     finally:
         ff.flash_attention_folded = kernel_fn
     rel = _rel_l2(g_kernel, g_plain)
-    grads_finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
-    print(f"[train] LoRA gradients, K1-K3 vs plain attention: rel L2 {rel:.3e} "
-          f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values")
-    ok = (run["finite"] and grads_finite and run["up_max"] > 0
-          and run["launches"] == expected and rel <= GRAD_REL_L2_BOUND)
-    print(f"[train] launches {run['launches']} (expected {expected}) "
-          f"{'ok' if ok else 'FAIL'}")
+    finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
+    by_seq = {n: seqs.count(n) for n in sorted(set(seqs), reverse=True)}
+    print(f"[{tag}] LoRA gradients, K1-K3 vs plain attention: rel L2 {rel:.3e} "
+          f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values; K1 launches "
+          f"of one forward by sequence length {by_seq}")
+    return {"rel": rel, "finite": finite, "by_seq": by_seq}
+
+
+def phase_train(torch, model, config, size: int, self_attn: dict, tag: str) -> dict:
+    """The LoRA step at size x size: exact K1, K2, K3 and pre-pass launches
+    per step (one of each per self-attention of `self_attn`, {sequence
+    length: count per UNet pass}; K1 twice where gradient checkpointing
+    recomputes the transformer blocks), K1 at those sequence lengths, the
+    gradients against plain attention, a profiler split."""
+    recompute = 2 if model.unet_config.gradient_checkpointing else 1
+    run = _setup_and_steps(torch, model, config, tag, size)
+    n = TRAIN_STEPS * sum(self_attn.values())
+    expected = {"K1": recompute * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
+    setup, batch = run["setup"], run["batch"]
+    grads = _grads_against_plain(torch, setup, batch, tag)
+    prediction = "v_prediction" if config.force_v_prediction else "epsilon"
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected
+          and grads["by_seq"] == {s: recompute * c for s, c in self_attn.items()}
+          and grads["rel"] <= GRAD_REL_L2_BOUND
+          and setup.model.prediction_type == prediction)
+    print(f"[{tag}] launches {run['launches']} (expected {expected}; per UNet pass by "
+          f"sequence length {self_attn}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("LoRA training run failed its checks")
-    profile_train_step(torch, setup, batch, run["gen"], "train")
-    return {"launches": run["launches"], "steps": TRAIN_STEPS,
-            "sec_per_step": run["sec_per_step"]}
+        raise AssertionError(f"{tag} training run failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], tag)
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
 
 
 def _quantized_layers(torch, unet) -> tuple[int, int]:
@@ -941,14 +1022,14 @@ def phase_qlora(torch) -> dict:
     n_tensors = len(shapes)
     nf4_bytes = sum(w.q.numel() + 4 * w.scales.numel() for m in model.unet.modules()
                     if quant.is_quantized(w := getattr(m, "weight", None)))
-    n = TRAIN_STEPS * SELF_ATTN_PER_UNET_PASS
+    per_pass = sum(SDXL_SELF_ATTN.values())
+    n = TRAIN_STEPS * per_pass
     expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
                 "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS}
     print(f"[qlora] UNet NF4: {n_quant} quantized layers ({n_in_blocks} inside "
           f"transformer blocks), {nf4_bytes / 2 ** 30:.3f} GiB of codes and scales; "
-          f"{n_tensors} bf16 adapter tensors; per step K1 {2 * SELF_ATTN_PER_UNET_PASS}, "
-          f"K2 {SELF_ATTN_PER_UNET_PASS}, K3 {SELF_ATTN_PER_UNET_PASS}, "
-          f"K3's pre-pass {SELF_ATTN_PER_UNET_PASS}, "
+          f"{n_tensors} bf16 adapter tensors; per step K1 {2 * per_pass}, "
+          f"K2 {per_pass}, K3 {per_pass}, K3's pre-pass {per_pass}, "
           f"K4 {n_quant + n_in_blocks}, K5 1 launches expected; adapter shapes those "
           f"phase k5 rounds {shapes == k5_shapes}")
 
@@ -992,13 +1073,19 @@ def phase_fp8(torch) -> dict:
             "peak_gib": run["peak_gib"]}
 
 
+# the port's kernels live in an anonymous namespace: PyTorch's own flash
+# kernels (pytorch_flash::flash_fwd_kernel) must not count as K1
+_PORT = "(anonymous namespace)::"
 _PROFILE_CLASSES = (
-    ("K1 flash_fwd", ("flash_fwd_kernel",)),
-    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("K3 flash_bwd_dkv pre-pass (delta)", ("flash_bwd_delta_kernel",)),
-    ("K4 nf4_dequant", ("nf4_dequant_kernel",)),
-    ("K5 sr_update", ("sr_update_kernel",)),
+    ("K1 flash_fwd", (_PORT + "flash_fwd_kernel",)),
+    ("K2 flash_bwd_dq", (_PORT + "flash_bwd_dq_kernel",)),
+    ("K3 flash_bwd_dkv", (_PORT + "flash_bwd_dkv_kernel",)),
+    ("K3 flash_bwd_dkv pre-pass (delta)", (_PORT + "flash_bwd_delta_kernel",)),
+    ("K4 nf4_dequant", (_PORT + "nf4_dequant_kernel",)),
+    ("K5 sr_update", (_PORT + "sr_update_kernel",)),
+    # scaled_dot_product_attention (cross-attention, short sequences): its
+    # cuDNN, flash and memory-efficient backends
+    ("SDPA (library attention)", ("_sdpa_", "pytorch_flash::", "fmha")),
     ("cuBLAS GEMMs", ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass", "ampere_",
                       "sm80_")),
     ("cuDNN convolutions", ("conv", "Conv", "cudnn", "nchwToNhwc", "nhwcToNchw",
@@ -1058,31 +1145,53 @@ def profile_train_step(torch, setup, batch, gen, tag: str):
         raise AssertionError("the profiler saw no device time")
 
 
+def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
+                    err=None) -> list:
+    """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
+    launches of `path`. `err` picks each row's max_abs_err (default: the
+    case's own)."""
+    bounds = _attn_bounds(*dims)
+    err = err or (lambda tag, case: case)
+    return [
+        (f"flash_attention_folded_fwd (K1){suffix}", "K1", "flash_fwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:93", path,
+         err("K1", k1[shape]["err_o"]), k1[shape]["ms"], k1[shape]["plain_ms"],
+         *bounds["K1"], k1[shape]["library_ms"], shape),
+        (f"flash_attention_folded_dq (K2, delta given){suffix}", "K2", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:196", path,
+         err("K2", k23[shape]["errs"]["dq"]), k23[shape]["k2_ms"],
+         k23[shape]["plain_dq_ms"], *bounds["K2"], k23[shape]["library_ms"], shape),
+        (f"flash_attention_folded_dkv (K3, delta given){suffix}", "K3", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:248", path,
+         err("K3", max(k23[shape]["errs"]["dk"], k23[shape]["errs"]["dv"])),
+         k23[shape]["k3_ms"], k23[shape]["plain_dkv_ms"], *bounds["K3"],
+         k23[shape]["library_ms"], shape),
+        (f"flash_attention_folded_delta (K3's pre-pass){suffix}", "K3pre", "flash_bwd.cu",
+         "onetrainer_tpu/ops/flash_folded.py:276", path,
+         err("K3pre", k23[shape]["err_delta"]), k23[shape]["delta_ms"],
+         k23[shape]["plain_delta_ms"], *bounds["delta"], None, shape),
+    ]
+
+
 def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
-    """One row per kernel: `launches` from the path that runs it (K1-K3
-    the fp32-base LoRA step, K4-K5 the QLoRA step), the time at that
-    path's shape, and the counts of every path."""
-    head = "sdxl_b2_s4096_h10_d64"
-    bounds = _attn_bounds(2, 4096, 4096, 10, 64)
+    """One row per kernel and path: `launches` from the path that runs it
+    (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's and SD 2.1's
+    shapes with their steps' launches; K4-K5 the QLoRA step), the time at
+    that path's shape, and the counts of every path."""
+    worst = {
+        "K1": max(c["err_o"] for c in k1.values()),
+        "K2": max(c["errs"]["dq"] for c in k23.values()),
+        "K3": max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
+        "K3pre": max(c["err_delta"] for c in k23.values()),
+    }
     ff = K4_CASES[0][0]
-    rows = [
-        ("flash_attention_folded_fwd (K1)", "K1", "flash_fwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:93", "train",
-         max(c["err_o"] for c in k1.values()), k1[head]["ms"], k1[head]["plain_ms"],
-         *bounds["K1"], k1[head]["library_ms"], head),
-        ("flash_attention_folded_dq (K2, delta given)", "K2", "flash_bwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:196", "train",
-         max(c["errs"]["dq"] for c in k23.values()), k23[head]["k2_ms"],
-         k23[head]["plain_dq_ms"], *bounds["K2"], k23[head]["library_ms"], head),
-        ("flash_attention_folded_dkv (K3, delta given)", "K3", "flash_bwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:248", "train",
-         max(max(c["errs"]["dk"], c["errs"]["dv"]) for c in k23.values()),
-         k23[head]["k3_ms"], k23[head]["plain_dkv_ms"], *bounds["K3"],
-         k23[head]["library_ms"], head),
-        ("flash_attention_folded_delta (K3's pre-pass)", "K3pre", "flash_bwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:276", "train",
-         max(c["err_delta"] for c in k23.values()), k23[head]["delta_ms"],
-         k23[head]["plain_delta_ms"], *bounds["delta"], None, head),
+    rows = _attention_rows(k1, k23, "sdxl_b2_s4096_h10_d64", "train", (2, 4096, 4096, 10, 64),
+                           "", err=lambda tag, case: worst[tag])
+    rows += _attention_rows(k1, k23, SD15_SHAPE, "sd15_train", (4, 4096, 4096, 8, 40),
+                            " at SD 1.5's B4 S4096 H8 d40")
+    rows += _attention_rows(k1, k23, SD21_SHAPE, "sd21_train", (2, 9216, 9216, 5, 64),
+                            " at SD 2.1's B2 S9216 H5 d64")
+    rows += [
         ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
          max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
@@ -1099,7 +1208,7 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
             "name": name, "route": "cuda", "source": f"onetrainer_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[path][tag], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": shape,
+            "library_ms": library_ms, "shape": shape, "path": path,
             "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
     return {"kernels": kernels}
@@ -1142,8 +1251,9 @@ def main() -> int:
     model = run("model", build_model, torch)
     if model is not None:
         run("unet", phase_unet, torch, model)
-        run("sample", phase_sample, torch, model)
-        run("train", phase_train, torch, model)
+        run("sample", phase_sample, torch, model, 1024, SDXL_SELF_ATTN, "sample")
+        run("train", phase_train, torch, model, _lora_config(2), 1024, SDXL_SELF_ATTN,
+            "train")
     # the fp32 model must not stay alive into the later phases' peak memory
     del model
     results.pop("model", None)
@@ -1152,11 +1262,35 @@ def main() -> int:
         torch.cuda.empty_cache()
         run(name, fn, torch)
 
+    from onetrainer_tpu_torch.util.enums import ModelType
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = run("sd15_model", build_model, torch, None, ModelType.STABLE_DIFFUSION_15)
+    if model is not None:
+        run("sd15_sample", phase_sample, torch, model, 512, SD15_SELF_ATTN,
+            "sd15_sample")
+        run("sd15_train", phase_train, torch, model,
+            _lora_config(4, ModelType.STABLE_DIFFUSION_15), 512, SD15_SELF_ATTN,
+            "sd15_train")
+    del model
+    results.pop("sd15_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = run("sd21_model", build_model, torch, None, ModelType.STABLE_DIFFUSION_21)
+    if model is not None:
+        config = _lora_config(2, ModelType.STABLE_DIFFUSION_21)
+        config.force_v_prediction = True   # the 768-v checkpoint's objective
+        run("sd21_train", phase_train, torch, model, config, 768, SD21_SELF_ATTN,
+            "sd21_train")
+    del model
+    results.pop("sd21_model", None)
+
     if failures:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
-    launches = {"sample": results["sample"],
-                **{p: results[p]["launches"] for p in ("train", "qlora", "fp8")}}
+    launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
+                **{p: results[p]["launches"]
+                   for p in ("train", "qlora", "fp8", "sd15_train", "sd21_train")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""Weight carry for the port's SDXL modules.
+"""Weight carry for the port's SD 1.5/2.x and SDXL modules.
 
-- `sdxl_params_from_flax` loads the reference's flax param trees (as numpy
-  arrays) into the port's modules through the port's copy of the reference's
-  key maps (`io/torch_flax.py`), strictly: every key must match.
+- `sd_params_from_flax` and `sdxl_params_from_flax` load the reference's
+  flax param trees (as numpy arrays) into the port's modules through the
+  port's copy of the reference's key maps (`io/torch_flax.py`), strictly:
+  every key must match.
 - `lora_params_from_jax` turns the reference's LoRA adapter tree into the
   port's adapters (same keys, same torch layout, same dtype).
 - `quantized_params_from_jax` loads a part the reference quantized
   (setup/quantize.py there): NF4 codes and scales and fp8/int8 codes and
   scale carried unchanged, every other leaf in its own dtype.
-- `init_sdxl_weights` materialises full-width weights on a device from a
-  seeded `torch.Generator`, for runs without a checkpoint.
+- `init_sd_weights` materialises full-width weights of either family on a
+  device from a seeded `torch.Generator`, for runs without a checkpoint.
 """
 
 from __future__ import annotations
@@ -45,6 +46,14 @@ def _load(module: nn.Module, state_dict: dict) -> None:
     module.load_state_dict(
         {k: torch.from_numpy(np.array(v, dtype=np.float32))
          for k, v in state_dict.items()}, strict=True)
+
+
+def sd_params_from_flax(model, unet: dict, te: dict, vae: dict) -> None:
+    """Load flax param trees into an SD 1.5/2.x `model`'s unet, text encoder
+    and vae."""
+    _load(model.unet, unet_flax_to_state_dict(unet))
+    _load(model.text_encoder, clip_flax_to_state_dict(te))
+    _load(model.vae, vae_flax_to_state_dict(vae))
 
 
 def sdxl_params_from_flax(model, unet: dict, te: dict, te2: dict,
@@ -140,10 +149,12 @@ def _init_module(module: nn.Module, gen: torch.Generator,
                 sub.bias.zero_()
 
 
-def init_sdxl_weights(model, seed: int, device: torch.device | str) -> None:
-    """Seeded random weights for every module of `model`, on `device`."""
+def init_sd_weights(model, seed: int, device: torch.device | str) -> None:
+    """Seeded random weights for every module of `model` (SD 1.5/2.x or
+    SDXL), on `device`."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     for module in model.modules().values():
         _init_module(module, gen, device)
     model.device = device
+

@@ -17,13 +17,15 @@ def create_noise(
         offset_noise_weight: float = 0.0,
         perturbation_noise_weight: float = 0.0,
 ) -> torch.Tensor:
-    """Gaussian noise with optional offset (constant over all but the first
-    two axes, as the reference draws it) and perturbation components,
-    drawn in fp32 on the generator's device, then cast."""
+    """Gaussian noise of the channels-last `shape` ([B, H, W, C], as the
+    port's latents are) with optional offset and perturbation components,
+    drawn in fp32 on the generator's device, then cast. The offset is one
+    draw per (sample, channel), constant over the spatial axes, as
+    OneTrainer's `_create_noise` draws [B, C, 1, 1] on NCHW latents."""
     device = generator.device
     noise = torch.randn(shape, generator=generator, device=device)
     if offset_noise_weight > 0:
-        offset_shape = tuple(shape[:2]) + (1,) * (len(shape) - 2)
+        offset_shape = (shape[0],) + (1,) * (len(shape) - 2) + (shape[-1],)
         noise = noise + offset_noise_weight * torch.randn(
             offset_shape, generator=generator, device=device)
     if perturbation_noise_weight > 0:

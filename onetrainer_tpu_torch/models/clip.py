@@ -37,6 +37,14 @@ def clip_vit_l_config(**overrides) -> CLIPTextConfig:
     return CLIPTextConfig(**overrides)
 
 
+def open_clip_vit_h_config(**overrides) -> CLIPTextConfig:
+    """SD2.x."""
+    kwargs = dict(hidden_size=1024, intermediate_size=4096, num_layers=23,
+                  num_heads=16, hidden_act="gelu")
+    kwargs.update(overrides)
+    return CLIPTextConfig(**kwargs)
+
+
 def open_clip_vit_bigg_config(**overrides) -> CLIPTextConfig:
     """SDXL TE2 / SD3 clip_g (with projection)."""
     kwargs = dict(hidden_size=1280, intermediate_size=5120, num_layers=32,

@@ -4,7 +4,7 @@
 Counterpart of onetrainer_tpu/models/sdxl.py. Where the reference holds
 configs plus param trees, this holds configs plus `nn.Module`s. Modules
 left unset are built on `device`; build on "meta" and materialise with
-`io.weights.init_sdxl_weights` to skip a throwaway default init at full
+`io.weights.init_sd_weights` to skip a throwaway default init at full
 width.
 """
 

@@ -1,4 +1,5 @@
-"""UNet2DCondition for SD 1.5/2.x and SDXL.
+"""UNet2DCondition for SD 1.5/2.x and SDXL (text-to-image; the 9-channel
+inpainting and 5-channel depth configs of SD 1.5/2.x are not ported).
 
 Counterpart of onetrainer_tpu/models/unet.py. Public layout is the
 reference's: NHWC `sample` in, NHWC fp32 noise prediction out; convolutions
@@ -71,6 +72,20 @@ def _maybe_checkpoint(fn, enabled: bool, *args):
 
 def _checkpoint_resnets(cfg: UNetConfig) -> bool:
     return cfg.gradient_checkpointing and cfg.remat_policy == "full"
+
+
+def sd15_unet_config(**overrides) -> UNetConfig:
+    return UNetConfig(**overrides)
+
+
+def sd21_unet_config(**overrides) -> UNetConfig:
+    kwargs = dict(
+        num_heads=(5, 10, 20, 20),
+        cross_attention_dim=1024,
+        use_linear_projection=True,
+    )
+    kwargs.update(overrides)
+    return UNetConfig(**kwargs)
 
 
 def sdxl_unet_config(**overrides) -> UNetConfig:

@@ -35,6 +35,10 @@ class VAEConfig:
         return 2 ** (len(self.block_out_channels) - 1)
 
 
+def sd15_vae_config(**overrides) -> VAEConfig:
+    return VAEConfig(**overrides)
+
+
 def sdxl_vae_config(**overrides) -> VAEConfig:
     return VAEConfig(scaling_factor=0.13025, **overrides)
 

@@ -5,8 +5,10 @@ Counterpart of onetrainer_tpu/ops/attention.py. Inputs are packed
 [B, S, H*D]; the head split happens here so models stay layout-agnostic.
 The dispatch rules are the reference's shape rules with the TPU-only parts
 dropped:
-- the kernel runs for tensors on a CUDA device (the reference gates on the
-  TPU backend), mask-free or with a kv-only keep mask [B, 1, 1, Skv];
+- the kernel runs for bf16 tensors on a CUDA device (the reference gates
+  on the TPU backend; its Pallas kernels take any float dtype, K1-K3 take
+  bf16 operands only), mask-free or with a kv-only keep mask
+  [B, 1, 1, Skv]; fp32 and fp16 attention takes the library path;
 - both sequence lengths within [256, 16384];
 - head dims that fit the 64/128 slot: exact 64/128, and off-slot dims
   <= 64 (SD 1.5's 40). Off-slot dims in the 128 slot (d=80) stay on the
@@ -44,8 +46,11 @@ def _folded_pad_dim(head_dim: int) -> int | None:
 
 
 def _use_folded(sq: int, skv: int, head_dim: int,
-                pad_dim: int | None = None, *, is_cuda: bool) -> bool:
+                pad_dim: int | None = None, *, is_cuda: bool,
+                dtype: torch.dtype) -> bool:
     """Whether the folded kernel takes this attention call."""
+    if dtype != torch.bfloat16:
+        return False   # K1-K3 take bf16 operands only
     slot = pad_dim if pad_dim is not None else head_dim
     if slot not in (64, 128):
         return False
@@ -97,7 +102,7 @@ def dot_product_attention(
     kv_keep = _kv_keep_of(mask)
     dpad = _folded_pad_dim(d)
     if (mask is None or kv_keep is not None) and dpad is not None \
-            and _use_folded(sq, skv, d, dpad, is_cuda=q.is_cuda):
+            and _use_folded(sq, skv, d, dpad, is_cuda=q.is_cuda, dtype=q.dtype):
         out = _attention_folded(
             q.reshape(b, sq, h * d), k.reshape(b, skv, h * d),
             v.reshape(b, skv, h * d), h, kv_keep, sm_scale=1.0 / d ** 0.5)
@@ -122,7 +127,8 @@ def attention(
     head_dim = inner // num_heads
     kv_keep = _kv_keep_of(mask)
     if (mask is None or kv_keep is not None) \
-            and _use_folded(sq, k.shape[1], head_dim, is_cuda=q.is_cuda):
+            and _use_folded(sq, k.shape[1], head_dim, is_cuda=q.is_cuda,
+                           dtype=q.dtype):
         return _attention_folded(q, k, v, num_heads, kv_keep)
     out = dot_product_attention(
         q.reshape(b, sq, num_heads, head_dim),

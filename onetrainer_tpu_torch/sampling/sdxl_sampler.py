@@ -8,19 +8,13 @@ UNet's device. The 9-channel inpainting branch is not ported yet.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.sampling import schedulers as sched
-from onetrainer_tpu_torch.sampling.sd_sampler import SamplerOutput, sample_rng_for
-
-
-def _initial_latents(shape: tuple[int, ...], generator: torch.Generator,
-                     device: torch.device) -> torch.Tensor:
-    """The sampler's one noise draw: unit-normal fp32 latents."""
-    return torch.randn(shape, generator=generator, device=device,
-                       dtype=torch.float32)
+from onetrainer_tpu_torch.sampling.sd_sampler import (
+    SamplerOutput, _initial_latents, decode_image, denoise, sample_rng_for,
+)
 
 
 @torch.inference_mode()
@@ -72,22 +66,7 @@ def sample_stable_diffusion_xl(
                     model.vae_config.latent_channels)
     latents = _initial_latents(latent_shape, generator, device)
     latents = latents * state.init_noise_sigma
-    cfg_scale = sample_config.cfg_scale
-
-    history: dict = {}
-    for i in range(steps):
-        t = int(state.timesteps[i])
-        model_in = sched.scale_model_input(state, latents, i).float()
-        ts = torch.full((2,), t, dtype=torch.int32, device=device)
-        out = unet(torch.cat([model_in, model_in], dim=0), ts, context,
-                   pooled, time_ids)
-        cond, uncond = out[0:1], out[1:2]
-        noise_pred = uncond + cfg_scale * (cond - uncond)
-        latents = sched.step(state, noise_pred.float(), i, latents,
-                             generator=generator, history=history)
-        if on_update_progress:
-            on_update_progress(i + 1, steps)
-
-    image = vae.decode(latents / model.vae_config.scaling_factor)
-    image = torch.clamp(image[0].float() * 0.5 + 0.5, 0, 1).cpu().numpy()
-    return SamplerOutput(image=(image * 255).astype(np.uint8))
+    latents = denoise(lambda x, ts: unet(x, ts, context, pooled, time_ids), state,
+                      latents, steps, sample_config.cfg_scale, generator,
+                      on_update_progress)
+    return SamplerOutput(image=decode_image(vae, model.vae_config, latents))

@@ -1,17 +1,47 @@
-"""Per-group learning-rate schedules of the SD-family setups.
+"""SD 1.5/2.x model setup, and the setup pieces the SD-family setups share.
 
-Counterpart of `_lr_scale`, `_stop_step` and `_group_schedule` in
-onetrainer_tpu/setup/sd_setup.py (reference:
+Counterpart of onetrainer_tpu/setup/sd_setup.py: prediction forcing, the
+tokenizer wrap, the LoRA training branch of `create_sd_setup` (UNet and
+text-encoder adapters seeded 0 and 1, per-group schedules, the clipped
+AdamW, the train step), `merged_inference_params`, `make_encode_fns` for
+latent and text-embedding caching, and the per-group learning-rate
+schedules `_lr_scale`, `_stop_step` and `_group_schedule` (reference:
 modules/util/NamedParameterGroup.py, modules/util/create.py:1114-1232).
-CUSTOM schedulers and schedule-free optimizers are not ported.
+Frozen parts whose weight dtype is FLOAT_8, INT_8 or NFLOAT_4 are
+quantized after the adapters exist (setup/quantize.py). FINE_TUNE builds
+no trainer yet (it serves sampling); EMBEDDING training, continuing from a
+LoRA file, CUSTOM schedulers and schedule-free optimizers raise.
+`prepare_model`, `wrap_tokenizer`, `setup_lora` and `image_encoder`
+serve setup/sdxl_setup.py too.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field, replace
+
+import torch
+
+from onetrainer_tpu_torch.io.torch_flax import clip_torch_key_map
+from onetrainer_tpu_torch.models.clip import encode_clip_text
+from onetrainer_tpu_torch.peft.lora import PeftConfig, attach_peft, init_peft_params
+from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
+from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer
 from onetrainer_tpu_torch.train.lr_schedules import make_schedule, resolve_warmup_steps
+from onetrainer_tpu_torch.train.optimizers import create_group_optimizer
+from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, make_sd_train_step
+from onetrainer_tpu_torch.train.train_state import create_train_state
 from onetrainer_tpu_torch.util.enums import (
-    LearningRateScaler, LearningRateScheduler, TimeUnit,
+    LearningRateScaler, LearningRateScheduler, TimeUnit, TrainingMethod,
 )
+
+# frozen part -> its ModelWeightDtypes attribute
+_QUANTIZABLE = {"unet": "unet", "text_encoder": "text_encoder"}
+# trainable LoRA group -> (model attribute and config part, adapter key
+# map, init seed), as the reference's PRNGKeys
+_LORA_GROUPS = {
+    "unet_lora": ("unet", None, 0),
+    "te_lora": ("text_encoder", clip_torch_key_map, 1),
+}
 
 
 def _lr_scale(config) -> float:
@@ -57,3 +87,156 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
     if stop is None:
         return schedule
     return lambda step: schedule(step) * float(step < stop)
+
+
+def prepare_model(model, config) -> None:
+    """Prediction forcing (reference: StableDiffusionFineTuneSetup.py:80-86)."""
+    if config.rescale_noise_scheduler_to_zero_terminal_snr:
+        model.rescale_noise_scheduler_to_zero_terminal_snr()
+        model.force_v_prediction()
+    if config.force_v_prediction:
+        model.force_v_prediction()
+    if config.force_epsilon_prediction:
+        model.force_epsilon_prediction()
+
+
+def wrap_tokenizer(tok, te_config) -> SDTokenizer:
+    """`tok` as an SDTokenizer at its text encoder's length and vocabulary."""
+    if isinstance(tok, SDTokenizer):
+        return tok
+    return SDTokenizer(tok, max_length=te_config.max_position_embeddings,
+                       vocab_size=te_config.vocab_size,
+                       bos=max(te_config.eos_token_id - 1, 0), eos=te_config.eos_token_id)
+
+
+def quantize_frozen(model, config, quantizable: dict, trained=()) -> None:
+    """Quantize, in place, the model's parts outside `trained` whose
+    configured weight dtype is quantized."""
+    modules = model.modules()
+    quantize_frozen_parts({k: modules[k] for k in quantizable if k not in trained},
+                          config.weight_dtypes(), quantizable)
+
+
+def setup_lora(model, config, lora_groups: dict, quantizable: dict,
+               total_steps: int, steps_per_epoch: int):
+    """The LoRA branch of the SD-family setups: adapters for each group
+    whose config part trains, drawn on the model's device from a generator
+    seeded per group in the LoRA weight dtype and attached to the layers;
+    the frozen base stops requiring grads, and frozen parts configured with
+    a quantized weight dtype are quantized in place after the adapters
+    exist (their shapes are the logical ones, as the reference's).
+    -> (peft_cfg, trainable, group_schedules, tx)."""
+    if config.lora_model_name:
+        raise NotImplementedError("continuing from a LoRA file is not ported yet")
+    peft_cfg = PeftConfig.from_train_config(config)
+    if peft_cfg.weight_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{peft_cfg.weight_dtype} LoRA weights are not ported yet (fp32, bf16)")
+    modules = model.modules()
+    for module in modules.values():
+        module.requires_grad_(False)
+    trainable, group_schedules = {}, {}
+    for group, (attr, key_map, seed) in lora_groups.items():
+        part = getattr(config, attr)
+        if not part.train:
+            continue
+        module = modules[attr]
+        gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
+        adapters = init_peft_params(gen, module, peft_cfg, key_map)
+        for entry in adapters.values():
+            for tensor in entry.values():
+                tensor.requires_grad_()
+        attach_peft(module, adapters, peft_cfg, key_map)
+        trainable[group] = adapters
+        group_schedules[group] = _group_schedule(
+            config, part.learning_rate, total_steps, part, steps_per_epoch)
+    quantize_frozen(model, config, quantizable)
+    tx = create_group_optimizer(group_schedules, config.optimizer.optimizer,
+                                config.optimizer, config.clip_grad_norm)
+    return peft_cfg, trainable, group_schedules, tx
+
+
+def image_encoder(model):
+    """`encode_images(images NHWC in [-1, 1])` -> {"latent_image",
+    "latent_logvar"}, fp32 on the model's device: the data loader's
+    latent cache."""
+    device = next(model.vae.parameters()).device
+
+    @torch.no_grad()
+    def encode_images(images) -> dict:
+        mean, logvar = model.vae.encode(torch.as_tensor(images, device=device))
+        return {"latent_image": mean.float(), "latent_logvar": logvar.float()}
+
+    return encode_images
+
+
+@dataclass
+class SDSetup:
+    model: object                  # models.sd.StableDiffusionModel
+    config: object
+    tokenizer: SDTokenizer
+    peft_cfg: PeftConfig | None = None
+    step_cfg: SDStepConfig | None = None
+    trainable: dict = field(default_factory=dict)
+    tx: object = None
+    train_step: object = None
+    state: object = None
+    group_schedules: dict = field(default_factory=dict)
+
+    def merged_inference_params(self):
+        """(unet, text_encoder, extra_embeddings) for sampling: the model's
+        own modules. Under LoRA their layers carry the trained adapters and
+        add the LoRA term in their forward, which equals sampling from
+        merged weights without a merged copy of the base."""
+        return self.model.unet, self.model.text_encoder, None
+
+
+def create_sd_setup(model, config, total_steps: int = 10_000,
+                    steps_per_epoch: int = 100) -> SDSetup:
+    """Bind an SD 1.5/2.x `model` and `config`. For LoRA: adapters for the
+    UNet and, when it trains, the text encoder (setup_lora), the clipped
+    AdamW and the train step; otherwise the frozen parts are quantized as
+    configured and no trainer is built (the setup serves sampling)."""
+    if config.training_method == TrainingMethod.EMBEDDING:
+        raise NotImplementedError("EMBEDDING training is not ported yet")
+    prepare_model(model, config)
+    model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
+    step_cfg = SDStepConfig.from_train_config(
+        config, model.prediction_type, model.text_encoder_layer_skip)
+    step_cfg = replace(step_cfg, vae_scaling_factor=model.vae_config.scaling_factor)
+    setup = SDSetup(model=model, config=config, tokenizer=model.tokenizer,
+                    step_cfg=step_cfg)
+    if config.training_method != TrainingMethod.LORA:
+        quantize_frozen(model, config, _QUANTIZABLE,
+                        trained=[k for k in _QUANTIZABLE if getattr(config, k).train])
+        return setup
+    setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
+        model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+    setup.train_step = make_sd_train_step(model, step_cfg, setup.tx)
+    setup.state = create_train_state(setup.trainable, setup.tx)
+    return setup
+
+
+def make_encode_fns(setup: SDSetup):
+    """(encode_images, encode_text) for the data loader's caches:
+    `encode_images` as `image_encoder`; `encode_text(prompt)` -> tokens
+    (int32 numpy), plus the text encoder's hidden state at the model's
+    layer skip ([77, hidden] fp32 on the model's device) when the text
+    encoder is frozen (cached text embeddings)."""
+    model = setup.model
+    encode_images = image_encoder(model)
+    if setup.step_cfg.train_text_encoder:
+        def encode_text(prompt: str) -> dict:
+            return {"tokens": setup.tokenizer(prompt)}
+        return encode_images, encode_text
+    device = next(model.text_encoder.parameters()).device
+
+    @torch.no_grad()
+    def encode_text(prompt: str) -> dict:
+        tokens = setup.tokenizer(prompt)
+        out = model.text_encoder(torch.as_tensor(tokens[None], device=device))
+        return {"tokens": tokens,
+                "text_encoder_hidden_state": encode_clip_text(
+                    out, setup.step_cfg.text_encoder_layer_skip)[0].float()}
+
+    return encode_images, encode_text

@@ -1,19 +1,43 @@
-"""SD-family step configuration and conditioning dropout.
+"""The SD 1.5/2.x training step, and the pieces every SD-family step shares.
 
-Counterpart of the framework-free parts of
-onetrainer_tpu/train/sd_train_step.py: `SDStepConfig` (the reference's
-field names and defaults, for the fields the port's SDXL LoRA step reads)
-and `conditioning_dropout_mask`.
+Counterpart of onetrainer_tpu/train/sd_train_step.py: `SDStepConfig` (the
+reference's field names and defaults, for the fields the port's steps
+read), `conditioning_dropout_mask`, `sd_predict` (noising, the text
+context cached or live, the UNet forward, the epsilon or v-prediction
+target; reference: modules/modelSetup/BaseStableDiffusionSetup.py:135-310)
+and `make_sd_train_step`.
+
+Where the reference's step is a pure jitted function of an immutable
+state, the port's steps update the trainable tensors and the optimizer
+state in place, draw their randomness from an explicit `torch.Generator`,
+and run eagerly on the device the model lives on. LoRA is the ported
+method. `make_lora_train_step` is the loss, backward, clip and update that
+the SD and SDXL steps share; each family brings its own predict.
+
+The optimizer returns its updates and the step adds them, as
+optax.apply_updates does (a bf16 tensor rounds p + u to nearest). With
+`stochastic_rounding` (the reference's `optimizer.stochastic_rounding`)
+and bf16 trainable tensors, it adds them through
+`ops/stochastic.py:apply_updates_stochastic` instead (K5 on the card, one
+seed per tensor from the step's generator); fp32 tensors add their update
+exactly either way, so an fp32 run draws no seeds.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from onetrainer_tpu_torch.math.losses import LossConfig
-from onetrainer_tpu_torch.math.timesteps import TimestepConfig
+from onetrainer_tpu_torch.math.losses import LossConfig, diffusion_losses
+from onetrainer_tpu_torch.math.noise import add_noise_discrete, create_noise
+from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
+from onetrainer_tpu_torch.math.timesteps import TimestepConfig, sample_timesteps_discrete
+from onetrainer_tpu_torch.models.clip import encode_clip_text
+from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic
+from onetrainer_tpu_torch.train.optimizers import global_norm
+from onetrainer_tpu_torch.train.train_state import TrainState, param_groups
 from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
 
 
@@ -73,3 +97,182 @@ def conditioning_dropout_mask(generator: torch.Generator, batch_size: int,
     probability p, else 1 (fp32, on the generator's device)."""
     u = torch.rand((batch_size,), generator=generator, device=generator.device)
     return (u >= p).to(torch.float32)
+
+
+def _on_device(batch: dict, device: torch.device) -> dict:
+    return {k: torch.as_tensor(v, device=device)
+            if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in batch.items()}
+
+
+def _coefficients_on(model, device: torch.device) -> DiffusionScheduleCoefficients:
+    c = model.coefficients()
+    return c._replace(**{name: value.to(device) for name, value in c._asdict().items()
+                         if isinstance(value, torch.Tensor)})
+
+
+def noise_latents(batch: dict, generator: torch.Generator, cfg: SDStepConfig,
+                  coefficients: DiffusionScheduleCoefficients,
+                  *, timestep=None, noise=None, latent_noise=None) -> dict:
+    """Sample the cached latent distribution, scale it, draw timesteps and
+    noise, and noise the latents. `timestep`, `noise` (the diffusion noise)
+    and `latent_noise` (the draw that samples the cached latent
+    distribution) replace the generator's draws when given. -> {"scaled",
+    "timestep" int32, "noise", "noisy"}; latents are NHWC."""
+    latent = batch["latent_image"]
+    device = latent.device
+    if "latent_logvar" in batch:
+        std = torch.exp(0.5 * torch.clamp(batch["latent_logvar"], -30.0, 20.0))
+        if latent_noise is None:
+            latent_noise = torch.randn(latent.shape, generator=generator,
+                                       device=device, dtype=latent.dtype)
+        latent = latent + std * torch.as_tensor(latent_noise, device=device)
+    scaled_latent = latent * cfg.vae_scaling_factor
+
+    if timestep is None:
+        timestep = sample_timesteps_discrete(
+            generator, scaled_latent.shape[0], cfg.timestep,
+            num_train_timesteps=cfg.num_train_timesteps)
+    timestep = torch.as_tensor(timestep, device=device).to(torch.int32)
+    if noise is None:
+        noise = create_noise(generator, tuple(scaled_latent.shape),
+                             scaled_latent.dtype, cfg.offset_noise_weight,
+                             cfg.perturbation_noise_weight)
+    noise = torch.as_tensor(noise, device=device).to(scaled_latent.dtype)
+    noisy = add_noise_discrete(
+        scaled_latent, noise, timestep, coefficients.sqrt_alphas_cumprod,
+        coefficients.sqrt_one_minus_alphas_cumprod)
+    return {"scaled": scaled_latent, "timestep": timestep, "noise": noise,
+            "noisy": noisy}
+
+
+def prediction_data(predicted: torch.Tensor, noised: dict, cfg: SDStepConfig,
+                    coefficients: DiffusionScheduleCoefficients) -> dict:
+    """The loss stack's input: the prediction beside its target (the noise,
+    or v = sqrt(abar) eps - sqrt(1 - abar) x_0 under v-prediction)."""
+    noise, scaled_latent, timestep = noised["noise"], noised["scaled"], noised["timestep"]
+    if cfg.prediction_type == "v_prediction":
+        t = timestep.long()
+        sac = coefficients.sqrt_alphas_cumprod[t].reshape(-1, 1, 1, 1)
+        somac = coefficients.sqrt_one_minus_alphas_cumprod[t].reshape(-1, 1, 1, 1)
+        target = sac * noise.float() - somac * scaled_latent.float()
+    else:
+        target = noise.float()
+    return {
+        "loss_type": "target",
+        "predicted": predicted,
+        "target": target,
+        "timestep": timestep,
+        "scaled_latent_image": scaled_latent,
+        "noisy_latent_image": noised["noisy"],
+        "prediction_type": cfg.prediction_type,
+    }
+
+
+def unet_input(noisy: torch.Tensor, batch: dict, cfg: SDStepConfig) -> torch.Tensor:
+    """The UNet's input: the noisy latents, with an inpainting batch's mask
+    and scaled conditioning latents concatenated on channels."""
+    if "latent_conditioning_image" not in batch:
+        return noisy
+    return torch.cat([
+        noisy, batch["latent_mask"].to(noisy.dtype),
+        batch["latent_conditioning_image"] * cfg.vae_scaling_factor,
+    ], dim=-1)
+
+
+def sd_text_context(model, batch: dict, cfg: SDStepConfig,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """-> context [B, 77, hidden]: the cached TE hidden state when the batch
+    carries it and the text encoder is frozen, else the text encoder (with
+    any LoRA adapters attached) on the batch's tokens at the model's layer
+    skip; then the per-sample conditioning dropout."""
+    if "text_encoder_hidden_state" in batch and not cfg.train_text_encoder:
+        context = batch["text_encoder_hidden_state"]
+    else:
+        out = model.text_encoder(batch["tokens"])
+        context = encode_clip_text(out, cfg.text_encoder_layer_skip)
+    if cfg.te_dropout > 0 and generator is not None:
+        keep = conditioning_dropout_mask(generator, context.shape[0], cfg.te_dropout)
+        context = context * keep[:, None, None].to(context.dtype)
+    return context
+
+
+def sd_predict(model, batch: dict, generator: torch.Generator,
+               cfg: SDStepConfig, coefficients: DiffusionScheduleCoefficients,
+               *, timestep=None, noise=None, latent_noise=None) -> dict:
+    """Noise the batch's latents (`batch["latent_image"]` is the unscaled
+    NHWC VAE latent) and predict with the UNet; the overrides as in
+    `noise_latents`."""
+    noised = noise_latents(batch, generator, cfg, coefficients, timestep=timestep,
+                           noise=noise, latent_noise=latent_noise)
+    context = sd_text_context(model, batch, cfg, generator)
+    predicted = model.unet(unet_input(noised["noisy"], batch, cfg),
+                           noised["timestep"], context)
+    return prediction_data(predicted, noised, cfg, coefficients)
+
+
+def make_lora_train_step(model, cfg: SDStepConfig, tx, predict):
+    """The LoRA step of `model`, whose layers already carry the adapters
+    (the setups attach them), around its family's `predict` (`sd_predict`,
+    `sdxl_predict`).
+
+        train_step(state, batch, generator, *, timestep=None, noise=None,
+                   latent_noise=None, round_bits=None) -> {"loss", "grad_norm"}
+
+    The step updates `state.params` (the adapter tensors) and
+    `state.opt_state` in place and advances `state.step`; the returned
+    loss (fp32, on the model's device: reading it synchronises) and
+    pre-clip global gradient norm (fp32 on the device; for bf16 adapters
+    bf16 on the host, as optax computes it) are 0-dim tensors. `round_bits`,
+    shaped like `state.params`, gives the 16 random low bits of each bf16
+    tensor's stochastic rounding in place of the generator's draws (CPU
+    only). `train_step.loss(batch, generator, **draws)` is the step's loss
+    alone, for a caller that wants its gradients without the update."""
+    if cfg.training_method != TrainingMethod.LORA:
+        raise NotImplementedError(
+            f"{cfg.training_method} training is not ported yet (LoRA only)")
+    device = next(model.unet.parameters()).device
+    coefficients = _coefficients_on(model, device)
+
+    def loss(batch: dict, generator: torch.Generator, **draws) -> torch.Tensor:
+        batch = _on_device(batch, device)
+        data = predict(model, batch, generator, cfg, coefficients, **draws)
+        return diffusion_losses(batch, data, cfg.loss, coefficients).mean()
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
+                   *, timestep=None, noise=None, latent_noise=None,
+                   round_bits=None) -> dict:
+        groups = param_groups(state.params)
+        flat = [t.requires_grad_() for g in groups.values() for t in g]
+        with torch.enable_grad():
+            value = loss(batch, generator, timestep=timestep, noise=noise,
+                         latent_noise=latent_noise)
+        # a layer off the loss's path (TE1's last layer under layer skip)
+        # gets a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+            flat, torch.autograd.grad(value, flat, allow_unused=True))]
+        norm = global_norm(grads)
+        grouped, i = {}, 0
+        for name, tensors in groups.items():
+            grouped[name] = grads[i:i + len(tensors)]
+            i += len(tensors)
+        updates = [u for g in tx.updates(groups, grouped, state.opt_state, norm).values()
+                   for u in g]
+        if cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat):
+            bits = None if round_bits is None else [
+                round_bits[group][key][name] for group, tree in state.params.items()
+                for key in tree for name in sorted(tree[key])]
+            apply_updates_stochastic(flat, updates, generator, bits)
+        else:
+            with torch.no_grad():
+                torch._foreach_add_(flat, updates)
+        state.step += 1
+        return {"loss": value.detach(), "grad_norm": norm}
+
+    train_step.loss = loss
+    return train_step
+
+
+def make_sd_train_step(model, cfg: SDStepConfig, tx):
+    """The SD 1.5/2.x LoRA step (see `make_lora_train_step`)."""
+    return make_lora_train_step(model, cfg, tx, sd_predict)

@@ -19,7 +19,9 @@ import torch
 
 from onetrainer_tpu_torch.ops import flash_folded as pt_ff
 from onetrainer_tpu_torch.ops import nf4 as pt_nf4
-from onetrainer_tpu_torch.models.unet import UNet2DCondition, sdxl_unet_config
+from onetrainer_tpu_torch.models.unet import (
+    UNet2DCondition, sd15_unet_config, sdxl_unet_config,
+)
 from onetrainer_tpu_torch.ops.quant import dequantize_nf4, quantize_nf4
 from onetrainer_tpu_torch.peft.lora import PeftConfig, adapter_shapes
 from onetrainer_tpu_torch.ops import sr_update as pt_sr
@@ -39,6 +41,8 @@ def cuda_device():
 @pytest.mark.parametrize("b,sq,skv,h,d,with_keep", [
     (2, 4096, 4096, 10, 64, False),
     (2, 1024, 1024, 20, 64, False),
+    (4, 4096, 4096, 8, 40, False),  # SD 1.5 @512 batch 4: d=40 in the 64 slot
+    (2, 9216, 9216, 5, 64, False),  # SD 2.1 @768 batch 2: the longest model sequence
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 128, True),
     (1, 50, 77, 3, 40, True),       # both below one tile
@@ -75,6 +79,8 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
 @pytest.mark.parametrize("b,sq,skv,h,d,with_keep", [
     (2, 4096, 4096, 10, 64, False),
     (2, 1024, 1024, 20, 64, False),
+    (4, 4096, 4096, 8, 40, False),    # SD 1.5 @512 batch 4
+    (2, 9216, 9216, 5, 64, False),    # SD 2.1 @768 batch 2: K3 over 144 q tiles
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 80, True),
     (1, 8192, 8192, 2, 128, False),   # the TPU's q-streaming dk/dv domain
@@ -129,6 +135,39 @@ def test_backward_kernels_match_plain_versions_on_card(cuda_device, b, sq, skv, 
         diff, ref = got.float() - ref.float(), ref.float()
         assert diff.abs().max().item() <= 2e-2 * ref.abs().max().item()
         assert (diff.norm() / ref.norm()).item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_fp32_unet_forward_takes_the_library_path_on_card(cuda_device):
+    """An fp32 UNet at SD 1.5 widths (320 and 640 channels, 8 heads: d=40
+    self-attention over 64x64 = 4096 tokens, cut to one down block level
+    and one layer per block) runs on the card: its self-attention takes
+    scaled_dot_product_attention (K1-K3 take bf16 only), and its output
+    matches the same UNet's forward on the CPU within fp32 tolerance (TF32
+    off; 1e-3 of the output's scale for convolutions and matmuls summed in
+    another order)."""
+    from onetrainer_tpu_torch.ops import attention as pt_attn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = sd15_unet_config(block_out_channels=(320, 640), cross_attn_blocks=(True, False),
+                           layers_per_block=1, num_heads=(8, 8), dtype=torch.float32)
+    torch.manual_seed(0)
+    unet = UNet2DCondition(cfg).eval()
+    gen = torch.Generator().manual_seed(1)
+    sample = torch.randn((1, 64, 64, 4), generator=gen)
+    context = torch.randn((1, 77, 768), generator=gen)
+    ts = torch.tensor([500], dtype=torch.int32)
+    with torch.no_grad():
+        plain = unet(sample, ts, context)
+        before = dict(pt_attn.STATS)
+        launches = pt_ff.flash_attention_folded_fwd.launches
+        out = unet.to(cuda_device)(sample.to(cuda_device), ts.to(cuda_device),
+                                   context.to(cuda_device)).cpu()
+    assert pt_ff.flash_attention_folded_fwd.launches == launches
+    assert pt_attn.STATS["folded"] == before["folded"]
+    assert pt_attn.STATS["fallback"] > before["fallback"]
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - plain).abs().max().item() <= 1e-3 * plain.abs().max().item()
 
 
 @pytest.mark.cuda

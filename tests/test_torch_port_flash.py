@@ -166,8 +166,20 @@ def test_attention_matches_jax_dispatcher(monkeypatch, d, with_mask):
 ])
 def test_routing_rule(sq, skv, d, expected):
     slot = pt_attn._folded_pad_dim(d)
-    assert pt_attn._use_folded(sq, skv, d, slot, is_cuda=True) is expected
-    assert not pt_attn._use_folded(sq, skv, d, slot, is_cuda=False)
+    bf16 = torch.bfloat16
+    assert pt_attn._use_folded(sq, skv, d, slot, is_cuda=True, dtype=bf16) is expected
+    assert not pt_attn._use_folded(sq, skv, d, slot, is_cuda=False, dtype=bf16)
+
+
+@pytest.mark.parametrize("sq,d", [(4096, 40), (4096, 64), (9216, 64), (1024, 128)])
+def test_routing_rule_takes_bf16_only(sq, d):
+    """K1-K3 take bf16 operands only: fp32 and fp16 self-attention on the
+    card takes the library path (an fp32 or fp16 UNet), bf16 the kernel."""
+    slot = pt_attn._folded_pad_dim(d)
+    assert pt_attn._use_folded(sq, sq, d, slot, is_cuda=True, dtype=torch.bfloat16)
+    for dtype in (torch.float32, torch.float16):
+        assert not pt_attn._use_folded(sq, sq, d, slot, is_cuda=True, dtype=dtype)
+        assert not pt_attn._use_folded(sq, sq, d, is_cuda=True, dtype=dtype)
 
 
 def test_cpu_attention_takes_library_path():

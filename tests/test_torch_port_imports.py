@@ -1,6 +1,8 @@
 """The torch port stands without JAX: every module of onetrainer_tpu_torch
 imports, the SDXL slice samples and takes two LoRA training steps and two
-QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), with
+QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), and the SD 2.x
+slice (v-prediction, text-encoder layer skip 1) samples and takes two LoRA
+steps, with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
 installed on the machine with the card). chip_smoke.py refuses to run
@@ -31,7 +33,7 @@ _SCRIPT = textwrap.dedent(f"""
 
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
-    from onetrainer_tpu_torch.io.weights import init_sdxl_weights
+    from onetrainer_tpu_torch.io.weights import init_sd_weights
     from onetrainer_tpu_torch.models.clip import CLIPTextConfig
     from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
     from onetrainer_tpu_torch.models.unet import UNetConfig
@@ -54,7 +56,7 @@ _SCRIPT = textwrap.dedent(f"""
         te_config=CLIPTextConfig(hidden_size=32, **te),
         te2_config=CLIPTextConfig(hidden_size=48, projection_dim=48, **te),
         device="meta")
-    init_sdxl_weights(model, seed=0, device="cpu")
+    init_sd_weights(model, seed=0, device="cpu")
     config = TrainConfig.default_values()
     config.model_type = ModelType.STABLE_DIFFUSION_XL_10_BASE
     family = get_family(config.model_type)
@@ -88,7 +90,7 @@ _SCRIPT = textwrap.dedent(f"""
     config.unet.weight_dtype = DataType.NFLOAT_4
     config.lora_weight_dtype = DataType.BFLOAT_16
     model.unet = model.unet.__class__(model.unet_config)
-    init_sdxl_weights(model, seed=1, device="cpu")
+    init_sd_weights(model, seed=1, device="cpu")
     setup = family.create_setup(model, config, 10)
     assert sum(is_quantized(getattr(m, "weight", None)) for m in model.unet.modules()) > 10
     for _ in range(2):
@@ -96,6 +98,39 @@ _SCRIPT = textwrap.dedent(f"""
         assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"].dtype == torch.bfloat16
     assert all(t.dtype == torch.bfloat16 for e in setup.state.params["unet_lora"].values()
                for t in e.values())
+
+    from onetrainer_tpu_torch.io.weights import init_sd_weights
+    from onetrainer_tpu_torch.models.sd import StableDiffusionModel
+    sd = StableDiffusionModel(
+        model_type=ModelType.STABLE_DIFFUSION_21,
+        unet_config=UNetConfig(
+            block_out_channels=(32, 64), cross_attn_blocks=(True, False),
+            layers_per_block=1, num_heads=(4, 4), cross_attention_dim=32,
+            use_linear_projection=True),
+        vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+        te_config=CLIPTextConfig(hidden_size=32, hidden_act="gelu", **te),
+        text_encoder_layer_skip=1, device="meta")
+    init_sd_weights(sd, seed=2, device="cpu")
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_DIFFUSION_21
+    config.force_v_prediction = True
+    family = get_family(config.model_type)
+    image = family.sample(family.create_setup(sd, config, 1), sc, None).image
+    assert image.shape == (32, 32, 3) and image.dtype.name == "uint8"
+    config.training_method = TrainingMethod.LORA
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    config.text_encoder.train = False
+    setup = family.create_setup(sd, config, 10)
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")["text_encoder_hidden_state"]
+    batch = dict(encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1),
+                 loss_weight=torch.ones(2),
+                 text_encoder_hidden_state=text.expand(2, *text.shape))
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert sd.prediction_type == "v_prediction" and setup.state.step == 2
+    assert any(e["lora_up"].abs().max() > 0 for e in setup.state.params["unet_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked

@@ -21,7 +21,7 @@ from onetrainer_tpu.io.torch_flax import (
     clip_state_dict_to_flax, unet_flax_to_state_dict, unet_state_dict_to_flax,
     vae_state_dict_to_flax,
 )
-from onetrainer_tpu_torch.io.weights import init_sdxl_weights, sdxl_params_from_flax
+from onetrainer_tpu_torch.io.weights import init_sd_weights, sdxl_params_from_flax
 from onetrainer_tpu_torch.models import clip as pt_clip
 from onetrainer_tpu_torch.models import unet as pt_unet
 from onetrainer_tpu_torch.models import vae as pt_vae
@@ -228,8 +228,8 @@ def test_weight_carry_matches_reference_trees(tiny):
 def test_init_sdxl_weights_is_seeded(tiny):
     jax_model = tiny[0]
     a, b = port_model_like(jax_model, "meta"), port_model_like(jax_model, "meta")
-    init_sdxl_weights(a, seed=3, device="cpu")
-    init_sdxl_weights(b, seed=3, device="cpu")
+    init_sd_weights(a, seed=3, device="cpu")
+    init_sd_weights(b, seed=3, device="cpu")
     for name, module in a.modules().items():
         other = dict(b.modules()[name].named_parameters())
         for pname, p in module.named_parameters():

@@ -238,18 +238,50 @@ def test_add_noise_matches_jax():
 
 @pytest.mark.parametrize("offset,perturbation", [(0.0, 0.0), (0.1, 0.0), (0.0, 0.2)])
 def test_create_noise_is_seeded_and_distributed_like_jax(offset, perturbation):
-    shape = (256, 4, 16, 16)
+    # the port draws channels-last, the JAX package channels-first
+    shape = (256, 16, 16, 4)
     a = pt_noise.create_noise(torch.Generator().manual_seed(3), shape, torch.float32,
                               offset, perturbation)
     b = pt_noise.create_noise(torch.Generator().manual_seed(3), shape, torch.float32,
                               offset, perturbation)
     assert torch.equal(a, b)
-    ref = np.asarray(jax_noise.create_noise(jax.random.PRNGKey(3), shape, jnp.float32,
-                                            offset, perturbation))
+    ref = np.asarray(jax_noise.create_noise(jax.random.PRNGKey(3), (256, 4, 16, 16),
+                                            jnp.float32, offset, perturbation))
     # the per-(sample, channel) offset shows in the spread of spatial
     # means: 1024 of them, so a relative standard error of ~2%
-    for stat in (lambda x: x.std(), lambda x: x.mean(axis=(2, 3)).std()):
-        assert float(stat(a.numpy())) == pytest.approx(float(stat(ref)), rel=0.1)
+    assert float(a.numpy().std()) == pytest.approx(float(ref.std()), rel=0.1)
+    assert float(a.numpy().mean(axis=(1, 2)).std()) == pytest.approx(
+        float(ref.mean(axis=(2, 3)).std()), rel=0.1)
+
+
+@pytest.mark.parametrize("through_step", [False, True], ids=["create_noise", "train_step"])
+def test_offset_noise_is_per_sample_and_channel_on_nhwc_latents(through_step):
+    """OneTrainer's `_create_noise` adds w * N(0, 1) of shape [B, C, 1, 1]
+    to unit noise on NCHW latents: one offset per (sample, channel). On the
+    train steps' NHWC latents (256, 16, 16, 4) with w = 0.5 that makes the
+    per-(sample, channel) spatial means vary by 1/(16*16) + w^2 = 0.2539,
+    while the per-(sample, row) means (over W and C) vary about their
+    sample's mean only as unit noise does, (1/64)(1 - 1/16) = 0.01465. The
+    reference's draw of shape [B, H, 1, 1] on NHWC latents gives 0.0195
+    and 0.249 instead. 1024 and 3840 degrees of freedom: relative standard
+    errors of 4.4% and 2.3%."""
+    shape, w = (256, 16, 16, 4), 0.5
+    gen = torch.Generator().manual_seed(0)
+    if through_step:
+        config = PortTrainConfig.default_values()
+        config.offset_noise_weight = w
+        cfg = pt_step.SDStepConfig.from_train_config(config)
+        coefficients = pt_schedules.DiffusionScheduleCoefficients.from_betas(
+            pt_schedules.make_betas())
+        noise = pt_step.noise_latents({"latent_image": torch.zeros(shape)}, gen, cfg,
+                              coefficients)["noise"].double()
+    else:
+        noise = pt_noise.create_noise(gen, shape, torch.float32, w).double()
+    channel_means = noise.mean(dim=(1, 2))
+    assert channel_means.var().item() == pytest.approx(1 / 256 + w ** 2, rel=0.2)
+    row_means = noise.mean(dim=(2, 3))
+    within = row_means - row_means.mean(dim=1, keepdim=True)
+    assert (within ** 2).sum().item() / (256 * 15) == pytest.approx(15 / 16 / 64, rel=0.15)
 
 
 @pytest.mark.parametrize("settings", [
