@@ -77,7 +77,20 @@ never falls back to the CPU. Phases, each of which must pass:
  12. SD 2.1 (768-v) at its published widths, v-prediction, the same LoRA
      step at batch 2 at 768x768: K1, K2, K3 and the pre-pass exactly 15
      each per step (5 of each at 9216 tokens, 5 at 2304, 5 at 576), the
-     LoRA gradients against plain attention, a profiler split.
+     LoRA gradients against plain attention, a profiler split;
+ 13. sd15_cli, SD 1.5 from files through the entry points a user runs:
+     a seeded full-width SD 1.5 written as one ldm-keyed fp16 single file,
+     eight 512x512 PNGs with captions and a config (LoRA r16 a16, batch 4,
+     AdamW 1e-4, no gradient checkpointing); the port's train CLI (`main`
+     of onetrainer_tpu_torch/scripts/train.py, in this process) for epoch
+     1 with a backup, again with continue_last_backup for epoch 2, then
+     its sample CLI at 512x512 (DDIM, 4 steps). Exactly 5 each of K1, K2,
+     K3 and the pre-pass per training step and none while caching, 20 K1
+     over the sample; global step 2, then 4; 8 latents and 8 text states
+     in the cache; the kohya LoRA file's 282 x 3 keys read back bitwise to
+     the trained adapters and give a finite loss; a non-constant image;
+     load, cache and step times beside sd15_train's step, one step's
+     device-busy share, the peak memory.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -1106,17 +1119,10 @@ def _classify(name: str) -> str:
     return "other elementwise"
 
 
-def profile_train_step(torch, setup, batch, gen, tag: str):
-    """torch.profiler over one training step (after the timed ones): the
-    device time per kernel class and the device's busy share of the step's
-    host time."""
+def _kernel_times(prof) -> tuple[dict, dict, list]:
+    """({class: device ms}, {class: launches}, [(ms, launches, class, name)])
+    over the CUDA kernels a finished torch.profiler run recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        setup.train_step(setup.state, batch, gen)["loss"].item()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     sums: dict = {}
     counts: dict = {}
     kernels = []
@@ -1132,6 +1138,20 @@ def profile_train_step(torch, setup, batch, gen, tag: str):
         sums[label] = sums.get(label, 0.0) + dev_us / 1e3
         counts[label] = counts.get(label, 0) + evt.count
         kernels.append((dev_us / 1e3, evt.count, label, evt.key))
+    return sums, counts, kernels
+
+
+def profile_train_step(torch, setup, batch, gen, tag: str):
+    """torch.profiler over one training step (after the timed ones): the
+    device time per kernel class and the device's busy share of the step's
+    host time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sums, counts, kernels = _kernel_times(prof)
     total = sum(sums.values())
     print(f"[profile] one {tag} step under torch.profiler: host {wall_ms:.3f} ms, "
           f"device time {total:.3f} ms in {sum(counts.values())} launches "
@@ -1143,6 +1163,246 @@ def profile_train_step(torch, setup, batch, gen, tag: str):
         print(f"[profile] kernel {ms:.3f} ms in {count} launches [{label}]: {key[:110]}")
     if total == 0:
         raise AssertionError("the profiler saw no device time")
+
+
+# SD 1.5 LoRA through the CLI (phase sd15_cli): its UNet's adapted layers,
+# the images of its dataset, the captions' template
+SD15_LORA_LAYERS = 282
+CLI_IMAGES = 8
+CLI_SIZE = 512
+CLI_CAPTION = "a photograph of an astronaut riding a horse, number {}"
+
+
+def _cli_config(root: str, ckpt: str, dataset: str):
+    """The sd15_cli phase's config: bench.py's SD 1.5 stage (LoRA r16 a16,
+    batch 4 at 512x512, AdamW 1e-4, clip 1.0, text encoder frozen and its
+    states cached) read from files, one epoch with a backup before the
+    final save, no gradient checkpointing (one K1 per self-attention)."""
+    from onetrainer_tpu_torch.config.concept_config import ConceptConfig
+    from onetrainer_tpu_torch.util.enums import (
+        GradientCheckpointingMethod, ModelType, TimeUnit,
+    )
+    config = _lora_config(4, ModelType.STABLE_DIFFUSION_15)
+    config.base_model_name = ckpt
+    config.resolution = str(CLI_SIZE)
+    config.epochs = 1
+    config.workspace_dir = os.path.join(root, "workspace")
+    config.cache_dir = os.path.join(root, "cache")
+    config.output_model_destination = os.path.join(root, "lora.safetensors")
+    config.gradient_checkpointing = GradientCheckpointingMethod.OFF
+    config.aspect_ratio_bucketing = False
+    config.latent_caching = True
+    config.tensorboard = False
+    config.backup_before_save = True
+    config.backup_after_unit = TimeUnit.NEVER
+    config.save_every_unit = TimeUnit.NEVER
+    config.sample_after_unit = TimeUnit.NEVER
+    concept = ConceptConfig.default_values()
+    concept.path = dataset
+    config.concepts = [concept]
+    config.samples = []
+    return config
+
+
+def _cli_run(torch, config_path: str, events: list, profiled_step=None):
+    """The train CLI in this process, recording (kind, what, launch counts,
+    time) at each status and after each step (synchronized); with
+    `profiled_step`, torch.profiler records that step alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onetrainer_tpu_torch.scripts import train
+    from onetrainer_tpu_torch.util.callbacks import TrainCallbacks
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled_step is not None else None
+
+    def on_status(status):
+        events.append(("status", status, _launch_counts(), time.perf_counter()))
+
+    def on_progress(progress, max_sample, max_epoch):
+        torch.cuda.synchronize()
+        if prof is not None and progress.global_step == profiled_step - 1:
+            prof.__enter__()   # before the stamp: the step's time leaves it out
+        events.append(("step", progress.global_step, _launch_counts(), time.perf_counter()))
+        if prof is not None and progress.global_step == profiled_step:
+            prof.__exit__(None, None, None)
+
+    trainer = train.main(["--config-path", config_path],
+                         TrainCallbacks(on_update_status=on_status,
+                                        on_update_train_progress=on_progress))
+    return trainer, prof
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_sd15_cli(torch, bare_step_s) -> dict:
+    """Phase 13 (see the module docstring). `bare_step_s`: the sd15_train
+    phase's median seconds per step in this run, or None."""
+    import shutil
+    import tempfile
+
+    from onetrainer_tpu_torch.io.png import read_png, write_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file, state_dict_of
+    from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
+    from onetrainer_tpu_torch.scripts import sample
+    from onetrainer_tpu_torch.util.enums import ModelType
+
+    root = tempfile.mkdtemp(prefix="sd15_cli_")
+    try:
+        model = build_model(torch, None, ModelType.STABLE_DIFFUSION_15)
+        ckpt = os.path.join(root, "sd15.safetensors")
+        t0 = time.perf_counter()
+        save_sd_single_file(ckpt, model, *(state_dict_of(m) for m in
+                                           (model.unet, model.vae, model.text_encoder)),
+                            save_dtype=torch.float16)
+        write_s = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        dataset = os.path.join(root, "dataset")
+        os.makedirs(dataset)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for i in range(CLI_IMAGES):
+            pixels = (torch.rand((CLI_SIZE, CLI_SIZE, 3), generator=gen, device="cuda")
+                      * 255).byte()
+            write_png(os.path.join(dataset, f"{i:02d}.png"), pixels.cpu().numpy())
+            with open(os.path.join(dataset, f"{i:02d}.txt"), "w") as f:
+                f.write(CLI_CAPTION.format(i))
+        config = _cli_config(root, ckpt, dataset)
+        config_path = os.path.join(root, "epoch1.json")
+        with open(config_path, "w") as f:
+            json.dump(config.to_dict(), f)
+        config.epochs = 2
+        config.continue_last_backup = True
+        resume_path = os.path.join(root, "epoch2.json")
+        with open(resume_path, "w") as f:
+            json.dump(config.to_dict(), f)
+        print(f"[sd15_cli] wrote {ckpt} ({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB, "
+              f"fp16, ldm keys) in {write_s:.2f} s, {CLI_IMAGES} PNGs {CLI_SIZE}x{CLI_SIZE} "
+              f"and their captions")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        events1, events2 = [], []
+        first, _ = _cli_run(torch, config_path, events1)
+        step_after_first = first.train_progress.global_step
+        loss_first = first._loss_ema
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
+        before_sample = _launch_counts()
+        image_path = os.path.join(root, "sample.png")
+        t0 = time.perf_counter()
+        out = sample.main(["--model-type", "STABLE_DIFFUSION_15", "--base-model-name", ckpt,
+                           "--prompt", "a photograph of an astronaut riding a horse",
+                           "--destination", image_path, "--steps", "4", "--cfg", "7",
+                           "--width", str(CLI_SIZE), "--height", str(CLI_SIZE),
+                           "--scheduler", "DDIM"])
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # launches: none while caching, exactly one per self-attention per step
+        per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+        none = {k: 0 for k in per_step}
+        steps, cache_launches, times = [], [], {}
+        for events in (events1, events2):
+            marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
+            for kind, what, counts, t in events:
+                if kind == "status" and what.endswith(": caching"):
+                    epoch = what.split()[1].rstrip(":")
+                    done = marks[f"training epoch {epoch}"]
+                    cache_launches.append(_delta(done[0], counts))
+                    times.setdefault("cache_s", []).append(done[1] - t)
+            load = marks["loading the model"][1]
+            times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
+            prev = None
+            for kind, what, counts, t in events:
+                if kind == "status" and what.startswith("training epoch"):
+                    prev = (counts, t)
+                elif kind == "step":
+                    steps.append((what, _delta(counts, prev[0]), t - prev[1]))
+                    prev = (counts, t)
+        sample_launches = _delta(launches, before_sample)
+        step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
+        sums, _, _ = _kernel_times(prof)
+        device_ms = sum(sums.values())
+        profiled_ms = steps[-1][2] * 1e3
+
+        # the cache: a latent and a text state per image
+        cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
+        rows = [load_safetensors(f) for f in cache_files]
+        cached = (len(rows) == CLI_IMAGES
+                  and all({"latent_image", "text_encoder_hidden_state"} <= set(r) for r in rows)
+                  and all(r["latent_image"].shape == (CLI_SIZE // 8, CLI_SIZE // 8, 4)
+                          and r["text_encoder_hidden_state"].shape == (77, 768) for r in rows))
+
+        # the LoRA file reads back to the trained adapters bit for bit
+        lora = load_safetensors(config.output_model_destination)
+        adapters = resumed.setup.state.params["unet_lora"]
+        keys = peft_module_keys(resumed.model.unet, resumed.setup.peft_cfg)
+        read, alpha = kohya_state_dict_to_peft(lora, "lora_unet", keys)
+        bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
+                   and all(torch.equal(read[k][n], t.detach().cpu())
+                           for k, e in adapters.items() for n, t in e.items()))
+        with torch.no_grad():
+            for key, entry in adapters.items():
+                for name, t in entry.items():
+                    t.copy_(read[key][name])
+            loader = resumed.data_loader
+            batch = loader.materialize_batch(loader.batches_for_epoch(0)[0])
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            reload_loss = resumed.setup.train_step.loss(batch, gen).item()
+        image = read_png(image_path)
+
+        checks = {
+            "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
+            "none while caching": all(c == none for c in cache_launches)
+            and len(cache_launches) == 2,
+            "K1 over the sample": sample_launches == {**none, "K1": 20},
+            "main-path launches": launches == {
+                k: 4 * v + sample_launches[k] for k, v in per_step.items()},
+            "global steps": (step_after_first, resumed.train_progress.global_step) == (2, 4),
+            "cache": cached,
+            "LoRA keys": len(adapters) == SD15_LORA_LAYERS
+            and len(lora) == 3 * SD15_LORA_LAYERS,
+            "LoRA read back bitwise": bitwise,
+            "finite losses": _finite([loss_first, resumed._loss_ema, reload_loss]),
+            "image": image.shape == (CLI_SIZE, CLI_SIZE, 3) and image.std() > 0
+            and bool((image == out.image).all()),
+        }
+        bare = f"{bare_step_s:.4f} s" if bare_step_s is not None else "not measured"
+        card = gpu_line()
+        print(f"[sd15_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
+              f"{[w for k, w, _, _ in events2 if k == 'status']}")
+        print(f"[sd15_cli] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
+              f"(single file to the card, run 1 and the resume); caching "
+              f"{times['cache_s'][0]:.3f} s for {CLI_IMAGES} images "
+              f"({times['cache_s'][0] / CLI_IMAGES:.4f} s per image; the resume "
+              f"{times['cache_s'][1]:.3f} s, all cached)")
+        print(f"[sd15_cli] on {card}: steps (global step, s): "
+              f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; CLI step median "
+              f"{statistics.median(step_s):.4f} s over the unprofiled steps "
+              f"(the first includes the warm-up) beside sd15_train's median {bare}; "
+              f"step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
+              f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
+        print(f"[sd15_cli] on {card}: sample (load + 4 DDIM steps + decode + PNG) "
+              f"{sample_s:.2f} s; "
+              f"peak max_memory_allocated {peak_gib:.2f} GiB; launches {launches} "
+              f"(sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
+              f"{reload_loss:.6f}; checks {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"sd15_cli failed: "
+                                 f"{[name for name, ok in checks.items() if not ok]}")
+        return {"launches": launches, "step_s": statistics.median(step_s),
+                "peak_gib": peak_gib}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
@@ -1284,13 +1544,18 @@ def main() -> int:
             "sd21_train")
     del model
     results.pop("sd21_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("sd15_cli", phase_sd15_cli, torch,
+        (results.get("sd15_train") or {}).get("sec_per_step"))
 
     if failures:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
                 **{p: results[p]["launches"]
-                   for p in ("train", "qlora", "fp8", "sd15_train", "sd21_train")}}
+                   for p in ("train", "qlora", "fp8", "sd15_train", "sd21_train",
+                             "sd15_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,422 @@
+"""The training data loader for still images: scan → bucket → cache →
+batch → prefetch.
+
+Counterpart of onetrainer_tpu/data/loader.py (`Text2ImageDataLoader`),
+with the same epoch plans, cache keys and batches for still images:
+every random decision derives from (config seed, concept seed, image
+path, epoch, variation), so a resumed epoch draws what an uninterrupted
+one would. Batches are dicts of torch tensors on the host; the train step
+moves them to the model's device.
+
+What differs from the reference:
+- PNG files are read by the port's standard-library codec (io/png.py),
+  which decodes bit for bit as Pillow does; other formats, EXIF
+  orientation and resizing to a new size need Pillow, imported where they
+  happen (an image at its bucket's size is not resized: Pillow's bilinear
+  resize to the same size is the identity).
+- Masks (masked training and mask-input models), depth maps and
+  conditioning images raise NotImplementedError; video files are not
+  collected, and cached pixels (VAE fine-tuning) are not ported.
+- The encode functions run on the thread that calls `ensure_cached` and,
+  without a cache, on the one iterating `iter_epoch`; the prefetch thread
+  only reads cached rows.
+- `retry_transport`, a remote-transport workaround, is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import zlib
+from collections.abc import Callable
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from onetrainer_tpu_torch.config.train_config import TrainConfig
+from onetrainer_tpu_torch.data.augments import augment_image, augment_text
+from onetrainer_tpu_torch.data.bucketing import (
+    assign_bucket, parse_resolutions, possible_resolutions, scale_crop,
+    sort_into_batches,
+)
+from onetrainer_tpu_torch.data.cache import DiskCache
+from onetrainer_tpu_torch.data.concepts import SampleEntry, balance_entries, scan_concepts
+from onetrainer_tpu_torch.io import png
+from onetrainer_tpu_torch.util.enums import ConceptType
+
+_EXIF_ORIENTATION = 0x0112
+_EXIF_SWAPS_WH = {5, 6, 7, 8}
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """HWC float32 RGB in [0, 1], EXIF orientation honoured, as the
+    reference's `load_image_rgb`."""
+    pixels = png.read_png_rgb(path)
+    if pixels is None:
+        from PIL import Image, ImageOps
+        with Image.open(path) as img:
+            img = ImageOps.exif_transpose(img)
+            pixels = np.asarray(img.convert("RGB"))
+    return np.asarray(pixels, dtype=np.float32) / 255.0
+
+
+def probe_image_size(path: str) -> tuple[int, int]:
+    """(w, h) after EXIF orientation, without decoding pixels -- the
+    aspect-bucket probe must agree with load_image_rgb's transpose."""
+    info = png.read_header(path)
+    if png.readable(info):
+        return info["width"], info["height"]
+    from PIL import Image
+    with Image.open(path) as img:
+        w, h = img.size
+        try:
+            if img.getexif().get(_EXIF_ORIENTATION, 1) in _EXIF_SWAPS_WH:
+                w, h = h, w
+        except Exception:
+            pass
+    return w, h
+
+
+def resize_crop(image: np.ndarray, info) -> np.ndarray:
+    """Scale to `info.scale` (bilinear, through uint8 as the reference
+    does) and crop the bucket at `info.crop_offset`."""
+    sh, sw = info.scale
+    pixels = (image * 255).astype(np.uint8)
+    if (sh, sw) != image.shape[:2]:
+        from PIL import Image
+        pil = Image.fromarray(pixels.squeeze() if image.shape[-1] == 1 else pixels)
+        pixels = np.asarray(pil.resize((sw, sh), Image.BILINEAR))
+    arr = np.asarray(pixels, dtype=np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    top, left = info.crop_offset
+    bh, bw = info.bucket
+    return arr[top:top + bh, left:left + bw]
+
+
+def _host(value) -> torch.Tensor:
+    """An encode function's output (a tensor on any device, or numpy) as a
+    host tensor."""
+    return torch.as_tensor(value).cpu()
+
+
+@dataclass
+class PreparedSample:
+    entry_index: int
+    image_variation: int
+    text_variation: int
+    bucket: tuple[int, int]
+    frames: int = 1
+    cache_key: str | None = None
+    epoch: int = 0
+
+
+class Text2ImageDataLoader:
+    """Text→image loader over still images; the family supplies the
+    encode functions.
+
+    encode_images(images float32 NHWC [-1,1] numpy) -> {'latent_image',
+        'latent_logvar', ...} tensors (any device) or numpy arrays; called
+        in bucket-sized batches during cache fill.
+    encode_text(prompt str) -> {'tokens', ...} likewise (e.g. the text
+        encoder's hidden state when text embeddings are cached).
+    They may be set after construction (the trainer sizes its schedules
+    from `len(loader)` before it has a setup to encode with).
+    """
+
+    def __init__(
+            self,
+            config: TrainConfig,
+            encode_images: Callable | None,
+            encode_text: Callable | None,
+            quantization: int = 8,
+            encode_batch_size: int = 8,
+            model_tag: str = "sd",
+            latent_scale: int = 8,
+    ):
+        model_type = config.model_type
+        unported = {
+            "masked training": config.masked_training or model_type.has_mask_input(),
+            "conditioning images": (config.custom_conditioning_image
+                                    or model_type.has_conditioning_image_input()),
+            "depth maps": model_type.has_depth_input(),
+        }
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(f"the data loader's {what} are not ported yet")
+        self.latent_scale = latent_scale
+        self.config = config
+        self.encode_images = encode_images
+        self.encode_text = encode_text
+        self.encode_batch_size = encode_batch_size
+
+        concepts = config.concepts or []
+        self.entries: list[SampleEntry] = scan_concepts(concepts)
+        if not self.entries:
+            # fail loudly: a loader with no samples would otherwise "train"
+            # zero steps per epoch and silently save an untrained model
+            paths = [c.path for c in concepts if getattr(c, "enabled", True)]
+            raise ValueError(
+                "no training samples found; check concept paths "
+                f"(concepts={len(concepts)}, enabled paths={paths}). If the "
+                "config JSON came from to_settings_dict, concepts live in "
+                "the separate concept_file_name file.")
+
+        self.resolutions = parse_resolutions(config.resolution)
+        self.buckets: list[tuple[int, int]] = []
+        for (th, tw) in self.resolutions:
+            if config.aspect_ratio_bucketing:
+                self.buckets.extend(possible_resolutions(th, tw, quantization))
+            else:
+                self.buckets.append((th, tw))
+        self.buckets = sorted(set(self.buckets))
+
+        # probe image sizes once (header read only)
+        self._sizes: list[tuple[int, int]] = []
+        for e in self.entries:
+            try:
+                w, h = probe_image_size(e.image_path)
+            except OSError:
+                w = h = max(self.resolutions[0]) if self.resolutions else 512
+            self._sizes.append((h, w))
+
+        self.cache = None
+        if config.latent_caching:
+            self.cache = DiskCache(config.cache_dir, model_tag)
+            if config.clear_cache_before_training and os.path.isdir(config.cache_dir):
+                self.cache.clear()
+
+        self._threads = max(int(config.dataloader_threads or 1), 1)
+
+    # -- epoch plan -------------------------------------------------------------
+
+    def _epoch_rng(self, epoch: int) -> np.random.Generator:
+        # stable across processes (python's str hash is salted per process;
+        # crc32 is not) — deterministic resume depends on this
+        return np.random.default_rng([zlib.crc32(b"epoch"), int(epoch)])
+
+    def plan_epoch(self, epoch: int) -> list[PreparedSample]:
+        rng = self._epoch_rng(epoch)
+        index_list = balance_entries(self.entries, rng)
+
+        samples = []
+        for idx in index_list:
+            e = self.entries[idx]
+            image_variation = epoch % max(e.concept.image_variations, 1)
+            text_variation = epoch % max(e.concept.text_variations, 1)
+            h, w = self._sizes[idx]
+            # per-concept resolution override
+            if e.concept.image.enable_resolution_override:
+                res = parse_resolutions(e.concept.image.resolution_override)
+                buckets = []
+                for (th, tw) in res:
+                    if self.config.aspect_ratio_bucketing:
+                        buckets.extend(possible_resolutions(th, tw, 8))
+                    else:
+                        buckets.append((th, tw))
+            else:
+                buckets = self.buckets
+            samples.append(PreparedSample(
+                entry_index=idx, image_variation=image_variation,
+                text_variation=text_variation, bucket=assign_bucket(h, w, buckets),
+                epoch=epoch))
+        return samples
+
+    def batches_for_epoch(self, epoch: int) -> list[list[PreparedSample]]:
+        samples = self.plan_epoch(epoch)
+        rng = self._epoch_rng(epoch * 2 + 1)
+        batch_idx = sort_into_batches(
+            [(s.bucket, s.frames) for s in samples],
+            self.config.batch_size, rng)
+        return [[samples[i] for i in batch] for batch in batch_idx]
+
+    def __len__(self):
+        # approximate steps per epoch (bucketing may drop incomplete batches)
+        return max(len(self.plan_epoch(0)) // max(self.config.batch_size, 1), 1)
+
+    # -- sample materialization ---------------------------------------------------
+
+    def _sample_rng(self, entry: SampleEntry, variation: int) -> np.random.Generator:
+        return np.random.default_rng(
+            [entry.concept.seed % (2**31),
+             zlib.crc32(entry.image_path.encode("utf-8")),
+             variation])
+
+    def _load_pixels(self, sample: PreparedSample):
+        """(image HWC in [-1, 1], all-ones mask, scale/crop info)."""
+        e = self.entries[sample.entry_index]
+        rng = self._sample_rng(e, sample.image_variation)
+        image, _ = augment_image(load_image_rgb(e.image_path), e.concept, rng, None)
+        info = scale_crop(image.shape[0], image.shape[1], sample.bucket,
+                          e.concept.image.enable_crop_jitter, rng)
+        image = resize_crop(image, info)
+        mask = np.ones(image.shape[:2] + (1,), np.float32)
+        return image * 2.0 - 1.0, mask, info
+
+    def _prompt(self, sample: PreparedSample) -> str:
+        e = self.entries[sample.entry_index]
+        rng = self._sample_rng(e, 1000 + sample.text_variation)
+        prompt = e.prompt(rng)
+        return augment_text(prompt, e.concept, rng)
+
+    def _cache_extra(self, sample: PreparedSample) -> dict:
+        e = self.entries[sample.entry_index]
+        return {
+            "bucket": sample.bucket,
+            "frames": sample.frames,
+            "text_variation": sample.text_variation,
+            "aug": e.concept.image.to_dict(),
+            "text": e.concept.text.to_dict(),
+            # cached TE states bake in the hidden-state layer skips —
+            # changing a skip must invalidate the text cache
+            "te_skips": [
+                int(getattr(self.config, k, 0) or 0)
+                for k in ("text_encoder_layer_skip",
+                          "text_encoder_2_layer_skip",
+                          "text_encoder_3_layer_skip",
+                          "text_encoder_4_layer_skip")],
+        }
+
+    def _safe_encode(self, images: np.ndarray) -> dict:
+        """encode_images, halving the batch on a device out-of-memory error
+        (the VAE encode has no cross-sample ops, so splitting is exact)."""
+        try:
+            return self.encode_images(images)
+        except torch.cuda.OutOfMemoryError:
+            if images.shape[0] <= 1:
+                raise
+        half = images.shape[0] // 2
+        a = self._safe_encode(images[:half])
+        b = self._safe_encode(images[half:])
+        return {k: torch.cat([_host(a[k]), _host(b[k])]) for k in a}
+
+    def _cache_key(self, sample: PreparedSample) -> str:
+        if sample.cache_key is None:
+            e = self.entries[sample.entry_index]
+            sample.cache_key = self.cache.key(
+                e.image_path, sample.image_variation, self._cache_extra(sample))
+        return sample.cache_key
+
+    def ensure_cached(self, batches: list[list[PreparedSample]],
+                      on_progress: Callable[[int, int], None] | None = None):
+        """Cache-fill pass: encode any missing samples, bucket-batched."""
+        if self.cache is None:
+            return
+        missing = [s for batch in batches for s in batch
+                   if not self.cache.has(self._cache_key(s))]
+        by_bucket: dict = {}
+        for s in missing:
+            by_bucket.setdefault((s.bucket, s.frames), []).append(s)
+        done = 0
+        total = len(missing)
+        pool = ThreadPoolExecutor(self._threads) if self._threads > 1 else None
+        for bucket, group in by_bucket.items():
+            # encode_batch_size is a 512px-equivalent budget: VAE-encode
+            # activations grow with pixel count
+            (bh, bw), bframes = bucket
+            eff = max(1, (self.encode_batch_size * 512 * 512)
+                      // (bh * bw * max(bframes, 1)))
+            for i in range(0, len(group), eff):
+                chunk = group[i:i + eff]
+                if pool is not None:
+                    loaded = list(pool.map(self._load_pixels, chunk))
+                else:
+                    loaded = [self._load_pixels(s) for s in chunk]
+                encoded = self._safe_encode(np.stack([img for img, _, _ in loaded]))
+                for j, (s, (_, mask, info)) in enumerate(zip(chunk, loaded)):
+                    tensors = {k: _host(v[j]) for k, v in encoded.items()}
+                    tensors["latent_mask"] = self._latent_mask(mask)
+                    tensors.update(self._crop_metadata(s, info))
+                    text = self.encode_text(self._prompt(s))
+                    tensors.update({k: _host(v) for k, v in text.items()})
+                    self.cache.save(s.cache_key, tensors)
+                done += len(chunk)
+                if on_progress:
+                    on_progress(done, total)
+        if pool is not None:
+            pool.shutdown()
+
+    def _crop_metadata(self, sample: PreparedSample, info) -> dict:
+        """SDXL micro-conditioning inputs (original size, crop offset,
+        target size — reference: BaseStableDiffusionXLSetup.py:241-267)."""
+        h, w = self._sizes[sample.entry_index]
+        return {
+            "original_resolution": np.asarray([h, w], np.int32),
+            "crop_offset": np.asarray(info.crop_offset, np.int32),
+            "crop_resolution": np.asarray(info.bucket, np.int32),
+        }
+
+    def _latent_mask(self, mask: np.ndarray) -> np.ndarray:
+        """The latent-resolution mask: masks are not ported, so it is all
+        ones at the size the reference's nearest-neighbour downscale of an
+        all-ones mask gives."""
+        h, w = mask.shape[:2]
+        s = self.latent_scale
+        return np.ones((int(round(h / s)), int(round(w / s)), 1), np.float32)
+
+    # -- batch materialization ------------------------------------------------------
+
+    def _row(self, sample: PreparedSample) -> dict:
+        e = self.entries[sample.entry_index]
+        if self.cache is not None:
+            row = self.cache.load(self._cache_key(sample))
+        else:
+            img, mask, info = self._load_pixels(sample)
+            row = {k: _host(v[0]) for k, v in self.encode_images(img[None]).items()}
+            row["latent_mask"] = _host(self._latent_mask(mask))
+            row.update({k: _host(v) for k, v in self._crop_metadata(sample, info).items()})
+            row.update({k: _host(v)
+                        for k, v in self.encode_text(self._prompt(sample)).items()})
+        row["loss_weight"] = torch.tensor(e.concept.loss_weight, dtype=torch.float32)
+        row["prior_flag"] = torch.tensor(
+            1.0 if e.concept.type == ConceptType.PRIOR_PREDICTION else 0.0,
+            dtype=torch.float32)
+        return row
+
+    def materialize_batch(self, batch: list[PreparedSample]) -> dict:
+        """{name: host tensor [B, ...]} for one batch."""
+        if self.cache is not None and self._threads > 1 and len(batch) > 1:
+            # parallel cache reads (file IO releases the GIL)
+            with ThreadPoolExecutor(self._threads) as pool:
+                rows = list(pool.map(self._row, batch))
+        else:
+            rows = [self._row(s) for s in batch]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    # -- epoch iteration --------------------------------------------------------------
+
+    def iter_epoch(self, epoch: int, start_batch: int = 0,
+                   prefetch: int = 2):
+        """Yield materialized batches. Cached rows are read ahead by a
+        background thread; without a cache each batch is encoded on the
+        calling thread when it is asked for."""
+        batches = self.batches_for_epoch(epoch)
+        self.ensure_cached(batches)
+        pending = batches[start_batch:]
+        if self.cache is None:
+            for batch in pending:
+                yield self.materialize_batch(batch)
+            return
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        stop = object()
+
+        def worker():
+            try:
+                for batch in pending:
+                    q.put(self.materialize_batch(batch))
+                q.put(stop)
+            except BaseException as e:  # propagate to the consumer thread
+                q.put(e)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item

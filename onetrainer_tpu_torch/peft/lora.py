@@ -11,7 +11,9 @@ merged, `key_map` first for modules whose names differ, e.g. CLIP's
 
 `attach_peft` hands the adapter tensors to the layers, which apply them
 inside the layer (peft/layers.py); `apply_peft` / `merge_peft_into_base`
-give merged weights W + up.down.alpha/r for sampling and export.
+give merged weights W + up.down.alpha/r for sampling and export;
+`peft_to_kohya_state_dict` and `kohya_state_dict_to_peft` carry adapters
+to and from kohya's flat key layout, the LoRA files the ecosystem reads.
 DoRA, LoHa and rank dropout raise NotImplementedError.
 """
 
@@ -179,3 +181,70 @@ def merge_peft_into_base(module: nn.Module, adapters: dict, cfg: PeftConfig,
     export and sampling); returns the module."""
     module.load_state_dict(apply_peft(module, adapters, cfg, key_map), strict=True)
     return module
+
+
+# -- kohya-format safetensors interop ---------------------------------------------
+
+# CLIP text-encoder adapter groups: the kohya ecosystem names TE modules
+# through the HF module tree ('lora_te_text_model_encoder_layers_0_mlp_fc1');
+# the module keys drop the text_model/encoder nesting, so re-insert it.
+_CLIP_TE_PREFIXES = frozenset({"lora_te", "lora_te1", "lora_te2",
+                               "lora_prior_te"})
+
+
+def _module_key_to_kohya(prefix: str, module_key: str) -> str:
+    # 'down_blocks_0/attentions_0/.../to_q' -> prefix + '_down_blocks_0_...'
+    key = module_key
+    if prefix in _CLIP_TE_PREFIXES and key.startswith("layers_"):
+        key = "text_model_encoder_" + key
+    return prefix + "_" + key.replace(SEP, "_")
+
+
+def peft_to_kohya_state_dict(adapters: dict, cfg: PeftConfig,
+                             prefix: str) -> dict[str, torch.Tensor]:
+    """Adapters -> kohya-style flat tensors: lora_down.weight [r, in(,kh,
+    kw)], lora_up.weight [out, r(,1,1)] and alpha (fp32), detached, in the
+    adapters' dtype and on their device (reference output contract:
+    modules/modelSaver/mixin/LoRASaverMixin via omi/kohya key sets)."""
+    cfg.check_supported()
+    out: dict[str, torch.Tensor] = {}
+    for module_key, entry in adapters.items():
+        kkey = _module_key_to_kohya(prefix, module_key)
+        down = entry["lora_down"].detach()
+        up = entry["lora_up"].detach()
+        if down.ndim == 4:
+            up = up.reshape(up.shape[0], up.shape[1], 1, 1)
+        out[f"{kkey}.lora_down.weight"] = down
+        out[f"{kkey}.lora_up.weight"] = up
+        out[f"{kkey}.alpha"] = torch.tensor(cfg.alpha, dtype=torch.float32)
+    return out
+
+
+def kohya_state_dict_to_peft(state_dict: dict, prefix: str,
+                             module_keys: list[str]) -> tuple[dict, float | None]:
+    """kohya tensors (one prefix) -> adapters (+ alpha if present).
+
+    The kohya flattening ('down_blocks_0_..._to_q') is ambiguous to invert
+    textually, so `module_keys` (the adapter keys valid for the target
+    model, e.g. from peft_module_keys) provides the reverse lookup. Other
+    leaves than LoRA's (DoRA, LoHa) raise."""
+    reverse = {_module_key_to_kohya(prefix, mk): mk for mk in module_keys}
+    adapters: dict[str, dict] = {}
+    alpha = None
+    for key, tensor in state_dict.items():
+        if not key.startswith(prefix + "_"):
+            continue
+        module_part, _, leaf = key.partition(".")
+        if module_part not in reverse:
+            continue
+        entry = adapters.setdefault(reverse[module_part], {})
+        if leaf == "lora_down.weight":
+            entry["lora_down"] = tensor
+        elif leaf == "lora_up.weight":
+            entry["lora_up"] = tensor.reshape(tensor.shape[0], tensor.shape[1]) \
+                if tensor.ndim == 4 else tensor
+        elif leaf == "alpha":
+            alpha = float(tensor.reshape(-1)[0])
+        else:
+            raise NotImplementedError(f"{key}: only LoRA tensors are ported")
+    return adapters, alpha

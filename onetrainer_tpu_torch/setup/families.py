@@ -1,35 +1,116 @@
-"""Model-family registry: one adapter per family wiring loader, setup and
-sampler.
+"""Model-family registry: one adapter per family wiring loader, setup,
+encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
-text-to-image and SDXL so far. The calls mirror the reference's scripts:
-`get_family(...)`, then
-`family.load`, `family.create_setup`, `family.make_encode_fns` (the data
-caches) and `setup.train_step` or `family.sample`.
+text-to-image and SDXL so far. The calls mirror the reference's trainer
+and scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
+`family.make_encode_fns` (the data caches) and `setup.train_step` or
+`family.sample`; `family.save_model` / `save_single_file` write merged
+checkpoints and `save_lora_output` the kohya LoRA file. `load` runs on
+the card unless the caller passes another device.
 """
 
 from __future__ import annotations
 
+import os
 from collections.abc import Callable
 from dataclasses import dataclass
 
+import torch
+
+from onetrainer_tpu_torch.io.safetensors_io import save_safetensors
+from onetrainer_tpu_torch.io.torch_flax import clip_torch_key_map
+from onetrainer_tpu_torch.peft.lora import apply_peft, peft_to_kohya_state_dict
 from onetrainer_tpu_torch.util.enums import ModelType
 
 
 @dataclass
 class ModelFamily:
     name: str
-    load: Callable          # (base_dir, config) -> model
+    quantization: int       # bucket resolution step of the data loader
+    load: Callable          # (base_dir, config, device="cuda") -> model
     create_setup: Callable  # (model, config, total_steps) -> setup
     make_encode_fns: Callable  # setup -> (encode_images, encode_text)
     sample: Callable        # (setup, sample_config, on_progress) -> SamplerOutput
+    save_model: Callable    # (setup, dir, source_dir, save_dtype=None) -> None
+    save_single_file: Callable  # (setup, path, save_dtype=None) -> None
+    lora_prefixes: dict     # trainable group -> kohya prefix
 
 
-def _sd_load(base_dir, config):
-    raise NotImplementedError(
-        "loading SD 1.5/2.x checkpoints is not ported yet; build the model with "
-        "models.sd.create_sd_model (its UNet in "
-        "config.weight_dtypes().unet.to_load_dtype()) and io.weights")
+# module attribute -> (its LoRA group, its adapters' key map)
+_LORA_PARTS = {
+    "unet": ("unet_lora", None),
+    "text_encoder": ("te_lora", clip_torch_key_map),
+    "text_encoder_2": ("te2_lora", clip_torch_key_map),
+}
+
+
+def _load_kwargs(config, device) -> dict:
+    return dict(
+        weight_dtype=config.weight_dtypes().unet.to_load_dtype() or torch.float32,
+        compute_dtype=config.train_dtype.to_compute_dtype() or torch.bfloat16,
+        gradient_checkpointing=config.gradient_checkpointing.enabled(),
+        device=device,
+    )
+
+
+def _assign(model, loaded: dict, device) -> None:
+    from onetrainer_tpu_torch.io.sd_checkpoints import assign_state_dict
+    for name in model.modules():
+        if loaded.get(name) is None:
+            raise FileNotFoundError(f"the checkpoint has no {name} weights")
+        assign_state_dict(getattr(model, name), loaded[name])
+        loaded[name] = None   # the model holds them now
+    model.device = torch.device(device)
+
+
+def merged_state_dicts(setup) -> dict[str, dict]:
+    """{module attribute: state dict} of the setup's model, each LoRA-trained
+    part with its adapters merged into the weights (W + up.down.alpha/r),
+    for export."""
+    params = setup.state.params if setup.state is not None else {}
+    out = {}
+    for name, module in setup.model.modules().items():
+        group, key_map = _LORA_PARTS.get(name, (None, None))
+        if group in params:
+            out[name] = apply_peft(module, params[group], setup.peft_cfg, key_map)
+        else:
+            from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+            out[name] = state_dict_of(module)
+    return out
+
+
+def _modelspec(setup) -> dict:
+    from onetrainer_tpu_torch.util.model_spec import make_modelspec_metadata
+    return make_modelspec_metadata(
+        setup.config.model_type, setup.config.training_method,
+        resolution=setup.config.resolution,
+        prediction_type=setup.model.prediction_type,
+        train_config=setup.config)
+
+
+# -- SD 1.5 / 2.x -------------------------------------------------------------------
+
+def _sd_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.sd_checkpoints import load_sd_diffusers, load_sd_single_file
+    from onetrainer_tpu_torch.models.sd import StableDiffusionModel
+    kwargs = _load_kwargs(config, device)
+    if os.path.isfile(base_dir):
+        loaded = load_sd_single_file(base_dir, config.model_type, **kwargs)
+    else:
+        loaded = load_sd_diffusers(base_dir, **kwargs)
+    model = StableDiffusionModel(
+        model_type=config.model_type,
+        unet_config=loaded["unet_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        device="meta",
+        prediction_type=loaded["prediction_type"],
+        text_encoder_layer_skip=1 if config.model_type.is_sd_v2() else 0,
+        tokenizer=loaded["tokenizer_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
 
 
 def _sd_create_setup(model, config, total_steps, steps_per_epoch=100):
@@ -50,11 +131,45 @@ def _sd_sample(setup, sample_config, on_progress):
         sample_config, extra_embeddings=extra, on_update_progress=on_progress)
 
 
-def _sdxl_load(base_dir, config):
-    raise NotImplementedError(
-        "loading SDXL checkpoints is not ported yet; build the model with "
-        "models.sdxl.create_sdxl_model (its UNet in "
-        "config.weight_dtypes().unet.to_load_dtype()) and io.weights")
+def _sd_save_model(setup, out_dir, source_dir, save_dtype=None):
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_diffusers
+    sd = merged_state_dicts(setup)
+    save_sd_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
+                      save_dtype=save_dtype or torch.float32, source_dir=source_dir)
+
+
+def _sd_save_single_file(setup, path, save_dtype=None):
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file
+    sd = merged_state_dicts(setup)
+    save_sd_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
+                        metadata=_modelspec(setup), save_dtype=save_dtype or torch.float32)
+
+
+# -- SDXL -----------------------------------------------------------------------------
+
+def _sdxl_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.sd_checkpoints import (
+        load_sdxl_diffusers, load_sdxl_single_file,
+    )
+    from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
+    kwargs = _load_kwargs(config, device)
+    if os.path.isfile(base_dir):
+        loaded = load_sdxl_single_file(base_dir, config.model_type, **kwargs)
+    else:
+        loaded = load_sdxl_diffusers(base_dir, **kwargs)
+    model = StableDiffusionXLModel(
+        model_type=config.model_type,
+        unet_config=loaded["unet_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        te2_config=loaded["te2_config"],
+        device="meta",
+        prediction_type=loaded["prediction_type"],
+        tokenizer=loaded["tokenizer_dir"],
+        tokenizer_2=loaded["tokenizer_2_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
 
 
 def _sdxl_create_setup(model, config, total_steps, steps_per_epoch=100):
@@ -76,21 +191,74 @@ def _sdxl_sample(setup, sample_config, on_progress):
         extra_embeddings=extra, on_update_progress=on_progress)
 
 
+def _sdxl_save_model(setup, out_dir, source_dir, save_dtype=None):
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_diffusers
+    sd = merged_state_dicts(setup)
+    save_sdxl_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
+                        sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
+                        source_dir=source_dir)
+
+
+def _sdxl_save_single_file(setup, path, save_dtype=None):
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_single_file
+    sd = merged_state_dicts(setup)
+    save_sdxl_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
+                          sd["text_encoder_2"], metadata=_modelspec(setup),
+                          save_dtype=save_dtype or torch.float32)
+
+
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_mask_input() or model_type.has_depth_input():
             raise NotImplementedError(
                 f"{model_type} (inpainting / depth) is not ported to torch yet")
         return ModelFamily(
-            name="sd",
+            name="sd", quantization=8,
             load=_sd_load, create_setup=_sd_create_setup,
             make_encode_fns=_sd_encode_fns, sample=_sd_sample,
+            save_model=_sd_save_model, save_single_file=_sd_save_single_file,
+            lora_prefixes={"unet_lora": "lora_unet", "te_lora": "lora_te"},
         )
     if model_type.is_stable_diffusion_xl():
         return ModelFamily(
-            name="sdxl",
+            name="sdxl", quantization=64,
             load=_sdxl_load, create_setup=_sdxl_create_setup,
             make_encode_fns=_sdxl_encode_fns, sample=_sdxl_sample,
+            save_model=_sdxl_save_model, save_single_file=_sdxl_save_single_file,
+            lora_prefixes={"unet_lora": "lora_unet", "te_lora": "lora_te1",
+                           "te2_lora": "lora_te2"},
         )
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")
+
+
+def cast_float_tensor(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """`t` in `dtype` when it is a float tensor (fp8 and bf16 included);
+    integers, and every tensor when `dtype` is None, pass through: the
+    reference's DtypeModelSaverMixin._convert_state_dict_dtype."""
+    if dtype is None or not t.is_floating_point():
+        return t
+    return t.to(dtype)
+
+
+def save_lora_output(setup, destination: str, lora_prefixes: dict,
+                     save_dtype: torch.dtype | None = None) -> str:
+    """kohya-format LoRA safetensors across all adapter groups, every
+    float tensor cast to `save_dtype` (the configured output_dtype), with
+    modelspec metadata (reference: StableDiffusionLoRASaver.py:33-41,
+    LoRASaverMixin.save). -> the path written."""
+    tensors = {}
+    params = setup.state.params
+    for key, prefix in lora_prefixes.items():
+        if key in params:
+            tensors.update(peft_to_kohya_state_dict(params[key], setup.peft_cfg, prefix))
+    tensors = {k: cast_float_tensor(v, save_dtype).detach().cpu() for k, v in tensors.items()}
+    if not destination.endswith(".safetensors"):
+        destination += ".safetensors"
+    from onetrainer_tpu_torch.util.model_spec import make_modelspec_metadata
+    meta = make_modelspec_metadata(
+        setup.config.model_type, setup.config.training_method,
+        resolution=setup.config.resolution, train_config=setup.config,
+        tensors=tensors)
+    save_safetensors(destination, tensors, metadata={"format": "pt", **meta})
+    return destination

@@ -209,6 +209,25 @@ class DataType(_StrEnum):
             DataType.NFLOAT_4: torch.uint8,
         }[self]
 
+    def to_save_dtype(self) -> torch.dtype | None:
+        """Save-time cast of every exported float tensor (the reference's
+        `output_dtype`); NONE keeps each tensor's own dtype, the quantized
+        types save at fp32 as the reference's."""
+        return {
+            DataType.NONE: None,
+            DataType.FLOAT_8: torch.float8_e4m3fn,
+            DataType.FLOAT_16: torch.float16,
+            DataType.FLOAT_32: torch.float32,
+            DataType.BFLOAT_16: torch.bfloat16,
+            DataType.TFLOAT_32: torch.float32,
+        }.get(self, torch.float32)
+
+    def to_compute_dtype(self) -> torch.dtype | None:
+        """Compute dtype of a `train_dtype`: fp16 maps to bf16, as the
+        reference's policy."""
+        dt = self.to_torch_dtype()
+        return torch.bfloat16 if dt == torch.float16 else dt
+
     def is_quantized(self) -> bool:
         return self in (DataType.FLOAT_8, DataType.INT_8, DataType.NFLOAT_4)
 

@@ -1,16 +1,24 @@
 """The port's own copies of the reference's framework-free modules agree
 with the originals: configs (onetrainer_tpu/config), enums
 (onetrainer_tpu/util/enums.py), model names (util/model_names.py), the CLIP
-tokenizer wrapper (setup/tokenizer.py) and the torch<->flax key maps
-(io/torch_flax.py). The port imports none of these from the JAX package;
-these tests hold the copies to them exactly.
+tokenizer wrapper (setup/tokenizer.py), the torch<->flax key maps
+(io/torch_flax.py), and the copies the train and sample entry points
+brought: the LDM key maps (io/ldm.py), modelspec metadata
+(util/model_spec.py), bucketing, concepts and augmentations (data/), the
+trainer's base class, progress, timed actions, callbacks, commands and
+path helpers. The port imports none of these from the JAX package; these
+tests hold the copies to them exactly (the verbatim ones by their code,
+the adapted ones by their results).
 """
 
+import ast
 import enum
+import os
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from onetrainer_tpu.config.concept_config import ConceptConfig
 from onetrainer_tpu.config.sample_config import SampleConfig
@@ -162,3 +170,136 @@ def test_nf4_code_table_is_the_reference_copy():
     assert pt_nf4.NF4_CODE == NF4_CODE and pt_nf4.NF4_BLOCK == NF4_BLOCK
     for n in (1, 1023, 2048, 2049, 13_107_200, 29_491_200):
         assert pt_nf4.nf4_pad_len(n) == nf4_pad_len(n)
+
+
+# -- the copies the train and sample entry points brought ------------------------------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# module copied verbatim but for its package name and docstrings
+_VERBATIM = ("data/bucketing.py", "data/concepts.py", "util/timed_action.py",
+             "util/train_progress.py", "util/path_util.py", "util/callbacks.py",
+             "util/commands.py", "trainer/base_trainer.py")
+
+
+def _normalized_ast(package: str, path: str, drop_pil_imports: bool = False) -> str:
+    """The module's AST without docstrings, its package renamed to the
+    reference's, and (on request) without its Pillow imports."""
+    with open(os.path.join(_REPO, package, path), encoding="utf-8") as f:
+        tree = ast.parse(f.read().replace("onetrainer_tpu_torch", "onetrainer_tpu"))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list):
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                body.pop(0)
+            if drop_pil_imports:
+                body[:] = [n for n in body if not (
+                    isinstance(n, ast.ImportFrom) and n.module == "PIL")]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("path", _VERBATIM)
+def test_verbatim_copies_equal_their_originals(path):
+    assert _normalized_ast("onetrainer_tpu_torch", path) == \
+        _normalized_ast("onetrainer_tpu", path)
+
+
+def test_augments_copy_moves_only_its_pillow_imports():
+    """data/augments.py imports Pillow inside the three functions that need
+    it; apart from that it is the original's code, and it augments alike."""
+    from onetrainer_tpu.data import augments as ref
+    from onetrainer_tpu_torch.data import augments as port
+    path = "data/augments.py"
+    assert _normalized_ast("onetrainer_tpu_torch", path, drop_pil_imports=True) == \
+        _normalized_ast("onetrainer_tpu", path, drop_pil_imports=True)
+    concept = ConceptConfig.default_values()
+    image_cfg, text_cfg = concept.image, concept.text
+    for flag in ("enable_random_flip", "enable_random_rotate", "enable_random_brightness",
+                 "enable_random_contrast", "enable_random_saturation", "enable_random_hue",
+                 "enable_random_circular_mask_shrink", "enable_random_mask_rotate_crop"):
+        setattr(image_cfg, flag, True)
+    text_cfg.tag_dropout_enable = text_cfg.enable_tag_shuffling = True
+    text_cfg.caps_randomize_enable = True
+    port_concept = PortConceptConfig.default_values().from_dict(concept.to_dict())
+    image = np.random.default_rng(0).random((48, 40, 3)).astype(np.float32)
+    mask = np.zeros((48, 40, 1), np.float32)
+    mask[10:30, 8:20] = 1.0
+    for seed in range(4):
+        want = ref.augment_image(image, concept, np.random.default_rng(seed), mask)
+        got = port.augment_image(image, port_concept, np.random.default_rng(seed), mask)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        prompt = "first, second tag, third, Fourth, fifth"
+        assert port.augment_text(prompt, port_concept, np.random.default_rng(seed)) == \
+            ref.augment_text(prompt, concept, np.random.default_rng(seed))
+
+
+def test_ldm_copy_gives_the_original_maps_on_numpy_and_torch():
+    from onetrainer_tpu.io import ldm as ref
+    from onetrainer_tpu_torch.io import ldm as port
+    for args in ((), (3, 2, (False, True, True)), (2, 1, (True, False))):
+        assert port.unet_key_map(*args) == ref.unet_key_map(*args)
+    assert port.vae_key_map() == ref.vae_key_map() and port.vae_key_map(2, 1) == \
+        ref.vae_key_map(2, 1)
+    _, (unet, te, te2, vae), _ = tiny_pair(seed=5)
+    parts = {"unet": jax_tf.unet_flax_to_state_dict(unet),
+             "vae": jax_tf.vae_flax_to_state_dict(vae),
+             "te": jax_tf.clip_flax_to_state_dict(te),
+             "te2": jax_tf.clip_flax_to_state_dict(te2)}
+    merges = [
+        (lambda m: m.merge_sd15_single_file(parts["unet"], parts["vae"], parts["te"]),
+         "split_sd15_single_file"),
+        (lambda m: m.merge_sd15_single_file(parts["unet"], parts["vae"], parts["te2"],
+                                            sd2_openclip=True), "split_sd15_single_file"),
+        (lambda m: m.merge_sdxl_single_file(parts["unet"], parts["vae"], parts["te"],
+                                            parts["te2"]), "split_sdxl_single_file"),
+    ]
+    for merge, split in merges:
+        want = merge(ref)
+        got = merge(port)
+        assert list(got) == list(want)
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        # torch tensors through the copy give the numpy result
+        as_torch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in want.items()}
+        want_split, got_split = getattr(ref, split)(want), getattr(port, split)(as_torch)
+        assert got_split.keys() == want_split.keys()
+        for part, sd in want_split.items():
+            assert list(got_split[part]) == list(sd), part
+            for key, value in sd.items():
+                np.testing.assert_array_equal(got_split[part][key].numpy(), value,
+                                              err_msg=key)
+    torch_te2 = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in parts["te2"].items()}
+    got = port.convert_hf_to_openclip(torch_te2, "p.")
+    for key, value in ref.convert_hf_to_openclip(parts["te2"], "p.").items():
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+
+
+def test_model_spec_copy_gives_the_original_metadata():
+    import ml_dtypes
+
+    from onetrainer_tpu.util import model_spec as ref
+    from onetrainer_tpu_torch.util import model_spec as port
+    rng = np.random.default_rng(1)
+    arrays = {"b": rng.standard_normal((3, 4)).astype(np.float32),
+              "a": rng.standard_normal((5,)).astype(ml_dtypes.bfloat16),
+              "c": np.arange(4, dtype=np.int64)}
+    tensors = {"b": torch.from_numpy(arrays["b"]), "c": torch.from_numpy(arrays["c"]),
+               "a": torch.from_numpy(arrays["a"].view(np.int16).copy()).view(torch.bfloat16)}
+    assert port.sha256_of_tensors(tensors) == ref.sha256_of_tensors(arrays)
+    config = TrainConfig.default_values()
+    config.include_train_config = jax_enums.ConfigPart.SETTINGS
+    port_config = PortTrainConfig.default_values().from_dict(config.to_dict())
+    for model_type in (jax_enums.ModelType.STABLE_DIFFUSION_15,
+                       jax_enums.ModelType.STABLE_DIFFUSION_21,
+                       jax_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE):
+        for method in (jax_enums.TrainingMethod.LORA, jax_enums.TrainingMethod.FINE_TUNE):
+            want = ref.make_modelspec_metadata(model_type, method, resolution="512",
+                                               prediction_type="epsilon",
+                                               train_config=config, tensors=arrays)
+            got = port.make_modelspec_metadata(
+                pt_enums.ModelType(model_type.value), pt_enums.TrainingMethod(method.value),
+                resolution="512", prediction_type="epsilon", train_config=port_config,
+                tensors=tensors)
+            assert got == want

@@ -2,7 +2,8 @@
 imports, the SDXL slice samples and takes two LoRA training steps and two
 QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), and the SD 2.x
 slice (v-prediction, text-encoder layer skip 1) samples and takes two LoRA
-steps, with
+steps, and the train and sample CLIs run a tiny SD 1.5 checkpoint end to
+end (load, cache, train, back up, save the LoRA file, sample), with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
 installed on the machine with the card). chip_smoke.py refuses to run
@@ -162,3 +163,104 @@ def test_torch_dtype_map_covers_every_data_type():
     assert to_torch_dtype(DataType.NONE) is None
     for data_type in DataType:
         to_torch_dtype(data_type)   # every member maps
+
+
+_CLI_SCRIPT = textwrap.dedent(f"""
+    import json, os, sys, tempfile
+    for name in {BLOCKED!r}:
+        sys.modules[name] = None
+    sys.path.insert(0, {REPO!r})
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+
+    from onetrainer_tpu_torch.config.concept_config import ConceptConfig
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.io.png import read_png, write_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_diffusers, state_dict_of
+    from onetrainer_tpu_torch.io.weights import init_sd_weights
+    from onetrainer_tpu_torch.models.clip import CLIPTextConfig
+    from onetrainer_tpu_torch.models.sd import StableDiffusionModel
+    from onetrainer_tpu_torch.models.unet import UNetConfig
+    from onetrainer_tpu_torch.models.vae import VAEConfig
+    from onetrainer_tpu_torch.scripts import sample, train
+    from onetrainer_tpu_torch.util.enums import ModelType, TimeUnit, TrainingMethod
+
+    root = tempfile.mkdtemp()
+    model = StableDiffusionModel(
+        model_type=ModelType.STABLE_DIFFUSION_15,
+        unet_config=UNetConfig(block_out_channels=(32, 64), cross_attn_blocks=(True, False),
+                               layers_per_block=1, num_heads=(4, 4), cross_attention_dim=32),
+        vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+        te_config=CLIPTextConfig(vocab_size=100, hidden_size=32, intermediate_size=64,
+                                 num_layers=2, num_heads=4, max_position_embeddings=16,
+                                 eos_token_id=99), device="meta")
+    init_sd_weights(model, seed=0, device="cpu")
+    base = os.path.join(root, "ckpt")
+    save_sd_diffusers(base, model, *(state_dict_of(m) for m in
+                                     (model.unet, model.vae, model.text_encoder)))
+    configs = {{
+        "unet": {{"block_out_channels": [32, 64], "layers_per_block": 1,
+                  "down_block_types": ["CrossAttnDownBlock2D", "DownBlock2D"],
+                  "attention_head_dim": 4, "cross_attention_dim": 32}},
+        "vae": {{"block_out_channels": [32, 64], "layers_per_block": 1}},
+        "text_encoder": {{"vocab_size": 100, "hidden_size": 32, "intermediate_size": 64,
+                          "num_hidden_layers": 2, "num_attention_heads": 4,
+                          "max_position_embeddings": 16, "eos_token_id": 99}},
+    }}
+    for name, cfg in configs.items():
+        with open(os.path.join(base, name, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    ds = os.path.join(root, "ds")
+    os.makedirs(ds)
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        write_png(os.path.join(ds, f"img{{i}}.png"),
+                  (rng.random((32, 32, 3)) * 255).astype(np.uint8))
+        with open(os.path.join(ds, f"img{{i}}.txt"), "w") as f:
+            f.write(f"a photo of thing {{i}}")
+    config = TrainConfig.default_values()
+    config.base_model_name = base
+    config.model_type = ModelType.STABLE_DIFFUSION_15
+    config.training_method = TrainingMethod.LORA
+    config.workspace_dir, config.cache_dir = os.path.join(root, "ws"), os.path.join(root, "c")
+    config.epochs, config.batch_size, config.resolution = 1, 2, "32"
+    config.lora_rank, config.learning_rate_warmup_steps = 4, 0.0
+    config.tensorboard, config.aspect_ratio_bucketing = False, False
+    config.backup_after_unit = config.save_every_unit = TimeUnit.NEVER
+    config.text_encoder.train = False
+    concept = ConceptConfig.default_values()
+    concept.path = ds
+    config.concepts, config.samples = [concept], []
+    config.output_model_destination = os.path.join(root, "lora.safetensors")
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config.to_dict(), f)
+    trainer = train.main(["--config-path", os.path.join(root, "config.json"),
+                          "--device", "cpu"])
+    assert trainer.train_progress.global_step == 2
+    lora = load_safetensors(config.output_model_destination)
+    assert any(k.startswith("lora_unet_") for k in lora)
+    out = os.path.join(root, "cat.png")
+    sample.main(["--model-type", "STABLE_DIFFUSION_15", "--base-model-name", base,
+                 "--prompt", "a cat", "--destination", out, "--steps", "2",
+                 "--width", "32", "--height", "32", "--device", "cpu"])
+    assert read_png(out).shape == (32, 32, 3)
+    leaked = sorted(n for n, m in sys.modules.items()
+                    if n.split(".")[0] in {BLOCKED!r} and m is not None)
+    assert not leaked, leaked
+    import shutil
+    shutil.rmtree(root)
+    print("cli ok")
+""")
+
+
+def test_train_and_sample_clis_run_without_jax():
+    """The port's train CLI (tiny SD 1.5 diffusers checkpoint written by the
+    port, PNGs at their bucket size, caching, two LoRA steps, backup before
+    the kohya save) and its sample CLI, with the JAX package, jax, PIL and
+    the rest blocked."""
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-2:] == ["cli", "ok"]

@@ -126,7 +126,14 @@ def test_inpainting_and_depth_types_are_refused(model_type):
 
 
 def test_sd_load_is_not_ported():
+    """The SD loader reads checkpoints now (tests/test_torch_port_io.py
+    holds it to the reference); a path that holds none raises rather than
+    building a model from nothing, and the inpainting and depth types'
+    loads stay unported (their family raises)."""
     config = PortTrainConfig.default_values()
     config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_15
-    with pytest.raises(NotImplementedError):
-        get_family(config.model_type).load("unused", config)
+    with pytest.raises(FileNotFoundError):
+        get_family(config.model_type).load("unused", config, device="cpu")
+    for model_type in NOT_PORTED:
+        with pytest.raises(NotImplementedError):
+            get_family(pt_enums.ModelType(model_type.value)).load("unused", config)
