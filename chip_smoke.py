@@ -90,7 +90,32 @@ never falls back to the CPU. Phases, each of which must pass:
      in the cache; the kohya LoRA file's 282 x 3 keys read back bitwise to
      the trained adapters and give a finite loss; a non-constant image;
      load, cache and step times beside sd15_train's step, one step's
-     device-busy share, the peak memory.
+     device-busy share, the peak memory;
+ 14. sdxl_ft, the SDXL full fine-tune: the UNet in bf16 (1680 tensors,
+     2,567,463,684 elements), text encoders frozen and cached, batch 2 at
+     1024x1024, tx_only checkpointing, Adafactor with the reference's
+     defaults, lr 1e-5, clip 1.0, stochastic rounding, no EMA: one warm-up
+     step (after which the UNet must have changed), three timed steps with
+     exact launches per step (K1 140, K2 70, K3 70, pre-pass 70, K5 once:
+     one launch per update dtype over every UNet tensor), then one step
+     whose K5 call is captured: K5 bit for bit against the plain rounding
+     on the largest leaf (29,491,200 elements), a 1-D and a 4-D conv leaf,
+     and on every leaf each output a bf16 neighbour of p + u and exact
+     where p + u is a bf16 value; K5's device time over the whole update
+     against its byte bound, the wrapper's host time, the updates that came
+     in other strides (copied), the peak memory and a torch.profiler split;
+ 15. sd15_ft_cli, SD 1.5 full fine-tune from files through the train and
+     sample commands, on phase 13's checkpoint and PNGs with grayscale
+     masks: the UNet in fp32 with bf16 compute, text encoder frozen and
+     cached, AdamW 1e-5, clip 1.0, batch 4, masked training, zero-terminal
+     SNR (v-prediction), an EMA on the card, gradient accumulation 2;
+     epoch 1 with a backup (the trained model as a single file, the
+     optimizer state, the EMA), the resume for epoch 2 from the backup's
+     model, the fp16 single-file output. Exactly 5 each of K1, K2, K3 and
+     the pre-pass per micro-step, K5 0, none while caching; global steps,
+     optimizer updates and EMA updates 2/1/1 then 4/2/2; the output read
+     back bit for bit the EMA cast to fp16; the sample command on the
+     output at 512x512 (4 DDIM steps), a non-constant image.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -213,15 +238,17 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+def _device_ms(torch, fn, kernel: str, reps: int = 20, min_seen: float = 1.0) -> float:
     """Device time per launch of the CUDA kernel whose name contains
     `kernel`, from torch.profiler over `reps` calls of `fn`, each after a
     write of 64 MB that evicts the 50 MB L2 cache (the step finds a
     layer's codes cold). Left out: the wrapper's host time, which an event
     pair around one short call would count. The profiler has returned no
-    events for a session of 2.5 us kernels on an H100 now and then, so a
-    session that sees another count than `reps` is run again, up to three
-    times in all."""
+    events for a session of 2.5 us kernels on an H100 now and then, and
+    dropped some launches of 0.1-8 ms K5 calls from sessions after the
+    earlier phases', so a session that sees fewer launches than `min_seen`
+    x `reps` (all, by default), or more, is run again, up to three times
+    in all; the time is the mean over the launches seen."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -238,7 +265,10 @@ def _device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
             if evt.device_type == DeviceType.CUDA and kernel in evt.key:
                 total += getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
                 count += evt.count
-        if count == reps:
+        if min_seen * reps <= count <= reps and count:
+            if count < reps:
+                print(f"[profile] saw {count} of {reps} launches of {kernel}: the mean "
+                      f"over those")
             return total / count / 1e3
         print(f"[profile] session {attempt + 1} saw {count} launches of {kernel}, "
               f"expected {reps}")
@@ -776,6 +806,8 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
     config = TrainConfig.default_values()
     config.model_type = model.model_type
     config.training_method = TrainingMethod.FINE_TUNE
+    # no part trains: a sampling-only setup
+    config.unet.train = config.text_encoder.train = config.text_encoder_2.train = False
     family = get_family(config.model_type)
     setup = family.create_setup(model, config, 1)
 
@@ -1236,173 +1268,562 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_sd15_cli(torch, bare_step_s) -> dict:
-    """Phase 13 (see the module docstring). `bare_step_s`: the sd15_train
-    phase's median seconds per step in this run, or None."""
-    import shutil
-    import tempfile
-
-    from onetrainer_tpu_torch.io.png import read_png, write_png
-    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+def sd15_files(torch, root: str) -> dict:
+    """The files both SD 1.5 CLI phases read, in `root`: a seeded
+    full-width SD 1.5 written as one ldm-keyed fp16 single file, and
+    CLI_IMAGES PNGs at CLI_SIZE with captions and grayscale
+    `-masklabel.png` masks (at the bucket size: resizing needs Pillow)."""
+    from onetrainer_tpu_torch.io.png import write_png
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file, state_dict_of
-    from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
-    from onetrainer_tpu_torch.scripts import sample
     from onetrainer_tpu_torch.util.enums import ModelType
 
-    root = tempfile.mkdtemp(prefix="sd15_cli_")
-    try:
-        model = build_model(torch, None, ModelType.STABLE_DIFFUSION_15)
-        ckpt = os.path.join(root, "sd15.safetensors")
+    model = build_model(torch, None, ModelType.STABLE_DIFFUSION_15)
+    ckpt = os.path.join(root, "sd15.safetensors")
+    t0 = time.perf_counter()
+    save_sd_single_file(ckpt, model, *(state_dict_of(m) for m in
+                                       (model.unet, model.vae, model.text_encoder)),
+                        save_dtype=torch.float16)
+    write_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dataset = os.path.join(root, "dataset")
+    os.makedirs(dataset)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for i in range(CLI_IMAGES):
+        pixels = (torch.rand((CLI_SIZE, CLI_SIZE, 3), generator=gen, device="cuda")
+                  * 255).byte()
+        write_png(os.path.join(dataset, f"{i:02d}.png"), pixels.cpu().numpy())
+        # a bright square of the subject over a dim, noisy surround
+        mask = (torch.rand((CLI_SIZE, CLI_SIZE), generator=gen, device="cuda") * 64).byte()
+        lo, hi = CLI_SIZE // 8 * (1 + i % 3), CLI_SIZE // 8 * (5 + i % 3)
+        mask[lo:hi, lo:hi] = 255
+        write_png(os.path.join(dataset, f"{i:02d}-masklabel.png"), mask.cpu().numpy())
+        with open(os.path.join(dataset, f"{i:02d}.txt"), "w") as f:
+            f.write(CLI_CAPTION.format(i))
+    print(f"[sd15_files] wrote {ckpt} ({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB, fp16, "
+          f"ldm keys) in {write_s:.2f} s, {CLI_IMAGES} PNGs {CLI_SIZE}x{CLI_SIZE} with "
+          f"their captions and grayscale masks")
+    return {"ckpt": ckpt, "dataset": dataset}
+
+
+def phase_sd15_cli(torch, bare_step_s, files: dict) -> dict:
+    """Phase 13 (see the module docstring). `bare_step_s`: the sd15_train
+    phase's median seconds per step in this run, or None; `files`: the
+    checkpoint and dataset of `sd15_files`."""
+    from onetrainer_tpu_torch.io.png import read_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
+    from onetrainer_tpu_torch.scripts import sample
+
+    root = os.path.join(os.path.dirname(files["ckpt"]), "lora")
+    os.makedirs(root)
+    ckpt = files["ckpt"]
+    config = _cli_config(root, ckpt, files["dataset"])
+    config_path = os.path.join(root, "epoch1.json")
+    with open(config_path, "w") as f:
+        json.dump(config.to_dict(), f)
+    config.epochs = 2
+    config.continue_last_backup = True
+    resume_path = os.path.join(root, "epoch2.json")
+    with open(resume_path, "w") as f:
+        json.dump(config.to_dict(), f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    events1, events2 = [], []
+    first, _ = _cli_run(torch, config_path, events1)
+    step_after_first = first.train_progress.global_step
+    loss_first = first._loss_ema
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
+    before_sample = _launch_counts()
+    image_path = os.path.join(root, "sample.png")
+    t0 = time.perf_counter()
+    out = sample.main(["--model-type", "STABLE_DIFFUSION_15", "--base-model-name", ckpt,
+                       "--prompt", "a photograph of an astronaut riding a horse",
+                       "--destination", image_path, "--steps", "4", "--cfg", "7",
+                       "--width", str(CLI_SIZE), "--height", str(CLI_SIZE),
+                       "--scheduler", "DDIM"])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # launches: none while caching, exactly one per self-attention per step
+    per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+    none = {k: 0 for k in per_step}
+    steps, cache_launches, times = [], [], {}
+    for events in (events1, events2):
+        marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
+        for kind, what, counts, t in events:
+            if kind == "status" and what.endswith(": caching"):
+                epoch = what.split()[1].rstrip(":")
+                done = marks[f"training epoch {epoch}"]
+                cache_launches.append(_delta(done[0], counts))
+                times.setdefault("cache_s", []).append(done[1] - t)
+        load = marks["loading the model"][1]
+        times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
+        prev = None
+        for kind, what, counts, t in events:
+            if kind == "status" and what.startswith("training epoch"):
+                prev = (counts, t)
+            elif kind == "step":
+                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
+                prev = (counts, t)
+    sample_launches = _delta(launches, before_sample)
+    step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
+    sums, _, _ = _kernel_times(prof)
+    device_ms = sum(sums.values())
+    profiled_ms = steps[-1][2] * 1e3
+
+    # the cache: a latent and a text state per image
+    cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
+    rows = [load_safetensors(f) for f in cache_files]
+    cached = (len(rows) == CLI_IMAGES
+              and all({"latent_image", "text_encoder_hidden_state"} <= set(r) for r in rows)
+              and all(r["latent_image"].shape == (CLI_SIZE // 8, CLI_SIZE // 8, 4)
+                      and r["text_encoder_hidden_state"].shape == (77, 768) for r in rows))
+
+    # the LoRA file reads back to the trained adapters bit for bit
+    lora = load_safetensors(config.output_model_destination)
+    adapters = resumed.setup.state.params["unet_lora"]
+    keys = peft_module_keys(resumed.model.unet, resumed.setup.peft_cfg)
+    read, alpha = kohya_state_dict_to_peft(lora, "lora_unet", keys)
+    bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
+               and all(torch.equal(read[k][n], t.detach().cpu())
+                       for k, e in adapters.items() for n, t in e.items()))
+    with torch.no_grad():
+        for key, entry in adapters.items():
+            for name, t in entry.items():
+                t.copy_(read[key][name])
+        loader = resumed.data_loader
+        batch = loader.materialize_batch(loader.batches_for_epoch(0)[0])
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        reload_loss = resumed.setup.train_step.loss(batch, gen).item()
+    image = read_png(image_path)
+
+    checks = {
+        "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
+        "none while caching": all(c == none for c in cache_launches)
+        and len(cache_launches) == 2,
+        "K1 over the sample": sample_launches == {**none, "K1": 20},
+        "main-path launches": launches == {
+            k: 4 * v + sample_launches[k] for k, v in per_step.items()},
+        "global steps": (step_after_first, resumed.train_progress.global_step) == (2, 4),
+        "cache": cached,
+        "LoRA keys": len(adapters) == SD15_LORA_LAYERS
+        and len(lora) == 3 * SD15_LORA_LAYERS,
+        "LoRA read back bitwise": bitwise,
+        "finite losses": _finite([loss_first, resumed._loss_ema, reload_loss]),
+        "image": image.shape == (CLI_SIZE, CLI_SIZE, 3) and image.std() > 0
+        and bool((image == out.image).all()),
+    }
+    bare = f"{bare_step_s:.4f} s" if bare_step_s is not None else "not measured"
+    card = gpu_line()
+    print(f"[sd15_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
+          f"{[w for k, w, _, _ in events2 if k == 'status']}")
+    print(f"[sd15_cli] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
+          f"(single file to the card, run 1 and the resume); caching "
+          f"{times['cache_s'][0]:.3f} s for {CLI_IMAGES} images "
+          f"({times['cache_s'][0] / CLI_IMAGES:.4f} s per image; the resume "
+          f"{times['cache_s'][1]:.3f} s, all cached)")
+    print(f"[sd15_cli] on {card}: steps (global step, s): "
+          f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; CLI step median "
+          f"{statistics.median(step_s):.4f} s over the unprofiled steps "
+          f"(the first includes the warm-up) beside sd15_train's median {bare}; "
+          f"step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
+          f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
+    print(f"[sd15_cli] on {card}: sample (load + 4 DDIM steps + decode + PNG) "
+          f"{sample_s:.2f} s; "
+          f"peak max_memory_allocated {peak_gib:.2f} GiB; launches {launches} "
+          f"(sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
+          f"{reload_loss:.6f}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_cli failed: "
+                             f"{[name for name, ok in checks.items() if not ok]}")
+    return {"launches": launches, "step_s": statistics.median(step_s),
+            "peak_gib": peak_gib}
+
+
+# the SDXL fine-tune (phase sdxl_ft): the UNet's tensors and elements (a
+# bf16 UNet built on "meta" counts them), the named leaves K5 is held to
+# bit for bit, and the plain rounding's bound of a leaf
+SDXL_UNET_TENSORS = 1680
+SDXL_UNET_ELEMENTS = 2_567_463_684
+SDXL_LARGEST_LEAF = 29_491_200         # a 1280 -> 2560 3x3 conv of the up blocks
+
+
+def _fine_tune_config(model_type, batch_size: int):
+    """FINE_TUNE of the UNet, text encoders frozen (their states cached)."""
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+    config = TrainConfig.default_values()
+    config.model_type = model_type
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.batch_size = batch_size
+    config.learning_rate = 1e-5
+    config.learning_rate_warmup_steps = 0.0
+    config.clip_grad_norm = 1.0
+    config.text_encoder.train = False
+    config.text_encoder_2.train = False
+    return config
+
+
+class _K5Capture:
+    """Wraps the stochastic-rounding update of one step: records how many
+    updates came in other strides than their parameter's (the layout copies
+    apply_updates_stochastic makes), and the K5 call's inputs (p before the
+    update, u, seeds) and host time."""
+
+    def __init__(self, torch):
+        from onetrainer_tpu_torch.ops import sr_update
+        from onetrainer_tpu_torch.train import sd_train_step
+        self.torch, self.sr_update, self.step_module = torch, sr_update, sd_train_step
+        self.real_apply = sd_train_step.apply_updates_stochastic
+        self.real_leaves = sr_update.sr_update_leaves
+        self.layout_copies, self.calls = None, []
+
+    def apply(self, params, updates, generator=None, bits=None):
+        self.layout_copies = sum(not u.is_contiguous() for u in updates)
+        return self.real_apply(params, updates, generator, bits)
+
+    def leaves(self, ps, us, seeds, *, seed_index=None, outs=None):
+        before = [p.detach().clone() for p in ps]
         t0 = time.perf_counter()
-        save_sd_single_file(ckpt, model, *(state_dict_of(m) for m in
-                                           (model.unet, model.vae, model.text_encoder)),
-                            save_dtype=torch.float16)
-        write_s = time.perf_counter() - t0
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-        dataset = os.path.join(root, "dataset")
-        os.makedirs(dataset)
-        gen = torch.Generator(device="cuda").manual_seed(13)
-        for i in range(CLI_IMAGES):
-            pixels = (torch.rand((CLI_SIZE, CLI_SIZE, 3), generator=gen, device="cuda")
-                      * 255).byte()
-            write_png(os.path.join(dataset, f"{i:02d}.png"), pixels.cpu().numpy())
-            with open(os.path.join(dataset, f"{i:02d}.txt"), "w") as f:
-                f.write(CLI_CAPTION.format(i))
-        config = _cli_config(root, ckpt, dataset)
-        config_path = os.path.join(root, "epoch1.json")
-        with open(config_path, "w") as f:
-            json.dump(config.to_dict(), f)
-        config.epochs = 2
-        config.continue_last_backup = True
-        resume_path = os.path.join(root, "epoch2.json")
-        with open(resume_path, "w") as f:
-            json.dump(config.to_dict(), f)
-        print(f"[sd15_cli] wrote {ckpt} ({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB, "
-              f"fp16, ldm keys) in {write_s:.2f} s, {CLI_IMAGES} PNGs {CLI_SIZE}x{CLI_SIZE} "
-              f"and their captions")
+        result = self.real_leaves(ps, us, seeds, seed_index=seed_index, outs=outs)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        self.calls.append(dict(before=before, us=list(us), seeds=seeds.clone(),
+                               seed_index=list(seed_index), outs=list(result),
+                               host_ms=host_ms))
+        return result
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launch_counts()
-        events1, events2 = [], []
-        first, _ = _cli_run(torch, config_path, events1)
-        step_after_first = first.train_progress.global_step
-        loss_first = first._loss_ema
-        del first
-        gc.collect()
-        torch.cuda.empty_cache()
-        resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
-        before_sample = _launch_counts()
-        image_path = os.path.join(root, "sample.png")
+    def __enter__(self):
+        def leaves(*args, **kwargs):
+            return self.leaves(*args, **kwargs)
+        # the wrapper counts the launches made under its name meanwhile
+        leaves.launches = self.real_leaves.launches
+        self.step_module.apply_updates_stochastic = self.apply
+        self.sr_update.sr_update_leaves = leaves
+        return self
+
+    def __exit__(self, *exc):
+        self.real_leaves.launches = self.sr_update.sr_update_leaves.launches
+        self.step_module.apply_updates_stochastic = self.real_apply
+        self.sr_update.sr_update_leaves = self.real_leaves
+
+
+def _k5_on_the_update(torch, call: dict) -> dict:
+    """K5's outputs of one fine-tune update against the plain rounding: bit
+    for bit on the Philox bits of the largest leaf, one 1-D leaf and one
+    4-D conv leaf; on every leaf, each output one of the two bf16
+    neighbours of the fp32 sum p + u, and p + u itself where it is a bf16
+    value. -> the checks and the named leaves."""
+    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+    before, us, outs = call["before"], call["us"], call["outs"]
+    seeds, seed_index = call["seeds"], call["seed_index"]
+    sizes = [p.numel() for p in before]
+    largest = max(range(len(before)), key=lambda i: sizes[i])
+    one_d = next(i for i, p in enumerate(before) if p.dim() == 1)
+    conv = next(i for i, p in enumerate(before) if p.dim() == 4 and i != largest)
+    bitwise, max_err = {}, 0.0
+    for name, i in (("largest", largest), ("1-D", one_d), ("4-D conv", conv)):
+        bits = philox_bits(seeds[seed_index[i]:seed_index[i] + 1], sizes[i],
+                           before[i].device).view(before[i].shape)
+        ref = stochastic_round_to_bf16(before[i].float() + us[i].float(), bits)
+        bitwise[f"{name} {tuple(before[i].shape)}"] = bool(
+            torch.equal(outs[i].view(torch.int16), ref.view(torch.int16)))
+        max_err = max(max_err, (outs[i].float() - ref.float()).abs().max().item())
+        del bits, ref
+    neighbours = exact = True
+    for p, u, out in zip(before, us, outs):
+        s = p.float() + u.float()
+        low, high = _bf16_neighbours(torch, s)
+        got = out.float().view(torch.int32)
+        neighbours = neighbours and bool(((got == low) | (got == high)).all())
+        representable = (s.view(torch.int32) & 0xFFFF) == 0
+        exact = exact and bool((got[representable] == low[representable]).all())
+    return dict(bitwise=bitwise, neighbours=neighbours, exact=exact, max_err=max_err,
+                largest=largest, largest_numel=sizes[largest])
+
+
+def phase_sdxl_ft(torch) -> dict:
+    """Phase 14 (see the module docstring)."""
+    from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType, Optimizer
+    config = _fine_tune_config(ModelType.STABLE_DIFFUSION_XL_10_BASE, 2)
+    config.unet.weight_dtype = DataType.BFLOAT_16
+    config.optimizer.optimizer = Optimizer.ADAFACTOR
+    config.optimizer.stochastic_rounding = True
+    model = build_model(torch, config.weight_dtypes().unet.to_load_dtype())
+    family = get_family(config.model_type)
+    t0 = time.perf_counter()
+    setup = family.create_setup(model, config, 100)
+    batch = _train_batch(torch, family, setup, config.batch_size, 1024)
+    torch.cuda.synchronize()
+    params = setup.state.params["unet"]
+    n_tensors, n_elements = len(params), sum(t.numel() for t in params.values())
+    dtypes = {t.dtype for t in params.values()}
+    print(f"[sdxl_ft] FINE_TUNE of the SDXL UNet: {n_tensors} tensors, {n_elements} "
+          f"elements, {dtypes}; Adafactor (the reference's defaults), lr 1e-5, clip 1.0, "
+          f"stochastic rounding, text encoders frozen and cached, batch 2 at 1024x1024, "
+          f"set up in {time.perf_counter() - t0:.2f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    start = [t.detach().clone() for t in params.values()]
+    t0 = time.perf_counter()
+    metrics = setup.train_step(setup.state, batch, gen)
+    first = [metrics["loss"].item(), metrics["grad_norm"].item()]
+    warm_s = time.perf_counter() - t0
+    changed = sum(not torch.equal(a, t) for a, t in zip(start, params.values()))
+    del start
+    print(f"[sdxl_ft] warm-up step {warm_s:.3f} s: loss {first[0]:.6f} grad_norm "
+          f"{first[1]:.6f}; {changed} of {n_tensors} UNet tensors changed")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    step_s, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        out = sample.main(["--model-type", "STABLE_DIFFUSION_15", "--base-model-name", ckpt,
-                           "--prompt", "a photograph of an astronaut riding a horse",
-                           "--destination", image_path, "--steps", "4", "--cfg", "7",
-                           "--width", str(CLI_SIZE), "--height", str(CLI_SIZE),
-                           "--scheduler", "DDIM"])
-        torch.cuda.synchronize()
-        sample_s = time.perf_counter() - t0
-        launches = _launch_counts()
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = setup.train_step(setup.state, batch, gen)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        step_s.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(step_s)
+    n = TRAIN_STEPS * sum(SDXL_SELF_ATTN.values())
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": TRAIN_STEPS}
+    print(f"[sdxl_ft] {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in step_s)}), images/s {2 / med:.3f}, peak "
+          f"max_memory_allocated {peak_gib:.2f} GiB, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, grad_norms "
+          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches} (expected {expected})")
 
-        # launches: none while caching, exactly one per self-attention per step
-        per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
-        none = {k: 0 for k in per_step}
-        steps, cache_launches, times = [], [], {}
-        for events in (events1, events2):
-            marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
-            for kind, what, counts, t in events:
-                if kind == "status" and what.endswith(": caching"):
-                    epoch = what.split()[1].rstrip(":")
-                    done = marks[f"training epoch {epoch}"]
-                    cache_launches.append(_delta(done[0], counts))
-                    times.setdefault("cache_s", []).append(done[1] - t)
-            load = marks["loading the model"][1]
-            times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
-            prev = None
-            for kind, what, counts, t in events:
-                if kind == "status" and what.startswith("training epoch"):
-                    prev = (counts, t)
-                elif kind == "step":
-                    steps.append((what, _delta(counts, prev[0]), t - prev[1]))
-                    prev = (counts, t)
-        sample_launches = _delta(launches, before_sample)
-        step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
-        sums, _, _ = _kernel_times(prof)
-        device_ms = sum(sums.values())
-        profiled_ms = steps[-1][2] * 1e3
+    # one more step with K5's inputs captured: K5 against the plain rounding
+    with _K5Capture(torch) as capture:
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+    (call,) = capture.calls
+    k5 = _k5_on_the_update(torch, call)
+    u_dtypes = {u.dtype for u in call["us"]}
+    n_el = sum(u.numel() for u in call["us"])
+    set_bound = _bound_ms(0.0, (8 if torch.float32 in u_dtypes else 6) * n_el)
+    ps, us, seeds, idx = call["before"], call["us"], call["seeds"], call["seed_index"]
+    set_ms = _device_ms(torch, lambda: sr_update_leaves(ps, us, seeds, seed_index=idx,
+                                                        outs=ps), "sr_update_kernel",
+                        reps=10, min_seen=0.1)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        sr_update_leaves(ps, us, seeds, seed_index=idx, outs=ps)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    set_host_ms = statistics.median(host)
+    i = k5["largest"]
+    p, u = ps[i], us[i]
+    seed = seeds[idx[i]:idx[i] + 1]
+    # the mean over the launches the profiler records (it has dropped some
+    # of K5's here); CUDA events around one call beside it (the wrapper's
+    # host time included)
+    leaf_ms = _device_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]),
+                         "sr_update_kernel", reps=40, min_seen=0.1)
+    leaf_event_ms = _median_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]))
+    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+    leaf_plain_ms = _median_ms(torch, lambda: p.copy_(stochastic_round_to_bf16(
+        p.float() + u.float(), philox_bits(seed, p.numel(), p.device).view(p.shape))), reps=3)
+    leaf_bound = _bound_ms(0.0, (8 if u.dtype == torch.float32 else 6) * p.numel())
+    card = gpu_line()
+    print(f"[sdxl_ft] K5 over the update on {card}: {len(us)} leaves, {n_el} elements, "
+          f"u {sorted(str(d) for d in u_dtypes)}, {capture.layout_copies} updates in other "
+          f"strides than their parameter (copied); bitwise equal to the plain rounding on "
+          f"{k5['bitwise']}; every output a bf16 neighbour of p + u {k5['neighbours']}, "
+          f"exact where representable {k5['exact']}; device {set_ms:.4f} ms per launch, "
+          f"least time {set_bound[0]:.4f} ms ({set_bound[1]}; "
+          f"{100 * set_bound[0] / set_ms:.1f}% of it), wrapper host time "
+          f"{set_host_ms:.4f} ms per call ({call['host_ms']:.4f} ms in the step); the "
+          f"largest leaf ({k5['largest_numel']} elements) alone {leaf_ms:.4f} ms per launch "
+          f"on the device ({leaf_event_ms:.4f} ms per call with the wrapper, events), "
+          f"plain {leaf_plain_ms:.4f} ms, least time {leaf_bound[0]:.4f} ms")
+    del capture, call, ps, us, p, u
+    gc.collect()
+    profile_train_step(torch, setup, batch, gen, "sdxl_ft")
+    checks = {
+        "UNet size": (n_tensors, n_elements) == (SDXL_UNET_TENSORS, SDXL_UNET_ELEMENTS)
+        and dtypes == {torch.bfloat16},
+        "finite": _finite(first + losses + norms),
+        "UNet changed after the first step": changed > n_tensors // 2,
+        "launches per step": launches == expected,
+        "K5 one launch per update dtype": len(u_dtypes) == 1,
+        "K5 bitwise on the named leaves": all(k5["bitwise"].values()),
+        "K5 neighbours on every leaf": k5["neighbours"] and k5["exact"],
+        "largest leaf": k5["largest_numel"] == SDXL_LARGEST_LEAF,
+    }
+    print(f"[sdxl_ft] checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sdxl_ft failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": launches, "sec_per_step": med, "peak_gib": peak_gib,
+            "k5": dict(ms=leaf_ms, ms_with_wrapper=leaf_event_ms, plain_ms=leaf_plain_ms,
+                       bound_ms=leaf_bound[0],
+                       bound_by=leaf_bound[1], max_abs_err=k5["max_err"],
+                       set_ms=set_ms, set_bound_ms=set_bound[0], set_host_ms=set_host_ms,
+                       leaves=len(idx), elements=n_el, u_dtype=sorted(str(d) for d in u_dtypes),
+                       shape=f"largest leaf of the SDXL fine-tune update, "
+                             f"{k5['largest_numel']} elements")}
 
-        # the cache: a latent and a text state per image
-        cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
-        rows = [load_safetensors(f) for f in cache_files]
-        cached = (len(rows) == CLI_IMAGES
-                  and all({"latent_image", "text_encoder_hidden_state"} <= set(r) for r in rows)
-                  and all(r["latent_image"].shape == (CLI_SIZE // 8, CLI_SIZE // 8, 4)
-                          and r["text_encoder_hidden_state"].shape == (77, 768) for r in rows))
 
-        # the LoRA file reads back to the trained adapters bit for bit
-        lora = load_safetensors(config.output_model_destination)
-        adapters = resumed.setup.state.params["unet_lora"]
-        keys = peft_module_keys(resumed.model.unet, resumed.setup.peft_cfg)
-        read, alpha = kohya_state_dict_to_peft(lora, "lora_unet", keys)
-        bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
-                   and all(torch.equal(read[k][n], t.detach().cpu())
-                           for k, e in adapters.items() for n, t in e.items()))
-        with torch.no_grad():
-            for key, entry in adapters.items():
-                for name, t in entry.items():
-                    t.copy_(read[key][name])
-            loader = resumed.data_loader
-            batch = loader.materialize_batch(loader.batches_for_epoch(0)[0])
-            gen = torch.Generator(device="cuda").manual_seed(3)
-            reload_loss = resumed.setup.train_step.loss(batch, gen).item()
-        image = read_png(image_path)
+def _ft_cli_config(root: str, files: dict):
+    """The sd15_ft_cli phase's config: FINE_TUNE of the UNet (fp32 weights,
+    bf16 compute), text encoder frozen and cached, AdamW 1e-5, clip 1.0,
+    batch 4 at 512x512, masked training (unmasked weight 0.1, area
+    normalized), zero-terminal-SNR rescaling (v-prediction), an EMA on the
+    card (decay 0.999, every update), gradient accumulation 2, one epoch
+    with a backup before the fp16 single-file output."""
+    from onetrainer_tpu_torch.util.enums import DataType, EMAMode, ModelFormat, ModelType
+    config = _cli_config(root, files["ckpt"], files["dataset"])
+    template = _fine_tune_config(ModelType.STABLE_DIFFUSION_15, 4)
+    for name in ("training_method", "learning_rate", "clip_grad_norm"):
+        setattr(config, name, getattr(template, name))
+    config.train_dtype = DataType.BFLOAT_16
+    config.weight_dtype = DataType.FLOAT_32
+    config.masked_training = True
+    config.unmasked_weight = 0.1
+    config.normalize_masked_area_loss = True
+    config.rescale_noise_scheduler_to_zero_terminal_snr = True
+    config.ema = EMAMode.GPU
+    config.ema_decay = 0.999
+    config.ema_update_step_interval = 1
+    config.gradient_accumulation_steps = 2
+    config.output_dtype = DataType.FLOAT_16
+    config.output_model_format = ModelFormat.SAFETENSORS
+    config.output_model_destination = os.path.join(root, "sd15_ft.safetensors")
+    return config
 
-        checks = {
-            "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
-            "none while caching": all(c == none for c in cache_launches)
-            and len(cache_launches) == 2,
-            "K1 over the sample": sample_launches == {**none, "K1": 20},
-            "main-path launches": launches == {
-                k: 4 * v + sample_launches[k] for k, v in per_step.items()},
-            "global steps": (step_after_first, resumed.train_progress.global_step) == (2, 4),
-            "cache": cached,
-            "LoRA keys": len(adapters) == SD15_LORA_LAYERS
-            and len(lora) == 3 * SD15_LORA_LAYERS,
-            "LoRA read back bitwise": bitwise,
-            "finite losses": _finite([loss_first, resumed._loss_ema, reload_loss]),
-            "image": image.shape == (CLI_SIZE, CLI_SIZE, 3) and image.std() > 0
-            and bool((image == out.image).all()),
-        }
-        bare = f"{bare_step_s:.4f} s" if bare_step_s is not None else "not measured"
-        card = gpu_line()
-        print(f"[sd15_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
-              f"{[w for k, w, _, _ in events2 if k == 'status']}")
-        print(f"[sd15_cli] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
-              f"(single file to the card, run 1 and the resume); caching "
-              f"{times['cache_s'][0]:.3f} s for {CLI_IMAGES} images "
-              f"({times['cache_s'][0] / CLI_IMAGES:.4f} s per image; the resume "
-              f"{times['cache_s'][1]:.3f} s, all cached)")
-        print(f"[sd15_cli] on {card}: steps (global step, s): "
-              f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; CLI step median "
-              f"{statistics.median(step_s):.4f} s over the unprofiled steps "
-              f"(the first includes the warm-up) beside sd15_train's median {bare}; "
-              f"step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
-              f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
-        print(f"[sd15_cli] on {card}: sample (load + 4 DDIM steps + decode + PNG) "
-              f"{sample_s:.2f} s; "
-              f"peak max_memory_allocated {peak_gib:.2f} GiB; launches {launches} "
-              f"(sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
-              f"{reload_loss:.6f}; checks {checks}")
-        if not all(checks.values()):
-            raise AssertionError(f"sd15_cli failed: "
-                                 f"{[name for name, ok in checks.items() if not ok]}")
-        return {"launches": launches, "step_s": statistics.median(step_s),
-                "peak_gib": peak_gib}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+
+def phase_sd15_ft_cli(torch, files: dict) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from onetrainer_tpu_torch.io import ldm
+    from onetrainer_tpu_torch.io.png import read_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.scripts import sample
+
+    root = os.path.join(os.path.dirname(files["ckpt"]), "fine_tune")
+    os.makedirs(root)
+    config = _ft_cli_config(root, files)
+    paths = []
+    for epochs in (1, 2):
+        # the resume writes the output and no second backup
+        config.epochs, config.continue_last_backup = epochs, epochs == 2
+        config.backup_before_save = epochs == 1
+        paths.append(os.path.join(root, f"epoch{epochs}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(config.to_dict(), f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    events1, events2 = [], []
+    t0 = time.perf_counter()
+    first, _ = _cli_run(torch, paths[0], events1)
+    first_s = time.perf_counter() - t0
+    state = first.setup.state
+    after_first = (first.train_progress.global_step, state.opt_state.inner["unet"].count,
+                   state.ema.step, state.opt_state.mini_step)
+    backup = first.config.get_last_backup_path()
+    backup_files = sorted(os.listdir(backup))
+    backup_gib = sum(os.path.getsize(os.path.join(backup, f)) for f in backup_files
+                     if os.path.isfile(os.path.join(backup, f))) / 2 ** 30
+    del first, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed, _ = _cli_run(torch, paths[1], events2)
+    resume_s = time.perf_counter() - t0
+    state = resumed.setup.state
+    after_resume = (resumed.train_progress.global_step, state.opt_state.inner["unet"].count,
+                    state.ema.step, state.opt_state.mini_step)
+    source = resumed._source_dir
+    before_sample = _launch_counts()
+    image_path = os.path.join(root, "sample.png")
+    t0 = time.perf_counter()
+    out = sample.main(["--model-type", "STABLE_DIFFUSION_15", "--base-model-name",
+                       config.output_model_destination,
+                       "--prompt", "a photograph of an astronaut riding a horse",
+                       "--destination", image_path, "--steps", "4", "--cfg", "7",
+                       "--width", str(CLI_SIZE), "--height", str(CLI_SIZE),
+                       "--scheduler", "DDIM"])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+    none = {k: 0 for k in per_step}
+    steps, cache_launches = [], []
+    for events in (events1, events2):
+        marks = {what: counts for kind, what, counts, _ in events if kind == "status"}
+        prev = None
+        for kind, what, counts, t in events:
+            if kind == "status" and what.endswith(": caching"):
+                epoch = what.split()[1].rstrip(":")
+                cache_launches.append(_delta(marks[f"training epoch {epoch}"], counts))
+            if kind == "status" and what.startswith("training epoch"):
+                prev = (counts, t)
+            elif kind == "step":
+                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
+                prev = (counts, t)
+    sample_launches = _delta(launches, before_sample)
+
+    # the output: the EMA cast to fp16, bit for bit
+    written = ldm.split_sd15_single_file(load_safetensors(config.output_model_destination))
+    ema = state.ema.params["unet"]
+    ema_bitwise = set(written["unet"]) == set(ema) and all(
+        written["unet"][k].dtype == torch.float16
+        and torch.equal(written["unet"][k], v.to(torch.float16).cpu()) for k, v in ema.items())
+    trained = dict(resumed.model.unet.named_parameters())
+    ema_differs = any(not torch.equal(ema[k], trained[k].detach()) for k in ema)
+    image = read_png(image_path)
+    with torch.no_grad():
+        loader = resumed.data_loader
+        batch = loader.materialize_batch(loader.batches_for_epoch(0)[0])
+    masked_area = float(batch["latent_mask"].mean())
+    checks = {
+        "launches per micro-step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
+        "none while caching": all(c == none for c in cache_launches)
+        and len(cache_launches) == 2,
+        "K1 over the sample": sample_launches == {**none, "K1": 20},
+        "main-path launches": launches == {
+            k: 4 * v + sample_launches[k] for k, v in per_step.items()},
+        "steps, updates and EMA updates after epoch 1": after_first == (2, 1, 1, 0),
+        "after the resume": after_resume == (4, 2, 2, 0),
+        "resumed from the backup's model": source == os.path.join(backup, "model.safetensors"),
+        "backup": backup_files == ["ema.safetensors", "meta.json", "model.safetensors",
+                                   "onetrainer_config", "optimizer.safetensors"],
+        "masks": 0.0 < masked_area < 1.0,
+        "v-prediction": resumed.model.prediction_type == "v_prediction",
+        "output is the EMA in fp16": ema_bitwise and ema_differs,
+        "finite loss": _finite([resumed._loss_ema]),
+        "image": image.shape == (CLI_SIZE, CLI_SIZE, 3) and image.std() > 0
+        and bool((image == out.image).all()),
+    }
+    card = gpu_line()
+    print(f"[sd15_ft_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
+          f"{[w for k, w, _, _ in events2 if k == 'status']}")
+    print(f"[sd15_ft_cli] on {card}: epoch 1 with its backup {first_s:.2f} s, the resume "
+          f"with the output {resume_s:.2f} s; backup {backup_gib:.3f} GiB ({backup_files}); "
+          f"micro-steps (global step, s): {', '.join(f'{g}: {x:.4f}' for g, _, x in steps)}; "
+          f"(global step, optimizer updates, EMA updates, mini step) {after_first} then "
+          f"{after_resume}; mean latent mask {masked_area:.4f}; sample {sample_s:.2f} s; "
+          f"peak max_memory_allocated {peak_gib:.2f} GiB; launches {launches} (sample "
+          f"{sample_launches}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_ft_cli failed: "
+                             f"{[name for name, ok in checks.items() if not ok]}")
+    return {"launches": launches, "peak_gib": peak_gib}
 
 
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
@@ -1433,11 +1854,14 @@ def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
     ]
 
 
-def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
+def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
     """One row per kernel and path: `launches` from the path that runs it
     (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's and SD 2.1's
-    shapes with their steps' launches; K4-K5 the QLoRA step), the time at
-    that path's shape, and the counts of every path."""
+    shapes with their steps' launches; K4-K5 the QLoRA step; K5 again at
+    the SDXL fine-tune's largest leaf, with the call's time with its
+    wrapper and the whole update's device time, bound and host time beside
+    it), the device time at that path's shape, and the
+    counts of every path."""
     worst = {
         "K1": max(c["err_o"] for c in k1.values()),
         "K2": max(c["errs"]["dq"] for c in k23.values()),
@@ -1460,6 +1884,9 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
          "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["list_ms"],
          k5["list_plain_ms"], k5["list_bound_ms"], k5["list_bound_by"], None,
          f"{k5['n_leaves']} QLoRA adapter tensors, {k5['n_elements']} elements"),
+        ("sr_update_leaves (K5) at the SDXL fine-tune's largest leaf", "K5", "sr_update.cu",
+         "onetrainer_tpu/ops/pallas_sr.py:26", "sdxl_ft", k5_ft["max_abs_err"], k5_ft["ms"],
+         k5_ft["plain_ms"], k5_ft["bound_ms"], k5_ft["bound_by"], None, k5_ft["shape"]),
     ]
     kernels = []
     for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,
@@ -1471,6 +1898,9 @@ def _kernel_table(k1, k23, k4, k5, launches: dict) -> dict:
             "library_ms": library_ms, "shape": shape, "path": path,
             "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
+    kernels[-1]["ms_with_wrapper"] = k5_ft["ms_with_wrapper"]
+    kernels[-1].update({f"update_{k}": k5_ft[k] for k in (
+        "set_ms", "set_bound_ms", "set_host_ms", "leaves", "elements", "u_dtype")})
     return {"kernels": kernels}
 
 
@@ -1517,7 +1947,7 @@ def main() -> int:
     # the fp32 model must not stay alive into the later phases' peak memory
     del model
     results.pop("model", None)
-    for name, fn in (("qlora", phase_qlora), ("fp8", phase_fp8)):
+    for name, fn in (("qlora", phase_qlora), ("fp8", phase_fp8), ("sdxl_ft", phase_sdxl_ft)):
         gc.collect()
         torch.cuda.empty_cache()
         run(name, fn, torch)
@@ -1546,18 +1976,29 @@ def main() -> int:
     results.pop("sd21_model", None)
     gc.collect()
     torch.cuda.empty_cache()
-    run("sd15_cli", phase_sd15_cli, torch,
-        (results.get("sd15_train") or {}).get("sec_per_step"))
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="sd15_files_")
+    try:
+        files = run("sd15_files", sd15_files, torch, root)
+        if files is not None:
+            run("sd15_cli", phase_sd15_cli, torch,
+                (results.get("sd15_train") or {}).get("sec_per_step"), files)
+            gc.collect()
+            torch.cuda.empty_cache()
+            run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     if failures:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
                 **{p: results[p]["launches"]
-                   for p in ("train", "qlora", "fp8", "sd15_train", "sd21_train",
-                             "sd15_cli")}}
+                   for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
+                             "sd15_cli", "sd15_ft_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
-                                   results["k5"], launches)))
+                                   results["k5"], results["sdxl_ft"]["k5"], launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

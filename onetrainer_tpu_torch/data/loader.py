@@ -9,14 +9,17 @@ one would. Batches are dicts of torch tensors on the host; the train step
 moves them to the model's device.
 
 What differs from the reference:
-- PNG files are read by the port's standard-library codec (io/png.py),
-  which decodes bit for bit as Pillow does; other formats, EXIF
-  orientation and resizing to a new size need Pillow, imported where they
-  happen (an image at its bucket's size is not resized: Pillow's bilinear
-  resize to the same size is the identity).
-- Masks (masked training and mask-input models), depth maps and
-  conditioning images raise NotImplementedError; video files are not
-  collected, and cached pixels (VAE fine-tuning) are not ported.
+- PNG files, images and `-masklabel.png` masks, are read by the port's
+  standard-library codec (io/png.py), which decodes bit for bit as Pillow
+  does (a mask converted to gray as Pillow's convert("L")); other formats,
+  EXIF orientation and resizing to a new size need Pillow, imported where
+  they happen (an image or mask at its bucket's size is not resized:
+  Pillow's bilinear resize to the same size is the identity). The mask's
+  nearest-neighbour downscale to the latent size is done in numpy, as
+  Pillow's does it.
+- Depth maps and conditioning images (mask-input and conditioning-image
+  models) raise NotImplementedError; video files are not collected, and
+  cached pixels (VAE fine-tuning) are not ported.
 - The encode functions run on the thread that calls `ensure_cached` and,
   without a cache, on the one iterating `iter_epoch`; the prefetch thread
   only reads cached rows.
@@ -61,6 +64,36 @@ def load_image_rgb(path: str) -> np.ndarray:
             img = ImageOps.exif_transpose(img)
             pixels = np.asarray(img.convert("RGB"))
     return np.asarray(pixels, dtype=np.float32) / 255.0
+
+
+def load_mask(path: str) -> np.ndarray:
+    """HW1 float32 mask in [0, 1]: the file converted to 8-bit gray, / 255,
+    EXIF orientation honoured, as the reference's `load_mask`."""
+    pixels = png.read_png_l(path)
+    if pixels is None:
+        from PIL import Image, ImageOps
+        with Image.open(path) as img:
+            img = ImageOps.exif_transpose(img)
+            pixels = np.asarray(img.convert("L"))
+    return (np.asarray(pixels, dtype=np.float32) / 255.0)[..., None]
+
+
+def resize_nearest(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [H, W] resized to [height, width] as Pillow's
+    Image.resize(..., NEAREST) does it: source column int(x0 + (x + 1/2)
+    sx) with sx = W / width, the positions accumulated one step at a time
+    in double precision (libImaging's ImagingScaleAffine), rows alike."""
+    def taps(n_in: int, n_out: int) -> np.ndarray:
+        step = n_in / n_out
+        pos, out = step * 0.5, []
+        for _ in range(n_out):
+            out.append(min(int(pos), n_in - 1))
+            pos += step
+        return np.asarray(out, dtype=np.int64)
+    h, w = pixels.shape
+    if (h, w) == (height, width):
+        return pixels.copy()
+    return pixels[taps(h, height)[:, None], taps(w, width)[None, :]]
 
 
 def probe_image_size(path: str) -> tuple[int, int]:
@@ -139,7 +172,6 @@ class Text2ImageDataLoader:
     ):
         model_type = config.model_type
         unported = {
-            "masked training": config.masked_training or model_type.has_mask_input(),
             "conditioning images": (config.custom_conditioning_image
                                     or model_type.has_conditioning_image_input()),
             "depth maps": model_type.has_depth_input(),
@@ -154,7 +186,8 @@ class Text2ImageDataLoader:
         self.encode_batch_size = encode_batch_size
 
         concepts = config.concepts or []
-        self.entries: list[SampleEntry] = scan_concepts(concepts)
+        self.entries: list[SampleEntry] = scan_concepts(
+            concepts, masked_training=config.masked_training or model_type.has_mask_input())
         if not self.entries:
             # fail loudly: a loader with no samples would otherwise "train"
             # zero steps per epoch and silently save an untrained model
@@ -246,14 +279,20 @@ class Text2ImageDataLoader:
              variation])
 
     def _load_pixels(self, sample: PreparedSample):
-        """(image HWC in [-1, 1], all-ones mask, scale/crop info)."""
+        """(image HWC in [-1, 1], mask HW1 in [0, 1], scale/crop info): the
+        mask goes through the image's augments, scale and crop; a sample
+        without a mask file gets an all-ones mask."""
         e = self.entries[sample.entry_index]
         rng = self._sample_rng(e, sample.image_variation)
-        image, _ = augment_image(load_image_rgb(e.image_path), e.concept, rng, None)
+        mask = load_mask(e.mask_path) if e.mask_path else None
+        image, mask = augment_image(load_image_rgb(e.image_path), e.concept, rng, mask)
         info = scale_crop(image.shape[0], image.shape[1], sample.bucket,
                           e.concept.image.enable_crop_jitter, rng)
         image = resize_crop(image, info)
-        mask = np.ones(image.shape[:2] + (1,), np.float32)
+        if mask is None:
+            mask = np.ones(image.shape[:2] + (1,), np.float32)
+        else:
+            mask = resize_crop(mask, info)
         return image * 2.0 - 1.0, mask, info
 
     def _prompt(self, sample: PreparedSample) -> str:
@@ -350,12 +389,13 @@ class Text2ImageDataLoader:
         }
 
     def _latent_mask(self, mask: np.ndarray) -> np.ndarray:
-        """The latent-resolution mask: masks are not ported, so it is all
-        ones at the size the reference's nearest-neighbour downscale of an
-        all-ones mask gives."""
+        """The mask at the latent resolution: through uint8 and a
+        nearest-neighbour downscale by the VAE's factor, as the reference's."""
         h, w = mask.shape[:2]
         s = self.latent_scale
-        return np.ones((int(round(h / s)), int(round(w / s)), 1), np.float32)
+        pixels = resize_nearest((mask[..., 0] * 255).astype(np.uint8),
+                                int(round(w / s)), int(round(h / s)))
+        return (np.asarray(pixels, np.float32) / 255.0)[..., None]
 
     # -- batch materialization ------------------------------------------------------
 

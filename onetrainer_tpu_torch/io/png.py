@@ -1,7 +1,8 @@
 """A standard-library PNG codec for 8-bit, non-interlaced images.
 
-The data loader reads training images with it and the sample script
-writes its output with it, so neither needs Pillow for PNG files. It
+The data loader reads training images and their masks with it and the
+sample script writes its output with it, so neither needs Pillow for PNG
+files. It
 reads gray, gray + alpha, RGB and RGBA at bit depth 8 without interlace
 (zlib and the five row filters of the PNG specification); anything else
 (palette, 16-bit, interlaced, or a file carrying EXIF) it declines with
@@ -122,6 +123,21 @@ def read_png_rgb(path: str) -> np.ndarray | None:
     if image.shape[-1] <= 2:
         return np.repeat(image[..., :1], 3, axis=-1)
     return np.ascontiguousarray(image[..., :3])
+
+
+def read_png_l(path: str) -> np.ndarray | None:
+    """The image as uint8 gray [H, W], as Pillow's convert("L") gives it
+    (gray as stored, alpha dropped; RGB by the ITU-R 601-2 luma in Pillow's
+    integer form, (19595 R + 38470 G + 7471 B + 2^15) >> 16), or None as
+    `read_png`."""
+    image = read_png(path)
+    if image is None:
+        return None
+    if image.shape[-1] <= 2:
+        return np.ascontiguousarray(image[..., 0])
+    rgb = image[..., :3].astype(np.uint32)
+    luma = rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000
+    return (luma >> 16).astype(np.uint8)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -2,10 +2,11 @@
 
 Counterpart of onetrainer_tpu/math/losses.py (reference:
 modules/modelSetup/mixin/ModelSetupDiffusionLossMixin.py): MSE + MAE +
-log-cosh per-sample losses, batch/accumulation loss scaling, per-sample
-loss weights, and the timestep weightings (min-SNR-gamma, debiased
-estimation, P2). Masked training, prior preservation and the learned-
-variance VB term are not ported and raise. Everything is fp32.
+log-cosh per-sample losses, masked training (reference:
+modules/util/loss/masked_loss.py), batch/accumulation loss scaling,
+per-sample loss weights, and the timestep weightings (min-SNR-gamma,
+debiased estimation, P2). Prior preservation and the learned-variance VB
+term are not ported and raise. Everything is fp32.
 """
 
 from __future__ import annotations
@@ -69,6 +70,19 @@ def _spatial_mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=tuple(range(1, x.dim())))
 
 
+def masked_losses(losses: torch.Tensor, mask: torch.Tensor, unmasked_weight: float,
+                  normalize_masked_area_loss: bool) -> torch.Tensor:
+    """Elementwise losses weighted by the mask clamped to [unmasked_weight,
+    1], divided by the clamped mask's per-sample mean when
+    `normalize_masked_area_loss` (reference: masked_loss.py:5-19)."""
+    clamped_mask = torch.clamp(mask, unmasked_weight, 1.0)
+    losses = losses * clamped_mask
+    if normalize_masked_area_loss:
+        losses = losses / clamped_mask.mean(dim=tuple(range(1, clamped_mask.dim())),
+                                            keepdim=True)
+    return losses
+
+
 def min_snr_weight(snr: torch.Tensor, gamma: float, v_prediction: bool) -> torch.Tensor:
     denom = snr + 1.0 if v_prediction else snr
     return torch.clamp(snr, max=gamma) / denom
@@ -99,24 +113,39 @@ def diffusion_losses(
         cfg: LossConfig,
         coefficients: DiffusionScheduleCoefficients | None,
 ) -> torch.Tensor:
-    """Per-sample loss vector [B] for epsilon/v-prediction models."""
-    if "latent_mask" in batch and (cfg.masked_training or cfg.raw_masked_training):
-        raise NotImplementedError("masked training is not ported yet")
+    """Per-sample loss vector [B] for epsilon/v-prediction models; with
+    `masked_training`, each elementwise loss weighted by the batch's latent
+    mask (`masked_losses`)."""
     if "prior_target" in data:
         raise NotImplementedError("prior preservation is not ported yet")
     if cfg.vb_loss_strength != 0 and "predicted_var_values" in data:
         raise NotImplementedError("the learned-variance VB loss is not ported yet")
 
+    mask = None
+    if cfg.masked_training and "latent_mask" in batch:
+        mask = batch["latent_mask"].float()
     predicted = data["predicted"].float()
     target = data["target"].float()
     losses = torch.zeros((predicted.shape[0],), dtype=torch.float32,
                          device=predicted.device)
+
+    def accumulate(value: torch.Tensor, strength: float) -> torch.Tensor:
+        if mask is not None:
+            value = masked_losses(value, mask, cfg.unmasked_weight,
+                                  cfg.normalize_masked_area_loss)
+        return _spatial_mean(value) * strength
+
     if cfg.mse_strength != 0:
-        losses = losses + _spatial_mean((predicted - target) ** 2) * cfg.mse_strength
+        losses = losses + accumulate((predicted - target) ** 2, cfg.mse_strength)
     if cfg.mae_strength != 0:
-        losses = losses + _spatial_mean((predicted - target).abs()) * cfg.mae_strength
+        losses = losses + accumulate((predicted - target).abs(), cfg.mae_strength)
     if cfg.log_cosh_strength != 0:
-        losses = losses + _spatial_mean(log_cosh_loss(predicted, target)) * cfg.log_cosh_strength
+        losses = losses + accumulate(log_cosh_loss(predicted, target), cfg.log_cosh_strength)
+    if mask is None and cfg.raw_masked_training and cfg.normalize_masked_area_loss \
+            and "latent_mask" in batch:
+        # the mask-input models' unmasked loss, normalized by the mask's area
+        losses = losses / _spatial_mean(torch.clamp(batch["latent_mask"].float(),
+                                                    cfg.unmasked_weight, 1.0))
 
     losses = losses * _scale(cfg)
     losses = losses * batch["loss_weight"].to(losses.dtype)

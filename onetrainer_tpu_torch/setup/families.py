@@ -5,9 +5,11 @@ Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
 text-to-image and SDXL so far. The calls mirror the reference's trainer
 and scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
-`family.sample`; `family.save_model` / `save_single_file` write merged
-checkpoints and `save_lora_output` the kohya LoRA file. `load` runs on
-the card unless the caller passes another device.
+`family.sample`; `family.save_model` / `save_single_file` write the
+model, LoRA adapters merged into their layers and, when the state holds
+an EMA, the EMA in place of the trained tensors (the reference trainer's
+`_export_params`), and `save_lora_output` the kohya LoRA file. `load`
+runs on the card unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ class ModelFamily:
     create_setup: Callable  # (model, config, total_steps) -> setup
     make_encode_fns: Callable  # setup -> (encode_images, encode_text)
     sample: Callable        # (setup, sample_config, on_progress) -> SamplerOutput
-    save_model: Callable    # (setup, dir, source_dir, save_dtype=None) -> None
-    save_single_file: Callable  # (setup, path, save_dtype=None) -> None
+    save_model: Callable    # (setup, dir, source_dir, save_dtype=None, ema=True) -> None
+    save_single_file: Callable  # (setup, path, save_dtype=None, ema=True) -> None
     lora_prefixes: dict     # trainable group -> kohya prefix
 
 
@@ -64,19 +66,26 @@ def _assign(model, loaded: dict, device) -> None:
     model.device = torch.device(device)
 
 
-def merged_state_dicts(setup) -> dict[str, dict]:
+def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
     """{module attribute: state dict} of the setup's model, each LoRA-trained
     part with its adapters merged into the weights (W + up.down.alpha/r),
-    for export."""
-    params = setup.state.params if setup.state is not None else {}
+    for export. With `ema` and an EMA in the train state, the EMA's fp32
+    tensors stand in for the trained ones (adapters, or a fine-tuned
+    module's parameters)."""
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    state = setup.state
+    params = state.params if state is not None else {}
+    if ema and state is not None and state.ema is not None:
+        params = state.ema.params
     out = {}
     for name, module in setup.model.modules().items():
         group, key_map = _LORA_PARTS.get(name, (None, None))
         if group in params:
             out[name] = apply_peft(module, params[group], setup.peft_cfg, key_map)
         else:
-            from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
             out[name] = state_dict_of(module)
+            if name in params:   # a FINE_TUNE group: {parameter name: tensor}
+                out[name].update({k: t.detach() for k, t in params[name].items()})
     return out
 
 
@@ -131,16 +140,16 @@ def _sd_sample(setup, sample_config, on_progress):
         sample_config, extra_embeddings=extra, on_update_progress=on_progress)
 
 
-def _sd_save_model(setup, out_dir, source_dir, save_dtype=None):
+def _sd_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_diffusers
-    sd = merged_state_dicts(setup)
+    sd = merged_state_dicts(setup, ema)
     save_sd_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                       save_dtype=save_dtype or torch.float32, source_dir=source_dir)
 
 
-def _sd_save_single_file(setup, path, save_dtype=None):
+def _sd_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file
-    sd = merged_state_dicts(setup)
+    sd = merged_state_dicts(setup, ema)
     save_sd_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                         metadata=_modelspec(setup), save_dtype=save_dtype or torch.float32)
 
@@ -191,17 +200,17 @@ def _sdxl_sample(setup, sample_config, on_progress):
         extra_embeddings=extra, on_update_progress=on_progress)
 
 
-def _sdxl_save_model(setup, out_dir, source_dir, save_dtype=None):
+def _sdxl_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_diffusers
-    sd = merged_state_dicts(setup)
+    sd = merged_state_dicts(setup, ema)
     save_sdxl_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                         sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
                         source_dir=source_dir)
 
 
-def _sdxl_save_single_file(setup, path, save_dtype=None):
+def _sdxl_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_single_file
-    sd = merged_state_dicts(setup)
+    sd = merged_state_dicts(setup, ema)
     save_sdxl_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                           sd["text_encoder_2"], metadata=_modelspec(setup),
                           save_dtype=save_dtype or torch.float32)
@@ -243,12 +252,14 @@ def cast_float_tensor(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tenso
 
 def save_lora_output(setup, destination: str, lora_prefixes: dict,
                      save_dtype: torch.dtype | None = None) -> str:
-    """kohya-format LoRA safetensors across all adapter groups, every
-    float tensor cast to `save_dtype` (the configured output_dtype), with
-    modelspec metadata (reference: StableDiffusionLoRASaver.py:33-41,
-    LoRASaverMixin.save). -> the path written."""
+    """kohya-format LoRA safetensors across all adapter groups (the EMA's
+    when the train state holds one), every float tensor cast to
+    `save_dtype` (the configured output_dtype), with modelspec metadata
+    (reference: StableDiffusionLoRASaver.py:33-41, LoRASaverMixin.save).
+    -> the path written."""
     tensors = {}
-    params = setup.state.params
+    state = setup.state
+    params = state.params if state.ema is None else state.ema.params
     for key, prefix in lora_prefixes.items():
         if key in params:
             tensors.update(peft_to_kohya_state_dict(params[key], setup.peft_cfg, prefix))

@@ -1,18 +1,22 @@
 """SD 1.5/2.x model setup, and the setup pieces the SD-family setups share.
 
 Counterpart of onetrainer_tpu/setup/sd_setup.py: prediction forcing, the
-tokenizer wrap, the LoRA training branch of `create_sd_setup` (UNet and
-text-encoder adapters seeded 0 and 1, per-group schedules, the clipped
-AdamW, the train step), `merged_inference_params`, `make_encode_fns` for
-latent and text-embedding caching, and the per-group learning-rate
-schedules `_lr_scale`, `_stop_step` and `_group_schedule` (reference:
-modules/util/NamedParameterGroup.py, modules/util/create.py:1114-1232).
-Frozen parts whose weight dtype is FLOAT_8, INT_8 or NFLOAT_4 are
-quantized after the adapters exist (setup/quantize.py). FINE_TUNE builds
-no trainer yet (it serves sampling); EMBEDDING training, continuing from a
-LoRA file, CUSTOM schedulers and schedule-free optimizers raise.
-`prepare_model`, `wrap_tokenizer`, `setup_lora` and `image_encoder`
-serve setup/sdxl_setup.py too.
+tokenizer wrap, the LoRA and FINE_TUNE training branches of
+`create_sd_setup` (LoRA: UNet and text-encoder adapters seeded 0 and 1;
+FINE_TUNE: the UNet's and the text encoder's own parameters, each when
+its part trains; per-group schedules, the clipped optimizer, wrapped for
+gradient accumulation, the train step, the EMA), `merged_inference_params`,
+`make_encode_fns` for latent and text-embedding caching, and the
+per-group learning-rate schedules `_lr_scale`, `_stop_step` and
+`_group_schedule` (reference: modules/util/NamedParameterGroup.py,
+modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
+FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
+(setup/quantize.py). A FINE_TUNE config that trains no part builds no
+trainer (it serves sampling). `refuse_unported` raises for the training
+methods, EMA held on the CPU, prior preservation and additional
+embeddings; continuing from a LoRA file, CUSTOM schedulers and
+schedule-free optimizers raise where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
+`setup_fine_tune` and `image_encoder` serve setup/sdxl_setup.py too.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from onetrainer_tpu_torch.train.optimizers import create_group_optimizer
 from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, make_sd_train_step
 from onetrainer_tpu_torch.train.train_state import create_train_state
 from onetrainer_tpu_torch.util.enums import (
-    LearningRateScaler, LearningRateScheduler, TimeUnit, TrainingMethod,
+    ConceptType, EMAMode, LearningRateScaler, LearningRateScheduler, TimeUnit,
+    TrainingMethod,
 )
 
 # frozen part -> its ModelWeightDtypes attribute
@@ -42,6 +47,8 @@ _LORA_GROUPS = {
     "unet_lora": ("unet", None, 0),
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
 }
+# FINE_TUNE groups: the model attributes (and config parts) that may train
+_FINE_TUNE_GROUPS = ("unet", "text_encoder")
 
 
 def _lr_scale(config) -> float:
@@ -87,6 +94,25 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
     if stop is None:
         return schedule
     return lambda step: schedule(step) * float(step < stop)
+
+
+def refuse_unported(config) -> None:
+    """Raise NotImplementedError for what `config` asks of the model, its
+    setup and its step that the port does not run: training methods other
+    than LoRA and FINE_TUNE, EMA held on the CPU, prior preservation and
+    additional embeddings. The setups call it first, and the trainer before
+    it loads the model."""
+    asked = {
+        f"{config.training_method} training (LoRA and FINE_TUNE only)":
+            config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
+        "EMA on the CPU": config.ema == EMAMode.CPU,
+        "prior preservation": config.masked_prior_preservation_weight > 0 or any(
+            c.type == ConceptType.PRIOR_PREDICTION for c in (config.concepts or [])),
+        "additional embeddings": any(e.train for e in config.additional_embeddings),
+    }
+    unported = [what for what, on in asked.items() if on]
+    if unported:
+        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 
 
 def prepare_model(model, config) -> None:
@@ -151,9 +177,38 @@ def setup_lora(model, config, lora_groups: dict, quantizable: dict,
         group_schedules[group] = _group_schedule(
             config, part.learning_rate, total_steps, part, steps_per_epoch)
     quantize_frozen(model, config, quantizable)
-    tx = create_group_optimizer(group_schedules, config.optimizer.optimizer,
-                                config.optimizer, config.clip_grad_norm)
-    return peft_cfg, trainable, group_schedules, tx
+    return peft_cfg, trainable, group_schedules, _optimizer(config, group_schedules)
+
+
+def _optimizer(config, group_schedules: dict):
+    """The configured optimizer per group behind the global-norm clip,
+    wrapped for gradient accumulation (the reference's optax chain,
+    setup/sd_setup.py:406-411)."""
+    clip = config.clip_grad_norm if (config.clip_grad_norm or 0) > 0 else None
+    return create_group_optimizer(group_schedules, config.optimizer.optimizer,
+                                  config.optimizer, clip,
+                                  config.gradient_accumulation_steps)
+
+
+def setup_fine_tune(model, config, groups: tuple, quantizable: dict,
+                    total_steps: int, steps_per_epoch: int):
+    """The FINE_TUNE branch of the SD-family setups: each part of `groups`
+    whose config part trains becomes a group of its module's parameters,
+    {diffusers name: parameter} in the module's order; every other part
+    stops requiring grads and, when its weight dtype is quantized, is
+    quantized in place. -> (trainable, group_schedules, tx)."""
+    modules = model.modules()
+    trainable, group_schedules = {}, {}
+    for name, module in modules.items():
+        part = getattr(config, name, None) if name in groups else None
+        module.requires_grad_(bool(part is not None and part.train))
+        if part is None or not part.train:
+            continue
+        trainable[name] = dict(module.named_parameters())
+        group_schedules[name] = _group_schedule(
+            config, part.learning_rate, total_steps, part, steps_per_epoch)
+    quantize_frozen(model, config, quantizable, trained=list(trainable))
+    return trainable, group_schedules, _optimizer(config, group_schedules)
 
 
 def image_encoder(model):
@@ -194,11 +249,12 @@ class SDSetup:
 def create_sd_setup(model, config, total_steps: int = 10_000,
                     steps_per_epoch: int = 100) -> SDSetup:
     """Bind an SD 1.5/2.x `model` and `config`. For LoRA: adapters for the
-    UNet and, when it trains, the text encoder (setup_lora), the clipped
-    AdamW and the train step; otherwise the frozen parts are quantized as
-    configured and no trainer is built (the setup serves sampling)."""
-    if config.training_method == TrainingMethod.EMBEDDING:
-        raise NotImplementedError("EMBEDDING training is not ported yet")
+    UNet and, when it trains, the text encoder (setup_lora); for FINE_TUNE:
+    the UNet and the text encoder, each when it trains (setup_fine_tune);
+    then the clipped optimizer, the train step and the train state (with
+    an EMA when configured). A FINE_TUNE config that trains nothing builds
+    no trainer (the setup serves sampling)."""
+    refuse_unported(config)
     prepare_model(model, config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     step_cfg = SDStepConfig.from_train_config(
@@ -206,14 +262,17 @@ def create_sd_setup(model, config, total_steps: int = 10_000,
     step_cfg = replace(step_cfg, vae_scaling_factor=model.vae_config.scaling_factor)
     setup = SDSetup(model=model, config=config, tokenizer=model.tokenizer,
                     step_cfg=step_cfg)
-    if config.training_method != TrainingMethod.LORA:
-        quantize_frozen(model, config, _QUANTIZABLE,
-                        trained=[k for k in _QUANTIZABLE if getattr(config, k).train])
-        return setup
-    setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-        model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+    if config.training_method == TrainingMethod.LORA:
+        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
+            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+    else:
+        setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
+            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+        if not setup.trainable:
+            return setup
     setup.train_step = make_sd_train_step(model, step_cfg, setup.tx)
-    setup.state = create_train_state(setup.trainable, setup.tx)
+    setup.state = create_train_state(setup.trainable, setup.tx,
+                                     ema_enabled=config.ema != EMAMode.OFF)
     return setup
 
 

@@ -1,14 +1,16 @@
 """SDXL model setup.
 
 Counterpart of onetrainer_tpu/setup/sdxl_setup.py: schedule flags,
-tokenizer wrapping, the LoRA training branch of `create_sdxl_setup`
-(adapters, per-group schedules, the clipped AdamW, the train step),
+tokenizer wrapping, the LoRA and FINE_TUNE training branches of
+`create_sdxl_setup` (adapters, or the UNet's and each text encoder's own
+parameters; per-group schedules, the clipped optimizer wrapped for
+gradient accumulation, the train step, the EMA),
 `merged_inference_params`, and `make_sdxl_encode_fns` for latent and
 text-embedding caching. Frozen parts whose weight dtype is FLOAT_8, INT_8
 or NFLOAT_4 are quantized after the adapters exist (setup/quantize.py;
-QLoRA is LoRA over an NF4 UNet with bf16 adapters). FINE_TUNE builds no
-trainer yet (it serves sampling); EMBEDDING training and continuing from a
-LoRA file raise.
+QLoRA is LoRA over an NF4 UNet with bf16 adapters). A FINE_TUNE config
+that trains no part builds no trainer (it serves sampling); EMBEDDING
+training, additional embeddings and continuing from a LoRA file raise.
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
 from onetrainer_tpu_torch.peft.lora import PeftConfig
 from onetrainer_tpu_torch.setup.sd_setup import (
-    image_encoder, prepare_model, quantize_frozen, setup_lora, wrap_tokenizer,
+    image_encoder, prepare_model, refuse_unported, setup_fine_tune, setup_lora,
+    wrap_tokenizer,
 )
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer
 from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig
 from onetrainer_tpu_torch.train.sdxl_train_step import make_sdxl_train_step
 from onetrainer_tpu_torch.train.train_state import create_train_state
-from onetrainer_tpu_torch.util.enums import TrainingMethod
+from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
 
 # frozen part -> its ModelWeightDtypes attribute
 _QUANTIZABLE = {"unet": "unet", "text_encoder": "text_encoder",
@@ -40,6 +43,8 @@ _LORA_GROUPS = {
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
     "te2_lora": ("text_encoder_2", clip_torch_key_map, 2),
 }
+# FINE_TUNE groups: the model attributes (and config parts) that may train
+_FINE_TUNE_GROUPS = ("unet", "text_encoder", "text_encoder_2")
 
 
 @dataclass
@@ -71,11 +76,13 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
                       steps_per_epoch: int = 100) -> SDXLSetup:
     """Bind `model` and `config`. For LoRA: adapters for the UNet and each
     trained text encoder (setup/sd_setup.py:setup_lora, groups seeded 0,
-    1, 2 as the reference's PRNGKeys), the clipped AdamW and the train
-    step; otherwise the frozen parts are quantized as configured and no
-    trainer is built (the setup serves sampling)."""
-    if config.training_method == TrainingMethod.EMBEDDING:
-        raise NotImplementedError("EMBEDDING training is not ported yet")
+    1, 2 as the reference's PRNGKeys); for FINE_TUNE: the UNet and each
+    text encoder, when it trains (setup/sd_setup.py:setup_fine_tune; the
+    reference's sdxl_setup.py:167-184); then the clipped optimizer, the
+    train step and the train state (with an EMA when configured). A
+    FINE_TUNE config that trains nothing builds no trainer (the setup
+    serves sampling)."""
+    refuse_unported(config)
     prepare_model(model, config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     model.tokenizer_2 = wrap_tokenizer(model.tokenizer_2, model.te2_config)
@@ -87,14 +94,17 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
                             or config.train_text_encoder_2_or_embedding()))
     setup = SDXLSetup(model=model, config=config, tokenizer=model.tokenizer,
                       tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
-    if config.training_method != TrainingMethod.LORA:
-        quantize_frozen(model, config, _QUANTIZABLE,
-                        trained=[k for k in _QUANTIZABLE if getattr(config, k).train])
-        return setup
-    setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-        model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+    if config.training_method == TrainingMethod.LORA:
+        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
+            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+    else:
+        setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
+            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+        if not setup.trainable:
+            return setup
     setup.train_step = make_sdxl_train_step(model, step_cfg, setup.tx)
-    setup.state = create_train_state(setup.trainable, setup.tx)
+    setup.state = create_train_state(setup.trainable, setup.tx,
+                                     ema_enabled=config.ema != EMAMode.OFF)
     return setup
 
 

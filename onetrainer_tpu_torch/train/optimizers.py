@@ -1,33 +1,39 @@
-"""Optimizers, ADAMW only so far.
+"""Optimizers: ADAMW and ADAFACTOR, and gradient accumulation.
 
-Counterpart of the ADAMW branch of onetrainer_tpu/train/optimizers.py
-(`_create_base_optimizer`) and of the clip + multi-group chain that
-setup/sdxl_setup.py builds with optax. Written by hand to optax's
-formulas, so the two sides take the same steps:
+Counterpart of the ADAMW and ADAFACTOR branches of
+onetrainer_tpu/train/optimizers.py (`_create_base_optimizer`) and of the
+clip + multi-group chain, wrapped in optax.MultiSteps for gradient
+accumulation, that setup/sd_setup.py and setup/sdxl_setup.py build with
+optax. Written by hand to optax's formulas, so the two sides take the
+same steps:
 
 - clip by global norm: g * (c / |g|) when |g| >= c, else g
   (optax.clip_by_global_norm; not torch's clip_grad_norm_, which adds
   1e-6 to the norm);
 - adamw: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2,
   u = mu_hat / (sqrt(nu_hat) + eps) + wd p, p -= lr(count) u, with
-  count starting at 0 (optax.adamw).
+  count starting at 0 (optax.adamw);
+- adafactor: optax.adafactor as the reference builds it (`Adafactor`);
+- accumulation: optax.MultiSteps over the clipped group optimizer, the
+  running mean of k micro-batch gradients, one update every k micro-steps
+  and none in between (`MultiSteps`).
 
-The optimizer returns each step's updates, computed with multi-tensor
-(`torch._foreach_*`) ops, and the caller adds them (optax.apply_updates),
-or rounds them in stochastically for bf16 parameters. `updates` keeps
-optax's dtypes and operation order: the moments are held in the
-parameters' dtype (bf16 for bf16 adapters), the bias corrections and the
-learning rate are rounded to that dtype before use, and every operation
-rounds its result, so a bf16 update is what optax computes in bf16 and an
-fp32 update what it computes in fp32. The global norm of bf16 gradients
-is taken in bf16 too. Other optimizers, amsgrad and gradient accumulation
-raise.
+The optimizer returns each step's updates and the caller adds them
+(optax.apply_updates), or rounds them in stochastically for bf16
+parameters. AdamW's `updates` keeps optax's dtypes and operation order:
+the moments are held in the parameters' dtype (bf16 for bf16 adapters),
+the bias corrections and the learning rate are rounded to that dtype
+before use, and every operation rounds its result, so a bf16 update is
+what optax computes in bf16 and an fp32 update what it computes in fp32.
+The global norm of bf16 gradients is taken in bf16 too. Other optimizers
+and amsgrad raise.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from onetrainer_tpu_torch.util.enums import Optimizer
@@ -42,6 +48,11 @@ class AdamWState:
     count: int = 0
     mu: list = field(default_factory=list)
     nu: list = field(default_factory=list)
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """Every state tensor by a stable name (backups copy them in place)."""
+        return {f"{moment}/{i}": t for moment in ("mu", "nu")
+                for i, t in enumerate(getattr(self, moment))}
 
 
 class AdamW:
@@ -104,11 +115,146 @@ class AdamW:
         return update
 
 
-def create_optimizer(optimizer: Optimizer, cfg, learning_rate) -> AdamW:
+# optax.adafactor's default, which the reference keeps
+_MIN_DIM_SIZE_TO_FACTOR = 128
+
+
+def factored_dims(shape) -> tuple[int, int] | None:
+    """(d1, d0), the two largest axes of `shape` (ties in axis order), when
+    the smaller of them has at least `_MIN_DIM_SIZE_TO_FACTOR` elements, else
+    None: optax's `_factored_dims` with factored=True. A torch layout
+    ([out, in, kh, kw]) picks the same two sizes as the reference's
+    ([kh, kw, in, out]); the factored estimate is symmetric in them."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < _MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+@dataclass
+class AdafactorState:
+    count: int = 0
+    v_row: list = field(default_factory=list)   # factored leaves; else [1] zeros
+    v_col: list = field(default_factory=list)
+    v: list = field(default_factory=list)       # unfactored leaves; else [1] zeros
+    momentum: list | None = None                # fp32, when momentum is on
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        names = ("v_row", "v_col", "v") + (("momentum",) if self.momentum is not None else ())
+        return {f"{name}/{i}": t for name in names for i, t in enumerate(getattr(self, name))}
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+class Adafactor:
+    """optax.adafactor (Shazeer and Stern, 2018) over a list of tensors, as
+    the reference builds it (onetrainer_tpu/train/optimizers.py:306-318):
+    per leaf, the factored (two largest axes, both >= 128) or full second
+    moment of g^2 + eps with decay 1 - (t+1)^-decay_rate, the update g /
+    sqrt(v) clipped to an RMS of at most `clipping_threshold`, times the
+    learning rate, times the parameter's RMS (at least 1e-3) when
+    `multiply_by_parameter_scale`, through an fp32 momentum average
+    (no bias correction) when `momentum` is set, plus `weight_decay_rate`
+    p, negated.
+
+    The second moments are held and the update computed in fp32 whatever
+    the parameters' dtype; the update is returned in the parameters' dtype,
+    or in fp32 with momentum on, the dtypes optax's chain gives it. For
+    fp32 parameters this is optax's arithmetic; for bf16 ones optax
+    computes every step in bf16 (ROADMAP queue 3, F8)."""
+
+    def __init__(self, learning_rate, decay_rate: float = 0.8,
+                 clipping_threshold: float | None = 1.0, momentum: float | None = None,
+                 weight_decay_rate: float | None = None, eps: float = 1e-30,
+                 multiply_by_parameter_scale: bool = True):
+        self.schedule = learning_rate if callable(learning_rate) \
+            else (lambda step, lr=learning_rate: lr)
+        self.decay_rate, self.clipping_threshold = decay_rate, clipping_threshold
+        self.momentum, self.weight_decay_rate, self.eps = momentum, weight_decay_rate, eps
+        self.multiply_by_parameter_scale = multiply_by_parameter_scale
+
+    def init(self, params: list[torch.Tensor]) -> AdafactorState:
+        state = AdafactorState(momentum=[] if self.momentum is not None else None)
+        for p in params:
+            zeros = torch.zeros(1, dtype=torch.float32, device=p.device)
+            dims = factored_dims(tuple(p.shape))
+            if dims is None:
+                state.v_row.append(zeros)
+                state.v_col.append(zeros.clone())
+                state.v.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state.v_row.append(torch.zeros(shape[:d0] + shape[d0 + 1:],
+                                               dtype=torch.float32, device=p.device))
+                state.v_col.append(torch.zeros(shape[:d1] + shape[d1 + 1:],
+                                               dtype=torch.float32, device=p.device))
+                state.v.append(zeros)
+            if state.momentum is not None:
+                state.momentum.append(torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device))
+        return state
+
+    @torch.no_grad()
+    def updates(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+                state: AdafactorState) -> list[torch.Tensor]:
+        """One step's updates (to add to `params`), advancing `state`."""
+        t = _f32(state.count + 1)
+        decay = 1.0 - t ** _f32(-self.decay_rate)
+        d, one_minus_d = decay.item(), (1.0 - decay).item()
+        lr = _f32(self.schedule(state.count)).item()
+        state.count += 1
+        out = []
+        for i, (p, g) in enumerate(zip(params, grads)):
+            g = g.float()
+            grad_sqr = g * g + self.eps
+            dims = factored_dims(tuple(p.shape))
+            if dims is not None:
+                d1, d0 = dims
+                v_row = state.v_row[i].mul_(d).add_(grad_sqr.mean(d0) * one_minus_d)
+                v_col = state.v_col[i].mul_(d).add_(grad_sqr.mean(d1) * one_minus_d)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt_()
+                u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            else:
+                v = state.v[i].mul_(d).add_(grad_sqr * one_minus_d)
+                u = g * v.rsqrt()
+            del grad_sqr
+            if self.clipping_threshold is not None:
+                rms = u.square().mean().sqrt()
+                u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
+            u = u * lr
+            if self.multiply_by_parameter_scale:
+                p_rms = p.float().square().mean().sqrt()
+                u = u * torch.where(p_rms <= 1e-3, torch.full_like(p_rms, 1e-3), p_rms)
+            if self.momentum is not None:
+                u = state.momentum[i].mul_(self.momentum).add_(u * (1.0 - self.momentum))
+            elif p.dtype != torch.float32:
+                u = u.to(p.dtype)
+            if self.weight_decay_rate is not None:
+                u = u + p * self.weight_decay_rate
+            out.append(-u)
+        return out
+
+
+def create_optimizer(optimizer: Optimizer, cfg, learning_rate):
     """The optimizer of one param group (`cfg` is TrainOptimizerConfig;
     defaults follow the reference's per-optimizer tables)."""
+    if optimizer == Optimizer.ADAFACTOR:
+        # the reference's torch convention is a negative decay_rate (-0.8);
+        # optax takes its magnitude
+        return Adafactor(
+            learning_rate, decay_rate=abs(_d(cfg.decay_rate, -0.8)),
+            clipping_threshold=_d(cfg.clip_threshold, 1.0),
+            momentum=cfg.beta1, weight_decay_rate=_d(cfg.weight_decay, 0.0) or None,
+            eps=_d(cfg.eps, 1e-30), multiply_by_parameter_scale=bool(cfg.scale_parameter))
     if optimizer != Optimizer.ADAMW:
-        raise NotImplementedError(f"optimizer {optimizer} is not ported yet (ADAMW only)")
+        raise NotImplementedError(
+            f"optimizer {optimizer} is not ported yet (ADAMW and ADAFACTOR only)")
     if cfg.amsgrad:
         raise NotImplementedError("AdamW with amsgrad is not ported yet")
     return AdamW(learning_rate, b1=_d(cfg.beta1, 0.9), b2=_d(cfg.beta2, 0.999),
@@ -164,15 +310,89 @@ class GroupOptimizer:
 
     def updates(self, params: dict[str, list[torch.Tensor]],
                 grads: dict[str, list[torch.Tensor]], state: dict,
-                norm: torch.Tensor) -> dict[str, list[torch.Tensor]]:
-        """Clip (when configured) and return every group's updates."""
+                norm: torch.Tensor | None = None) -> dict[str, list[torch.Tensor]]:
+        """Clip (when configured; `norm` is the gradients' global norm,
+        taken here when None) and return every group's updates."""
         if self.clip_grad_norm:
-            clip_by_global_norm_([g for n in self.groups for g in grads[n]],
-                                 self.clip_grad_norm, norm)
+            flat = [g for n in self.groups for g in grads[n]]
+            clip_by_global_norm_(flat, self.clip_grad_norm,
+                                 global_norm(flat) if norm is None else norm)
         return {name: opt.updates(params[name], grads[name], state[name])
                 for name, opt in self.groups.items()}
 
 
+@dataclass
+class MultiStepsState:
+    inner: dict                 # the wrapped optimizer's state
+    acc_grads: dict             # group -> running mean of this cycle's gradients
+    mini_step: int = 0          # micro-steps accumulated in this cycle
+
+
+class MultiSteps:
+    """optax.MultiSteps(tx, every_k_schedule=k) with the gradients' mean:
+    each micro-step folds its gradients into a running mean, acc + (g -
+    acc) / (n + 1) in the parameters' dtype; every k-th hands the mean to
+    `tx` (clip included) and returns its updates, and resets the mean. The
+    micro-steps between return None where optax returns zero updates: p +
+    0 is p, bf16 stochastic rounding included, so nothing is applied."""
+
+    def __init__(self, tx: GroupOptimizer, every_k: int):
+        self.tx, self.every_k = tx, every_k
+
+    def init(self, params: dict[str, list[torch.Tensor]]) -> MultiStepsState:
+        return MultiStepsState(self.tx.init(params),
+                               {name: [torch.zeros_like(p) for p in params[name]]
+                                for name in self.tx.groups})
+
+    @torch.no_grad()
+    def updates(self, params: dict, grads: dict, state: MultiStepsState,
+                norm: torch.Tensor | None = None) -> dict | None:
+        """Fold in this micro-step's gradients (`norm`, theirs, is not the
+        mean's and goes unused); -> the updates on every k-th, else None."""
+        n = state.mini_step
+        for name, acc in state.acc_grads.items():
+            delta = torch._foreach_sub(grads[name], acc)
+            torch._foreach_div_(delta, n + 1)
+            torch._foreach_add_(acc, delta)
+        if n + 1 < self.every_k:
+            state.mini_step = n + 1
+            return None
+        out = self.tx.updates(params, state.acc_grads, state.inner)
+        for acc in state.acc_grads.values():
+            torch._foreach_zero_(acc)
+        state.mini_step = 0
+        return out
+
+
 def create_group_optimizer(group_schedules: dict, optimizer: Optimizer, cfg,
-                           clip_grad_norm: float | None = None) -> GroupOptimizer:
-    return GroupOptimizer(group_schedules, optimizer, cfg, clip_grad_norm)
+                           clip_grad_norm: float | None = None,
+                           accumulation_steps: int = 1):
+    """The clipped group optimizer, wrapped in `MultiSteps` when
+    `accumulation_steps` > 1 (setup/sd_setup.py:406-411 in the reference)."""
+    tx = GroupOptimizer(group_schedules, optimizer, cfg, clip_grad_norm)
+    return MultiSteps(tx, accumulation_steps) if accumulation_steps > 1 else tx
+
+
+def opt_state_tensors(opt_state) -> tuple[dict, dict]:
+    """(tensors, counts) of an optimizer state for a backup: each group's
+    state tensors under <group>/<name>, MultiSteps' running means under
+    acc_grads/<group>/<index>; its step counts (and mini step) by name."""
+    inner = opt_state.inner if isinstance(opt_state, MultiStepsState) else opt_state
+    tensors = {f"{group}/{name}": t for group, opt in inner.items()
+               for name, t in opt.tensors().items()}
+    counts = {f"count/{group}": opt.count for group, opt in inner.items()}
+    if isinstance(opt_state, MultiStepsState):
+        tensors.update({f"acc_grads/{group}/{i}": t
+                        for group, acc in opt_state.acc_grads.items()
+                        for i, t in enumerate(acc)})
+        counts["mini_step"] = opt_state.mini_step
+    return tensors, counts
+
+
+def set_opt_state_counts(opt_state, counts: dict) -> None:
+    """Restore what `opt_state_tensors` gave as counts."""
+    inner = opt_state.inner if isinstance(opt_state, MultiStepsState) else opt_state
+    for group, opt in inner.items():
+        opt.count = int(counts[f"count/{group}"])
+    if isinstance(opt_state, MultiStepsState):
+        opt_state.mini_step = int(counts["mini_step"])

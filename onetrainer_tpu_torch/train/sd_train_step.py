@@ -8,19 +8,23 @@ target; reference: modules/modelSetup/BaseStableDiffusionSetup.py:135-310)
 and `make_sd_train_step`.
 
 Where the reference's step is a pure jitted function of an immutable
-state, the port's steps update the trainable tensors and the optimizer
-state in place, draw their randomness from an explicit `torch.Generator`,
-and run eagerly on the device the model lives on. LoRA is the ported
-method. `make_lora_train_step` is the loss, backward, clip and update that
-the SD and SDXL steps share; each family brings its own predict.
+state, the port's steps update the trainable tensors, the optimizer state
+and the EMA in place, draw their randomness from an explicit
+`torch.Generator`, and run eagerly on the device the model lives on. LoRA
+and FINE_TUNE are the ported methods. `make_train_step` is the loss,
+backward, clip, update and EMA that the SD and SDXL steps share; each
+family brings its own predict.
 
 The optimizer returns its updates and the step adds them, as
 optax.apply_updates does (a bf16 tensor rounds p + u to nearest). With
 `stochastic_rounding` (the reference's `optimizer.stochastic_rounding`)
 and bf16 trainable tensors, it adds them through
 `ops/stochastic.py:apply_updates_stochastic` instead (K5 on the card, one
-seed per tensor from the step's generator); fp32 tensors add their update
-exactly either way, so an fp32 run draws no seeds.
+launch per update dtype over every bf16 tensor, one seed per tensor from
+the step's generator); fp32 tensors add their update exactly either way,
+so an fp32 run draws no seeds. Under gradient accumulation the
+micro-steps between optimizer updates apply nothing (the reference adds
+zero updates, which leave every tensor as it is).
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.math.timesteps import TimestepConfig, sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic
+from onetrainer_tpu_torch.train.ema import maybe_update_ema
 from onetrainer_tpu_torch.train.optimizers import global_norm
-from onetrainer_tpu_torch.train.train_state import TrainState, param_groups
+from onetrainer_tpu_torch.train.train_state import TrainState, leaves_like, param_groups
 from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
 
 
@@ -58,17 +63,15 @@ class SDStepConfig:
     te2_dropout: float = 0.0
     te2_layer_skip: int = 0
     stochastic_rounding: bool = False
+    ema_decay: float = 0.0              # 0 = EMA off
+    ema_update_interval: int = 1
+    accum: int = 1                      # gradient accumulation micro-steps
 
     @staticmethod
     def from_train_config(config, prediction_type: str = "epsilon",
                           layer_skip: int = 0) -> "SDStepConfig":
-        """The step's settings from a TrainConfig. Settings the reference
-        honours and the port does not yet (EMA, gradient accumulation)
-        raise NotImplementedError."""
-        if config.ema != EMAMode.OFF:
-            raise NotImplementedError("EMA is not ported yet")
-        if config.gradient_accumulation_steps > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet")
+        """The step's settings from a TrainConfig (the setups refuse what
+        the port does not run first: setup/sd_setup.py:refuse_unported)."""
 
         def _part_dropout(name: str) -> float:
             part = getattr(config, name, None)
@@ -88,6 +91,9 @@ class SDStepConfig:
             te2_dropout=_part_dropout("text_encoder_2"),
             te2_layer_skip=int(getattr(config, "text_encoder_2_layer_skip", 0) or 0),
             stochastic_rounding=config.optimizer.stochastic_rounding,
+            ema_decay=config.ema_decay if config.ema != EMAMode.OFF else 0.0,
+            ema_update_interval=config.ema_update_step_interval,
+            accum=max(config.gradient_accumulation_steps, 1),
         )
 
 
@@ -211,26 +217,27 @@ def sd_predict(model, batch: dict, generator: torch.Generator,
     return prediction_data(predicted, noised, cfg, coefficients)
 
 
-def make_lora_train_step(model, cfg: SDStepConfig, tx, predict):
-    """The LoRA step of `model`, whose layers already carry the adapters
-    (the setups attach them), around its family's `predict` (`sd_predict`,
-    `sdxl_predict`).
+def make_train_step(model, cfg: SDStepConfig, tx, predict):
+    """The LoRA or FINE_TUNE step of `model` around its family's `predict`
+    (`sd_predict`, `sdxl_predict`): for LoRA the model's layers already
+    carry the adapters (the setups attach them) and the trainable groups
+    are adapter trees; for FINE_TUNE they are modules' parameters.
 
         train_step(state, batch, generator, *, timestep=None, noise=None,
                    latent_noise=None, round_bits=None) -> {"loss", "grad_norm"}
 
-    The step updates `state.params` (the adapter tensors) and
-    `state.opt_state` in place and advances `state.step`; the returned
-    loss (fp32, on the model's device: reading it synchronises) and
-    pre-clip global gradient norm (fp32 on the device; for bf16 adapters
-    bf16 on the host, as optax computes it) are 0-dim tensors. `round_bits`,
-    shaped like `state.params`, gives the 16 random low bits of each bf16
+    The step updates `state.params`, `state.opt_state` and `state.ema` in
+    place and advances `state.step`; the returned loss (fp32, on the
+    model's device: reading it synchronises) and pre-clip global norm of
+    this micro-step's gradients (fp32 on the device; for bf16 tensors bf16
+    on the host, as optax computes it) are 0-dim tensors. After the
+    optimizer update the EMA, when on, moves towards the trained tensors
+    (train/ema.py:maybe_update_ema; the reference's
+    onetrainer_tpu/train/sd_train_step.py:396-400). `round_bits`, shaped
+    like `state.params`, gives the 16 random low bits of each bf16
     tensor's stochastic rounding in place of the generator's draws (CPU
     only). `train_step.loss(batch, generator, **draws)` is the step's loss
     alone, for a caller that wants its gradients without the update."""
-    if cfg.training_method != TrainingMethod.LORA:
-        raise NotImplementedError(
-            f"{cfg.training_method} training is not ported yet (LoRA only)")
     device = next(model.unet.parameters()).device
     coefficients = _coefficients_on(model, device)
 
@@ -247,7 +254,7 @@ def make_lora_train_step(model, cfg: SDStepConfig, tx, predict):
         with torch.enable_grad():
             value = loss(batch, generator, timestep=timestep, noise=noise,
                          latent_noise=latent_noise)
-        # a layer off the loss's path (TE1's last layer under layer skip)
+        # a tensor off the loss's path (TE1's last layer under layer skip)
         # gets a zero gradient, as under jax.grad
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
             flat, torch.autograd.grad(value, flat, allow_unused=True))]
@@ -256,16 +263,21 @@ def make_lora_train_step(model, cfg: SDStepConfig, tx, predict):
         for name, tensors in groups.items():
             grouped[name] = grads[i:i + len(tensors)]
             i += len(tensors)
-        updates = [u for g in tx.updates(groups, grouped, state.opt_state, norm).values()
-                   for u in g]
-        if cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat):
-            bits = None if round_bits is None else [
-                round_bits[group][key][name] for group, tree in state.params.items()
-                for key in tree for name in sorted(tree[key])]
-            apply_updates_stochastic(flat, updates, generator, bits)
-        else:
-            with torch.no_grad():
-                torch._foreach_add_(flat, updates)
+        del grads
+        updates = tx.updates(groups, grouped, state.opt_state, norm)
+        del grouped
+        if updates is not None:
+            updates = [u for g in updates.values() for u in g]
+            if cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat):
+                bits = None if round_bits is None else leaves_like(round_bits, state.params)
+                apply_updates_stochastic(flat, updates, generator, bits)
+            else:
+                with torch.no_grad():
+                    torch._foreach_add_(flat, updates)
+            del updates
+        if state.ema is not None and cfg.ema_decay > 0:
+            maybe_update_ema(state.ema, state.params, cfg.ema_decay, state.step,
+                             cfg.ema_update_interval, cfg.accum)
         state.step += 1
         return {"loss": value.detach(), "grad_norm": norm}
 
@@ -274,5 +286,5 @@ def make_lora_train_step(model, cfg: SDStepConfig, tx, predict):
 
 
 def make_sd_train_step(model, cfg: SDStepConfig, tx):
-    """The SD 1.5/2.x LoRA step (see `make_lora_train_step`)."""
-    return make_lora_train_step(model, cfg, tx, sd_predict)
+    """The SD 1.5/2.x LoRA or FINE_TUNE step (see `make_train_step`)."""
+    return make_train_step(model, cfg, tx, sd_predict)

@@ -5,8 +5,8 @@ Counterpart of onetrainer_tpu/train/sdxl_train_step.py: SDXL conditioning
 pooled text embeds, add_time_ids from the batch's crop metadata), noising,
 the UNet forward and the target (reference: modules/modelSetup/
 BaseStableDiffusionXLSetup.py:241-330). The loss, backward, clip and
-update are the SD family's shared LoRA step
-(train/sd_train_step.py:make_lora_train_step).
+update are the SD family's shared step for LoRA and FINE_TUNE
+(train/sd_train_step.py:make_train_step).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, conditioning_dropout_mask, make_lora_train_step, noise_latents,
+    SDStepConfig, conditioning_dropout_mask, make_train_step, noise_latents,
     prediction_data, unet_input,
 )
 
@@ -77,5 +77,5 @@ def sdxl_predict(model, batch: dict, generator: torch.Generator,
 
 
 def make_sdxl_train_step(model, cfg: SDStepConfig, tx):
-    """The SDXL LoRA step (train/sd_train_step.py:make_lora_train_step)."""
-    return make_lora_train_step(model, cfg, tx, sdxl_predict)
+    """The SDXL LoRA or FINE_TUNE step (train/sd_train_step.py:make_train_step)."""
+    return make_train_step(model, cfg, tx, sdxl_predict)

@@ -5,20 +5,27 @@ Counterpart of onetrainer_tpu/trainer/generic_trainer.py (reference:
 modules/trainer/GenericTrainer.py): the same status sequence, cadence
 (TimedAction-scheduled backup and save, TrainCommands polling, rolling
 backups, backup_before_save), TensorBoard scalars (`loss/train_step`,
-`smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA
-training of the SD-family models the port runs.
+`smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA and
+FINE_TUNE training of the SD-family models the port runs, with EMA and
+gradient accumulation.
 
 Where the port departs from the reference:
 - Features it has not ported raise at `start()` instead of being
-  skipped: training methods other than LoRA (their output), validation,
-  sampling during training (a non-empty `samples`), EMA, the debug dump,
-  a device mesh, circular padding and host offload.
-- A LoRA backup holds the adapters and optimizer state
-  (`optimizer.safetensors`), `meta.json` and `onetrainer_config/args.json`,
-  and no merged model: a resume loads the base from
+  skipped: training methods other than LoRA and FINE_TUNE, validation,
+  sampling during training (a non-empty `samples`), EMA held on the CPU,
+  prior preservation, additional embeddings, the debug dump, a device
+  mesh, circular padding and host offload.
+- A backup holds the optimizer state (`optimizer.safetensors`, with the
+  adapters for LoRA), the EMA (`ema.safetensors`) when on, `meta.json`
+  and `onetrainer_config/args.json`. For FINE_TUNE it holds the trained
+  model too, in fp32 as the reference writes it: a
+  diffusers directory `model/` when the base is one, else a single file
+  `model.safetensors` (a diffusers directory written from a single-file
+  base would carry no configs), and a resume loads the trained weights
+  from it. A LoRA backup holds no model: a resume loads the base from
   `config.base_model_name` and the adapters from the backup, as
-  OneTrainer does. (The reference's backup holds the merged base + LoRA
-  as `model/` and its resume loads that as the base and applies the
+  OneTrainer does. (The reference's LoRA backup holds the merged base +
+  LoRA as `model/` and its resume loads that as the base and applies the
   adapters on top of it a second time; ROADMAP queue 3, F7.)
 - Randomness: the generator of each step is seeded from (42, global
   step), so a resumed run draws what an uninterrupted one would, as the
@@ -44,10 +51,12 @@ from onetrainer_tpu_torch.config.train_config import TrainConfig
 from onetrainer_tpu_torch.data.loader import Text2ImageDataLoader
 from onetrainer_tpu_torch.io.safetensors_io import SafetensorsFile, save_safetensors
 from onetrainer_tpu_torch.setup.families import get_family, save_lora_output
+from onetrainer_tpu_torch.setup.sd_setup import refuse_unported
+from onetrainer_tpu_torch.train.optimizers import opt_state_tensors, set_opt_state_counts
 from onetrainer_tpu_torch.trainer.base_trainer import BaseTrainer
 from onetrainer_tpu_torch.util.callbacks import TrainCallbacks
 from onetrainer_tpu_torch.util.commands import TrainCommands
-from onetrainer_tpu_torch.util.enums import EMAMode, TimeUnit, TrainingMethod
+from onetrainer_tpu_torch.util.enums import TimeUnit, TrainingMethod
 from onetrainer_tpu_torch.util.path_util import get_string_timestamp
 from onetrainer_tpu_torch.util.train_progress import TrainProgress
 
@@ -62,13 +71,11 @@ def step_seed(global_step: int) -> int:
 
 
 def unported_features(config: TrainConfig) -> list[str]:
-    """What `config` asks for that the port's trainer does not run."""
+    """What `config` asks of the training loop that the port's trainer does
+    not run (what it asks of the setup: setup/sd_setup.py:refuse_unported)."""
     asked = {
-        f"{config.training_method} training and its output (LoRA only)":
-            config.training_method != TrainingMethod.LORA,
         "validation": config.validation,
         "sampling during training": bool(config.samples),
-        "EMA": config.ema != EMAMode.OFF,
         "the debug dump": config.debug_mode,
         "a device mesh": any(int(os.environ.get(k, 0) or 0) > 1 for k in _MESH_KNOBS),
         "circular padding": bool(config.force_circular_padding),
@@ -79,20 +86,28 @@ def unported_features(config: TrainConfig) -> list[str]:
 
 def state_tensors(state) -> tuple[dict, dict]:
     """(tensors, metadata) of a train state for `optimizer.safetensors`:
-    the adapters under params/<group>/<adapter key>/<name>, AdamW's
-    moments under opt_state/<group>/{mu,nu}/<index> (the order of
-    train_state.param_groups), each group's step count in the metadata."""
-    tensors, meta = {}, {}
-    for group, tree in state.params.items():
-        for key, entry in tree.items():
-            for name, t in entry.items():
-                tensors[f"params/{group}/{key}/{name}"] = t.detach()
-    for group, opt in state.opt_state.items():
-        for moment in ("mu", "nu"):
-            for i, t in enumerate(getattr(opt, moment)):
-                tensors[f"opt_state/{group}/{moment}/{i}"] = t
-        meta[f"count/{group}"] = str(opt.count)
-    return tensors, meta
+    LoRA adapters under params/<group>/<adapter key>/<name> (a fine-tuned
+    module's parameters are the backup's model, not here), the optimizer's
+    state tensors under opt_state/<...> (train/optimizers.py:
+    opt_state_tensors), its step counts in the metadata."""
+    tensors = {f"params/{group}/{key}/{name}": t.detach()
+               for group, tree in state.params.items()
+               for key, entry in tree.items() if isinstance(entry, dict)
+               for name, t in entry.items()}
+    opt, counts = opt_state_tensors(state.opt_state)
+    tensors.update({f"opt_state/{k}": t for k, t in opt.items()})
+    return tensors, {k: str(v) for k, v in counts.items()}
+
+
+def ema_tensors(state) -> tuple[dict, dict]:
+    """(tensors, metadata) of a train state's EMA for `ema.safetensors`:
+    params/<group>/<name> (train/train_state.py:param_names), the update
+    count in the metadata."""
+    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    names, tensors = param_names(state.ema.params), param_groups(state.ema.params)
+    return ({f"params/{group}/{name}": t for group in names
+             for name, t in zip(names[group], tensors[group])},
+            {"step": str(state.ema.step)})
 
 
 class GenericTrainer(BaseTrainer):
@@ -115,6 +130,7 @@ class GenericTrainer(BaseTrainer):
 
     def start(self):
         config = self.config
+        refuse_unported(config)
         unported = unported_features(config)
         if unported:
             raise NotImplementedError(
@@ -127,7 +143,16 @@ class GenericTrainer(BaseTrainer):
             self._restore_backup_meta(last_backup)
 
         self.family = get_family(config.model_type)
-        self.model = self.family.load(config.base_model_name, config, device=self.device)
+        self._source_dir = config.base_model_name
+        if last_backup and config.training_method == TrainingMethod.FINE_TUNE:
+            # the trained weights, from the backup's model
+            self._source_dir = next(
+                (p for p in (os.path.join(last_backup, name)
+                             for name in ("model", "model.safetensors")) if os.path.exists(p)),
+                None)
+            if self._source_dir is None:
+                raise FileNotFoundError(f"backup {last_backup} holds no model")
+        self.model = self.family.load(self._source_dir, config, device=self.device)
 
         self.callbacks.on_update_status("creating the data loader")
         self.data_loader = Text2ImageDataLoader(
@@ -139,6 +164,8 @@ class GenericTrainer(BaseTrainer):
             config.gradient_accumulation_steps, 1)
         self.setup = self.family.create_setup(
             self.model, config, max(total, 1), steps_per_epoch)
+        if self.setup.train_step is None:
+            raise ValueError("the FINE_TUNE config trains no part (unet, text encoders)")
         self.data_loader.encode_images, self.data_loader.encode_text = \
             self.family.make_encode_fns(self.setup)
 
@@ -154,19 +181,26 @@ class GenericTrainer(BaseTrainer):
 
     @torch.no_grad()
     def _restore_internal_state(self, backup_dir: str):
-        """Copy the backup's adapters and optimizer state into the setup's
-        tensors in place (the layers hold the adapters by reference); a
-        backup that does not match the configured adapters raises."""
+        """Copy the backup's optimizer state, LoRA adapters and EMA into the
+        setup's tensors in place (the layers hold the adapters by
+        reference); a backup that does not match the configured training
+        raises."""
         state = self.setup.state
-        want, _ = state_tensors(state)
-        with SafetensorsFile(os.path.join(backup_dir, "optimizer.safetensors")) as f:
-            if set(f.keys()) != set(want):
-                raise ValueError(f"backup {backup_dir} does not match the configured "
-                                 "adapters and optimizer")
-            for key, t in want.items():
-                t.copy_(f.tensor(key))
-            for group, opt in state.opt_state.items():
-                opt.count = int(f.metadata[f"count/{group}"])
+        for file, (want, _) in (("optimizer.safetensors", state_tensors(state)),
+                                ("ema.safetensors", ema_tensors(state)
+                                 if state.ema is not None else (None, None))):
+            if want is None:
+                continue
+            with SafetensorsFile(os.path.join(backup_dir, file)) as f:
+                if set(f.keys()) != set(want):
+                    raise ValueError(f"backup {backup_dir} does not match the configured "
+                                     f"training ({file})")
+                for key, t in want.items():
+                    t.copy_(f.tensor(key))
+                if file == "optimizer.safetensors":
+                    set_opt_state_counts(state.opt_state, f.metadata)
+                else:
+                    state.ema.step = int(f.metadata["step"])
         state.step = self.train_progress.global_step
         print("restored optimizer state")
 
@@ -192,8 +226,19 @@ class GenericTrainer(BaseTrainer):
 
     def _save_internal(self, backup_dir: str, progress: TrainProgress):
         os.makedirs(backup_dir, exist_ok=True)
-        tensors, meta = state_tensors(self.setup.state)
+        state = self.setup.state
+        if self.config.training_method == TrainingMethod.FINE_TUNE:
+            # the trained weights (not the EMA), fp32, in the base's layout
+            if os.path.isfile(self._source_dir):
+                self.family.save_single_file(
+                    self.setup, os.path.join(backup_dir, "model.safetensors"), ema=False)
+            else:
+                self.family.save_model(self.setup, os.path.join(backup_dir, "model"),
+                                       self._source_dir, ema=False)
+        tensors, meta = state_tensors(state)
         save_safetensors(os.path.join(backup_dir, "optimizer.safetensors"), tensors, meta)
+        if state.ema is not None:
+            save_safetensors(os.path.join(backup_dir, "ema.safetensors"), *ema_tensors(state))
         with open(os.path.join(backup_dir, "meta.json"), "w") as f:
             json.dump({"train_progress": progress.to_dict()}, f, indent=2)
         # config copies (reference: GenericTrainer.__save_backup_config)
@@ -228,10 +273,24 @@ class GenericTrainer(BaseTrainer):
             traceback.print_exc()
 
     def _save_output(self, destination: str):
-        # every exported tensor is cast to output_dtype (reference:
-        # GenericTrainer.py:479; backups keep the train dtype)
-        save_lora_output(self.setup, destination, self.family.lora_prefixes,
-                         save_dtype=self.config.output_dtype.to_save_dtype())
+        """The LoRA file, or the fine-tuned model as a single file or a
+        diffusers directory (output_model_format), with the EMA in place of
+        the trained tensors when on (the reference's _export_params and
+        _save_output, generic_trainer.py:334-431). Every exported tensor is
+        cast to output_dtype (reference: GenericTrainer.py:479; backups keep
+        the train dtype)."""
+        config = self.config
+        save_dtype = config.output_dtype.to_save_dtype()
+        if config.training_method == TrainingMethod.LORA:
+            save_lora_output(self.setup, destination, self.family.lora_prefixes,
+                             save_dtype=save_dtype)
+        elif config.output_model_format.is_single_file():
+            if not destination.endswith((".safetensors", ".ckpt")):
+                destination += config.output_model_format.file_extension()
+            self.family.save_single_file(self.setup, destination, save_dtype=save_dtype)
+        else:
+            self.family.save_model(self.setup, destination, self._source_dir,
+                                   save_dtype=save_dtype)
 
     # -- the loop -------------------------------------------------------------------
 

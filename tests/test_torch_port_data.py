@@ -142,12 +142,20 @@ def test_cache_fill_encodes_on_the_calling_thread_only(dataset, tmp_path):
     assert batches and threads == {threading.get_ident()}
 
 
-@pytest.mark.parametrize("what", ["masked_training", "custom_conditioning_image"])
+@pytest.mark.parametrize("what", ["depth_maps", "custom_conditioning_image"])
 def test_unported_inputs_raise(dataset, tmp_path, what):
+    """Depth maps and conditioning images raise; masks are ported
+    (tests/test_torch_port_masks.py)."""
     _, port_cfg = _configs(dataset, str(tmp_path))
-    setattr(port_cfg, what, True)
+    if what == "depth_maps":
+        port_cfg.model_type = type(port_cfg.model_type).STABLE_DIFFUSION_20_DEPTH
+    else:
+        setattr(port_cfg, what, True)
     with pytest.raises(NotImplementedError):
         pt_loader.Text2ImageDataLoader(port_cfg, None, None)
+    port_cfg = _configs(dataset, str(tmp_path))[1]
+    port_cfg.masked_training = True
+    assert pt_loader.Text2ImageDataLoader(port_cfg, None, None).entries
 
 
 # -- the PNG codec -------------------------------------------------------------------

@@ -30,6 +30,7 @@ _SCRIPT = textwrap.dedent(f"""
         onetrainer_tpu_torch.__path__, "onetrainer_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
+    assert "onetrainer_tpu_torch.train.ema" in mods
     import chip_smoke
 
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
@@ -246,6 +247,36 @@ _CLI_SCRIPT = textwrap.dedent(f"""
                  "--prompt", "a cat", "--destination", out, "--steps", "2",
                  "--width", "32", "--height", "32", "--device", "cpu"])
     assert read_png(out).shape == (32, 32, 3)
+
+    # FINE_TUNE with masks, EMA, zero-terminal SNR, Adafactor and gradient
+    # accumulation: epoch 1 with a backup, a resume from it, an fp16 file
+    from onetrainer_tpu_torch.util.enums import DataType, EMAMode, ModelFormat, Optimizer
+    for i in range(4):
+        write_png(os.path.join(ds, f"img{{i}}-masklabel.png"),
+                  (rng.random((32, 32)) * 255).astype(np.uint8))
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.masked_training = config.normalize_masked_area_loss = True
+    config.rescale_noise_scheduler_to_zero_terminal_snr = True
+    config.ema, config.ema_update_step_interval = EMAMode.GPU, 1
+    config.gradient_accumulation_steps = 2
+    config.optimizer.optimizer = Optimizer.ADAFACTOR
+    config.backup_before_save = True
+    config.workspace_dir, config.cache_dir = os.path.join(root, "ft"), os.path.join(root, "fc")
+    config.output_dtype, config.output_model_format = DataType.FLOAT_16, ModelFormat.SAFETENSORS
+    config.output_model_destination = os.path.join(root, "ft.safetensors")
+    for epochs in (1, 2):
+        config.epochs, config.continue_last_backup = epochs, epochs == 2
+        with open(os.path.join(root, "ft.json"), "w") as f:
+            json.dump(config.to_dict(), f)
+        trainer = train.main(["--config-path", os.path.join(root, "ft.json"),
+                              "--device", "cpu"])
+    state = trainer.setup.state
+    assert trainer.train_progress.global_step == 4 and state.ema.step == 2
+    assert trainer.model.prediction_type == "v_prediction"
+    assert float(trainer.data_loader.materialize_batch(
+        trainer.data_loader.batches_for_epoch(0)[0])["latent_mask"].min()) < 1.0
+    out = load_safetensors(config.output_model_destination)
+    assert {{v.dtype for v in out.values()}} == {{torch.float16}}
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked
@@ -258,8 +289,9 @@ _CLI_SCRIPT = textwrap.dedent(f"""
 def test_train_and_sample_clis_run_without_jax():
     """The port's train CLI (tiny SD 1.5 diffusers checkpoint written by the
     port, PNGs at their bucket size, caching, two LoRA steps, backup before
-    the kohya save) and its sample CLI, with the JAX package, jax, PIL and
-    the rest blocked."""
+    the kohya save), its sample CLI, and a FINE_TUNE run with masks, EMA
+    and gradient accumulation that backs up and resumes, with the JAX
+    package, jax, PIL and the rest blocked."""
     proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

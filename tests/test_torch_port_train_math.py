@@ -124,14 +124,29 @@ def test_clipped_group_adamw_matches_optax(clip):
 
 
 def test_train_state_orders_tensors_and_refuses_ema():
+    """Adapter trees in key, then tensor-name order; a FINE_TUNE group in
+    its own (the module's) order. The EMA is an fp32 copy of every
+    trainable tensor (train/ema.py); EMA held on the CPU, which the
+    reference offloads to host memory, is refused by the setups' config
+    check."""
     params = {"unet_lora": {"b": {"lora_up": torch.zeros(2), "lora_down": torch.ones(3)},
-                            "a": {"lora_up": torch.zeros(4), "lora_down": torch.ones(1)}}}
+                            "a": {"lora_up": torch.zeros(4), "lora_down": torch.ones(1)}},
+              "unet": {"z.weight": torch.ones(5, dtype=torch.bfloat16),
+                       "a.bias": torch.zeros(6, dtype=torch.bfloat16)}}
     groups = param_groups(params)
     assert [t.numel() for t in groups["unet_lora"]] == [3, 2, 1, 4]
+    assert [t.numel() for t in groups["unet"]] == [5, 6]
     cfg = _port_config(TrainConfig.default_values()).optimizer
-    tx = pt_opt.create_group_optimizer({"unet_lora": 1e-3}, cfg.optimizer, cfg)
-    with pytest.raises(NotImplementedError):
-        create_train_state(params, tx, ema_enabled=True)
+    tx = pt_opt.create_group_optimizer({"unet_lora": 1e-3, "unet": 1e-3}, cfg.optimizer, cfg)
+    state = create_train_state(params, tx, ema_enabled=True)
+    ema = param_groups(state.ema.params)
+    assert state.ema.step == 0 and all(
+        e.dtype == torch.float32 and torch.equal(e, t.float()) and e is not t
+        for g in groups for e, t in zip(ema[g], groups[g]))
+    config = TrainConfig.default_values()
+    config.ema = E.EMAMode.CPU
+    with pytest.raises(NotImplementedError, match="EMA on the CPU"):
+        pt_sd_setup.refuse_unported(_port_config(config))
 
 
 def test_unported_optimizers_raise():
@@ -210,11 +225,16 @@ def test_diffusion_losses_match_jax(settings, v_prediction):
 
 
 def test_unported_loss_settings_raise():
+    """Masked training is ported (tests/test_torch_port_finetune_math.py);
+    prior preservation and the learned-variance VB term raise."""
     cfg = pt_losses.LossConfig(masked_training=True)
+    batch = {"latent_mask": torch.ones(1, 2), "loss_weight": torch.ones(1)}
     data = {"predicted": torch.zeros(1, 2), "target": torch.zeros(1, 2)}
-    with pytest.raises(NotImplementedError):
-        pt_losses.diffusion_losses({"latent_mask": torch.ones(1, 2),
-                                    "loss_weight": torch.ones(1)}, data, cfg, None)
+    assert pt_losses.diffusion_losses(batch, data, cfg, None).shape == (1,)
+    for extra in ({"prior_target": torch.zeros(1, 2)},
+                  {"predicted_var_values": torch.zeros(1, 2)}):
+        with pytest.raises(NotImplementedError):
+            pt_losses.diffusion_losses(batch, {**data, **extra}, cfg, None)
 
 
 # ------------------------------------------------------- noise, timesteps
@@ -338,16 +358,23 @@ def test_step_and_peft_configs_match_jax():
     assert got_peft.weight_dtype == torch.float32
 
 
-@pytest.mark.parametrize("setting,value", [
-    ("ema", E.EMAMode.GPU),
-    ("gradient_accumulation_steps", 2),
+@pytest.mark.parametrize("setting,value,message", [
+    ("ema", E.EMAMode.CPU, "EMA on the CPU"),
+    ("masked_prior_preservation_weight", 0.5, "prior preservation"),
+    ("training_method", E.TrainingMethod.EMBEDDING, "EMBEDDING training"),
 ])
-def test_step_config_refuses_unported_settings(setting, value):
+def test_step_config_refuses_unported_settings(setting, value, message):
+    """The step settings the port does not run raise, each named, in the
+    setups' one config check (setup/sd_setup.py:refuse_unported), which
+    the trainer calls before it loads the model; the EMA on the device and
+    gradient accumulation are ported and pass it."""
     config = TrainConfig.default_values()
     config.training_method = E.TrainingMethod.LORA
+    config.ema, config.gradient_accumulation_steps = E.EMAMode.GPU, 2
+    pt_sd_setup.refuse_unported(_port_config(config))
     setattr(config, setting, value)
-    with pytest.raises(NotImplementedError):
-        pt_step.SDStepConfig.from_train_config(_port_config(config))
+    with pytest.raises(NotImplementedError, match=message):
+        pt_sd_setup.refuse_unported(_port_config(config))
 
 
 def test_conditioning_dropout_mask_rate():

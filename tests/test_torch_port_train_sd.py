@@ -274,14 +274,19 @@ def test_nf4_unet_config_quantizes_like_the_reference(shape):
 
 
 def test_setup_refuses_unported_methods():
-    """EMBEDDING training, EMA and gradient accumulation raise; FINE_TUNE
-    builds a sampling-only setup."""
+    """EMBEDDING and FINE_TUNE_VAE training and additional embeddings
+    alongside FINE_TUNE raise; FINE_TUNE builds a trainer
+    (tests/test_torch_port_train_finetune.py holds it to the reference),
+    and a FINE_TUNE config that trains no part a sampling-only setup."""
     _, _, port = tiny_sd_pair("sd15")
     _, config = _configs("sd15")
     family = get_family(config.model_type)
-    refused = [dict(training_method=pt_enums.TrainingMethod.EMBEDDING),
-               dict(ema=pt_enums.EMAMode.GPU),
-               dict(gradient_accumulation_steps=2)]
+    embedding = pt_enums.TrainingMethod.EMBEDDING
+    from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
+    refused = [dict(training_method=embedding),
+               dict(training_method=pt_enums.TrainingMethod.FINE_TUNE_VAE),
+               dict(training_method=pt_enums.TrainingMethod.FINE_TUNE,
+                    additional_embeddings=[TrainEmbeddingConfig.default_values()])]
     for fields in refused:
         case = config.clone()
         for name, value in fields.items():
@@ -290,6 +295,10 @@ def test_setup_refuses_unported_methods():
             family.create_setup(port, case, 1)
     case = config.clone()
     case.training_method = pt_enums.TrainingMethod.FINE_TUNE
+    case.unet.train = case.text_encoder.train = False
     setup = family.create_setup(port, case, 1)
     assert setup.train_step is None and setup.merged_inference_params() == (
         port.unet, port.text_encoder, None)
+    case.unet.train = True
+    setup = family.create_setup(port, case, 1)
+    assert set(setup.state.params) == {"unet"} and setup.train_step is not None

@@ -218,8 +218,14 @@ def _refuses(config):
 
 @pytest.mark.parametrize("case", [
     "validation", "samples", "ema", "debug", "fine_tune", "embedding", "mesh",
-    "circular", "offload", "cloud", "accumulation", "lora_file", "masks"])
+    "circular", "offload", "cloud", "optimizer", "lora_file", "masks"])
 def test_unported_configs_refuse(runs, monkeypatch, case):
+    """Each feature the port's trainer does not run refuses at start():
+    "ema" is the EMA held on the CPU, "fine_tune" additional embeddings
+    beside a fine-tune, "masks" masked prior preservation, "optimizer" one
+    other than AdamW and Adafactor (the EMA on the device, FINE_TUNE,
+    masked training and gradient accumulation run:
+    tests/test_torch_port_trainer_finetune.py)."""
     config = _port(_config(runs["root"], f"refuse_{case}", runs["base"], runs["ds"]))
     if case == "validation":
         config.validation = True
@@ -227,11 +233,13 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
         from onetrainer_tpu_torch.config.sample_config import SampleConfig
         config.samples = [SampleConfig.default_values()]
     elif case == "ema":
-        config.ema = pt_enums.EMAMode.GPU
+        config.ema = pt_enums.EMAMode.CPU
     elif case == "debug":
         config.debug_mode = True
     elif case == "fine_tune":
+        from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
         config.training_method = pt_enums.TrainingMethod.FINE_TUNE
+        config.additional_embeddings = [TrainEmbeddingConfig.default_values()]
     elif case == "embedding":
         config.training_method = pt_enums.TrainingMethod.EMBEDDING
     elif case == "mesh":
@@ -242,12 +250,13 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
         config.gradient_checkpointing = pt_enums.GradientCheckpointingMethod.CPU_OFFLOADED
     elif case == "cloud":
         config.cloud.enabled = True
-    elif case == "accumulation":
-        config.gradient_accumulation_steps = 2
+    elif case == "optimizer":
+        config.optimizer.optimizer = pt_enums.Optimizer.LION
     elif case == "lora_file":
         config.lora_model_name = runs["port"].config.output_model_destination
     elif case == "masks":
         config.masked_training = True
+        config.masked_prior_preservation_weight = 0.5
     _refuses(config)
 
 
