@@ -13,12 +13,14 @@ never falls back to the CPU. Phases, each of which must pass:
   2. K1 against its plain PyTorch version in bf16: the two SDXL shapes,
      SD 1.5's d=40 level at batch 4 (B4 S4096 H8 d40) and SD 2.1's 768
      level at batch 2 (B2 S9216 H5 d64), head dims 40/80/128, ragged
-     Sq/Skv with a kv keep mask, zero q rows; max |do| and |dlse| against
-     stated bounds, median times of both and of PyTorch's flash SDPA
+     Sq/Skv with a kv keep mask, zero q rows, and SD3-medium's joint
+     attention at 1024x1024 batch 2 (B2 S4250 H24 d64: 154 text + 4096
+     image rows, ragged last tiles); max |do| and |dlse| against stated
+     bounds, K1 bitwise equal across two runs, median times of both and of PyTorch's flash SDPA
      forward at the model shapes, K1's share of its bound and its ratio to
      SDPA;
   3. K2 and K3, on the delta of their shared pre-pass, against their plain
-     versions in bf16: the same model shapes, head dims 40/80/128, ragged
+     versions in bf16: the same model shapes (SD3's too), head dims 40/80/128, ragged
      Sq/Skv with the kv keep mask, and 8192 tokens at d=128 (the TPU's
      streaming dk/dv domain); max |ddq|, |ddk|, |ddv| and relative L2
      against stated bounds, the pre-pass against its plain version, K2 and
@@ -116,6 +118,32 @@ never falls back to the CPU. Phases, each of which must pass:
      optimizer updates and EMA updates 2/1/1 then 4/2/2; the output read
      back bit for bit the EMA cast to fp16; the sample command on the
      output at 512x512 (4 DDIM steps), a non-constant image.
+ 16. sd3_sample: SD3-medium at its published widths with seeded weights
+     (the MMDiT, 24 blocks of 24 d=64 heads; CLIP-L and CLIP-G, both
+     projected; T5-XXL, 24 layers of d_model 4096; the 16-channel VAE;
+     parameters counted on the card), bf16 compute, through get_family ->
+     create_setup -> sample at 1024x1024, 4 flow Euler steps, CFG 7: K1
+     exactly 24 times per transformer pass (the joint attention over 154 +
+     4096 = 4250 tokens), a non-constant uint8 1024x1024x3 image;
+ 17. sd3_transformer: one forward of that transformer with K1 and with
+     plain attention, relative L2, the peak memory;
+ 18. sd3_train: the reference's bench.py SD3 stage (_bench_sd3) as a LoRA
+     step: r16 a16 on all 341 transformer dense and conv layers, a
+     per-tensor e4m3 frozen base, batch 2 at 1024x1024 through the port's
+     caches (one seeded image and prompt through the VAE and all three
+     text encoders, which are then freed), the loader's dots_nb_attn
+     checkpointing, AdamW 1e-4, clip 1.0: one warm-up and three timed
+     steps with exactly K1, K2, K3 and the pre-pass 24 each per step (the
+     attention stays outside the recomputed halves of each block, so K1
+     runs once), the LoRA gradients against plain attention, a profiler
+     split;
+ 19. sd3_cli: a seeded full-width SD3-medium written as a 14.4 GiB fp16
+     diffusers directory in a temporary directory (removed after the
+     phase), sd15_files' PNGs at 512x512: the train command (LoRA r16,
+     batch 4, weights in bf16) for epoch 1 with a backup and the resume
+     for epoch 2 (24 each of K1-K3 and the pre-pass per step at 1178
+     tokens, none while caching), the LoRA file read back bitwise, the
+     sample command (4 flow Euler steps, 96 K1), a non-constant image.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -175,6 +203,9 @@ TRAIN_STEPS = 3                # timed steps after one warm-up step
 SDXL_SELF_ATTN = {4096: 10, 1024: 60}
 SD15_SELF_ATTN = {4096: 5}
 SD21_SELF_ATTN = {9216: 5, 2304: 5, 576: 5}
+# SD3-medium: one joint attention per block, 24 blocks; 4250 tokens at
+# 1024x1024 (154 + 4096), 1178 at 512x512 (154 + 1024)
+SD3_BLOCKS = 24
 # K4 cases: name, logical shape (the reference's kernel layout)
 K4_CASES = [
     ("ff_1280x10240", (1280, 10240)),           # GEGLU projection of a 1280 block
@@ -197,6 +228,7 @@ K1_CASES = [
     ("sdxl_b2_s1024_h20_d64", 2, 1024, 1024, 20, 64, False, None),
     ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False, None),
     ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False, None),
+    ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False, None),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False, None),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False, None),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False, None),
@@ -209,6 +241,7 @@ K23_CASES = [
     ("sdxl_b2_s1024_h20_d64", 2, 1024, 1024, 20, 64, False),
     ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False),
     ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False),
+    ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
@@ -217,9 +250,12 @@ K23_CASES = [
 ]
 SDXL_SHAPES = ("sdxl_b2_s4096_h10_d64", "sdxl_b2_s1024_h20_d64")
 SD15_SHAPE, SD21_SHAPE = "sd15_b4_s4096_h8_d40", "sd21_b2_s9216_h5_d64"
+# SD3-medium's joint attention at 1024x1024, batch 2: 154 text + 4096 image
+# rows, a length no tile divides
+SD3_SHAPE = "sd3_b2_s4250_h24_d64"
 # cases timed against SDPA: the model shapes, and for K2/K3 the streaming
 # domain of the TPU's K3b
-MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE)
+MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE, SD3_SHAPE)
 SDPA_BWD_CASES = MODEL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
@@ -358,9 +394,12 @@ def phase_k1_cases(torch) -> dict:
             q[:, zero_from:] = 0
         scale = 1.0 / d ** 0.5
         o, lse = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
+        o2, lse2 = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
         o_ref, lse_ref = ff.flash_attention_folded_reference(
             q, k, v, h, sm_scale=scale, kv_keep=keep)
         torch.cuda.synchronize()
+        k1_same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        del o2, lse2
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
@@ -376,7 +415,7 @@ def phase_k1_cases(torch) -> dict:
                 with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                     return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
             library_ms = _median_ms(torch, sdpa)
-        ok = finite and err_o <= O_BOUND and err_lse <= LSE_BOUND
+        ok = finite and err_o <= O_BOUND and err_lse <= LSE_BOUND and k1_same
         bound_ms, bound_by = _attn_bounds(b, sq, skv, h, d)["K1"]
         results[name] = dict(err_o=err_o, err_lse=err_lse, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms)
@@ -386,7 +425,7 @@ def phase_k1_cases(torch) -> dict:
               f"max|dlse|={err_lse:.3e} (bound {LSE_BOUND:g}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} "
               f"(least time {bound_ms:.4f} ms, {bound_by}; {100 * bound_ms / ms:.1f}% "
-              f"of it) {'ok' if ok else 'FAIL'}")
+              f"of it), bitwise equal across two runs {k1_same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 case {name} disagrees with the plain version")
     return results
@@ -794,10 +833,10 @@ def _launch_counts() -> dict:
 
 
 def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
-    """Text-to-image through the family registry at size x size, DDIM 4
-    steps, CFG 7: K1 exactly once per self-attention of `self_attn` per
-    UNet pass and nothing else launched; a uint8 image that is not
-    constant."""
+    """Text-to-image through the family registry at size x size, 4 steps
+    (DDIM; SD3's flow Euler), CFG 7: K1 exactly once per self-attention of
+    `self_attn` per denoiser pass and nothing else launched; a uint8 image
+    that is not constant."""
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.setup.families import get_family
@@ -807,7 +846,8 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
     config.model_type = model.model_type
     config.training_method = TrainingMethod.FINE_TUNE
     # no part trains: a sampling-only setup
-    config.unet.train = config.text_encoder.train = config.text_encoder_2.train = False
+    config.unet.train = config.prior.train = False
+    config.text_encoder.train = config.text_encoder_2.train = False
     family = get_family(config.model_type)
     setup = family.create_setup(model, config, 1)
 
@@ -842,8 +882,9 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
     ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K3pre": 0, "K4": 0, "K5": 0}
           and image.dtype.name == "uint8"
           and image.shape == (size, size, 3) and image.std() > 0)
-    print(f"[{tag}] {model.model_type.value} {size}x{size} DDIM {sc.diffusion_steps} steps CFG "
-          f"{sc.cfg_scale:g}: total {total_s:.3f} s, UNet step median "
+    sampler = "flow Euler" if model.model_type.is_stable_diffusion_3() else "DDIM"
+    print(f"[{tag}] {model.model_type.value} {size}x{size} {sampler} {sc.diffusion_steps} steps "
+          f"CFG {sc.cfg_scale:g}: total {total_s:.3f} s, denoiser step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms), peak "
           f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches['K1']} "
@@ -858,7 +899,8 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
 def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
     """A size x size batch through the port's caches: a seeded image
     through the VAE encoder and a prompt through the text encoder(s),
-    tiled; SDXL's also carries TE2's states and the crop metadata."""
+    tiled; SDXL's also carries TE2's states and the crop metadata, SD3's
+    the assembled context and pooled embeddings of its three encoders."""
     encode_images, encode_text = family.make_encode_fns(setup)
     gen = torch.Generator(device="cuda").manual_seed(11)
     image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
@@ -873,7 +915,7 @@ def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
         "loss_weight": torch.ones((batch_size,), device="cuda"),
     }
     for name, value in text.items():
-        if name.endswith("_state"):
+        if isinstance(value, torch.Tensor):   # the cached states (tokens are numpy)
             batch[name] = tile(value[None])
     if setup.config.model_type.is_stable_diffusion_xl():
         batch["original_resolution"] = torch.full((batch_size, 2), size, device="cuda")
@@ -916,21 +958,26 @@ def _finite(values) -> bool:
     return all(x == x and abs(x) != float("inf") for x in values)
 
 
-def _setup_and_steps(torch, model, config, tag: str, size: int = 1024) -> dict:
-    """Setup through the family registry, the cached batch at size x size,
-    one warm-up step, then TRAIN_STEPS timed steps with every launch count
-    zeroed just before them and read just after."""
+def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
+                     after_batch=None) -> dict:
+    """Setup through the family registry, the cached batch at size x size
+    (then `after_batch(setup)`, when given), one warm-up step, then
+    TRAIN_STEPS timed steps with every launch count zeroed just before them
+    and read just after."""
     from onetrainer_tpu_torch.setup.families import get_family
     family = get_family(config.model_type)
     t0 = time.perf_counter()
     setup = family.create_setup(model, config, 100)
     batch = _train_batch(torch, family, setup, config.batch_size, size)
+    if after_batch is not None:
+        after_batch(setup)
     torch.cuda.synchronize()
-    adapters = setup.state.params["unet_lora"]
+    group = "transformer_lora" if "transformer_lora" in setup.state.params else "unet_lora"
+    adapters = setup.state.params[group]
     n_lora = sum(t.numel() for e in adapters.values() for t in e.values())
     dtype = next(iter(adapters.values()))["lora_up"].dtype
     print(f"[{tag}] LoRA r{config.lora_rank} a{config.lora_alpha:g} ({dtype}) on "
-          f"{len(adapters)} UNet layers ({n_lora} params), batch {config.batch_size} "
+          f"{len(adapters)} {group[:-5]} layers ({n_lora} params), batch {config.batch_size} "
           f"at {size}x{size} cached through the VAE encoder and the text encoders, "
           f"{setup.model.prediction_type}, set up in {time.perf_counter() - t0:.2f} s")
 
@@ -1826,6 +1873,340 @@ def phase_sd15_ft_cli(torch, files: dict) -> dict:
     return {"launches": launches, "peak_gib": peak_gib}
 
 
+# -- SD3 (phases sd3_model, sd3_sample, sd3_transformer, sd3_train, sd3_cli) -------------
+
+# the transformer forward with K1 against plain attention: 24 joint
+# attentions whose outputs differ by bf16 roundings, carried through a bf16
+# network of random weights (the UNet's bound)
+SD3_REL_L2_BOUND = 5e-2
+# SD3-medium's adapted layers: 14 dense layers in each of the first 23
+# blocks, 11 in the context-pre-only last one, and the patch conv, the four
+# time/text embedder layers, the context embedder, norm_out and proj_out
+SD3_LORA_LAYERS = 341
+SD3_CLI_SIZE = 512          # sd15_files' PNGs: 154 + 1024 joint tokens
+
+
+def build_sd3_model(torch):
+    """SD3-medium at its published widths with seeded weights on the card:
+    the MMDiT (24 blocks of 24 d=64 heads, 1536 wide, pos_embed_max_size
+    192), CLIP-L and CLIP-G (both projected), T5-XXL (24 layers, d_model
+    4096, 64 heads, d_ff 10240) and the 16-channel VAE; fp32 parameters,
+    bf16 compute, the reference loader's checkpoint policy (dots_nb_attn)."""
+    from onetrainer_tpu_torch.io.weights import init_sd3_weights
+    from onetrainer_tpu_torch.models.remat import SD3_POLICY
+    from onetrainer_tpu_torch.models.sd3_model import create_sd3_model
+    from onetrainer_tpu_torch.util.enums import ModelType
+    t0 = time.perf_counter()
+    model = create_sd3_model(ModelType.STABLE_DIFFUSION_3, dtype=torch.bfloat16,
+                             gradient_checkpointing=True,
+                             remat_policy=SD3_POLICY, device="meta")
+    init_sd3_weights(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters())
+              for name, m in model.modules().items()}
+    print(f"[sd3_model] SD3-medium, parameters counted on the card {counts} (total "
+          f"{sum(counts.values())}; fp32, compute bf16, checkpoint policy "
+          f"{model.transformer_config.remat_policy}), seeded in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB allocated")
+    return model
+
+
+def phase_sd3_transformer(torch, model):
+    """One full-width transformer forward (latent 2x128x128x16, 154-row
+    context) with K1 and with plain attention: K1 once per block, relative
+    L2 of the outputs."""
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    latents = torch.randn((2, 128, 128, 16), generator=gen, device="cuda")
+    context = torch.randn((2, 154, 4096), generator=gen, device="cuda")
+    pooled = torch.randn((2, 2048), generator=gen, device="cuda")
+    ts = torch.tensor([250.0, 750.0], device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            out = model.transformer(latents, ts, pooled, context)
+        torch.cuda.synchronize()
+        return out
+
+    forward()
+    torch.cuda.reset_peak_memory_stats()
+    before = ff.flash_attention_folded_fwd.launches
+    t0 = time.perf_counter()
+    out_k1 = forward()
+    k1_s = time.perf_counter() - t0
+    launches = ff.flash_attention_folded_fwd.launches - before
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernel_fn = ff.flash_attention_folded
+    ff.flash_attention_folded = _plain_attention(ff)
+    try:
+        forward()
+        t0 = time.perf_counter()
+        out_plain = forward()
+        plain_s = time.perf_counter() - t0
+    finally:
+        ff.flash_attention_folded = kernel_fn
+    rel = _rel_l2(out_k1, out_plain)
+    finite = bool(torch.isfinite(out_k1).all() and torch.isfinite(out_plain).all())
+    ok = (finite and rel <= SD3_REL_L2_BOUND and launches == SD3_BLOCKS
+          and tuple(out_k1.shape) == (2, 128, 128, 16))
+    print(f"[sd3_transformer] full-width SD3 MMDiT forward, latent 2x128x128x16, context "
+          f"154 rows (joint attention over 4250 tokens): K1 {k1_s * 1e3:.2f} ms ({launches} "
+          f"K1 launches, expected {SD3_BLOCKS}), plain attention {plain_s * 1e3:.2f} ms, rel "
+          f"L2 {rel:.3e} (bound {SD3_REL_L2_BOUND:g}), peak max_memory_allocated "
+          f"{peak_gib:.2f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the SD3 transformer with K1 disagrees with plain attention")
+
+
+def phase_sd3_train(torch, model) -> dict:
+    """bench.py's _bench_sd3 as a LoRA step (see the module docstring):
+    exact K1, K2, K3 and pre-pass launches per step, the LoRA gradients
+    against plain attention, a profiler split. The text encoders are freed
+    once the batch is cached."""
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    config = _lora_config(2, ModelType.STABLE_DIFFUSION_3)
+    config.prior.weight_dtype = DataType.FLOAT_8
+    # the loader's cast of a quantized part, which the setup then quantizes
+    model.transformer.to(config.weight_dtypes().prior.to_load_dtype())
+
+    def free_encoders(setup):
+        model.text_encoder = model.text_encoder_2 = model.text_encoder_3 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run = _setup_and_steps(torch, model, config, "sd3_train", 1024, after_batch=free_encoders)
+    setup, batch = run["setup"], run["batch"]
+    fp8 = sum(getattr(getattr(m, "weight", None), "q", None) is not None
+              and m.weight.q.dtype == torch.float8_e4m3fn for m in model.transformer.modules())
+    # dots_nb_attn: the attention runs outside each block's recomputed
+    # halves, so its forward (K1) runs once per block and step, not twice
+    n = TRAIN_STEPS * SD3_BLOCKS
+    expected = {"K1": n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
+    grads = _grads_against_plain(torch, setup, batch, "sd3_train")
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected and grads["by_seq"] == {4250: SD3_BLOCKS}
+          and grads["rel"] <= GRAD_REL_L2_BOUND and fp8 > 0
+          and len(setup.state.params["transformer_lora"]) == SD3_LORA_LAYERS
+          and setup.model.prediction_type == "flow")
+    print(f"[sd3_train] {fp8} transformer layers hold e4m3 weights; checkpoint policy "
+          f"{model.transformer_config.remat_policy} (the attention outside the recomputed "
+          f"halves: K1 once per block and step); launches {run['launches']} (expected "
+          f"{expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sd3_train failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], "sd3_train")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def sd3_config_jsons(model) -> dict:
+    """Each component's config.json (diffusers' and transformers' keys) for
+    a diffusers SD3 directory of the port's `model`."""
+    t, v, t5 = model.transformer_config, model.vae_config, model.te3_config
+
+    def clip(c):
+        return {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                "intermediate_size": c.intermediate_size, "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads,
+                "max_position_embeddings": c.max_position_embeddings,
+                "hidden_act": c.hidden_act, "eos_token_id": c.eos_token_id,
+                "projection_dim": c.projection_dim,
+                "architectures": ["CLIPTextModelWithProjection"]}
+    return {
+        "transformer": {
+            "sample_size": t.sample_size, "patch_size": t.patch_size,
+            "in_channels": t.in_channels, "out_channels": t.out_channels,
+            "num_layers": t.num_layers, "num_attention_heads": t.num_heads,
+            "attention_head_dim": t.head_dim, "joint_attention_dim": t.joint_attention_dim,
+            "caption_projection_dim": t.caption_projection_dim,
+            "pooled_projection_dim": t.pooled_projection_dim,
+            "pos_embed_max_size": t.pos_embed_max_size,
+            "qk_norm": "rms_norm" if t.qk_norm else None, "dual_attention_layers": []},
+        "vae": {"in_channels": v.in_channels, "out_channels": v.out_channels,
+                "latent_channels": v.latent_channels,
+                "block_out_channels": list(v.block_out_channels),
+                "layers_per_block": v.layers_per_block, "scaling_factor": v.scaling_factor,
+                "shift_factor": v.shift_factor},
+        "text_encoder": clip(model.te_config), "text_encoder_2": clip(model.te2_config),
+        "text_encoder_3": {"vocab_size": t5.vocab_size, "d_model": t5.d_model,
+                           "d_kv": t5.d_kv, "d_ff": t5.d_ff, "num_layers": t5.num_layers,
+                           "num_heads": t5.num_heads},
+    }
+
+
+def sd3_files(torch, root: str) -> str:
+    """A seeded full-width SD3-medium written as an fp16 diffusers directory
+    in `root` -> its path."""
+    from onetrainer_tpu_torch.io.sd3_checkpoints import save_sd3_diffusers
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    model = build_sd3_model(torch)
+    ckpt = os.path.join(root, "sd3-medium")
+    t0 = time.perf_counter()
+    m = model.modules()
+    save_sd3_diffusers(ckpt, model, *(state_dict_of(m[name]) for name in (
+        "transformer", "vae", "text_encoder", "text_encoder_2", "text_encoder_3")),
+        save_dtype=torch.float16)
+    for name, config in sd3_config_jsons(model).items():
+        with open(os.path.join(ckpt, name, "config.json"), "w") as f:
+            json.dump(config, f)
+    write_s = time.perf_counter() - t0
+    del model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    print(f"[sd3_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, fp16, diffusers layout) in "
+          f"{write_s:.2f} s")
+    return ckpt
+
+
+def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
+    """SD3 from a diffusers directory through the train and sample commands:
+    LoRA r16 a16 at 512x512, batch 4 over sd15_files' eight PNGs, epoch 1
+    with a backup, the resume for epoch 2, the LoRA file read back, the
+    sample command (4 flow Euler steps). Exact K1-K3 launches per step (the
+    joint attention at 154 + 1024 tokens, once per block: dots_nb_attn),
+    none while caching."""
+    from onetrainer_tpu_torch.io.png import read_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
+    from onetrainer_tpu_torch.scripts import sample
+    from onetrainer_tpu_torch.util.enums import DataType, GradientCheckpointingMethod, ModelType
+
+    root = os.path.join(os.path.dirname(ckpt), "lora")
+    os.makedirs(root)
+    config = _cli_config(root, ckpt, dataset)
+    config.model_type = ModelType.STABLE_DIFFUSION_3
+    config.resolution = str(SD3_CLI_SIZE)
+    config.weight_dtype = DataType.BFLOAT_16
+    config.gradient_checkpointing = GradientCheckpointingMethod.ON
+    config_path = os.path.join(root, "epoch1.json")
+    with open(config_path, "w") as f:
+        json.dump(config.to_dict(), f)
+    config.epochs = 2
+    config.continue_last_backup = True
+    resume_path = os.path.join(root, "epoch2.json")
+    with open(resume_path, "w") as f:
+        json.dump(config.to_dict(), f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    events1, events2 = [], []
+    first, _ = _cli_run(torch, config_path, events1)
+    step_after_first = first.train_progress.global_step
+    loss_first = first._loss_ema
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
+    policy = resumed.model.transformer_config.remat_policy
+    train_launches = _launch_counts()
+    image_path = os.path.join(root, "sample.png")
+    lora = load_safetensors(config.output_model_destination)
+    adapters = resumed.setup.state.params["transformer_lora"]
+    keys = peft_module_keys(resumed.model.transformer, resumed.setup.peft_cfg)
+    read, alpha = kohya_state_dict_to_peft(lora, "lora_transformer", keys)
+    bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
+               and all(torch.equal(read[k][n], t.detach().cpu())
+                       for k, e in adapters.items() for n, t in e.items()))
+    with torch.no_grad():
+        for key, entry in adapters.items():
+            for name, t in entry.items():
+                t.copy_(read[key][name])
+        loader = resumed.data_loader
+        batch = loader.materialize_batch(loader.batches_for_epoch(0)[0])
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        reload_loss = resumed.setup.train_step.loss(batch, gen).item()
+    n_adapters, resumed_loss = len(adapters), resumed._loss_ema
+    step_after_resume = resumed.train_progress.global_step
+    del resumed, adapters, read, batch, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_sample = _launch_counts()   # the reload loss's forward left out
+    t0 = time.perf_counter()
+    out = sample.main(["--model-type", "STABLE_DIFFUSION_3", "--base-model-name", ckpt,
+                       "--prompt", "a photograph of an astronaut riding a horse",
+                       "--destination", image_path, "--steps", "4", "--cfg", "7",
+                       "--width", str(SD3_CLI_SIZE), "--height", str(SD3_CLI_SIZE),
+                       "--weight-dtype", "BFLOAT_16"])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sample_launches = _delta(_launch_counts(), before_sample)
+    launches = {k: train_launches[k] + sample_launches[k] for k in train_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS,
+                "K4": 0, "K5": 0}
+    none = {k: 0 for k in per_step}
+    steps, cache_launches, times = [], [], {}
+    for events in (events1, events2):
+        marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
+        for kind, what, counts, t in events:
+            if kind == "status" and what.endswith(": caching"):
+                epoch = what.split()[1].rstrip(":")
+                done = marks[f"training epoch {epoch}"]
+                cache_launches.append(_delta(done[0], counts))
+                times.setdefault("cache_s", []).append(done[1] - t)
+        load = marks["loading the model"][1]
+        times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
+        prev = None
+        for kind, what, counts, t in events:
+            if kind == "status" and what.startswith("training epoch"):
+                prev = (counts, t)
+            elif kind == "step":
+                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
+                prev = (counts, t)
+    step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
+    sums, _, _ = _kernel_times(prof)
+    device_ms = sum(sums.values())
+    profiled_ms = steps[-1][2] * 1e3
+    cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
+    rows = [load_safetensors(f) for f in cache_files]
+    latent = SD3_CLI_SIZE // 8
+    cached = (len(rows) == CLI_IMAGES
+              and all({"latent_image", "sd3_context", "sd3_pooled"} <= set(r) for r in rows)
+              and all(r["latent_image"].shape == (latent, latent, 16)
+                      and r["sd3_context"].shape == (154, 4096)
+                      and r["sd3_pooled"].shape == (2048,) for r in rows))
+    image = read_png(image_path)
+    checks = {
+        "policy": policy == "dots_nb_attn",
+        "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
+        "none while caching": all(c == none for c in cache_launches)
+        and len(cache_launches) == 2,
+        "K1 over the sample": sample_launches == {**none, "K1": 4 * SD3_BLOCKS},
+        "main-path launches": train_launches == {k: 4 * v for k, v in per_step.items()},
+        "global steps": (step_after_first, step_after_resume) == (2, 4),
+        "cache": cached,
+        "LoRA keys": n_adapters == SD3_LORA_LAYERS and len(lora) == 3 * SD3_LORA_LAYERS,
+        "LoRA read back bitwise": bitwise,
+        "finite losses": _finite([loss_first, resumed_loss, reload_loss]),
+        "image": image.shape == (SD3_CLI_SIZE, SD3_CLI_SIZE, 3) and image.std() > 0
+        and bool((image == out.image).all()),
+    }
+    card = gpu_line()
+    print(f"[sd3_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
+          f"{[w for k, w, _, _ in events2 if k == 'status']}")
+    print(f"[sd3_cli] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
+          f"(fp16 diffusers directory to bf16 on the card, run 1 and the resume); caching "
+          f"{times['cache_s'][0]:.3f} s for {CLI_IMAGES} images (the resume "
+          f"{times['cache_s'][1]:.3f} s, all cached)")
+    print(f"[sd3_cli] on {card}: steps (global step, s): "
+          f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; CLI step median "
+          f"{statistics.median(step_s):.4f} s over the unprofiled steps (the first includes "
+          f"the warm-up); step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
+          f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
+    print(f"[sd3_cli] on {card}: sample (load + 4 flow Euler steps + decode + PNG) "
+          f"{sample_s:.2f} s; peak max_memory_allocated {peak_gib:.2f} GiB; launches "
+          f"{launches} (sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
+          f"{reload_loss:.6f}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sd3_cli failed: "
+                             f"{[name for name, ok in checks.items() if not ok]}")
+    return {"launches": launches, "step_s": statistics.median(step_s), "peak_gib": peak_gib}
+
+
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
                     err=None) -> list:
     """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
@@ -1856,8 +2237,8 @@ def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
 
 def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
     """One row per kernel and path: `launches` from the path that runs it
-    (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's and SD 2.1's
-    shapes with their steps' launches; K4-K5 the QLoRA step; K5 again at
+    (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's, SD 2.1's and
+    SD3's shapes with their steps' launches; K4-K5 the QLoRA step; K5 again at
     the SDXL fine-tune's largest leaf, with the call's time with its
     wrapper and the whole update's device time, bound and host time beside
     it), the device time at that path's shape, and the
@@ -1875,6 +2256,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
                             " at SD 1.5's B4 S4096 H8 d40")
     rows += _attention_rows(k1, k23, SD21_SHAPE, "sd21_train", (2, 9216, 9216, 5, 64),
                             " at SD 2.1's B2 S9216 H5 d64")
+    rows += _attention_rows(k1, k23, SD3_SHAPE, "sd3_train", (2, 4250, 4250, 24, 64),
+                            " at SD3's B2 S4250 H24 d64")
     rows += [
         ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
@@ -1978,12 +2361,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     import shutil
     import tempfile
+    model = run("sd3_model", build_sd3_model, torch)
+    if model is not None:
+        run("sd3_sample", phase_sample, torch, model, 1024, {4250: SD3_BLOCKS}, "sd3_sample")
+        run("sd3_transformer", phase_sd3_transformer, torch, model)
+        run("sd3_train", phase_sd3_train, torch, model)
+    del model
+    results.pop("sd3_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
         if files is not None:
             run("sd15_cli", phase_sd15_cli, torch,
                 (results.get("sd15_train") or {}).get("sec_per_step"), files)
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the 15 GB SD3 directory lives only for its phase
+            sd3_root = tempfile.mkdtemp(prefix="sd3_files_")
+            try:
+                ckpt = run("sd3_files", sd3_files, torch, sd3_root)
+                if ckpt is not None:
+                    run("sd3_cli", phase_sd3_cli, torch, ckpt, files["dataset"])
+            finally:
+                shutil.rmtree(sd3_root, ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()
             run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
@@ -1994,9 +2396,10 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
+                "sd3_sample": results["sd3_sample"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
-                             "sd15_cli", "sd15_ft_cli")}}
+                             "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

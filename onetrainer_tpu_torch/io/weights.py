@@ -9,8 +9,11 @@
 - `quantized_params_from_jax` loads a part the reference quantized
   (setup/quantize.py there): NF4 codes and scales and fp8/int8 codes and
   scale carried unchanged, every other leaf in its own dtype.
+- `sd3_params_from_flax` does the same for SD3's transformer, three text
+  encoders and VAE.
 - `init_sd_weights` materialises full-width weights of either family on a
-  device from a seeded `torch.Generator`, for runs without a checkpoint.
+  device from a seeded `torch.Generator`, for runs without a checkpoint;
+  `init_sd3_weights` those of an SD3 model.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 from onetrainer_tpu_torch.io.torch_flax import (
-    _nest, clip_flax_to_state_dict, unet_flax_to_state_dict, vae_flax_to_state_dict,
+    _nest, clip_flax_to_state_dict, t5_flax_to_state_dict, unet_flax_to_state_dict,
+    vae_flax_to_state_dict,
 )
 from onetrainer_tpu_torch.ops.nf4 import NF4_BLOCK
 from onetrainer_tpu_torch.ops.quant import NF4Array, QuantizedArray, logical_shape
@@ -62,6 +66,17 @@ def sdxl_params_from_flax(model, unet: dict, te: dict, te2: dict,
     _load(model.unet, unet_flax_to_state_dict(unet))
     _load(model.text_encoder, clip_flax_to_state_dict(te))
     _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
+    _load(model.vae, vae_flax_to_state_dict(vae))
+
+
+def sd3_params_from_flax(model, transformer: dict, te: dict, te2: dict, te3: dict,
+                         vae: dict) -> None:
+    """Load flax param trees into an SD3 `model`'s transformer, text
+    encoders (CLIP-L, CLIP-G, T5) and vae."""
+    _load(model.transformer, unet_flax_to_state_dict(transformer))
+    _load(model.text_encoder, clip_flax_to_state_dict(te))
+    _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
+    _load(model.text_encoder_3, t5_flax_to_state_dict(te3))
     _load(model.vae, vae_flax_to_state_dict(vae))
 
 
@@ -158,3 +173,23 @@ def init_sd_weights(model, seed: int, device: torch.device | str) -> None:
         _init_module(module, gen, device)
     model.device = device
 
+
+
+@torch.no_grad()
+def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
+    """Seeded random weights for every module of an SD3 `model`, on
+    `device`: dense, conv and embedding weights as `init_sd_weights` draws
+    them, RMS and T5 norm weights 1, the position table ~ N(0, 0.02)."""
+    from onetrainer_tpu_torch.models.flux import RMSNorm
+    from onetrainer_tpu_torch.models.sd3 import PatchEmbed
+    from onetrainer_tpu_torch.models.t5 import T5LayerNorm
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for module in model.modules().values():
+        _init_module(module, gen, device)
+        for sub in module.modules():
+            if isinstance(sub, (RMSNorm, T5LayerNorm)):
+                sub.weight.fill_(1.0)
+            elif isinstance(sub, PatchEmbed):
+                sub.pos_embed.normal_(0.0, 0.02, generator=gen)
+    model.device = device

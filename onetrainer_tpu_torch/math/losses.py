@@ -5,7 +5,8 @@ modules/modelSetup/mixin/ModelSetupDiffusionLossMixin.py): MSE + MAE +
 log-cosh per-sample losses, masked training (reference:
 modules/util/loss/masked_loss.py), batch/accumulation loss scaling,
 per-sample loss weights, and the timestep weightings (min-SNR-gamma,
-debiased estimation, P2). Prior preservation and the learned-variance VB
+debiased estimation, P2), and the flow-matching losses of the rectified-flow
+models (the SIGMA weighting). Prior preservation and the learned-variance VB
 term are not ported and raise. Everything is fp32.
 """
 
@@ -107,20 +108,11 @@ def _scale(cfg: LossConfig) -> float:
     return float(batch_scale * accum_scale)
 
 
-def diffusion_losses(
-        batch: dict,
-        data: dict,
-        cfg: LossConfig,
-        coefficients: DiffusionScheduleCoefficients | None,
-) -> torch.Tensor:
-    """Per-sample loss vector [B] for epsilon/v-prediction models; with
-    `masked_training`, each elementwise loss weighted by the batch's latent
-    mask (`masked_losses`)."""
-    if "prior_target" in data:
-        raise NotImplementedError("prior preservation is not ported yet")
-    if cfg.vb_loss_strength != 0 and "predicted_var_values" in data:
-        raise NotImplementedError("the learned-variance VB loss is not ported yet")
-
+def _weighted_stack(batch: dict, data: dict, cfg: LossConfig) -> torch.Tensor:
+    """Per-sample [B] sum of the enabled elementwise losses (each masked
+    when `masked_training`), the mask-input models' area normalization,
+    the batch/accumulation scale and the per-sample loss weights: what the
+    diffusion and flow-matching losses share."""
     mask = None
     if cfg.masked_training and "latent_mask" in batch:
         mask = batch["latent_mask"].float()
@@ -148,7 +140,24 @@ def diffusion_losses(
                                                     cfg.unmasked_weight, 1.0))
 
     losses = losses * _scale(cfg)
-    losses = losses * batch["loss_weight"].to(losses.dtype)
+    return losses * batch["loss_weight"].to(losses.dtype)
+
+
+def diffusion_losses(
+        batch: dict,
+        data: dict,
+        cfg: LossConfig,
+        coefficients: DiffusionScheduleCoefficients | None,
+) -> torch.Tensor:
+    """Per-sample loss vector [B] for epsilon/v-prediction models; with
+    `masked_training`, each elementwise loss weighted by the batch's latent
+    mask (`masked_losses`)."""
+    if "prior_target" in data:
+        raise NotImplementedError("prior preservation is not ported yet")
+    if cfg.vb_loss_strength != 0 and "predicted_var_values" in data:
+        raise NotImplementedError("the learned-variance VB loss is not ported yet")
+
+    losses = _weighted_stack(batch, data, cfg)
 
     if "timestep" in data and coefficients is not None:
         snr = coefficients.snr(data["timestep"].long())
@@ -160,4 +169,20 @@ def diffusion_losses(
             losses = losses * p2_loss_weight(snr, cfg.loss_weight_strength, cfg.v_prediction)
         elif cfg.loss_weight_fn != LossWeight.CONSTANT:
             raise NotImplementedError(f"loss weight {cfg.loss_weight_fn} is not ported yet")
+    return losses
+
+
+def flow_matching_losses(batch: dict, data: dict, cfg: LossConfig,
+                         num_train_timesteps: int = 1000) -> torch.Tensor:
+    """Per-sample loss vector [B] for rectified-flow models (reference:
+    ModelSetupDiffusionLossMixin._flow_matching_losses): the same
+    elementwise stack, masks, scale and loss weights, and the SIGMA
+    weighting sigma = (t + 1) / num_train_timesteps; the SNR weightings do
+    not apply to flow matching and are ignored, as the reference does."""
+    if "prior_target" in data:
+        raise NotImplementedError("prior preservation is not ported yet")
+    losses = _weighted_stack(batch, data, cfg)
+    if "timestep" in data and cfg.loss_weight_fn == LossWeight.SIGMA:
+        sigmas = (data["timestep"].float() + 1.0) / num_train_timesteps
+        losses = losses * sigmas
     return losses

@@ -5,8 +5,9 @@
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
         [--device cuda]
 
-The arguments are the reference's. SD 1.5/2.x and SDXL text-to-image run;
-other model types, embeddings, inpainting and Würstchen decoders raise
+The arguments are the reference's. SD 1.5/2.x, SDXL and SD3 text-to-image run
+(SD3 from a diffusers directory); other model types, embeddings, inpainting
+and Würstchen decoders raise
 NotImplementedError. Sampling runs on the card unless `--device` names
 another device. A PNG destination is written by the port's own PNG codec;
 other formats need Pillow.
@@ -80,12 +81,14 @@ def main(argv: list[str] | None = None):
     config = TrainConfig.default_values()
     config.model_type = ModelType[args.model_type]
     if not (config.model_type.is_stable_diffusion()
-            or config.model_type.is_stable_diffusion_xl()):
+            or config.model_type.is_stable_diffusion_xl()
+            or config.model_type.is_stable_diffusion_3()):
         raise NotImplementedError(
-            f"{config.model_type} sampling is not ported (SD 1.5/2.x and SDXL only)")
+            f"{config.model_type} sampling is not ported (SD 1.5/2.x, SDXL and SD3 only)")
     config.base_model_name = args.base_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False
+    config.prior.train = False
     config.text_encoder.train = False
     config.text_encoder_2.train = False
     if args.weight_dtype:

@@ -2,7 +2,8 @@
 encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
-text-to-image and SDXL so far. The calls mirror the reference's trainer
+text-to-image, SDXL and SD3 (diffusers directories; SD3's single file is
+not ported yet) so far. The calls mirror the reference's trainer
 and scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
 `family.sample`; `family.save_model` / `save_single_file` write the
@@ -42,14 +43,15 @@ class ModelFamily:
 # module attribute -> (its LoRA group, its adapters' key map)
 _LORA_PARTS = {
     "unet": ("unet_lora", None),
+    "transformer": ("transformer_lora", None),
     "text_encoder": ("te_lora", clip_torch_key_map),
     "text_encoder_2": ("te2_lora", clip_torch_key_map),
 }
 
 
-def _load_kwargs(config, device) -> dict:
+def _load_kwargs(config, device, part: str = "unet") -> dict:
     return dict(
-        weight_dtype=config.weight_dtypes().unet.to_load_dtype() or torch.float32,
+        weight_dtype=getattr(config.weight_dtypes(), part).to_load_dtype() or torch.float32,
         compute_dtype=config.train_dtype.to_compute_dtype() or torch.bfloat16,
         gradient_checkpointing=config.gradient_checkpointing.enabled(),
         device=device,
@@ -216,6 +218,64 @@ def _sdxl_save_single_file(setup, path, save_dtype=None, ema=True):
                           save_dtype=save_dtype or torch.float32)
 
 
+# -- SD3 -----------------------------------------------------------------------------
+
+def _sd3_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.sd3_checkpoints import load_sd3_diffusers
+    from onetrainer_tpu_torch.models.sd3_model import StableDiffusion3Model
+    if os.path.isfile(base_dir):
+        raise NotImplementedError("loading an SD3 single file is not ported yet "
+                                  "(a diffusers directory loads)")
+    # every component in the transformer's (prior) weight dtype, as the reference
+    loaded = load_sd3_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    model = StableDiffusion3Model(
+        model_type=config.model_type,
+        transformer_config=loaded["transformer_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        te2_config=loaded["te2_config"],
+        te3_config=loaded["te3_config"],
+        device="meta",
+        tokenizer=loaded["tokenizer_dir"],
+        tokenizer_2=loaded["tokenizer_2_dir"],
+        tokenizer_3=loaded["tokenizer_3_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
+
+
+def _sd3_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.sd3_setup import create_sd3_setup
+    return create_sd3_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _sd3_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.sd3_setup import make_sd3_encode_fns
+    return make_sd3_encode_fns(setup)
+
+
+def _sd3_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.sd3_sampler import sample_sd3
+    transformer, te, te2, te3, extra = setup.merged_inference_params()
+    return sample_sd3(
+        setup.model, transformer, te, te2, te3, setup.model.vae,
+        setup.tokenizer, setup.tokenizer_2, setup.tokenizer_3, sample_config,
+        extra_embeddings=extra, on_update_progress=on_progress)
+
+
+def _sd3_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    from onetrainer_tpu_torch.io.sd3_checkpoints import save_sd3_diffusers
+    sd = merged_state_dicts(setup, ema)
+    save_sd3_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
+                       sd["text_encoder"], sd["text_encoder_2"], sd["text_encoder_3"],
+                       save_dtype=save_dtype or torch.float32, source_dir=source_dir)
+
+
+def _sd3_save_single_file(setup, path, save_dtype=None, ema=True):
+    raise NotImplementedError("saving an SD3 single file is not ported yet "
+                              "(output_model_format DIFFUSERS saves)")
+
+
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_mask_input() or model_type.has_depth_input():
@@ -236,6 +296,15 @@ def get_family(model_type: ModelType) -> ModelFamily:
             save_model=_sdxl_save_model, save_single_file=_sdxl_save_single_file,
             lora_prefixes={"unet_lora": "lora_unet", "te_lora": "lora_te1",
                            "te2_lora": "lora_te2"},
+        )
+    if model_type.is_stable_diffusion_3():
+        return ModelFamily(
+            name="sd3", quantization=64,
+            load=_sd3_load, create_setup=_sd3_create_setup,
+            make_encode_fns=_sd3_encode_fns, sample=_sd3_sample,
+            save_model=_sd3_save_model, save_single_file=_sd3_save_single_file,
+            lora_prefixes={"transformer_lora": "lora_transformer",
+                           "te_lora": "lora_te1", "te2_lora": "lora_te2"},
         )
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")

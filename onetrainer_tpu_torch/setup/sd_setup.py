@@ -13,8 +13,8 @@ modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
 FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
 (setup/quantize.py). A FINE_TUNE config that trains no part builds no
 trainer (it serves sampling). `refuse_unported` raises for the training
-methods, EMA held on the CPU, prior preservation and additional
-embeddings; continuing from a LoRA file, CUSTOM schedulers and
+methods, SD3 FINE_TUNE that trains a part, EMA held on the CPU, prior
+preservation and additional embeddings; continuing from a LoRA file, CUSTOM schedulers and
 schedule-free optimizers raise where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
 `setup_fine_tune` and `image_encoder` serve setup/sdxl_setup.py too.
 """
@@ -99,12 +99,17 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
 def refuse_unported(config) -> None:
     """Raise NotImplementedError for what `config` asks of the model, its
     setup and its step that the port does not run: training methods other
-    than LoRA and FINE_TUNE, EMA held on the CPU, prior preservation and
-    additional embeddings. The setups call it first, and the trainer before
-    it loads the model."""
+    than LoRA and FINE_TUNE, SD3 FINE_TUNE that trains a part (the
+    transformer or CLIP-L: the reference's FINE_TUNE groups), EMA held on
+    the CPU, prior preservation and additional embeddings. The setups call
+    it first, and the trainer before it loads the model."""
     asked = {
         f"{config.training_method} training (LoRA and FINE_TUNE only)":
             config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
+        "SD3 FINE_TUNE training (LoRA trains SD3)":
+            config.model_type.is_stable_diffusion_3()
+            and config.training_method == TrainingMethod.FINE_TUNE
+            and (config.prior.train or config.text_encoder.train),
         "EMA on the CPU": config.ema == EMAMode.CPU,
         "prior preservation": config.masked_prior_preservation_weight > 0 or any(
             c.type == ConceptType.PRIOR_PREDICTION for c in (config.concepts or [])),
@@ -144,13 +149,15 @@ def quantize_frozen(model, config, quantizable: dict, trained=()) -> None:
 
 
 def setup_lora(model, config, lora_groups: dict, quantizable: dict,
-               total_steps: int, steps_per_epoch: int):
+               total_steps: int, steps_per_epoch: int, parts: dict | None = None):
     """The LoRA branch of the SD-family setups: adapters for each group
     whose config part trains, drawn on the model's device from a generator
     seeded per group in the LoRA weight dtype and attached to the layers;
     the frozen base stops requiring grads, and frozen parts configured with
     a quantized weight dtype are quantized in place after the adapters
-    exist (their shapes are the logical ones, as the reference's).
+    exist (their shapes are the logical ones, as the reference's). `parts`
+    names the config part of a model attribute where the two differ (SD3's
+    transformer trains as `config.prior`).
     -> (peft_cfg, trainable, group_schedules, tx)."""
     if config.lora_model_name:
         raise NotImplementedError("continuing from a LoRA file is not ported yet")
@@ -163,7 +170,7 @@ def setup_lora(model, config, lora_groups: dict, quantizable: dict,
         module.requires_grad_(False)
     trainable, group_schedules = {}, {}
     for group, (attr, key_map, seed) in lora_groups.items():
-        part = getattr(config, attr)
+        part = getattr(config, (parts or {}).get(attr, attr))
         if not part.train:
             continue
         module = modules[attr]

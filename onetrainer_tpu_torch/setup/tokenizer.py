@@ -5,9 +5,9 @@ placeholder -> N unique tokens added to the tokenizer; here placeholders
 splice ids >= vocab_size which index the extra_embeddings table in
 models.clip.CLIPTextModel.)
 
-The port's copy of `SDTokenizer` from onetrainer_tpu/setup/tokenizer.py
-(CLIP tokenization only); transformers is imported only when a tokenizer
-directory is given.
+The port's copies of `SDTokenizer` (CLIP) and `T5TokenizerWrapper` (SD3's
+T5) from onetrainer_tpu/setup/tokenizer.py; transformers is imported only
+when a tokenizer directory is given.
 """
 
 from __future__ import annotations
@@ -98,4 +98,50 @@ class SDTokenizer:
         pieces = self.encode_pieces(text)
         ids = [self.bos] + pieces[: self.max_length - 2] + [self.eos]
         ids = ids + [self.eos] * (self.max_length - len(ids))
+        return np.asarray(ids, np.int32)
+
+
+class T5TokenizerWrapper:
+    """T5 tokenization (no BOS, EOS=1, PAD=0) with the same placeholder
+    splicing; wraps a transformers T5Tokenizer when files are available."""
+
+    def __init__(self, tokenizer_dir: str | None = None, max_length: int = 77,
+                 vocab_size: int = 32128):
+        self.max_length = max_length
+        self.vocab_size = vocab_size
+        # model-table size for placeholder/extra-embedding ids; the HF
+        # T5 tokenizer reports 32100 but the model table is 32128
+        self.embedding_base = vocab_size
+        self.eos = 1
+        self.pad = 0
+        self._tokenizer = None
+        if tokenizer_dir:
+            try:
+                from transformers import T5Tokenizer
+                self._tokenizer = T5Tokenizer.from_pretrained(tokenizer_dir)
+                self.vocab_size = self._tokenizer.vocab_size
+                self.eos = self._tokenizer.eos_token_id
+                self.pad = self._tokenizer.pad_token_id
+            except Exception as e:
+                print(f"t5 tokenizer load failed ({e}); using hash fallback")
+        self.placeholders: dict[str, list[int]] = {}
+        self._next_extra = 0
+
+    def register_placeholder(self, placeholder: str, token_count: int) -> list[int]:
+        ids = list(range(self.embedding_base + self._next_extra,
+                         self.embedding_base + self._next_extra + token_count))
+        self._next_extra += token_count
+        self.placeholders[placeholder] = ids
+        return ids
+
+    def _encode_words(self, text: str) -> list[int]:
+        if self._tokenizer is not None:
+            return self._tokenizer(text, add_special_tokens=False)["input_ids"]
+        return [abs(hash(w)) % (self.vocab_size - 2) + 2
+                for w in text.lower().split()]
+
+    def __call__(self, text: str) -> np.ndarray:
+        pieces = _splice_pieces(text, self.placeholders, self._encode_words)
+        ids = pieces[: self.max_length - 1] + [self.eos]
+        ids = ids + [self.pad] * (self.max_length - len(ids))
         return np.asarray(ids, np.int32)

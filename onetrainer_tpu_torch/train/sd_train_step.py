@@ -55,13 +55,16 @@ class SDStepConfig:
     offset_noise_weight: float = 0.0
     perturbation_noise_weight: float = 0.0
     vae_scaling_factor: float = 0.18215
+    vae_shift_factor: float = 0.0
     prediction_type: str = "epsilon"
     text_encoder_layer_skip: int = 0
     train_text_encoder: bool = False
     num_train_timesteps: int = 1000
     te_dropout: float = 0.0
     te2_dropout: float = 0.0
+    te3_dropout: float = 0.0
     te2_layer_skip: int = 0
+    te3_layer_skip: int = 0
     stochastic_rounding: bool = False
     ema_decay: float = 0.0              # 0 = EMA off
     ema_update_interval: int = 1
@@ -89,7 +92,9 @@ class SDStepConfig:
             train_text_encoder=config.train_text_encoder_or_embedding(),
             te_dropout=_part_dropout("text_encoder"),
             te2_dropout=_part_dropout("text_encoder_2"),
+            te3_dropout=_part_dropout("text_encoder_3"),
             te2_layer_skip=int(getattr(config, "text_encoder_2_layer_skip", 0) or 0),
+            te3_layer_skip=int(getattr(config, "text_encoder_3_layer_skip", 0) or 0),
             stochastic_rounding=config.optimizer.stochastic_rounding,
             ema_decay=config.ema_decay if config.ema != EMAMode.OFF else 0.0,
             ema_update_interval=config.ema_update_step_interval,
@@ -217,43 +222,51 @@ def sd_predict(model, batch: dict, generator: torch.Generator,
     return prediction_data(predicted, noised, cfg, coefficients)
 
 
-def make_train_step(model, cfg: SDStepConfig, tx, predict):
+def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
     """The LoRA or FINE_TUNE step of `model` around its family's `predict`
-    (`sd_predict`, `sdxl_predict`): for LoRA the model's layers already
-    carry the adapters (the setups attach them) and the trainable groups
-    are adapter trees; for FINE_TUNE they are modules' parameters.
+    (`sd_predict`, `sdxl_predict`, `sd3_predict`) and per-sample `losses`
+    (batch, data) -> [B] (default: `diffusion_losses` on the model's
+    noise schedule): for LoRA the model's layers already carry the
+    adapters (the setups attach them) and the trainable groups are adapter
+    trees; for FINE_TUNE they are modules' parameters.
 
-        train_step(state, batch, generator, *, timestep=None, noise=None,
-                   latent_noise=None, round_bits=None) -> {"loss", "grad_norm"}
+        train_step(state, batch, generator, *, round_bits=None, **draws)
+            -> {"loss", "grad_norm"}
 
-    The step updates `state.params`, `state.opt_state` and `state.ema` in
-    place and advances `state.step`; the returned loss (fp32, on the
-    model's device: reading it synchronises) and pre-clip global norm of
-    this micro-step's gradients (fp32 on the device; for bf16 tensors bf16
-    on the host, as optax computes it) are 0-dim tensors. After the
-    optimizer update the EMA, when on, moves towards the trained tensors
+    `draws` replace the generator's draws of `predict` (`timestep`,
+    `noise`, `latent_noise`; SD3's `dropout_keep` too). The step updates
+    `state.params`, `state.opt_state` and `state.ema` in place and
+    advances `state.step`; the returned loss (fp32, on the model's device:
+    reading it synchronises) and pre-clip global norm of this micro-step's
+    gradients (fp32 on the device; for bf16 tensors bf16 on the host, as
+    optax computes it) are 0-dim tensors. After the optimizer update the
+    EMA, when on, moves towards the trained tensors
     (train/ema.py:maybe_update_ema; the reference's
     onetrainer_tpu/train/sd_train_step.py:396-400). `round_bits`, shaped
     like `state.params`, gives the 16 random low bits of each bf16
     tensor's stochastic rounding in place of the generator's draws (CPU
     only). `train_step.loss(batch, generator, **draws)` is the step's loss
     alone, for a caller that wants its gradients without the update."""
-    device = next(model.unet.parameters()).device
-    coefficients = _coefficients_on(model, device)
+    denoiser = next(iter(model.modules().values()))
+    device = next(denoiser.parameters()).device
+    coefficients = None
+    if losses is None:
+        coefficients = _coefficients_on(model, device)
+
+        def losses(batch, data):
+            return diffusion_losses(batch, data, cfg.loss, coefficients)
 
     def loss(batch: dict, generator: torch.Generator, **draws) -> torch.Tensor:
         batch = _on_device(batch, device)
         data = predict(model, batch, generator, cfg, coefficients, **draws)
-        return diffusion_losses(batch, data, cfg.loss, coefficients).mean()
+        return losses(batch, data).mean()
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
-                   *, timestep=None, noise=None, latent_noise=None,
-                   round_bits=None) -> dict:
+                   *, round_bits=None, **draws) -> dict:
         groups = param_groups(state.params)
         flat = [t.requires_grad_() for g in groups.values() for t in g]
         with torch.enable_grad():
-            value = loss(batch, generator, timestep=timestep, noise=noise,
-                         latent_noise=latent_noise)
+            value = loss(batch, generator, **draws)
         # a tensor off the loss's path (TE1's last layer under layer skip)
         # gets a zero gradient, as under jax.grad
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(

@@ -303,3 +303,49 @@ def test_model_spec_copy_gives_the_original_metadata():
                 resolution="512", prediction_type="epsilon", train_config=port_config,
                 tensors=tensors)
             assert got == want
+
+
+@pytest.mark.parametrize("stub", [False, True], ids=["hash_fallback", "stub"])
+def test_t5_tokenizer_gives_equal_ids(stub):
+    """SD3's T5 wrapper (no BOS, EOS 1, pad 0), with and without a
+    transformers-like tokenizer, placeholders spliced alike."""
+    from onetrainer_tpu.setup.tokenizer import T5TokenizerWrapper
+    from onetrainer_tpu_torch.setup.tokenizer import T5TokenizerWrapper as PortT5
+    ref = T5TokenizerWrapper(None, max_length=12, vocab_size=110)
+    port = PortT5(None, max_length=12, vocab_size=110)
+    for tok in (ref, port):
+        if stub:
+            tok._tokenizer = _StubTokenizer()
+        assert tok.register_placeholder("<emb>", 2) == [110, 111]
+    for text in ("a photo of <emb> on a table", "<emb> and <emb>", "",
+                 "a much longer prompt that runs past the twelve tokens of the window"):
+        np.testing.assert_array_equal(port(text), ref(text), err_msg=text)
+
+
+def test_remat_defaults_are_the_references():
+    """SD3's loader builds with the reference's SD3 default policy."""
+    from onetrainer_tpu.models import remat as jax_remat
+    from onetrainer_tpu_torch.models import remat as pt_remat
+    assert pt_remat.SD3_POLICY == jax_remat._DEFAULTS["sd3"]
+
+
+def test_sd3_config_readers_give_equal_configs():
+    """The SD3 loader's config readers (transformer, T5) over a non-default
+    diffusers / transformers config, field by field."""
+    import dataclasses
+
+    from onetrainer_tpu.io.flux_checkpoints import t5_config_from_transformers
+    from onetrainer_tpu.io.sd3_checkpoints import sd3_config_from_diffusers
+    from onetrainer_tpu_torch.io import sd3_checkpoints as pt_ckpt
+    transformer = {"sample_size": 64, "num_layers": 38, "num_attention_heads": 38,
+                   "pos_embed_max_size": 384, "qk_norm": "rms_norm",
+                   "caption_projection_dim": 2432}
+    t5 = {"vocab_size": 32128, "d_model": 512, "d_kv": 32, "d_ff": 1024, "num_layers": 6,
+          "num_heads": 8, "relative_attention_max_distance": 64}
+    for ref, port in ((sd3_config_from_diffusers(transformer),
+                       pt_ckpt.sd3_config_from_diffusers(transformer)),
+                      (t5_config_from_transformers(t5), pt_ckpt.t5_config_from_transformers(t5))):
+        fields = {f.name for f in dataclasses.fields(port)} - {"dtype"}
+        assert fields <= {f.name for f in dataclasses.fields(ref)}
+        for name in fields:
+            assert getattr(port, name) == getattr(ref, name), name

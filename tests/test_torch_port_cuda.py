@@ -43,6 +43,7 @@ def cuda_device():
     (2, 1024, 1024, 20, 64, False),
     (4, 4096, 4096, 8, 40, False),  # SD 1.5 @512 batch 4: d=40 in the 64 slot
     (2, 9216, 9216, 5, 64, False),  # SD 2.1 @768 batch 2: the longest model sequence
+    (2, 4250, 4250, 24, 64, False),  # SD3 @1024 batch 2: 154 text + 4096 image rows
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 128, True),
     (1, 50, 77, 3, 40, True),       # both below one tile
@@ -81,6 +82,7 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
     (2, 1024, 1024, 20, 64, False),
     (4, 4096, 4096, 8, 40, False),    # SD 1.5 @512 batch 4
     (2, 9216, 9216, 5, 64, False),    # SD 2.1 @768 batch 2: K3 over 144 q tiles
+    (2, 4250, 4250, 24, 64, False),   # SD3 @1024: ragged last q and kv tiles
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 80, True),
     (1, 8192, 8192, 2, 128, False),   # the TPU's q-streaming dk/dv domain
@@ -214,7 +216,7 @@ def test_delta_prepass_matches_plain_version_on_card(cuda_device, b, sq, h, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,d", [(2, 1024, 1024, 4, 64), (1, 300, 77, 2, 40),
-                                          (1, 1000, 777, 2, 128)])
+                                          (1, 1000, 777, 2, 128), (2, 4250, 4250, 24, 64)])
 def test_dkv_is_bitwise_deterministic_on_card(cuda_device, b, sq, skv, h, d):
     """K3 sums over q tiles in a fixed order, with no atomics: two runs on
     the same inputs give the same bits."""
@@ -352,3 +354,38 @@ def test_sr_update_leaves_splits_long_lists_on_card(cuda_device, monkeypatch):
     for i, (p, u, g) in enumerate(zip(ps, us, got)):
         want = stochastic_round_to_bf16(p.float() + u.float(), philox_bits(seeds[i], p.numel()))
         assert torch.equal(g.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "full", "dots_nb_attn"])
+def test_sd3_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
+    """A two-block SD3 transformer at SD3-medium's width (24 heads of d=64)
+    on a 128x128 latent and a 154-row context, bf16 compute: each block's
+    joint attention over 4250 tokens launches K1 once in the forward, and
+    K2, K3 and the pre-pass once each in the backward; "full"
+    checkpointing runs K1 again in the backward, "dots_nb_attn" keeps the
+    attention's residuals and does not. The LoRA-free parameter gradients
+    of every policy are finite."""
+    from onetrainer_tpu_torch.models.sd3 import SD3Transformer2D, sd3_medium_config
+    torch.manual_seed(0)
+    ckpt = policy != "none"
+    cfg = sd3_medium_config(num_layers=2, gradient_checkpointing=ckpt,
+                            remat_policy=policy if ckpt else "full")
+    model = SD3Transformer2D(cfg).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    latents = torch.randn((2, 128, 128, 16), generator=gen, device=cuda_device)
+    context = torch.randn((2, 154, 4096), generator=gen, device=cuda_device)
+    pooled = torch.randn((2, 2048), generator=gen, device=cuda_device)
+    ts = torch.tensor([250.0, 750.0], device=cuda_device)
+    pt_ff.reset_launch_counts()
+    out = model(latents, ts, pooled, context)
+    assert pt_ff.flash_attention_folded_fwd.launches == 2
+    grads = torch.autograd.grad(out.square().mean(),
+                                [p for p in model.parameters() if p.requires_grad])
+    torch.cuda.synchronize()
+    assert (pt_ff.flash_attention_folded_fwd.launches,
+            pt_ff.flash_attention_folded_dq.launches,
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (
+        4 if policy == "full" else 2, 2, 2, 2)
+    assert all(torch.isfinite(g).all() for g in grads)

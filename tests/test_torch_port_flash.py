@@ -188,3 +188,42 @@ def test_cpu_attention_takes_library_path():
     pt_attn.attention(q, k, v, 2)
     assert pt_attn.STATS["folded"] == before["folded"]
     assert pt_attn.STATS["fallback"] == before["fallback"] + 1
+
+
+def test_ragged_joint_sequence_matches_the_padded_jax_kernels():
+    """SD3's joint attention at a small size: 154 text + 256 image = 410
+    tokens, B1 H2 d64, a length no tile size divides. The reference pads
+    the sequence to its block and masks the padded kv through `kv_keep`
+    (onetrainer_tpu/ops/attention.py:273-311); the port's K1-K3 take the
+    ragged length as it is. The port's plain K1 (o, lse) and K2/K3 (dq,
+    dk, dv, through its autograd function) against the reference's K1-K3
+    in interpret mode on the padded sequence (fp32; o and lse 1e-5, the
+    gradients 1e-4 absolute, as tests/test_torch_port_flash_bwd.py)."""
+    import jax
+
+    s, pad, nh, d = 154 + 256, 512, 2, 64
+    q, k, v = _qkv(8, 1, s, s, nh * d)
+    do = np.random.default_rng(9).standard_normal(q.shape, dtype=np.float32)
+    sm = 1.0 / np.sqrt(d)
+    keep = np.zeros((1, pad), bool)
+    keep[:, :s] = True
+
+    def padded(x):
+        return jnp.pad(x, ((0, 0), (0, pad - s), (0, 0)))
+
+    o_ref, lse_ref = _jax_k1(*(np.asarray(padded(jnp.asarray(x))) for x in (q, k, v)),
+                             nh, sm, keep)
+    _assert_same(_port(q, k, v, nh, sm), (o_ref[:, :s], lse_ref[..., :s]))
+
+    def f(q, k, v):
+        o = jax_ff.flash_attention_folded(padded(q), padded(k), padded(v), nh, sm_scale=sm,
+                                          kv_keep=jnp.asarray(keep), block_q=128,
+                                          block_k=128)
+        return o[:, :s]
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = pt_ff.flash_attention_folded(tq, tk, tv, nh, sm_scale=sm)
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)

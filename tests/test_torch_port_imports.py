@@ -2,7 +2,8 @@
 imports, the SDXL slice samples and takes two LoRA training steps and two
 QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), and the SD 2.x
 slice (v-prediction, text-encoder layer skip 1) samples and takes two LoRA
-steps, and the train and sample CLIs run a tiny SD 1.5 checkpoint end to
+steps, the SD3 slice (dots_nb_attn checkpointing) samples and takes two
+LoRA steps on cached text, and the train and sample CLIs run a tiny SD 1.5 checkpoint end to
 end (load, cache, train, back up, save the LoRA file, sample), with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
@@ -133,6 +134,50 @@ _SCRIPT = textwrap.dedent(f"""
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     assert sd.prediction_type == "v_prediction" and setup.state.step == 2
     assert any(e["lora_up"].abs().max() > 0 for e in setup.state.params["unet_lora"].values())
+
+    from onetrainer_tpu_torch.io.weights import init_sd3_weights
+    from onetrainer_tpu_torch.models.sd3 import SD3Config
+    from onetrainer_tpu_torch.models.sd3_model import StableDiffusion3Model
+    from onetrainer_tpu_torch.models.t5 import T5Config
+    sd3 = StableDiffusion3Model(
+        model_type=ModelType.STABLE_DIFFUSION_3,
+        transformer_config=SD3Config(
+            sample_size=8, in_channels=4, out_channels=4, num_layers=2, num_heads=2,
+            head_dim=16, joint_attention_dim=24, caption_projection_dim=32,
+            pooled_projection_dim=32 + 48, pos_embed_max_size=16,
+            gradient_checkpointing=True, remat_policy="dots_nb_attn"),
+        vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
+                             latent_channels=4, scaling_factor=1.5305, shift_factor=0.0609),
+        te_config=CLIPTextConfig(hidden_size=32, projection_dim=32, **te),
+        te2_config=CLIPTextConfig(hidden_size=48, projection_dim=48, **te),
+        te3_config=T5Config(vocab_size=110, d_model=24, d_kv=6, d_ff=48, num_layers=2,
+                            num_heads=4),
+        device="meta")
+    init_sd3_weights(sd3, seed=3, device="cpu")
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_DIFFUSION_3
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    image = family.sample(family.create_setup(sd3, config, 1), sc, None).image
+    assert image.shape == (32, 32, 3) and image.dtype.name == "uint8"
+    config.training_method = TrainingMethod.LORA
+    config.prior.train = True
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    config.text_encoder.train = config.text_encoder_2.train = False
+    setup = family.create_setup(sd3, config, 10)
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")
+    batch = dict(encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1),
+                 loss_weight=torch.ones(2), tokens=torch.as_tensor(text["tokens"]).expand(2, -1),
+                 sd3_context=text["sd3_context"].expand(2, -1, -1),
+                 sd3_pooled=text["sd3_pooled"].expand(2, -1))
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert setup.state.step == 2
+    assert any(e["lora_up"].abs().max() > 0
+               for e in setup.state.params["transformer_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked
