@@ -143,7 +143,34 @@ never falls back to the CPU. Phases, each of which must pass:
      batch 4, weights in bf16) for epoch 1 with a backup and the resume
      for epoch 2 (24 each of K1-K3 and the pre-pass per step at 1178
      tokens, none while caching), the LoRA file read back bitwise, the
-     sample command (4 flow Euler steps, 96 K1), a non-constant image.
+     sample command (4 flow Euler steps, 96 K1), a non-constant image;
+ 20. flux_model: FLUX.1-dev at its published widths with seeded weights (19
+     double and 38 single blocks of 24 d=128 heads, hidden 3072, RoPE axes
+     (16, 56, 56), the guidance embedding; CLIP-L; T5-XXL; the 16-channel
+     VAE; parameters counted), the transformer built in bf16 and quantized
+     to NF4 (504 layers) through the setup's policy, the peak memory;
+     flux_sample: 1024x1024, 4 flow Euler steps, guidance 3.5: K1 exactly
+     57 and K4 exactly 504 times per transformer pass (the joint attention
+     over 77 + 4096 = 4173 tokens in the d=128 slot), a non-constant image;
+ 21. flux_transformer: its first double and single block at batch 2 with K1
+     and with plain attention, relative L2;
+ 22. flux_train: LoRA r16 a16 on all 504 NF4 transformer layers, fp32
+     adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the
+     port's caches (the text encoders freed after), "full" checkpointing:
+     one warm-up and three timed steps with exactly K1 114, K2, K3 and the
+     pre-pass 57 each and K4 998 per step, the LoRA gradients against plain
+     attention and the plain dequant, a profiler split;
+ 23. flux_cli: a seeded FLUX.1-dev at full width with its transformer cut to
+     2 double and 4 single blocks, written in bf16 as a diffusers directory
+     (transformer and T5 sharded behind their indices) in a temporary
+     directory removed after the phase; sd15_files' PNGs at 512x512: the
+     train command (LoRA r16, batch 4, NF4 transformer, "full"
+     checkpointing) for epoch 1 with a backup and the resume for epoch 2
+     (per step K1 12, K2, K3 and the pre-pass 6, K4 114; none while
+     caching), the LoRA file read back bitwise, the sample command (4 flow
+     Euler steps, guidance 3.5, 24 K1), a non-constant image.
+The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128, and k4 its
+3072x18432 norm1.linear and 15360x3072 proj_out.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -211,8 +238,13 @@ K4_CASES = [
     ("ff_1280x10240", (1280, 10240)),           # GEGLU projection of a 1280 block
     ("conv_3x3x2560x1280", (3, 3, 2560, 1280)),  # largest conv weight (29.5M)
     ("padded_1000x777", (1000, 777)),            # 777,000: both halves padded
+    ("flux_norm1_3072x18432", (3072, 18432)),    # FLUX's largest kernel (56.6M)
+    ("flux_proj_out_15360x3072", (15360, 3072)),  # a single block's proj_out
 ]
-K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280")   # the UNet's shapes
+# the UNet's shapes and FLUX's
+K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280", "flux_norm1_3072x18432",
+            "flux_proj_out_15360x3072")
+FLUX_K4 = "flux_norm1_3072x18432"
 K5_SIZES = ((1 << 20) + 3, 1_000_003)
 # the step's largest bf16 adapter tensor: lora_down of a 2560->1280 3x3 conv
 K5_LARGEST_ADAPTER_SHAPE = (16, 2560, 3, 3)
@@ -229,6 +261,8 @@ K1_CASES = [
     ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False, None),
     ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False, None),
     ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False, None),
+    ("flux_b2_s4173_h24_d128", 2, 4173, 4173, 24, 128, False, None),
+    ("flux_b1_s4173_h24_d128", 1, 4173, 4173, 24, 128, False, None),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False, None),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False, None),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False, None),
@@ -242,6 +276,8 @@ K23_CASES = [
     ("sd15_b4_s4096_h8_d40", 4, 4096, 4096, 8, 40, False),
     ("sd21_b2_s9216_h5_d64", 2, 9216, 9216, 5, 64, False),
     ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False),
+    ("flux_b2_s4173_h24_d128", 2, 4173, 4173, 24, 128, False),
+    ("flux_b1_s4173_h24_d128", 1, 4173, 4173, 24, 128, False),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
@@ -253,9 +289,13 @@ SD15_SHAPE, SD21_SHAPE = "sd15_b4_s4096_h8_d40", "sd21_b2_s9216_h5_d64"
 # SD3-medium's joint attention at 1024x1024, batch 2: 154 text + 4096 image
 # rows, a length no tile divides
 SD3_SHAPE = "sd3_b2_s4250_h24_d64"
+# FLUX.1-dev's joint attention at 1024x1024: T5's 77 rows + 4096 image rows,
+# 24 heads of d=128 (the 128 slot); batch 2 in training, 1 in sampling
+FLUX_SHAPE, FLUX_SAMPLE_SHAPE = "flux_b2_s4173_h24_d128", "flux_b1_s4173_h24_d128"
 # cases timed against SDPA: the model shapes, and for K2/K3 the streaming
 # domain of the TPU's K3b
-MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE, SD3_SHAPE)
+MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE, SD3_SHAPE, FLUX_SHAPE,
+                              FLUX_SAMPLE_SHAPE)
 SDPA_BWD_CASES = MODEL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
@@ -738,6 +778,34 @@ def _plain_attention(ff):
     return plain
 
 
+def _k1_and_plain(torch, forward) -> dict:
+    """`forward()` (an inference pass that synchronises) with the kernels,
+    then with plain attention, each after a warm-up: both outputs, their
+    host times, the kernel run's launches and peak memory, and the relative
+    L2 distance of the outputs."""
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    forward()   # warm-up (cuDNN/cuBLAS handles, allocator)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    out = forward()
+    k1_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernel_fn = ff.flash_attention_folded
+    ff.flash_attention_folded = _plain_attention(ff)
+    try:
+        forward()
+        t0 = time.perf_counter()
+        out_plain = forward()
+        plain_s = time.perf_counter() - t0
+    finally:
+        ff.flash_attention_folded = kernel_fn
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(out_plain).all())
+    return dict(out=out, k1_s=k1_s, plain_s=plain_s, launches=launches, peak_gib=peak_gib,
+                rel=_rel_l2(out, out_plain), finite=finite)
+
+
 def build_model(torch, unet_weight_dtype=None, model_type=None):
     """A model at its published widths with seeded weights on the card,
     compute bf16, the UNet's parameters in `unet_weight_dtype` (fp32 by
@@ -771,7 +839,6 @@ def build_model(torch, unet_weight_dtype=None, model_type=None):
 
 
 def phase_unet(torch, model):
-    from onetrainer_tpu_torch.ops import flash_folded as ff
     gen = torch.Generator(device="cuda").manual_seed(7)
     sample = torch.randn((2, 128, 128, 4), generator=gen, device="cuda")
     context = torch.randn((2, 77, 2048), generator=gen, device="cuda")
@@ -786,30 +853,15 @@ def phase_unet(torch, model):
         torch.cuda.synchronize()
         return out
 
-    forward()   # warm-up (cuDNN/cuBLAS handles, allocator)
-    before = ff.flash_attention_folded_fwd.launches
-    t0 = time.perf_counter()
-    out_k1 = forward()
-    k1_s = time.perf_counter() - t0
-    launches = ff.flash_attention_folded_fwd.launches - before
-    kernel_fn = ff.flash_attention_folded
-    ff.flash_attention_folded = _plain_attention(ff)
-    try:
-        forward()
-        t0 = time.perf_counter()
-        out_plain = forward()
-        plain_s = time.perf_counter() - t0
-    finally:
-        ff.flash_attention_folded = kernel_fn
-    rel = ((out_k1 - out_plain).norm() / out_plain.norm()).item()
-    finite = bool(torch.isfinite(out_k1).all() and torch.isfinite(out_plain).all())
-    ok = (finite and rel <= UNET_REL_L2_BOUND
+    run = _k1_and_plain(torch, forward)
+    launches = run["launches"]["K1"]
+    ok = (run["finite"] and run["rel"] <= UNET_REL_L2_BOUND
           and launches == sum(SDXL_SELF_ATTN.values())
-          and tuple(out_k1.shape) == (2, 128, 128, 4))
+          and tuple(run["out"].shape) == (2, 128, 128, 4))
     print(f"[unet] full-width SDXL UNet forward, latent 2x128x128x4: "
-          f"K1 {k1_s * 1e3:.2f} ms ({launches} K1 launches), plain attention "
-          f"{plain_s * 1e3:.2f} ms, rel L2 {rel:.3e} (bound {UNET_REL_L2_BOUND:g}) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"K1 {run['k1_s'] * 1e3:.2f} ms ({launches} K1 launches), plain attention "
+          f"{run['plain_s'] * 1e3:.2f} ms, rel L2 {run['rel']:.3e} (bound "
+          f"{UNET_REL_L2_BOUND:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("UNet with K1 disagrees with plain attention")
 
@@ -832,11 +884,14 @@ def _launch_counts() -> dict:
     return {tag: fn.launches for tag, fn in _kernel_wrappers().items()}
 
 
-def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
+def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: float = 7.0,
+                 k4_per_pass: int = 0) -> dict:
     """Text-to-image through the family registry at size x size, 4 steps
-    (DDIM; SD3's flow Euler), CFG 7: K1 exactly once per self-attention of
-    `self_attn` per denoiser pass and nothing else launched; a uint8 image
-    that is not constant."""
+    (DDIM; SD3's and FLUX's flow Euler), CFG `cfg_scale` (FLUX: its guidance
+    embedding): K1 exactly once per self-attention of `self_attn` per
+    denoiser pass, K4 `k4_per_pass` times per pass (an NF4 denoiser's
+    layers) and nothing else launched; a uint8 image that is not
+    constant."""
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.setup.families import get_family
@@ -856,7 +911,7 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
     sc.negative_prompt = ""
     sc.height = sc.width = size
     sc.diffusion_steps = 4
-    sc.cfg_scale = 7.0
+    sc.cfg_scale = cfg_scale
     sc.seed = 42
     sc.noise_scheduler = NoiseScheduler.DDIM
 
@@ -879,16 +934,20 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str) -> dict:
     expected = sum(self_attn.values()) * sc.diffusion_steps
     image = out.image
     # NaN latents would decode to a constant image, so it must vary
-    ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K3pre": 0, "K4": 0, "K5": 0}
+    expected_k4 = k4_per_pass * sc.diffusion_steps
+    ok = (launches == {"K1": expected, "K2": 0, "K3": 0, "K3pre": 0, "K4": expected_k4,
+                       "K5": 0}
           and image.dtype.name == "uint8"
           and image.shape == (size, size, 3) and image.std() > 0)
-    sampler = "flow Euler" if model.model_type.is_stable_diffusion_3() else "DDIM"
+    sampler = "flow Euler" if model.model_type.is_stable_diffusion_3() \
+        or model.model_type.is_flux() else "DDIM"
     print(f"[{tag}] {model.model_type.value} {size}x{size} {sampler} {sc.diffusion_steps} steps "
           f"CFG {sc.cfg_scale:g}: total {total_s:.3f} s, denoiser step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms), peak "
           f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches['K1']} "
-          f"(expected {expected}), image {image.shape} {image.dtype} "
+          f"(expected {expected}), K4 launches {launches['K4']} (expected {expected_k4}), "
+          f"image {image.shape} {image.dtype} "
           f"mean {image.mean():.2f} std {image.std():.2f} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1013,10 +1072,14 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
                 peak_gib=peak_gib, finite=_finite(first + losses + norms), up_max=up_max)
 
 
-def _fixed_draws(torch, batch):
+def _fixed_draws(torch, batch, continuous: bool = False):
+    """Timesteps 250 and 750 (as t = 0.25 and 0.75 for FLUX's continuous
+    timesteps), noise and latent-sampling noise from a fixed seed."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     b = batch["latent_image"].shape[0]
     timestep = torch.tensor([250, 750] * (b // 2), dtype=torch.int32, device="cuda")
+    if continuous:
+        timestep = timestep.float() / 1000
     noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
     latent_noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
     return timestep, noise, latent_noise
@@ -1026,12 +1089,15 @@ def _rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _grads_against_plain(torch, setup, batch, tag: str) -> dict:
-    """One step's LoRA gradients with K1-K3 against plain attention, at
-    fixed timesteps and noise; the sequence length of each K1 launch of the
+def _grads_against_plain(torch, setup, batch, tag: str, plain_dequant: bool = False) -> dict:
+    """One step's LoRA gradients with K1-K3 against plain attention (and,
+    with `plain_dequant`, K4 against the plain NF4 dequant), at fixed
+    timesteps and noise; the sequence length of each K1 launch of the
     kernel run."""
     from onetrainer_tpu_torch.ops import flash_folded as ff
-    draws = _fixed_draws(torch, batch)
+    from onetrainer_tpu_torch.ops import quant
+    from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_reference
+    draws = _fixed_draws(torch, batch, setup.config.model_type.is_flux())
     seqs = []
     kernel_fn = ff.flash_attention_folded
 
@@ -1044,14 +1110,19 @@ def _grads_against_plain(torch, setup, batch, tag: str) -> dict:
     finally:
         ff.flash_attention_folded = kernel_fn
     ff.flash_attention_folded = _plain_attention(ff)
+    dequant_fn = quant.nf4_dequant_flat
+    if plain_dequant:
+        quant.nf4_dequant_flat = nf4_dequant_reference
     try:
         g_plain = _lora_grads(torch, setup, batch, *draws)
     finally:
         ff.flash_attention_folded = kernel_fn
+        quant.nf4_dequant_flat = dequant_fn
     rel = _rel_l2(g_kernel, g_plain)
     finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
     by_seq = {n: seqs.count(n) for n in sorted(set(seqs), reverse=True)}
-    print(f"[{tag}] LoRA gradients, K1-K3 vs plain attention: rel L2 {rel:.3e} "
+    plain = "plain attention and the plain dequant" if plain_dequant else "plain attention"
+    print(f"[{tag}] LoRA gradients, kernels vs {plain}: rel L2 {rel:.3e} "
           f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values; K1 launches "
           f"of one forward by sequence length {by_seq}")
     return {"rel": rel, "finite": finite, "by_seq": by_seq}
@@ -1315,6 +1386,31 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
+def _cli_timeline(*runs) -> tuple[list, list, dict]:
+    """From `_cli_run`'s events of each run: [(global step, launches, s)]
+    per step, the launches while each epoch cached, and {"load_s",
+    "cache_s"} per run."""
+    steps, cache_launches, times = [], [], {}
+    for events in runs:
+        marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
+        for kind, what, counts, t in events:
+            if kind == "status" and what.endswith(": caching"):
+                epoch = what.split()[1].rstrip(":")
+                done = marks[f"training epoch {epoch}"]
+                cache_launches.append(_delta(done[0], counts))
+                times.setdefault("cache_s", []).append(done[1] - t)
+        load = marks["loading the model"][1]
+        times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
+        prev = None
+        for kind, what, counts, t in events:
+            if kind == "status" and what.startswith("training epoch"):
+                prev = (counts, t)
+            elif kind == "step":
+                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
+                prev = (counts, t)
+    return steps, cache_launches, times
+
+
 def sd15_files(torch, root: str) -> dict:
     """The files both SD 1.5 CLI phases read, in `root`: a seeded
     full-width SD 1.5 written as one ldm-keyed fp16 single file, and
@@ -1403,24 +1499,7 @@ def phase_sd15_cli(torch, bare_step_s, files: dict) -> dict:
     # launches: none while caching, exactly one per self-attention per step
     per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
     none = {k: 0 for k in per_step}
-    steps, cache_launches, times = [], [], {}
-    for events in (events1, events2):
-        marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
-        for kind, what, counts, t in events:
-            if kind == "status" and what.endswith(": caching"):
-                epoch = what.split()[1].rstrip(":")
-                done = marks[f"training epoch {epoch}"]
-                cache_launches.append(_delta(done[0], counts))
-                times.setdefault("cache_s", []).append(done[1] - t)
-        load = marks["loading the model"][1]
-        times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
-        prev = None
-        for kind, what, counts, t in events:
-            if kind == "status" and what.startswith("training epoch"):
-                prev = (counts, t)
-            elif kind == "step":
-                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
-                prev = (counts, t)
+    steps, cache_launches, times = _cli_timeline(events1, events2)
     sample_launches = _delta(launches, before_sample)
     step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
     sums, _, _ = _kernel_times(prof)
@@ -1810,19 +1889,7 @@ def phase_sd15_ft_cli(torch, files: dict) -> dict:
 
     per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
     none = {k: 0 for k in per_step}
-    steps, cache_launches = [], []
-    for events in (events1, events2):
-        marks = {what: counts for kind, what, counts, _ in events if kind == "status"}
-        prev = None
-        for kind, what, counts, t in events:
-            if kind == "status" and what.endswith(": caching"):
-                epoch = what.split()[1].rstrip(":")
-                cache_launches.append(_delta(marks[f"training epoch {epoch}"], counts))
-            if kind == "status" and what.startswith("training epoch"):
-                prev = (counts, t)
-            elif kind == "step":
-                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
-                prev = (counts, t)
+    steps, cache_launches, _ = _cli_timeline(events1, events2)
     sample_launches = _delta(launches, before_sample)
 
     # the output: the EMA cast to fp16, bit for bit
@@ -1916,7 +1983,6 @@ def phase_sd3_transformer(torch, model):
     """One full-width transformer forward (latent 2x128x128x16, 154-row
     context) with K1 and with plain attention: K1 once per block, relative
     L2 of the outputs."""
-    from onetrainer_tpu_torch.ops import flash_folded as ff
     gen = torch.Generator(device="cuda").manual_seed(17)
     latents = torch.randn((2, 128, 128, 16), generator=gen, device="cuda")
     context = torch.randn((2, 154, 4096), generator=gen, device="cuda")
@@ -1929,32 +1995,16 @@ def phase_sd3_transformer(torch, model):
         torch.cuda.synchronize()
         return out
 
-    forward()
-    torch.cuda.reset_peak_memory_stats()
-    before = ff.flash_attention_folded_fwd.launches
-    t0 = time.perf_counter()
-    out_k1 = forward()
-    k1_s = time.perf_counter() - t0
-    launches = ff.flash_attention_folded_fwd.launches - before
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    kernel_fn = ff.flash_attention_folded
-    ff.flash_attention_folded = _plain_attention(ff)
-    try:
-        forward()
-        t0 = time.perf_counter()
-        out_plain = forward()
-        plain_s = time.perf_counter() - t0
-    finally:
-        ff.flash_attention_folded = kernel_fn
-    rel = _rel_l2(out_k1, out_plain)
-    finite = bool(torch.isfinite(out_k1).all() and torch.isfinite(out_plain).all())
-    ok = (finite and rel <= SD3_REL_L2_BOUND and launches == SD3_BLOCKS
-          and tuple(out_k1.shape) == (2, 128, 128, 16))
+    run = _k1_and_plain(torch, forward)
+    launches = run["launches"]["K1"]
+    ok = (run["finite"] and run["rel"] <= SD3_REL_L2_BOUND and launches == SD3_BLOCKS
+          and tuple(run["out"].shape) == (2, 128, 128, 16))
     print(f"[sd3_transformer] full-width SD3 MMDiT forward, latent 2x128x128x16, context "
-          f"154 rows (joint attention over 4250 tokens): K1 {k1_s * 1e3:.2f} ms ({launches} "
-          f"K1 launches, expected {SD3_BLOCKS}), plain attention {plain_s * 1e3:.2f} ms, rel "
-          f"L2 {rel:.3e} (bound {SD3_REL_L2_BOUND:g}), peak max_memory_allocated "
-          f"{peak_gib:.2f} GiB {'ok' if ok else 'FAIL'}")
+          f"154 rows (joint attention over 4250 tokens): K1 {run['k1_s'] * 1e3:.2f} ms "
+          f"({launches} K1 launches, expected {SD3_BLOCKS}), plain attention "
+          f"{run['plain_s'] * 1e3:.2f} ms, rel L2 {run['rel']:.3e} (bound "
+          f"{SD3_REL_L2_BOUND:g}), peak max_memory_allocated {run['peak_gib']:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the SD3 transformer with K1 disagrees with plain attention")
 
@@ -2060,25 +2110,32 @@ def sd3_files(torch, root: str) -> str:
     return ckpt
 
 
-def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
-    """SD3 from a diffusers directory through the train and sample commands:
-    LoRA r16 a16 at 512x512, batch 4 over sd15_files' eight PNGs, epoch 1
-    with a backup, the resume for epoch 2, the LoRA file read back, the
-    sample command (4 flow Euler steps). Exact K1-K3 launches per step (the
-    joint attention at 154 + 1024 tokens, once per block: dots_nb_attn),
-    none while caching."""
+def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: int,
+                  per_step: dict, lora_layers: int, cache_shapes: dict, sample_argv: list,
+                  sample_k1: int, policy: str, load_note: str, prior_dtype=None) -> dict:
+    """A DiT family's LoRA r16 a16 from a diffusers directory through the
+    train and sample commands: size x size, batch 4 over sd15_files' eight
+    PNGs, bf16 weights (the transformer in `prior_dtype` when given),
+    gradient checkpointing on (the loader's `policy`), epoch 1 with a
+    backup, the resume for epoch 2, the LoRA file read back bitwise and
+    its reload loss, the sample command (`sample_argv` past the model and
+    the destination). Exactly `per_step` launches per step and none while
+    caching, `sample_k1` K1 over the sample; the cache's rows of
+    `cache_shapes`; `lora_layers` adapted layers."""
     from onetrainer_tpu_torch.io.png import read_png
     from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
     from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
     from onetrainer_tpu_torch.scripts import sample
-    from onetrainer_tpu_torch.util.enums import DataType, GradientCheckpointingMethod, ModelType
+    from onetrainer_tpu_torch.util.enums import DataType, GradientCheckpointingMethod
 
     root = os.path.join(os.path.dirname(ckpt), "lora")
     os.makedirs(root)
     config = _cli_config(root, ckpt, dataset)
-    config.model_type = ModelType.STABLE_DIFFUSION_3
-    config.resolution = str(SD3_CLI_SIZE)
+    config.model_type = model_type
+    config.resolution = str(size)
     config.weight_dtype = DataType.BFLOAT_16
+    if prior_dtype is not None:
+        config.prior.weight_dtype = prior_dtype
     config.gradient_checkpointing = GradientCheckpointingMethod.ON
     config_path = os.path.join(root, "epoch1.json")
     with open(config_path, "w") as f:
@@ -2100,7 +2157,7 @@ def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
-    policy = resumed.model.transformer_config.remat_policy
+    loaded_policy = resumed.model.transformer_config.remat_policy
     train_launches = _launch_counts()
     image_path = os.path.join(root, "sample.png")
     lora = load_safetensors(config.output_model_destination)
@@ -2125,86 +2182,371 @@ def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
     torch.cuda.empty_cache()
     before_sample = _launch_counts()   # the reload loss's forward left out
     t0 = time.perf_counter()
-    out = sample.main(["--model-type", "STABLE_DIFFUSION_3", "--base-model-name", ckpt,
+    out = sample.main(["--model-type", model_type.value, "--base-model-name", ckpt,
                        "--prompt", "a photograph of an astronaut riding a horse",
-                       "--destination", image_path, "--steps", "4", "--cfg", "7",
-                       "--width", str(SD3_CLI_SIZE), "--height", str(SD3_CLI_SIZE),
-                       "--weight-dtype", "BFLOAT_16"])
+                       "--destination", image_path, "--steps", "4",
+                       "--width", str(size), "--height", str(size),
+                       "--weight-dtype", "BFLOAT_16"] + sample_argv)
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
     sample_launches = _delta(_launch_counts(), before_sample)
     launches = {k: train_launches[k] + sample_launches[k] for k in train_launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS,
-                "K4": 0, "K5": 0}
     none = {k: 0 for k in per_step}
-    steps, cache_launches, times = [], [], {}
-    for events in (events1, events2):
-        marks = {what: (counts, t) for kind, what, counts, t in events if kind == "status"}
-        for kind, what, counts, t in events:
-            if kind == "status" and what.endswith(": caching"):
-                epoch = what.split()[1].rstrip(":")
-                done = marks[f"training epoch {epoch}"]
-                cache_launches.append(_delta(done[0], counts))
-                times.setdefault("cache_s", []).append(done[1] - t)
-        load = marks["loading the model"][1]
-        times.setdefault("load_s", []).append(marks["creating the data loader"][1] - load)
-        prev = None
-        for kind, what, counts, t in events:
-            if kind == "status" and what.startswith("training epoch"):
-                prev = (counts, t)
-            elif kind == "step":
-                steps.append((what, _delta(counts, prev[0]), t - prev[1]))
-                prev = (counts, t)
+    steps, cache_launches, times = _cli_timeline(events1, events2)
     step_s = [s for global_step, _, s in steps if global_step != 4]   # 4: profiled
     sums, _, _ = _kernel_times(prof)
     device_ms = sum(sums.values())
     profiled_ms = steps[-1][2] * 1e3
     cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
     rows = [load_safetensors(f) for f in cache_files]
-    latent = SD3_CLI_SIZE // 8
     cached = (len(rows) == CLI_IMAGES
-              and all({"latent_image", "sd3_context", "sd3_pooled"} <= set(r) for r in rows)
-              and all(r["latent_image"].shape == (latent, latent, 16)
-                      and r["sd3_context"].shape == (154, 4096)
-                      and r["sd3_pooled"].shape == (2048,) for r in rows))
+              and all(name in r and tuple(r[name].shape) == shape for r in rows
+                      for name, shape in cache_shapes.items()))
     image = read_png(image_path)
     checks = {
-        "policy": policy == "dots_nb_attn",
+        "policy": loaded_policy == policy,
         "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
         "none while caching": all(c == none for c in cache_launches)
         and len(cache_launches) == 2,
-        "K1 over the sample": sample_launches == {**none, "K1": 4 * SD3_BLOCKS},
+        "K1 over the sample": sample_launches == {**none, "K1": sample_k1},
         "main-path launches": train_launches == {k: 4 * v for k, v in per_step.items()},
         "global steps": (step_after_first, step_after_resume) == (2, 4),
         "cache": cached,
-        "LoRA keys": n_adapters == SD3_LORA_LAYERS and len(lora) == 3 * SD3_LORA_LAYERS,
+        "LoRA keys": n_adapters == lora_layers and len(lora) == 3 * lora_layers,
         "LoRA read back bitwise": bitwise,
         "finite losses": _finite([loss_first, resumed_loss, reload_loss]),
-        "image": image.shape == (SD3_CLI_SIZE, SD3_CLI_SIZE, 3) and image.std() > 0
+        "image": image.shape == (size, size, 3) and image.std() > 0
         and bool((image == out.image).all()),
     }
     card = gpu_line()
-    print(f"[sd3_cli] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
+    print(f"[{tag}] statuses {[w for k, w, _, _ in events1 if k == 'status']} then "
           f"{[w for k, w, _, _ in events2 if k == 'status']}")
-    print(f"[sd3_cli] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
-          f"(fp16 diffusers directory to bf16 on the card, run 1 and the resume); caching "
-          f"{times['cache_s'][0]:.3f} s for {CLI_IMAGES} images (the resume "
-          f"{times['cache_s'][1]:.3f} s, all cached)")
-    print(f"[sd3_cli] on {card}: steps (global step, s): "
+    print(f"[{tag}] on {card}: load {', '.join(f'{x:.2f}' for x in times['load_s'])} s "
+          f"({load_note}, run 1 and the resume); caching {times['cache_s'][0]:.3f} s for "
+          f"{CLI_IMAGES} images (the resume {times['cache_s'][1]:.3f} s, all cached)")
+    print(f"[{tag}] on {card}: steps (global step, s): "
           f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; CLI step median "
           f"{statistics.median(step_s):.4f} s over the unprofiled steps (the first includes "
           f"the warm-up); step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
           f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
-    print(f"[sd3_cli] on {card}: sample (load + 4 flow Euler steps + decode + PNG) "
+    print(f"[{tag}] on {card}: sample (load + 4 flow Euler steps + decode + PNG) "
           f"{sample_s:.2f} s; peak max_memory_allocated {peak_gib:.2f} GiB; launches "
           f"{launches} (sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
           f"{reload_loss:.6f}; checks {checks}")
     if not all(checks.values()):
-        raise AssertionError(f"sd3_cli failed: "
+        raise AssertionError(f"{tag} failed: "
                              f"{[name for name, ok in checks.items() if not ok]}")
     return {"launches": launches, "step_s": statistics.median(step_s), "peak_gib": peak_gib}
+
+
+def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
+    """SD3 from a diffusers directory through the train and sample commands
+    (`_dit_lora_cli`) at 512x512; the sample at CFG 7. Exactly K1-K3 and the
+    pre-pass once per block and step (the joint attention at 154 + 1024
+    tokens: dots_nb_attn keeps it out of the recompute)."""
+    from onetrainer_tpu_torch.util.enums import ModelType
+    per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS,
+                "K4": 0, "K5": 0}
+    latent = SD3_CLI_SIZE // 8
+    return _dit_lora_cli(
+        torch, "sd3_cli", ckpt, dataset, ModelType.STABLE_DIFFUSION_3, SD3_CLI_SIZE,
+        per_step, SD3_LORA_LAYERS,
+        {"latent_image": (latent, latent, 16), "sd3_context": (154, 4096),
+         "sd3_pooled": (2048,)}, ["--cfg", "7"], 4 * SD3_BLOCKS, "dots_nb_attn",
+        "fp16 diffusers directory to bf16 on the card")
+
+
+# FLUX.1-dev: 19 double-stream and 38 single-stream blocks, one attention
+# each; 77 + 4096 = 4173 joint tokens at 1024x1024, 77 + 1024 = 1101 at 512
+FLUX_DOUBLE, FLUX_SINGLE = 19, 38
+FLUX_BLOCKS = FLUX_DOUBLE + FLUX_SINGLE
+FLUX_TOKENS = 77 + 4096
+FLUX_GUIDANCE = 3.5         # the sampling guidance FLUX.1-dev's card suggests
+# the flux_cli phase's diffusers directory: FLUX.1-dev's widths, its
+# transformer cut to 2 double and 4 single blocks (the full one is a 23.8 GB
+# bf16 file to write and read three times)
+FLUX_CLI_DOUBLE, FLUX_CLI_SINGLE = 2, 4
+FLUX_CLI_SIZE = 512
+
+
+def flux_nf4_layers(double: int, single: int) -> tuple[int, int]:
+    """(NF4 layers of a FLUX transformer, those inside its blocks): every
+    dense layer is quantized (the smallest, proj_out, has 3072 x 64 =
+    196,608 >= 4096 elements): 14 per double block, 6 per single block, and
+    10 outside them (x_embedder, context_embedder, the time, guidance and
+    text embedders' six layers, norm_out, proj_out). Under "full"
+    checkpointing a step dequantizes the ones in the blocks twice."""
+    in_blocks = 14 * double + 6 * single
+    return in_blocks + 10, in_blocks
+
+
+def build_flux_model(torch, double: int = FLUX_DOUBLE, single: int = FLUX_SINGLE,
+                     quantize: bool = True):
+    """FLUX.1-dev at its published widths with seeded weights on the card
+    (`double` + `single` blocks of 24 d=128 heads, hidden 3072, RoPE axes
+    (16, 56, 56), the guidance embedding; CLIP-L; T5-XXL; the 16-channel
+    VAE, scaling 0.3611 and shift 0.1159), bf16 compute, the reference's
+    FLUX checkpoint policy ("full"). The transformer is built in bf16 (its
+    fp32 parameters would be 47.6 GB) and, with `quantize`, quantized to NF4
+    through the setup's policy (setup/quantize.py, the prior's weight dtype
+    NFLOAT_4) layer by layer; the other parts are fp32 (bf16 without
+    `quantize`: the CLI phase's files)."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.io.weights import init_flux_weights
+    from onetrainer_tpu_torch.models.flux import FluxTransformer2D
+    from onetrainer_tpu_torch.models.flux_model import create_flux_model
+    from onetrainer_tpu_torch.models.remat import FLUX_POLICY
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+    from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    t0 = time.perf_counter()
+    model = create_flux_model(ModelType.FLUX_DEV_1, dtype=torch.bfloat16,
+                              gradient_checkpointing=True, remat_policy=FLUX_POLICY,
+                              device="meta")
+    if (double, single) != (FLUX_DOUBLE, FLUX_SINGLE):
+        model.transformer_config = replace(model.transformer_config, num_layers=double,
+                                           num_single_layers=single)
+        with torch.device("meta"):
+            model.transformer = FluxTransformer2D(model.transformer_config)
+    counts = {name: sum(p.numel() for p in m.parameters())
+              for name, m in model.modules().items()}
+    for name, module in model.modules().items():
+        if name == "transformer" or not quantize:
+            module.to(torch.bfloat16)    # on "meta": no memory yet
+    init_flux_weights(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built_gib = torch.cuda.memory_allocated() / 2 ** 30
+    line = (f"[flux_model] FLUX.1-dev ({double} double, {single} single blocks), parameters "
+            f"{counts} (total {sum(counts.values())}), seeded on the card in {init_s:.2f} s, "
+            f"{built_gib:.2f} GiB allocated")
+    if not quantize:
+        print(line + " (all bf16)")
+        return model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    config = TrainConfig.default_values()
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    quantize_frozen_parts({"transformer": model.transformer}, config.weight_dtypes(),
+                          {"transformer": "prior"})
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    layers = [m for m in model.transformer.modules() if is_quantized(getattr(m, "weight", None))]
+    nf4_gib = sum(m.weight.q.numel() + 4 * m.weight.scales.numel() for m in layers) / 2 ** 30
+    expected = flux_nf4_layers(double, single)[0]
+    after_gib = torch.cuda.memory_allocated() / 2 ** 30
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{line} (transformer bf16, the rest fp32); transformer quantized to NF4 in "
+          f"{quant_s:.2f} s: {len(layers)} NF4 layers (expected {expected}), "
+          f"{nf4_gib:.3f} GiB of codes and scales; after it {after_gib:.2f} GiB allocated, "
+          f"peak while quantizing {peak_gib:.2f} GiB")
+    if len(layers) != expected:
+        raise AssertionError(f"{len(layers)} NF4 layers, expected {expected}")
+    return model
+
+
+def _flux_block_inputs(torch, model, batch: int):
+    """Hidden states, conditioning and RoPE tables of one FLUX block at
+    1024x1024: image [B, 4096, 3072] and text [B, 77, 3072] rows, temb from
+    the model's own time/guidance/text embedder."""
+    from onetrainer_tpu_torch.models.flux import prepare_latent_image_ids, rope_tables
+    cfg = model.transformer_config
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    img, txt = rand(batch, 4096, cfg.hidden_size), rand(batch, 77, cfg.hidden_size)
+    with torch.inference_mode():
+        temb = model.transformer.time_text_embed(
+            torch.tensor([0.25, 0.75][:batch], device="cuda"),
+            torch.full((batch,), FLUX_GUIDANCE, device="cuda"),
+            torch.randn((batch, cfg.pooled_projection_dim), generator=gen, device="cuda"))
+    ids = torch.cat([torch.zeros((77, 3), device="cuda"),
+                     prepare_latent_image_ids(128, 128, "cuda")])
+    return img, txt, temb, rope_tables(ids, cfg.axes_dims_rope, cfg.rope_theta)
+
+
+def phase_flux_transformer(torch, model):
+    """The NF4 transformer's first double and first single block at full
+    width (batch 2, 4173 joint tokens) with K1 and with plain attention:
+    K1 once per block, K4 once per layer, relative L2 of the output."""
+    t = model.transformer
+    img, txt, temb, rope = _flux_block_inputs(torch, model, 2)
+
+    def forward():
+        with torch.inference_mode():
+            i, x = t.transformer_blocks[0](img, txt, temb, rope)
+            out = t.single_transformer_blocks[0](torch.cat([x, i], dim=1), temb, rope)
+        torch.cuda.synchronize()
+        return out
+
+    run = _k1_and_plain(torch, forward)
+    expected = {"K1": 2, "K2": 0, "K3": 0, "K3pre": 0, "K4": 14 + 6, "K5": 0}
+    ok = (run["finite"] and run["rel"] <= SD3_REL_L2_BOUND and run["launches"] == expected
+          and tuple(run["out"].shape) == (2, FLUX_TOKENS, 3072))
+    print(f"[flux_transformer] FLUX.1-dev double block 0 + single block 0, NF4, batch 2 over "
+          f"{FLUX_TOKENS} joint tokens (24 heads of d=128): K1 {run['k1_s'] * 1e3:.2f} ms "
+          f"(launches {run['launches']}, expected {expected}), plain attention "
+          f"{run['plain_s'] * 1e3:.2f} ms, rel L2 {run['rel']:.3e} (bound "
+          f"{SD3_REL_L2_BOUND:g}), peak max_memory_allocated {run['peak_gib']:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the FLUX blocks with K1 disagree with plain attention")
+
+
+def phase_flux_train(torch, model) -> dict:
+    """LoRA r16 a16 on all 504 dense layers of the NF4 transformer, fp32
+    adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the port's
+    caches (one seeded image and prompt through the VAE, CLIP-L and T5,
+    which are then freed), "full" checkpointing, guidance 1 (the config's
+    default): one warm-up and three timed steps with exact launches per
+    step (K1 twice per block, K2, K3 and the pre-pass once, K4 once per NF4
+    layer and again per layer inside the recomputed blocks), the LoRA
+    gradients against plain attention and the plain dequant, a profiler
+    split."""
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    config = _lora_config(2, ModelType.FLUX_DEV_1)
+    config.prior.weight_dtype = DataType.NFLOAT_4
+
+    def free_encoders(setup):
+        model.text_encoder = model.text_encoder_2 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run = _setup_and_steps(torch, model, config, "flux_train", 1024, after_batch=free_encoders)
+    setup, batch = run["setup"], run["batch"]
+    n_quant, n_in_blocks = flux_nf4_layers(FLUX_DOUBLE, FLUX_SINGLE)
+    n = TRAIN_STEPS * FLUX_BLOCKS
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": 0}
+    grads = _grads_against_plain(torch, setup, batch, "flux_train", plain_dequant=True)
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected and grads["by_seq"] == {FLUX_TOKENS: 2 * FLUX_BLOCKS}
+          and grads["rel"] <= GRAD_REL_L2_BOUND
+          and len(setup.state.params["transformer_lora"]) == n_quant
+          and model.transformer_config.remat_policy == "full"
+          and setup.model.prediction_type == "flow")
+    print(f"[flux_train] {n_quant} NF4 layers ({n_in_blocks} in the blocks), all adapted; "
+          f"checkpoint policy {model.transformer_config.remat_policy} (the blocks recompute: "
+          f"K1 twice per block and step, K4 {n_quant + n_in_blocks} per step); launches "
+          f"{run['launches']} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flux_train failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], "flux_train")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def flux_config_jsons(model) -> dict:
+    """Each component's config.json (diffusers' and transformers' keys) for
+    a diffusers FLUX directory of the port's `model`."""
+    t, v, c, t5 = model.transformer_config, model.vae_config, model.te_config, \
+        model.te2_config
+    return {
+        "transformer": {
+            "in_channels": t.in_channels, "out_channels": t.out_channels,
+            "num_layers": t.num_layers, "num_single_layers": t.num_single_layers,
+            "num_attention_heads": t.num_heads, "attention_head_dim": t.head_dim,
+            "joint_attention_dim": t.joint_attention_dim,
+            "pooled_projection_dim": t.pooled_projection_dim,
+            "guidance_embeds": t.guidance_embeds, "axes_dims_rope": list(t.axes_dims_rope)},
+        "vae": {"in_channels": v.in_channels, "out_channels": v.out_channels,
+                "latent_channels": v.latent_channels,
+                "block_out_channels": list(v.block_out_channels),
+                "layers_per_block": v.layers_per_block, "scaling_factor": v.scaling_factor,
+                "shift_factor": v.shift_factor},
+        "text_encoder": {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                         "intermediate_size": c.intermediate_size,
+                         "num_hidden_layers": c.num_layers,
+                         "num_attention_heads": c.num_heads,
+                         "max_position_embeddings": c.max_position_embeddings,
+                         "hidden_act": c.hidden_act, "eos_token_id": c.eos_token_id,
+                         "architectures": ["CLIPTextModel"]},
+        "text_encoder_2": {"vocab_size": t5.vocab_size, "d_model": t5.d_model,
+                           "d_kv": t5.d_kv, "d_ff": t5.d_ff, "num_layers": t5.num_layers,
+                           "num_heads": t5.num_heads},
+    }
+
+
+def save_sharded(component_dir: str, stem: str, state_dict: dict, shards: int) -> None:
+    """`state_dict` as `shards` safetensors files (host copies of the
+    tensors as they are) behind a `<stem>.safetensors.index.json`."""
+    from onetrainer_tpu_torch.io.safetensors_io import save_safetensors
+    keys = list(state_dict)
+    weight_map = {}
+    for i in range(shards):
+        name = f"{stem}-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = keys[i * len(keys) // shards:(i + 1) * len(keys) // shards]
+        save_safetensors(os.path.join(component_dir, name),
+                         {k: state_dict[k].detach().cpu() for k in part})
+        weight_map.update({k: name for k in part})
+    with open(os.path.join(component_dir, f"{stem}.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+
+
+def write_flux_dir(ckpt: str, model) -> None:
+    """The port's FLUX `model` as a diffusers directory laid out as
+    FLUX.1-dev ships it: each component's config.json, the transformer in
+    three shards and T5 in two behind their indices, the VAE and CLIP-L one
+    file each, every tensor in its own dtype."""
+    from onetrainer_tpu_torch.io.safetensors_io import save_safetensors
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    m = model.modules()
+    for name, config in flux_config_jsons(model).items():
+        os.makedirs(os.path.join(ckpt, name))
+        with open(os.path.join(ckpt, name, "config.json"), "w") as f:
+            json.dump(config, f)
+    save_sharded(os.path.join(ckpt, "transformer"), "diffusion_pytorch_model",
+                 state_dict_of(m["transformer"]), 3)
+    save_sharded(os.path.join(ckpt, "text_encoder_2"), "model",
+                 state_dict_of(m["text_encoder_2"]), 2)
+    for name, stem in (("vae", "diffusion_pytorch_model"), ("text_encoder", "model")):
+        save_safetensors(os.path.join(ckpt, name, f"{stem}.safetensors"),
+                         {k: v.cpu() for k, v in state_dict_of(m[name]).items()})
+
+
+def flux_files(torch, root: str) -> str:
+    """A seeded FLUX.1-dev at full width, its transformer cut to
+    FLUX_CLI_DOUBLE + FLUX_CLI_SINGLE blocks, written in bf16 as a diffusers
+    directory in `root` (`write_flux_dir`) -> its path."""
+    model = build_flux_model(torch, FLUX_CLI_DOUBLE, FLUX_CLI_SINGLE, quantize=False)
+    ckpt = os.path.join(root, "flux-dev")
+    t0 = time.perf_counter()
+    write_flux_dir(ckpt, model)
+    write_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    print(f"[flux_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, bf16, diffusers layout, the "
+          f"transformer {FLUX_CLI_DOUBLE} + {FLUX_CLI_SINGLE} blocks in 3 shards, T5 in 2) in "
+          f"{write_s:.2f} s")
+    return ckpt
+
+
+def phase_flux_cli(torch, ckpt: str, dataset: str) -> dict:
+    """FLUX from `flux_files`' diffusers directory through the train and
+    sample commands (`_dit_lora_cli`) at 512x512, the transformer NF4; the
+    sample in bf16 at guidance 3.5. Exactly per step K1 twice per block
+    ("full" recomputes the blocks) at 77 + 1024 tokens, K2, K3 and the
+    pre-pass once, K4 once per NF4 layer and again per layer in the
+    blocks."""
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    blocks = FLUX_CLI_DOUBLE + FLUX_CLI_SINGLE
+    n_quant, n_in_blocks = flux_nf4_layers(FLUX_CLI_DOUBLE, FLUX_CLI_SINGLE)
+    per_step = {"K1": 2 * blocks, "K2": blocks, "K3": blocks, "K3pre": blocks,
+                "K4": n_quant + n_in_blocks, "K5": 0}
+    latent = FLUX_CLI_SIZE // 8
+    return _dit_lora_cli(
+        torch, "flux_cli", ckpt, dataset, ModelType.FLUX_DEV_1, FLUX_CLI_SIZE, per_step,
+        n_quant, {"latent_image": (latent, latent, 16), "t5_hidden_state": (77, 4096),
+                  "clip_pooled_state": (768,)}, ["--cfg", str(FLUX_GUIDANCE)],
+        4 * blocks, "full", "bf16 diffusers directory to the card, the transformer "
+        "quantized to NF4", prior_dtype=DataType.NFLOAT_4)
 
 
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
@@ -2237,8 +2579,9 @@ def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
 
 def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
     """One row per kernel and path: `launches` from the path that runs it
-    (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's, SD 2.1's and
-    SD3's shapes with their steps' launches; K4-K5 the QLoRA step; K5 again at
+    (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's, SD 2.1's,
+    SD3's and FLUX's shapes with their steps' launches; K4-K5 the QLoRA step,
+    K4 again at FLUX's largest kernel with the FLUX step's; K5 again at
     the SDXL fine-tune's largest leaf, with the call's time with its
     wrapper and the whole update's device time, bound and host time beside
     it), the device time at that path's shape, and the
@@ -2258,11 +2601,17 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
                             " at SD 2.1's B2 S9216 H5 d64")
     rows += _attention_rows(k1, k23, SD3_SHAPE, "sd3_train", (2, 4250, 4250, 24, 64),
                             " at SD3's B2 S4250 H24 d64")
+    rows += _attention_rows(k1, k23, FLUX_SHAPE, "flux_train", (2, 4173, 4173, 24, 128),
+                            " at FLUX's B2 S4173 H24 d128")
     rows += [
         ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
          max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
          k4[ff]["plain_ms"], k4[ff]["bound_ms"], k4[ff]["bound_by"], None, ff),
+        ("nf4_dequant_flat (K4) at FLUX's norm1.linear", "K4", "nf4_dequant.cu",
+         "onetrainer_tpu/ops/nf4_pallas.py:41", "flux_train", k4[FLUX_K4]["max_abs_err"],
+         k4[FLUX_K4]["ms"], k4[FLUX_K4]["plain_ms"], k4[FLUX_K4]["bound_ms"],
+         k4[FLUX_K4]["bound_by"], None, FLUX_K4),
         ("sr_update_leaves (K5, one launch per step)", "K5", "sr_update.cu",
          "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["list_ms"],
          k5["list_plain_ms"], k5["list_bound_ms"], k5["list_bound_by"], None,
@@ -2370,6 +2719,16 @@ def main() -> int:
     results.pop("sd3_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    model = run("flux_model", build_flux_model, torch)
+    if model is not None:
+        run("flux_sample", phase_sample, torch, model, 1024, {FLUX_TOKENS: FLUX_BLOCKS},
+            "flux_sample", FLUX_GUIDANCE, flux_nf4_layers(FLUX_DOUBLE, FLUX_SINGLE)[0])
+        run("flux_transformer", phase_flux_transformer, torch, model)
+        run("flux_train", phase_flux_train, torch, model)
+    del model
+    results.pop("flux_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
@@ -2388,6 +2747,15 @@ def main() -> int:
                 shutil.rmtree(sd3_root, ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()
+            flux_root = tempfile.mkdtemp(prefix="flux_files_")
+            try:
+                ckpt = run("flux_files", flux_files, torch, flux_root)
+                if ckpt is not None:
+                    run("flux_cli", phase_flux_cli, torch, ckpt, files["dataset"])
+            finally:
+                shutil.rmtree(flux_root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
             run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2396,10 +2764,11 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {', '.join(failures)}", file=sys.stderr)
         return 1
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
-                "sd3_sample": results["sd3_sample"],
+                "sd3_sample": results["sd3_sample"], "flux_sample": results["flux_sample"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
-                             "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli")}}
+                             "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
+                             "flux_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

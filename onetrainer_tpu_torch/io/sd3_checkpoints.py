@@ -79,6 +79,33 @@ def t5_config_from_transformers(config: dict, dtype=torch.bfloat16) -> T5Config:
     )
 
 
+def t5_state_dict(state_dict: dict | None) -> dict | None:
+    """A T5 encoder's tensors without the ones the reference's key map
+    drops (the tied `encoder.embed_tokens.weight` copy)."""
+    if state_dict is None:
+        return None
+    return {k: v for k, v in state_dict.items() if t5_torch_key_map(k) is not None}
+
+
+def copy_component_files(source_dir: str | None, base_dir: str, components) -> None:
+    """Create `base_dir` and copy each component's non-weight files
+    (config.json, tokenizer files) from `source_dir`, when given."""
+    os.makedirs(base_dir, exist_ok=True)
+    if not source_dir:
+        return
+    for name in components:
+        src = os.path.join(source_dir, name)
+        if not os.path.isdir(src):
+            continue
+        dst = os.path.join(base_dir, name)
+        os.makedirs(dst, exist_ok=True)
+        for f in os.listdir(src):
+            path = os.path.join(src, f)
+            if os.path.isfile(path) and not f.endswith((".safetensors", ".bin",
+                                                        ".index.json")):
+                shutil.copy2(path, os.path.join(dst, f))
+
+
 def _refuse_dual_attention(state_dict: dict) -> None:
     dual = sorted(k for k in state_dict if ".attn2." in k)
     if dual:
@@ -102,8 +129,7 @@ def load_sd3_diffusers(base_dir: str, weight_dtype=torch.float32,
     te_cfg_json, te = load_component(base_dir, "text_encoder", device, weight_dtype)
     te2_cfg_json, te2 = load_component(base_dir, "text_encoder_2", device, weight_dtype)
     te3_cfg_json, te3 = load_component(base_dir, "text_encoder_3", device, weight_dtype)
-    if te3 is not None:
-        te3 = {k: v for k, v in te3.items() if t5_torch_key_map(k) is not None}
+    te3 = t5_state_dict(te3)
 
     def with_projection(cfg_json, default_dim):
         cfg = clip_config_from_transformers(cfg_json or {}, compute_dtype)
@@ -140,19 +166,7 @@ def save_sd3_diffusers(base_dir: str, model, transformer: dict, vae: dict, te: d
     """Write a diffusers-layout SD3 checkpoint from state dicts; each
     component's non-weight files (config.json, tokenizer files) are copied
     from `source_dir` when given."""
-    os.makedirs(base_dir, exist_ok=True)
-    if source_dir:
-        for name in _COMPONENTS:
-            src = os.path.join(source_dir, name)
-            if not os.path.isdir(src):
-                continue
-            dst = os.path.join(base_dir, name)
-            os.makedirs(dst, exist_ok=True)
-            for f in os.listdir(src):
-                s = os.path.join(src, f)
-                if os.path.isfile(s) and not f.endswith((".safetensors", ".bin",
-                                                         ".index.json")):
-                    shutil.copy2(s, os.path.join(dst, f))
+    copy_component_files(source_dir, base_dir, _COMPONENTS)
     meta = _meta(metadata)
     parts = [("transformer", "diffusion_pytorch_model", transformer),
              ("vae", "diffusion_pytorch_model", vae), ("text_encoder", "model", te),

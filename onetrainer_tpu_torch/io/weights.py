@@ -10,10 +10,13 @@
   (setup/quantize.py there): NF4 codes and scales and fp8/int8 codes and
   scale carried unchanged, every other leaf in its own dtype.
 - `sd3_params_from_flax` does the same for SD3's transformer, three text
-  encoders and VAE.
+  encoders and VAE; `flux_params_from_flax` for FLUX's transformer, CLIP-L,
+  T5 and VAE (the transformer's RMS norm `scale` leaves carried as
+  diffusers' `weight`, as the generic key map carries every rank-1 leaf).
 - `init_sd_weights` materialises full-width weights of either family on a
   device from a seeded `torch.Generator`, for runs without a checkpoint;
-  `init_sd3_weights` those of an SD3 model.
+  `init_sd3_weights` those of an SD3 model, `init_flux_weights` those of a
+  FLUX model.
 """
 
 from __future__ import annotations
@@ -77,6 +80,16 @@ def sd3_params_from_flax(model, transformer: dict, te: dict, te2: dict, te3: dic
     _load(model.text_encoder, clip_flax_to_state_dict(te))
     _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
     _load(model.text_encoder_3, t5_flax_to_state_dict(te3))
+    _load(model.vae, vae_flax_to_state_dict(vae))
+
+
+def flux_params_from_flax(model, transformer: dict, te: dict, te2: dict,
+                          vae: dict) -> None:
+    """Load flax param trees into a FLUX `model`'s transformer, text
+    encoders (CLIP-L, T5) and vae."""
+    _load(model.transformer, unet_flax_to_state_dict(transformer))
+    _load(model.text_encoder, clip_flax_to_state_dict(te))
+    _load(model.text_encoder_2, t5_flax_to_state_dict(te2))
     _load(model.vae, vae_flax_to_state_dict(vae))
 
 
@@ -177,9 +190,11 @@ def init_sd_weights(model, seed: int, device: torch.device | str) -> None:
 
 @torch.no_grad()
 def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
-    """Seeded random weights for every module of an SD3 `model`, on
-    `device`: dense, conv and embedding weights as `init_sd_weights` draws
-    them, RMS and T5 norm weights 1, the position table ~ N(0, 0.02)."""
+    """Seeded random weights for every module of an SD3 or FLUX `model`, on
+    `device`, each parameter in the dtype it has on "meta" (cast a
+    full-width FLUX transformer to bf16 there: 23.8 GB, not 47.6): dense,
+    conv and embedding weights as `init_sd_weights` draws them, RMS and T5
+    norm weights 1, SD3's position table ~ N(0, 0.02)."""
     from onetrainer_tpu_torch.models.flux import RMSNorm
     from onetrainer_tpu_torch.models.sd3 import PatchEmbed
     from onetrainer_tpu_torch.models.t5 import T5LayerNorm
@@ -193,3 +208,7 @@ def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
             elif isinstance(sub, PatchEmbed):
                 sub.pos_embed.normal_(0.0, 0.02, generator=gen)
     model.device = device
+
+
+# FLUX's parts (its DiT, CLIP-L, T5, VAE) draw as SD3's do
+init_flux_weights = init_sd3_weights

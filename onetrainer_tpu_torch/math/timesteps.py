@@ -1,5 +1,6 @@
 """Timestep sampling: distributions, noising-strength window, static and
-dynamic (FLUX mu) timestep shifting.
+dynamic (FLUX mu) timestep shifting, and FLUX's continuous timesteps
+(`sample_timesteps_continuous`).
 
 Counterpart of onetrainer_tpu/math/timesteps.py (reference:
 modules/modelSetup/mixin/ModelSetupNoiseMixin.py:51-181). Draws come from
@@ -120,3 +121,20 @@ def sample_timesteps_discrete(
     samples = torch.multinomial(weights.to(device), batch_size, replacement=True,
                                 generator=generator)
     return (samples + min_timestep).to(torch.int32)
+
+
+def sample_timesteps_continuous(
+        generator: torch.Generator,
+        batch_size: int,
+        cfg: TimestepConfig,
+        deterministic: bool = False,
+) -> torch.Tensor:
+    """Continuous timesteps [batch_size] fp32 in (0, 1], discretized to 10000
+    buckets as the reference does (ModelSetupNoiseMixin.py:157-181), on the
+    generator's device."""
+    if deterministic:
+        return torch.full((batch_size,), 0.5, dtype=torch.float32, device=generator.device)
+    discrete_timesteps = 10000
+    discrete = sample_timesteps_discrete(
+        generator, batch_size, cfg, num_train_timesteps=discrete_timesteps) + 1
+    return discrete.to(torch.float32) / discrete_timesteps

@@ -5,9 +5,11 @@
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
         [--device cuda]
 
-The arguments are the reference's. SD 1.5/2.x, SDXL and SD3 text-to-image run
-(SD3 from a diffusers directory); other model types, embeddings, inpainting
-and Würstchen decoders raise
+The arguments are the reference's. SD 1.5/2.x, SDXL, SD3 and FLUX.1-dev
+text-to-image run (SD3 and FLUX from a diffusers directory; FLUX takes
+`--cfg` as its guidance embedding and ignores the negative prompt and the
+scheduler); other model types, embeddings, inpainting and Würstchen
+decoders raise
 NotImplementedError. Sampling runs on the card unless `--device` names
 another device. A PNG destination is written by the port's own PNG codec;
 other formats need Pillow.
@@ -82,9 +84,10 @@ def main(argv: list[str] | None = None):
     config.model_type = ModelType[args.model_type]
     if not (config.model_type.is_stable_diffusion()
             or config.model_type.is_stable_diffusion_xl()
-            or config.model_type.is_stable_diffusion_3()):
-        raise NotImplementedError(
-            f"{config.model_type} sampling is not ported (SD 1.5/2.x, SDXL and SD3 only)")
+            or config.model_type.is_stable_diffusion_3()
+            or config.model_type == ModelType.FLUX_DEV_1):
+        raise NotImplementedError(f"{config.model_type} sampling is not ported "
+                                  "(SD 1.5/2.x, SDXL, SD3 and FLUX.1-dev only)")
     config.base_model_name = args.base_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False

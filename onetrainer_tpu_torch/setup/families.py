@@ -2,15 +2,16 @@
 encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
-text-to-image, SDXL and SD3 (diffusers directories; SD3's single file is
-not ported yet) so far. The calls mirror the reference's trainer
-and scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
-`family.make_encode_fns` (the data caches) and `setup.train_step` or
-`family.sample`; `family.save_model` / `save_single_file` write the
-model, LoRA adapters merged into their layers and, when the state holds
-an EMA, the EMA in place of the trained tensors (the reference trainer's
-`_export_params`), and `save_lora_output` the kohya LoRA file. `load`
-runs on the card unless the caller passes another device.
+text-to-image, SDXL, SD3 and FLUX.1-dev (diffusers directories; SD3's and
+FLUX's single files and FLUX.1-fill are not ported yet) so far. The calls
+mirror the reference's trainer and scripts: `get_family(...)`, then
+`family.load`, `family.create_setup`, `family.make_encode_fns` (the data
+caches) and `setup.train_step` or `family.sample`; `family.save_model` /
+`save_single_file` write the model, LoRA adapters merged into their
+layers and, when the state holds an EMA, the EMA in place of the trained
+tensors (the reference trainer's `_export_params`), and
+`save_lora_output` the kohya LoRA file. `load` runs on the card unless
+the caller passes another device.
 """
 
 from __future__ import annotations
@@ -276,6 +277,63 @@ def _sd3_save_single_file(setup, path, save_dtype=None, ema=True):
                               "(output_model_format DIFFUSERS saves)")
 
 
+# -- FLUX ----------------------------------------------------------------------------
+
+def _flux_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.flux_checkpoints import load_flux_diffusers
+    from onetrainer_tpu_torch.models.flux_model import FluxModel
+    if os.path.isfile(base_dir):
+        raise NotImplementedError("loading a FLUX single file (the BFL layout) is not "
+                                  "ported yet (ROADMAP queue 1, item 10; a diffusers "
+                                  "directory loads)")
+    # every component in the transformer's (prior) weight dtype, as the reference
+    loaded = load_flux_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    model = FluxModel(
+        model_type=config.model_type,
+        transformer_config=loaded["transformer_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        te2_config=loaded["te2_config"],
+        device="meta",
+        tokenizer=loaded["tokenizer_dir"],
+        tokenizer_2=loaded["tokenizer_2_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
+
+
+def _flux_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.flux_setup import create_flux_setup
+    return create_flux_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _flux_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.flux_setup import make_flux_encode_fns
+    return make_flux_encode_fns(setup)
+
+
+def _flux_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.flux_sampler import sample_flux
+    transformer, te, te2, extra = setup.merged_inference_params()
+    return sample_flux(
+        setup.model, transformer, te, te2, setup.model.vae,
+        setup.tokenizer, setup.tokenizer_2, sample_config,
+        extra_embeddings=extra, on_update_progress=on_progress)
+
+
+def _flux_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    from onetrainer_tpu_torch.io.flux_checkpoints import save_flux_diffusers
+    sd = merged_state_dicts(setup, ema)
+    save_flux_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
+                        sd["text_encoder"], sd["text_encoder_2"],
+                        save_dtype=save_dtype or torch.float32, source_dir=source_dir)
+
+
+def _flux_save_single_file(setup, path, save_dtype=None, ema=True):
+    raise NotImplementedError("saving a FLUX single file (the BFL layout) is not ported "
+                              "yet (output_model_format DIFFUSERS saves)")
+
+
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_mask_input() or model_type.has_depth_input():
@@ -306,6 +364,17 @@ def get_family(model_type: ModelType) -> ModelFamily:
             lora_prefixes={"transformer_lora": "lora_transformer",
                            "te_lora": "lora_te1", "te2_lora": "lora_te2"},
         )
+    if model_type == ModelType.FLUX_DEV_1:
+        return ModelFamily(
+            name="flux", quantization=64,
+            load=_flux_load, create_setup=_flux_create_setup,
+            make_encode_fns=_flux_encode_fns, sample=_flux_sample,
+            save_model=_flux_save_model, save_single_file=_flux_save_single_file,
+            lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
+        )
+    if model_type == ModelType.FLUX_FILL_DEV_1:
+        raise NotImplementedError("FLUX.1-fill is not ported to torch yet "
+                                  "(ROADMAP queue 1, item 10)")
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")
 

@@ -13,7 +13,7 @@ modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
 FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
 (setup/quantize.py). A FINE_TUNE config that trains no part builds no
 trainer (it serves sampling). `refuse_unported` raises for the training
-methods, SD3 FINE_TUNE that trains a part, EMA held on the CPU, prior
+methods, SD3 and FLUX FINE_TUNE that trains a part, EMA held on the CPU, prior
 preservation and additional embeddings; continuing from a LoRA file, CUSTOM schedulers and
 schedule-free optimizers raise where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
 `setup_fine_tune` and `image_encoder` serve setup/sdxl_setup.py too.
@@ -99,15 +99,16 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
 def refuse_unported(config) -> None:
     """Raise NotImplementedError for what `config` asks of the model, its
     setup and its step that the port does not run: training methods other
-    than LoRA and FINE_TUNE, SD3 FINE_TUNE that trains a part (the
+    than LoRA and FINE_TUNE, SD3 and FLUX FINE_TUNE that trains a part (the
     transformer or CLIP-L: the reference's FINE_TUNE groups), EMA held on
     the CPU, prior preservation and additional embeddings. The setups call
     it first, and the trainer before it loads the model."""
     asked = {
         f"{config.training_method} training (LoRA and FINE_TUNE only)":
             config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
-        "SD3 FINE_TUNE training (LoRA trains SD3)":
-            config.model_type.is_stable_diffusion_3()
+        f"{'FLUX' if config.model_type.is_flux() else 'SD3'} FINE_TUNE training "
+        "(LoRA trains SD3 and FLUX)":
+            (config.model_type.is_stable_diffusion_3() or config.model_type.is_flux())
             and config.training_method == TrainingMethod.FINE_TUNE
             and (config.prior.train or config.text_encoder.train),
         "EMA on the CPU": config.ema == EMAMode.CPU,
@@ -149,7 +150,8 @@ def quantize_frozen(model, config, quantizable: dict, trained=()) -> None:
 
 
 def setup_lora(model, config, lora_groups: dict, quantizable: dict,
-               total_steps: int, steps_per_epoch: int, parts: dict | None = None):
+               total_steps: int, steps_per_epoch: int, parts: dict | None = None,
+               peft_cfg: PeftConfig | None = None):
     """The LoRA branch of the SD-family setups: adapters for each group
     whose config part trains, drawn on the model's device from a generator
     seeded per group in the LoRA weight dtype and attached to the layers;
@@ -157,11 +159,12 @@ def setup_lora(model, config, lora_groups: dict, quantizable: dict,
     a quantized weight dtype are quantized in place after the adapters
     exist (their shapes are the logical ones, as the reference's). `parts`
     names the config part of a model attribute where the two differ (SD3's
-    transformer trains as `config.prior`).
+    and FLUX's transformer trains as `config.prior`); `peft_cfg` replaces
+    the config's own (FLUX's layer presets).
     -> (peft_cfg, trainable, group_schedules, tx)."""
     if config.lora_model_name:
         raise NotImplementedError("continuing from a LoRA file is not ported yet")
-    peft_cfg = PeftConfig.from_train_config(config)
+    peft_cfg = peft_cfg or PeftConfig.from_train_config(config)
     if peft_cfg.weight_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"{peft_cfg.weight_dtype} LoRA weights are not ported yet (fp32, bf16)")

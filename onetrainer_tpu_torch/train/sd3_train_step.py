@@ -22,25 +22,8 @@ from onetrainer_tpu_torch.math.timesteps import sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.models.sd3 import sd3_text_context
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, conditioning_dropout_mask, make_train_step,
+    SDStepConfig, dropout_masks, keep_samples, make_train_step,
 )
-
-
-def _keep(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    if mask is None:
-        return x
-    return x * mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(device=x.device, dtype=x.dtype)
-
-
-def dropout_masks(cfg: SDStepConfig | None, generator: torch.Generator | None,
-                  batch_size: int) -> tuple:
-    """Per-encoder keep masks (CLIP-L sequence and pooled, CLIP-G sequence
-    and pooled, T5 sequence; reference: StableDiffusion3Model.py:397-415),
-    None where an encoder's dropout is off."""
-    if cfg is None or generator is None:
-        return None, None, None
-    return tuple(conditioning_dropout_mask(generator, batch_size, p) if p > 0 else None
-                 for p in (cfg.te_dropout, cfg.te2_dropout, cfg.te3_dropout))
 
 
 def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | None = None,
@@ -50,7 +33,10 @@ def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | No
     LoRA adapters attached) on its tokens; then the dropout masks
     (`dropout_keep` replaces the generator's draws)."""
     def masks(b):
-        return dropout_keep if dropout_keep is not None else dropout_masks(cfg, generator, b)
+        # CLIP-L sequence and pooled, CLIP-G sequence and pooled, T5 sequence
+        # (reference: StableDiffusion3Model.py:397-415)
+        return dropout_keep if dropout_keep is not None else \
+            dropout_masks(cfg, generator, b, 3)
 
     if "sd3_context" in batch and "sd3_pooled" in batch:
         context, pooled = batch["sd3_context"], batch["sd3_pooled"]
@@ -66,9 +52,9 @@ def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | No
         h_l, h_g = clip[..., :l_dim], clip[..., l_dim:l_dim + g_dim]
         pad = clip[..., l_dim + g_dim:]
         p_l, p_g = pooled[:, :l_dim], pooled[:, l_dim:]
-        h_l, p_l = _keep(h_l, m1), _keep(p_l, m1)
-        h_g, p_g = _keep(h_g, m2), _keep(p_g, m2)
-        context = torch.cat([torch.cat([h_l, h_g, pad], dim=-1), _keep(t5, m3)], dim=1)
+        h_l, p_l = keep_samples(h_l, m1), keep_samples(p_l, m1)
+        h_g, p_g = keep_samples(h_g, m2), keep_samples(p_g, m2)
+        context = torch.cat([torch.cat([h_l, h_g, pad], dim=-1), keep_samples(t5, m3)], dim=1)
         return context, torch.cat([p_l, p_g], dim=-1)
     out_l = model.text_encoder(batch["tokens"])
     out_g = model.text_encoder_2(batch["tokens_2"])
@@ -79,8 +65,8 @@ def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | No
     h_g = encode_clip_text(out_g, cfg.te2_layer_skip if cfg is not None else layer_skip)
     p_l, p_g = out_l["pooled_output"], out_g["pooled_output"]
     m1, m2, m3 = masks(h_l.shape[0])
-    return sd3_text_context(_keep(h_l, m1), _keep(h_g, m2), _keep(t5, m3),
-                            _keep(p_l, m1), _keep(p_g, m2))
+    return sd3_text_context(keep_samples(h_l, m1), keep_samples(h_g, m2), keep_samples(t5, m3),
+                            keep_samples(p_l, m1), keep_samples(p_g, m2))
 
 
 def sd3_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConfig,

@@ -110,6 +110,25 @@ def conditioning_dropout_mask(generator: torch.Generator, batch_size: int,
     return (u >= p).to(torch.float32)
 
 
+def dropout_masks(cfg: SDStepConfig | None, generator: torch.Generator | None,
+                  batch_size: int, encoders: int) -> tuple:
+    """Keep masks of the first `encoders` text encoders' conditioning
+    dropout (`te_dropout`, `te2_dropout`, `te3_dropout`), each None where
+    that dropout is off or no generator draws (SD3's and FLUX's steps)."""
+    if cfg is None or generator is None:
+        return (None,) * encoders
+    probabilities = (cfg.te_dropout, cfg.te2_dropout, cfg.te3_dropout)[:encoders]
+    return tuple(conditioning_dropout_mask(generator, batch_size, p) if p > 0 else None
+                 for p in probabilities)
+
+
+def keep_samples(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """x [B, ...] with the samples `mask` [B] drops zeroed (None keeps all)."""
+    if mask is None:
+        return x
+    return x * mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(device=x.device, dtype=x.dtype)
+
+
 def _on_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device)
             if isinstance(v, (np.ndarray, torch.Tensor)) else v

@@ -6,7 +6,7 @@ modules/trainer/GenericTrainer.py): the same status sequence, cadence
 (TimedAction-scheduled backup and save, TrainCommands polling, rolling
 backups, backup_before_save), TensorBoard scalars (`loss/train_step`,
 `smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA and
-FINE_TUNE training of the SD-family models the port runs (SD3: LoRA), with
+FINE_TUNE training of the SD-family models the port runs (SD3, FLUX: LoRA), with
 EMA and gradient accumulation.
 
 Where the port departs from the reference:

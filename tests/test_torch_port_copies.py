@@ -349,3 +349,37 @@ def test_sd3_config_readers_give_equal_configs():
         assert fields <= {f.name for f in dataclasses.fields(ref)}
         for name in fields:
             assert getattr(port, name) == getattr(ref, name), name
+
+
+def test_flux_remat_default_and_lora_presets_are_the_references():
+    """FLUX's loader builds with the reference's FLUX default policy (no
+    `_DEFAULTS` entry: "full"), and its setup's layer presets are the
+    reference's."""
+    from onetrainer_tpu.models import remat as jax_remat
+    from onetrainer_tpu.setup.flux_setup import FLUX_LORA_PRESETS
+    from onetrainer_tpu_torch.models import remat as pt_remat
+    from onetrainer_tpu_torch.setup import flux_setup as pt_setup
+    assert pt_remat.FLUX_POLICY == jax_remat._DEFAULTS.get("flux", "full") == "full"
+    assert pt_setup.FLUX_LORA_PRESETS == FLUX_LORA_PRESETS
+
+
+def test_flux_config_reader_gives_equal_configs():
+    """The FLUX loader's transformer config reader over the default (empty),
+    FLUX.1-dev's and a non-default diffusers config, field by field."""
+    import dataclasses
+
+    from onetrainer_tpu.io.flux_checkpoints import flux_config_from_diffusers
+    from onetrainer_tpu_torch.io import flux_checkpoints as pt_ckpt
+    dev = {"in_channels": 64, "num_layers": 19, "num_single_layers": 38,
+           "num_attention_heads": 24, "attention_head_dim": 128, "joint_attention_dim": 4096,
+           "pooled_projection_dim": 768, "guidance_embeds": True, "axes_dims_rope": [16, 56, 56]}
+    other = {"in_channels": 16, "out_channels": 32, "num_layers": 2, "num_single_layers": 3,
+             "num_attention_heads": 4, "attention_head_dim": 32, "joint_attention_dim": 24,
+             "pooled_projection_dim": 20, "guidance_embeds": False, "axes_dims_rope": [8, 12, 12]}
+    for config in ({}, dev, other):
+        ref = flux_config_from_diffusers(config, gradient_checkpointing=True)
+        port = pt_ckpt.flux_config_from_diffusers(config, gradient_checkpointing=True)
+        fields = {f.name for f in dataclasses.fields(port)} - {"dtype"}
+        assert fields <= {f.name for f in dataclasses.fields(ref)}
+        for name in fields:
+            assert getattr(port, name) == getattr(ref, name), name

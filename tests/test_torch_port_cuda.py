@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 forward, K2 dq and K3 dk/dv on the delta of
 their shared pre-pass, K4 NF4 dequant, K5 stochastic-rounding update, one
 launch over a list of leaves) against their plain PyTorch versions, on the
-card. The attention cases include tile edges of K1
+card, and FLUX's blocks on them (the 128 slot at 4173 tokens). The
+attention cases include tile edges of K1
 and K3 (128-row blocks, 64- or 128-row streamed tiles): sequences shorter
 than one tile, lengths that are no multiple of 128, and head dims 40 and 80,
 whose slot lanes past d would read the neighbouring head's (random) values
@@ -44,6 +45,7 @@ def cuda_device():
     (4, 4096, 4096, 8, 40, False),  # SD 1.5 @512 batch 4: d=40 in the 64 slot
     (2, 9216, 9216, 5, 64, False),  # SD 2.1 @768 batch 2: the longest model sequence
     (2, 4250, 4250, 24, 64, False),  # SD3 @1024 batch 2: 154 text + 4096 image rows
+    (2, 4173, 4173, 24, 128, False),  # FLUX @1024 batch 2: 77 text + 4096, d=128
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 128, True),
     (1, 50, 77, 3, 40, True),       # both below one tile
@@ -83,6 +85,7 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
     (4, 4096, 4096, 8, 40, False),    # SD 1.5 @512 batch 4
     (2, 9216, 9216, 5, 64, False),    # SD 2.1 @768 batch 2: K3 over 144 q tiles
     (2, 4250, 4250, 24, 64, False),   # SD3 @1024: ragged last q and kv tiles
+    (2, 4173, 4173, 24, 128, False),  # FLUX @1024: ragged tiles in the 128 slot
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 80, True),
     (1, 8192, 8192, 2, 128, False),   # the TPU's q-streaming dk/dv domain
@@ -229,7 +232,11 @@ def test_dkv_is_bitwise_deterministic_on_card(cuda_device, b, sq, skv, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1280, 10240), (3, 3, 320, 640), (1000, 777)])
+@pytest.mark.parametrize("shape", [
+    (1280, 10240), (3, 3, 320, 640), (1000, 777),
+    (3072, 18432),   # FLUX's largest kernel, norm1.linear (56.6M elements)
+    (15360, 3072),   # FLUX's single-block proj_out
+])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_nf4_dequant_is_bitwise_equal_on_card(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -379,6 +386,46 @@ def test_sd3_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
     ts = torch.tensor([250.0, 750.0], device=cuda_device)
     pt_ff.reset_launch_counts()
     out = model(latents, ts, pooled, context)
+    assert pt_ff.flash_attention_folded_fwd.launches == 2
+    grads = torch.autograd.grad(out.square().mean(),
+                                [p for p in model.parameters() if p.requires_grad])
+    torch.cuda.synchronize()
+    assert (pt_ff.flash_attention_folded_fwd.launches,
+            pt_ff.flash_attention_folded_dq.launches,
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (
+        4 if policy == "full" else 2, 2, 2, 2)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "full", "dots_nb_attn"])
+def test_flux_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
+    """A FLUX.1-dev transformer cut to one double and one single block at
+    full width (24 heads of d=128, RoPE) on a 128x128 latent (4096 packed
+    rows) and T5's 77 rows, bf16 compute: each block's attention over 4173
+    tokens launches K1 once in the forward, and K2, K3 and the pre-pass
+    once each in the backward; "full" checkpointing runs K1 again in the
+    backward, "dots_nb_attn" keeps the attention's residuals and does not.
+    The parameter gradients of every policy are finite."""
+    from onetrainer_tpu_torch.models.flux import (
+        FluxTransformer2D, flux_dev_config, pack_latents, prepare_latent_image_ids,
+    )
+    torch.manual_seed(0)
+    ckpt = policy != "none"
+    cfg = flux_dev_config(num_layers=1, num_single_layers=1, gradient_checkpointing=ckpt,
+                          remat_policy=policy if ckpt else "full")
+    model = FluxTransformer2D(cfg).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    packed = pack_latents(torch.randn((2, 128, 128, 16), generator=gen, device=cuda_device))
+    t5 = torch.randn((2, 77, 4096), generator=gen, device=cuda_device)
+    pooled = torch.randn((2, 768), generator=gen, device=cuda_device)
+    ts = torch.tensor([0.25, 0.75], device=cuda_device)
+    guidance = torch.full((2,), 3.5, device=cuda_device)
+    img_ids = prepare_latent_image_ids(128, 128, cuda_device)
+    pt_ff.reset_launch_counts()
+    out = model(packed, ts, pooled, t5, img_ids, None, guidance)
+    assert out.shape == (2, 4096, 64)
     assert pt_ff.flash_attention_folded_fwd.launches == 2
     grads = torch.autograd.grad(out.square().mean(),
                                 [p for p in model.parameters() if p.requires_grad])

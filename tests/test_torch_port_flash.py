@@ -190,20 +190,17 @@ def test_cpu_attention_takes_library_path():
     assert pt_attn.STATS["fallback"] == before["fallback"] + 1
 
 
-def test_ragged_joint_sequence_matches_the_padded_jax_kernels():
-    """SD3's joint attention at a small size: 154 text + 256 image = 410
-    tokens, B1 H2 d64, a length no tile size divides. The reference pads
-    the sequence to its block and masks the padded kv through `kv_keep`
-    (onetrainer_tpu/ops/attention.py:273-311); the port's K1-K3 take the
-    ragged length as it is. The port's plain K1 (o, lse) and K2/K3 (dq,
-    dk, dv, through its autograd function) against the reference's K1-K3
-    in interpret mode on the padded sequence (fp32; o and lse 1e-5, the
-    gradients 1e-4 absolute, as tests/test_torch_port_flash_bwd.py)."""
+def _ragged_joint_case(s, pad, nh, d, seed):
+    """The port's plain K1 (o, lse) and K2/K3 (dq, dk, dv, through its
+    autograd function) on a ragged length `s` against the reference's
+    K1-K3 in interpret mode on the sequence padded to `pad`, the padded kv
+    masked through `kv_keep` as the reference's dispatcher does
+    (onetrainer_tpu/ops/attention.py:273-311); fp32, o and lse 1e-5, the
+    gradients 1e-4 absolute, as tests/test_torch_port_flash_bwd.py."""
     import jax
 
-    s, pad, nh, d = 154 + 256, 512, 2, 64
-    q, k, v = _qkv(8, 1, s, s, nh * d)
-    do = np.random.default_rng(9).standard_normal(q.shape, dtype=np.float32)
+    q, k, v = _qkv(seed, 1, s, s, nh * d)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape, dtype=np.float32)
     sm = 1.0 / np.sqrt(d)
     keep = np.zeros((1, pad), bool)
     keep[:, :s] = True
@@ -227,3 +224,18 @@ def test_ragged_joint_sequence_matches_the_padded_jax_kernels():
     got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
+
+
+def test_ragged_joint_sequence_matches_the_padded_jax_kernels():
+    """SD3's joint attention at a small size: 154 text + 256 image = 410
+    tokens, B1 H2 d64, a length no tile size divides. The reference pads
+    the sequence to its block and masks the pad; the port's K1-K3 take the
+    ragged length as it is (`_ragged_joint_case`)."""
+    _ragged_joint_case(154 + 256, 512, 2, 64, seed=8)
+
+
+def test_flux_ragged_joint_sequence_at_d128_matches_the_padded_jax_kernels():
+    """FLUX's joint attention at a small size in the 128 slot: 77 text (T5's
+    padded prompt) + 256 image = 333 tokens, B1 H2 d128; the reference
+    pads it to 384 (`_ragged_joint_case`)."""
+    _ragged_joint_case(77 + 256, 384, 2, 128, seed=10)

@@ -3,7 +3,9 @@ imports, the SDXL slice samples and takes two LoRA training steps and two
 QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), and the SD 2.x
 slice (v-prediction, text-encoder layer skip 1) samples and takes two LoRA
 steps, the SD3 slice (dots_nb_attn checkpointing) samples and takes two
-LoRA steps on cached text, and the train and sample CLIs run a tiny SD 1.5 checkpoint end to
+LoRA steps on cached text, the FLUX slice ("full" checkpointing) samples
+and takes two LoRA steps on an NF4 transformer and cached text, and the
+train and sample CLIs run a tiny SD 1.5 checkpoint end to
 end (load, cache, train, back up, save the LoRA file, sample), with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
@@ -172,6 +174,51 @@ _SCRIPT = textwrap.dedent(f"""
                  loss_weight=torch.ones(2), tokens=torch.as_tensor(text["tokens"]).expand(2, -1),
                  sd3_context=text["sd3_context"].expand(2, -1, -1),
                  sd3_pooled=text["sd3_pooled"].expand(2, -1))
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert setup.state.step == 2
+    assert any(e["lora_up"].abs().max() > 0
+               for e in setup.state.params["transformer_lora"].values())
+
+    from onetrainer_tpu_torch.io.weights import init_flux_weights
+    from onetrainer_tpu_torch.models.flux import FluxConfig
+    from onetrainer_tpu_torch.models.flux_model import FluxModel
+    flux = FluxModel(
+        model_type=ModelType.FLUX_DEV_1,
+        transformer_config=FluxConfig(
+            in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
+            hidden_size=32, num_heads=2, head_dim=16, joint_attention_dim=24,
+            pooled_projection_dim=32, axes_dims_rope=(4, 6, 6),
+            gradient_checkpointing=True),
+        vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
+                             latent_channels=4, scaling_factor=0.3611, shift_factor=0.1159),
+        te_config=CLIPTextConfig(hidden_size=32, **te),
+        te2_config=T5Config(vocab_size=110, d_model=24, d_kv=6, d_ff=48, num_layers=2,
+                            num_heads=4),
+        device="meta")
+    init_flux_weights(flux, seed=4, device="cpu")
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.FLUX_DEV_1
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    image = family.sample(family.create_setup(flux, config, 1), sc, None).image
+    assert image.shape == (32, 32, 3) and image.dtype.name == "uint8"
+    config.training_method = TrainingMethod.LORA
+    config.prior.train = True
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    flux.transformer = flux.transformer.__class__(flux.transformer_config)
+    init_flux_weights(flux, seed=5, device="cpu")
+    setup = family.create_setup(flux, config, 10)
+    assert sum(is_quantized(getattr(m, "weight", None))
+               for m in flux.transformer.modules()) > 10
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")
+    batch = dict(encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1), loss_weight=torch.ones(2),
+                 t5_hidden_state=text["t5_hidden_state"].expand(2, -1, -1),
+                 clip_pooled_state=text["clip_pooled_state"].expand(2, -1))
     for _ in range(2):
         metrics = setup.train_step(setup.state, batch, gen)
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
