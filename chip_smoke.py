@@ -169,8 +169,41 @@ never falls back to the CPU. Phases, each of which must pass:
      (per step K1 12, K2, K3 and the pre-pass 6, K4 114; none while
      caching), the LoRA file read back bitwise, the sample command (4 flow
      Euler steps, guidance 3.5, 24 K1), a non-constant image.
-The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128, and k4 its
-3072x18432 norm1.linear and 15360x3072 proj_out.
+ 24. hunyuan_model: HunyuanVideo at its published widths with seeded weights
+     (20 double and 40 single blocks of 24 d=128 heads, hidden 3072, two
+     refiner layers, RoPE axes (16, 56, 56) theta 256, the guidance
+     embedding; Llama-3-8B, 32 layers of 4096; CLIP-L with its 768
+     projection; the causal VAE; parameters counted), the transformer built
+     in bf16 and quantized to NF4 (548 layers), the peak memory;
+     hunyuan_sample: 512x512, 33 frames (9 latent frames), 4 flow Euler
+     steps, guidance 6: K1 exactly 60 and K4 exactly 548 times per
+     transformer pass (the joint attention over 9216 + 77 = 9293 tokens
+     with the text padding dropped by the keep mask: 29 of 77 text rows
+     kept), the decoded clip finite, its uint8 frames not constant, the
+     denoiser step time, the VAE decode time, the peak memory;
+ 25. hunyuan_transformer: one forward of that transformer at batch 1 with
+     K1 and with plain attention (on chunks of heads), relative L2;
+ 26. hunyuan_train: LoRA r16 a16 on all 548 NF4 transformer layers, fp32
+     adapters, AdamW 1e-4, clip 1.0, batch 1 at 512x512 with 9 latent
+     frames from the cache's rows (seeded latents, Llama states with the
+     keep mask, CLIP pooled; the encoders freed), "full" checkpointing: one
+     warm-up and three timed steps with exactly K1 120, K2, K3 and the
+     pre-pass 60 each and K4 1068 per step, the LoRA gradients against plain
+     attention and the plain dequant, a profiler split;
+ 27. hunyuan_cli: a seeded HunyuanVideo at full width with its transformer
+     cut to 2 double and 4 single blocks and Llama to 4 layers, written in
+     bf16 by the port's saver as a diffusers directory (Llama in two shards)
+     in a temporary directory removed after the phase; sd15_files' PNGs at
+     512x512 as 1-frame clips: the train command (LoRA r16, batch 4, NF4
+     transformer, "full" checkpointing) for epoch 1 with a backup and the
+     resume for epoch 2 (per step K1 12, K2, K3 and the pre-pass 6, K4 132;
+     none while caching), the LoRA file read back bitwise, the sample
+     command (4 flow Euler steps, guidance 6, 24 K1), a non-constant image.
+The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
+HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
+chunks of heads; SDPA with the boolean mask on the first backend that takes
+it, named), and k4 FLUX's 3072x18432 norm1.linear (HunyuanVideo's too) and
+15360x3072 proj_out.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -263,6 +296,7 @@ K1_CASES = [
     ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False, None),
     ("flux_b2_s4173_h24_d128", 2, 4173, 4173, 24, 128, False, None),
     ("flux_b1_s4173_h24_d128", 1, 4173, 4173, 24, 128, False, None),
+    ("hunyuan_b1_s9293_h24_d128_keep", 1, 9293, 9293, 24, 128, "hunyuan", None),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False, None),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False, None),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False, None),
@@ -278,6 +312,7 @@ K23_CASES = [
     ("sd3_b2_s4250_h24_d64", 2, 4250, 4250, 24, 64, False),
     ("flux_b2_s4173_h24_d128", 2, 4173, 4173, 24, 128, False),
     ("flux_b1_s4173_h24_d128", 1, 4173, 4173, 24, 128, False),
+    ("hunyuan_b1_s9293_h24_d128_keep", 1, 9293, 9293, 24, 128, "hunyuan"),
     ("d40_b2_s1024_h8", 2, 1024, 1024, 8, 40, False),
     ("d80_b2_s1024_h8", 2, 1024, 1024, 8, 80, False),
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
@@ -292,10 +327,17 @@ SD3_SHAPE = "sd3_b2_s4250_h24_d64"
 # FLUX.1-dev's joint attention at 1024x1024: T5's 77 rows + 4096 image rows,
 # 24 heads of d=128 (the 128 slot); batch 2 in training, 1 in sampling
 FLUX_SHAPE, FLUX_SAMPLE_SHAPE = "flux_b2_s4173_h24_d128", "flux_b1_s4173_h24_d128"
+# HunyuanVideo's joint attention at 512x512 with 9 latent frames (33 video
+# frames): 9 x 32 x 32 = 9216 image rows, then Llama's 77 text rows of which
+# HV_REAL_TEXT are kept and the rest dropped by the keep mask (K1-K3's
+# -1e30 kv bias); 9293 = 72 x 128 + 77, so the padded keys all sit in the
+# ragged last tile. Above the TPU's 6144-token switch to the streaming K3b.
+HV_SHAPE = "hunyuan_b1_s9293_h24_d128_keep"
+HV_IMAGE_TOKENS, HV_TEXT_TOKENS, HV_REAL_TEXT = 9216, 77, 29
 # cases timed against SDPA: the model shapes, and for K2/K3 the streaming
 # domain of the TPU's K3b
 MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE, SD3_SHAPE, FLUX_SHAPE,
-                              FLUX_SAMPLE_SHAPE)
+                              FLUX_SAMPLE_SHAPE, HV_SHAPE)
 SDPA_BWD_CASES = MODEL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
@@ -407,13 +449,77 @@ def phase_build():
                 print(f"[build] {line.strip()}")
 
 
+def hunyuan_keep(torch, b: int, s_img: int):
+    """HunyuanVideo's kv keep mask [B, s_img + 77]: every image row, the
+    first HV_REAL_TEXT text rows, not the text padding after them."""
+    keep = torch.ones((b, s_img + HV_TEXT_TOKENS), dtype=torch.bool, device="cuda")
+    keep[:, s_img + HV_REAL_TEXT:] = False
+    return keep
+
+
+# the plain versions run on chunks of heads where one [B, H, Sq, Skv] fp32
+# score tensor would exceed this (HunyuanVideo's is 8.3 GB at 9293 tokens)
+PLAIN_SCORES_BYTES = 4 << 30
+
+
+def _head_chunks(b, sq, skv, h) -> list:
+    """[(h0, h1)]: all heads at once, or chunks whose fp32 scores fit
+    PLAIN_SCORES_BYTES."""
+    per = max(1, min(h, PLAIN_SCORES_BYTES // (4 * b * sq * skv)))
+    return [(h0, min(h0 + per, h)) for h0 in range(0, h, per)]
+
+
+def _plain_by_heads(torch, fn, h, packed: tuple, stats: tuple, out_kinds: str, **kw):
+    """`fn(*packed, *stats, num_heads, **kw)` (a plain version) over chunks
+    of heads: the packed [B, S, H*d] operands sliced by columns, the
+    [B, H, Sq] statistics by rows; outputs ("p" packed, "s" statistics)
+    joined back."""
+    b, sq, inner = packed[0].shape
+    d = inner // h
+    skv = packed[1].shape[1] if len(packed) > 1 else sq
+    chunks = _head_chunks(b, sq, skv, h)
+    if len(chunks) == 1:
+        return fn(*packed, *stats, h, **kw)
+    outs = []
+    for h0, h1 in chunks:
+        out = fn(*(t[..., h0 * d:h1 * d].contiguous() for t in packed),
+                 *(t[:, h0:h1].contiguous() for t in stats), h1 - h0, **kw)
+        outs.append(out if isinstance(out, tuple) else (out,))
+    joined = tuple(torch.cat(parts, dim=-1 if kind == "p" else 1)
+                   for kind, parts in zip(out_kinds, zip(*outs)))
+    return joined if len(joined) > 1 else joined[0]
+
+
+def _sdpa_masked(torch, q4, k4, v4, scale, keep):
+    """scaled_dot_product_attention with the boolean kv mask, on the first
+    backend of efficient, cuDNN and math that takes it (the flash backend
+    takes no mask): (a call, the backend's name)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mask = keep[:, None, None, :]
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      scale=scale)
+        try:
+            call()
+            return call, backend.name
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes the keep mask")
+
+
 def _rand_case(torch, gen, b, sq, skv, h, d, with_keep):
     def rand(s):
         return torch.randn((b, s, h * d), generator=gen, device="cuda",
                            dtype=torch.float32).to(torch.bfloat16)
     q, k, v = rand(sq), rand(skv), rand(skv)
     keep = None
-    if with_keep:
+    if with_keep == "hunyuan":
+        keep = hunyuan_keep(torch, b, skv - HV_TEXT_TOKENS)
+    elif with_keep:
         keep = torch.ones((b, skv), dtype=torch.bool, device="cuda")
         keep[:, 700:] = False      # text-padding style tail
         keep[0, :64] = False       # a fully masked leading kv tile
@@ -435,8 +541,10 @@ def phase_k1_cases(torch) -> dict:
         scale = 1.0 / d ** 0.5
         o, lse = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
         o2, lse2 = ff.flash_attention_folded_fwd(q, k, v, h, sm_scale=scale, kv_keep=keep)
-        o_ref, lse_ref = ff.flash_attention_folded_reference(
-            q, k, v, h, sm_scale=scale, kv_keep=keep)
+        def plain():
+            return _plain_by_heads(torch, ff.flash_attention_folded_reference, h, (q, k, v),
+                                   (), "ps", sm_scale=scale, kv_keep=keep)
+        o_ref, lse_ref = plain()
         torch.cuda.synchronize()
         k1_same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
         del o2, lse2
@@ -445,22 +553,24 @@ def phase_k1_cases(torch) -> dict:
         finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
         ms = _median_ms(torch, lambda: ff.flash_attention_folded_fwd(
             q, k, v, h, sm_scale=scale, kv_keep=keep))
-        plain_ms = _median_ms(torch, lambda: ff.flash_attention_folded_reference(
-            q, k, v, h, sm_scale=scale, kv_keep=keep))
-        library_ms = None
+        plain_ms = _median_ms(torch, plain, reps=5 if keep is not None else 20)
+        library_ms, backend = None, "FLASH_ATTENTION"
         if name in MODEL_SHAPES:
             q4, k4, v4 = (_heads4(t, h) for t in (q, k, v))
 
             def sdpa():
                 with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                     return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            if keep is not None:
+                sdpa, backend = _sdpa_masked(torch, q4, k4, v4, scale, keep)
             library_ms = _median_ms(torch, sdpa)
         ok = finite and err_o <= O_BOUND and err_lse <= LSE_BOUND and k1_same
         bound_ms, bound_by = _attn_bounds(b, sq, skv, h, d)["K1"]
         results[name] = dict(err_o=err_o, err_lse=err_lse, ms=ms,
-                             plain_ms=plain_ms, library_ms=library_ms)
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             library_backend=backend if library_ms is not None else None)
         lib = "" if library_ms is None else \
-            f" SDPA flash fwd {library_ms:.4f} ms (K1 / SDPA {ms / library_ms:.3f})"
+            f" SDPA {backend} fwd {library_ms:.4f} ms (K1 / SDPA {ms / library_ms:.3f})"
         print(f"[k1] {name}: max|do|={err_o:.3e} (bound {O_BOUND:g}) "
               f"max|dlse|={err_lse:.3e} (bound {LSE_BOUND:g}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} "
@@ -492,9 +602,28 @@ def phase_k23_cases(torch) -> dict:
         dq2 = ff.flash_attention_folded_dq(*args, **dkw)
         dk, dv = ff.flash_attention_folded_dkv(*args, **dkw)
         dk2, dv2 = ff.flash_attention_folded_dkv(*args, **dkw)
-        dq_ref = ff.flash_attention_folded_dq_reference(*args, **kw)
-        dk_ref, dv_ref = ff.flash_attention_folded_dkv_reference(*args, **kw)
-        delta_ref = ff.flash_attention_folded_delta_reference(o, do, h)
+        # the plain versions over chunks of heads: q, k, v, o and dO by
+        # columns, lse by rows
+        packed, stats = (q, k, v, o, do), (lse,)
+
+        def plain_dq():
+            return _plain_by_heads(
+                torch, lambda q_, k_, v_, o_, do_, lse_, h_, **k_w:
+                ff.flash_attention_folded_dq_reference(q_, k_, v_, o_, lse_, do_, h_, **k_w),
+                h, packed, stats, "p", **kw)
+
+        def plain_dkv():
+            return _plain_by_heads(
+                torch, lambda q_, k_, v_, o_, do_, lse_, h_, **k_w:
+                ff.flash_attention_folded_dkv_reference(q_, k_, v_, o_, lse_, do_, h_, **k_w),
+                h, packed, stats, "pp", **kw)
+
+        def plain_delta():
+            return _plain_by_heads(torch, ff.flash_attention_folded_delta_reference, h,
+                                   (o, do), (), "s")
+        dq_ref = plain_dq()
+        dk_ref, dv_ref = plain_dkv()
+        delta_ref = plain_delta()
         torch.cuda.synchronize()
         k2_same = bool(torch.equal(dq, dq2))
         k3_same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
@@ -520,17 +649,18 @@ def phase_k23_cases(torch) -> dict:
         bwd_ms = _median_ms(torch, backward)
         k2_device_ms = _device_ms(torch, lambda: ff.flash_attention_folded_dq(*args, **dkw),
                                   "flash_bwd_dq_kernel")
-        plain_delta_ms = _median_ms(
-            torch, lambda: ff.flash_attention_folded_delta_reference(o, do, h), reps=5)
-        plain_dq_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dq_reference(
-            *args, **kw), reps=5)
-        plain_dkv_ms = _median_ms(torch, lambda: ff.flash_attention_folded_dkv_reference(
-            *args, **kw), reps=5)
-        library_ms = None
+        plain_delta_ms = _median_ms(torch, plain_delta, reps=5)
+        plain_dq_ms = _median_ms(torch, plain_dq, reps=5)
+        plain_dkv_ms = _median_ms(torch, plain_dkv, reps=5)
+        library_ms, backend = None, "FLASH_ATTENTION"
         if name in SDPA_BWD_CASES:
             q4, k4, v4 = (_heads4(t, h).detach().requires_grad_() for t in (q, k, v))
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-                out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            if keep is not None:
+                sdpa, backend = _sdpa_masked(torch, q4, k4, v4, scale, keep)
+                out4 = sdpa()
+            else:
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
             do4 = _heads4(do, h)
             library_ms = _median_ms(torch, lambda: torch.autograd.grad(
                 out4, (q4, k4, v4), do4, retain_graph=True))
@@ -541,6 +671,7 @@ def phase_k23_cases(torch) -> dict:
                              k2_device_ms=k2_device_ms,
                              plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
                              library_ms=library_ms, err_delta=err_delta,
+                             library_backend=backend if library_ms is not None else None,
                              delta_ms=delta_ms, plain_delta_ms=plain_delta_ms)
         bounds = _attn_bounds(b, sq, skv, h, d)
 
@@ -548,7 +679,7 @@ def phase_k23_cases(torch) -> dict:
             return (f"least time {bounds[tag][0]:.4f} ms, {bounds[tag][1]}; "
                     f"{100 * bounds[tag][0] / ms:.1f}% of it")
         lib = "" if library_ms is None else \
-            f"; SDPA flash bwd (dq+dk+dv) {library_ms:.4f} ms (whole backward / SDPA " \
+            f"; SDPA {backend} bwd (dq+dk+dv) {library_ms:.4f} ms (whole backward / SDPA " \
             f"{bwd_ms / library_ms:.3f})"
         print(f"[k23] {name}: " + " ".join(
                   f"max|d{n}|={errs[n]:.3e} (bound {DGRAD_MAX_REL:g} x max|{n}| "
@@ -762,7 +893,9 @@ def _plain_attention(ff):
     """The plain version in place of `flash_attention_folded`. Under autograd
     it is recomputed in the backward (torch.utils.checkpoint) rather than
     keeping its [B, H, Sq, Skv] fp32 scores and probabilities, 3.4 GB each
-    per attention at SD 2.1's 9216 tokens."""
+    per attention at SD 2.1's 9216 tokens; above PLAIN_SCORES_BYTES it runs
+    on chunks of heads, each recomputed alone (8.3 GB at HunyuanVideo's
+    9293 tokens)."""
     import torch
     from torch.utils.checkpoint import checkpoint
 
@@ -770,11 +903,18 @@ def _plain_attention(ff):
         return ff.flash_attention_folded_reference(
             q, k, v, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)[0]
 
-    def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
+    def one(q, k, v, num_heads, sm_scale, kv_keep):
         if torch.is_grad_enabled():
             return checkpoint(reference, q, k, v, num_heads, sm_scale, kv_keep,
                               use_reentrant=False)
         return reference(q, k, v, num_heads, sm_scale, kv_keep)
+
+    def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
+        b, sq, inner = q.shape
+        d = inner // num_heads
+        return torch.cat([
+            one(*(t[..., h0 * d:h1 * d] for t in (q, k, v)), h1 - h0, sm_scale, kv_keep)
+            for h0, h1 in _head_chunks(b, sq, k.shape[1], num_heads)], dim=-1)
     return plain
 
 
@@ -885,13 +1025,15 @@ def _launch_counts() -> dict:
 
 
 def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: float = 7.0,
-                 k4_per_pass: int = 0) -> dict:
+                 k4_per_pass: int = 0, frames: int = 1) -> dict:
     """Text-to-image through the family registry at size x size, 4 steps
-    (DDIM; SD3's and FLUX's flow Euler), CFG `cfg_scale` (FLUX: its guidance
-    embedding): K1 exactly once per self-attention of `self_attn` per
-    denoiser pass, K4 `k4_per_pass` times per pass (an NF4 denoiser's
-    layers) and nothing else launched; a uint8 image that is not
-    constant."""
+    (DDIM; SD3's, FLUX's and HunyuanVideo's flow Euler), CFG `cfg_scale`
+    (FLUX and HunyuanVideo: the guidance embedding): K1 exactly once per
+    self-attention of `self_attn` per denoiser pass, K4 `k4_per_pass` times
+    per pass (an NF4 denoiser's layers) and nothing else launched; a uint8
+    image that is not constant. With `frames` > 1 (text-to-video), the
+    decoded clip finite, its uint8 stack frames x size x size x 3 and not
+    constant, the image its first frame."""
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.setup.families import get_family
@@ -914,8 +1056,19 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
     sc.cfg_scale = cfg_scale
     sc.seed = 42
     sc.noise_scheduler = NoiseScheduler.DDIM
+    sc.frames = frames
 
-    stamps = []
+    stamps, decoded = [], []
+    if frames > 1:
+        decode = model.vae.decode
+
+        def recorded_decode(z):
+            out = decode(z)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            decoded.append((tuple(out.shape), bool(torch.isfinite(out).all())))
+            return out
+        model.vae.decode = recorded_decode
 
     def on_progress(step, total):
         torch.cuda.synchronize()
@@ -925,11 +1078,15 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
-    out = family.sample(setup, sc, on_progress)
+    try:
+        out = family.sample(setup, sc, on_progress)
+    finally:
+        model.vae.__dict__.pop("decode", None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    decode_ms = (stamps.pop() - stamps[-1]) * 1e3 if decoded else None
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     expected = sum(self_attn.values()) * sc.diffusion_steps
     image = out.image
@@ -939,8 +1096,16 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
                        "K5": 0}
           and image.dtype.name == "uint8"
           and image.shape == (size, size, 3) and image.std() > 0)
-    sampler = "flow Euler" if model.model_type.is_stable_diffusion_3() \
-        or model.model_type.is_flux() else "DDIM"
+    video = ""
+    if frames > 1:
+        clip = out.video
+        ok = (ok and decoded == [((1, frames, size, size, 3), True)]
+              and clip.shape == (frames, size, size, 3) and clip.dtype.name == "uint8"
+              and clip.std() > 0 and (clip[0] == image).all())
+        video = (f", video {clip.shape} {clip.dtype} mean {clip.mean():.2f} std "
+                 f"{clip.std():.2f}, decoded finite {decoded}, VAE decode {decode_ms:.1f} ms")
+    sampler = "DDIM" if model.model_type.is_stable_diffusion() \
+        or model.model_type.is_stable_diffusion_xl() else "flow Euler"
     print(f"[{tag}] {model.model_type.value} {size}x{size} {sampler} {sc.diffusion_steps} steps "
           f"CFG {sc.cfg_scale:g}: total {total_s:.3f} s, denoiser step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
@@ -948,7 +1113,7 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
           f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches['K1']} "
           f"(expected {expected}), K4 launches {launches['K4']} (expected {expected_k4}), "
           f"image {image.shape} {image.dtype} "
-          f"mean {image.mean():.2f} std {image.std():.2f} "
+          f"mean {image.mean():.2f} std {image.std():.2f}{video} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("text-to-image run failed its checks")
@@ -1018,16 +1183,17 @@ def _finite(values) -> bool:
 
 
 def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
-                     after_batch=None) -> dict:
+                     after_batch=None, make_batch=None) -> dict:
     """Setup through the family registry, the cached batch at size x size
-    (then `after_batch(setup)`, when given), one warm-up step, then
-    TRAIN_STEPS timed steps with every launch count zeroed just before them
-    and read just after."""
+    (`make_batch(setup)` when given), then `after_batch(setup)`, when given,
+    one warm-up step, then TRAIN_STEPS timed steps with every launch count
+    zeroed just before them and read just after."""
     from onetrainer_tpu_torch.setup.families import get_family
     family = get_family(config.model_type)
     t0 = time.perf_counter()
     setup = family.create_setup(model, config, 100)
-    batch = _train_batch(torch, family, setup, config.batch_size, size)
+    batch = make_batch(setup) if make_batch is not None else \
+        _train_batch(torch, family, setup, config.batch_size, size)
     if after_batch is not None:
         after_batch(setup)
     torch.cuda.synchronize()
@@ -1077,7 +1243,7 @@ def _fixed_draws(torch, batch, continuous: bool = False):
     timesteps), noise and latent-sampling noise from a fixed seed."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     b = batch["latent_image"].shape[0]
-    timestep = torch.tensor([250, 750] * (b // 2), dtype=torch.int32, device="cuda")
+    timestep = torch.tensor(([250, 750] * b)[:b], dtype=torch.int32, device="cuda")
     if continuous:
         timestep = timestep.float() / 1000
     noise = torch.randn(batch["latent_image"].shape, generator=gen, device="cuda")
@@ -2549,6 +2715,303 @@ def phase_flux_cli(torch, ckpt: str, dataset: str) -> dict:
         "quantized to NF4", prior_dtype=DataType.NFLOAT_4)
 
 
+# HunyuanVideo: 20 double-stream and 40 single-stream blocks, one joint
+# attention each (K1 per block, twice per step under "full"), at 9 latent
+# frames of 64x64 (33 video frames at 512x512): 9216 + 77 = 9293 tokens
+HV_DOUBLE, HV_SINGLE = 20, 40
+HV_BLOCKS = HV_DOUBLE + HV_SINGLE
+HV_TOKENS = HV_IMAGE_TOKENS + HV_TEXT_TOKENS
+HV_FRAMES, HV_LATENT_FRAMES, HV_SIZE = 33, 9, 512
+HV_GUIDANCE = 6.0           # the sampling guidance HunyuanVideo's pipeline defaults to
+HV_TEXT_DIM, HV_POOLED_DIM = 4096, 768     # Llama's width, CLIP-L's projection
+# the hunyuan_cli phase's diffusers directory: HunyuanVideo's widths, the
+# transformer cut to 2 double and 4 single blocks and Llama to 4 layers
+# (layer -3 must exist), as FLUX's CLI cut
+HV_CLI_DOUBLE, HV_CLI_SINGLE, HV_CLI_LLAMA_LAYERS = 2, 4, 4
+HV_CLI_SIZE = 512
+
+
+def hunyuan_nf4_layers(double: int, single: int) -> tuple[int, int]:
+    """(NF4 layers of a HunyuanVideo transformer, those inside its blocks):
+    every dense layer is quantized (the smallest, x_embedder and proj_out,
+    have 64 x 3072 = 196,608 >= 4096 elements): 14 per double block, 6 per
+    single block, and 28 outside them (x_embedder; the token refiner's 19:
+    its time and text embedders' four, proj_in and seven per refiner block;
+    the time, guidance and text embedders' six; norm_out, proj_out). Under
+    "full" checkpointing a step dequantizes the ones in the blocks twice."""
+    in_blocks = 14 * double + 6 * single
+    return in_blocks + 28, in_blocks
+
+
+def build_hunyuan_model(torch, double: int = HV_DOUBLE, single: int = HV_SINGLE,
+                        llama_layers: int | None = None, quantize: bool = True):
+    """HunyuanVideo at its published widths with seeded weights on the card
+    (`double` + `single` blocks of 24 d=128 heads, hidden 3072, two refiner
+    layers, RoPE axes (16, 56, 56) theta 256, the guidance embedding;
+    Llama-3-8B (`llama_layers` of its 32 when given); CLIP-L with its 768
+    projection; the causal VAE, channels (128, 256, 512, 512)), bf16
+    compute, the reference's checkpoint policy ("full"). The transformer is
+    built in bf16 (fp32 would be 51 GB) and, with `quantize`, quantized to
+    NF4 through the setup's policy (the prior's weight dtype NFLOAT_4) layer
+    by layer; the other parts are fp32 (bf16 without `quantize`: the CLI
+    phase's files)."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.io.weights import init_hunyuan_weights
+    from onetrainer_tpu_torch.models.hunyuan_video import HunyuanVideoTransformer3D
+    from onetrainer_tpu_torch.models.hunyuan_video_model import create_hunyuan_video_model
+    from onetrainer_tpu_torch.models.llama import LlamaEncoder
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+    from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    t0 = time.perf_counter()
+    model = create_hunyuan_video_model(ModelType.HUNYUAN_VIDEO, dtype=torch.bfloat16,
+                                       gradient_checkpointing=True, device="meta")
+    if (double, single) != (HV_DOUBLE, HV_SINGLE):
+        model.transformer_config = replace(model.transformer_config, num_layers=double,
+                                           num_single_layers=single)
+        with torch.device("meta"):
+            model.transformer = HunyuanVideoTransformer3D(model.transformer_config)
+    if llama_layers is not None:
+        model.te_config = replace(model.te_config, num_layers=llama_layers)
+        with torch.device("meta"):
+            model.text_encoder = LlamaEncoder(model.te_config)
+    counts = {name: sum(p.numel() for p in m.parameters())
+              for name, m in model.modules().items()}
+    for name, module in model.modules().items():
+        if name == "transformer" or not quantize:
+            module.to(torch.bfloat16)    # on "meta": no memory yet
+    torch.cuda.reset_peak_memory_stats()
+    init_hunyuan_weights(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built_gib = torch.cuda.memory_allocated() / 2 ** 30
+    line = (f"[hunyuan_model] HunyuanVideo ({double} double, {single} single blocks, "
+            f"Llama {model.te_config.num_layers} layers), parameters {counts} (total "
+            f"{sum(counts.values())}), seeded on the card in {init_s:.2f} s, "
+            f"{built_gib:.2f} GiB allocated")
+    if not quantize:
+        print(line + " (all bf16)")
+        return model
+    t0 = time.perf_counter()
+    config = TrainConfig.default_values()
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    quantize_frozen_parts({"transformer": model.transformer}, config.weight_dtypes(),
+                          {"transformer": "prior"})
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    layers = [m for m in model.transformer.modules() if is_quantized(getattr(m, "weight", None))]
+    nf4_gib = sum(m.weight.q.numel() + 4 * m.weight.scales.numel() for m in layers) / 2 ** 30
+    expected = hunyuan_nf4_layers(double, single)[0]
+    after_gib = torch.cuda.memory_allocated() / 2 ** 30
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{line} (transformer bf16, the rest fp32); transformer quantized to NF4 in "
+          f"{quant_s:.2f} s: {len(layers)} NF4 layers (expected {expected}), "
+          f"{nf4_gib:.3f} GiB of codes and scales; after it {after_gib:.2f} GiB allocated, "
+          f"peak of the phase {peak_gib:.2f} GiB")
+    if len(layers) != expected:
+        raise AssertionError(f"{len(layers)} NF4 layers, expected {expected}")
+    return model
+
+
+def _hunyuan_inputs(torch, model, batch: int = 1):
+    """Seeded transformer inputs at 512x512 with 9 latent frames: latents
+    [B, 9, 64, 64, 16], Llama states [B, 77, 4096] with the keep mask of
+    HV_REAL_TEXT real rows, CLIP pooled [B, 768], timesteps and guidance."""
+    cfg = model.transformer_config
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    latent = HV_SIZE // 8
+    return dict(
+        latents=torch.randn((batch, HV_LATENT_FRAMES, latent, latent, 16), generator=gen,
+                            device="cuda"),
+        timestep=torch.tensor([250.0, 750.0][:batch], device="cuda"),
+        text_states=torch.randn((batch, HV_TEXT_TOKENS, cfg.text_embed_dim), generator=gen,
+                                device="cuda"),
+        text_mask=hunyuan_keep(torch, batch, 0).int(),
+        pooled=torch.randn((batch, cfg.pooled_projection_dim), generator=gen, device="cuda"),
+        guidance=torch.full((batch,), HV_GUIDANCE * 1000.0, device="cuda"))
+
+
+def phase_hunyuan_transformer(torch, model):
+    """One forward of the NF4 transformer at full width (batch 1, 9 latent
+    frames of 64x64: 9216 image and 77 text rows, 29 kept) with K1 and with
+    plain attention (on chunks of heads): K1 once per block with the keep
+    mask, K4 once per NF4 layer, relative L2 of the output."""
+    inputs = _hunyuan_inputs(torch, model)
+
+    def forward():
+        with torch.inference_mode():
+            out = model.transformer(**inputs)
+        torch.cuda.synchronize()
+        return out
+
+    run = _k1_and_plain(torch, forward)
+    n_quant, _ = hunyuan_nf4_layers(HV_DOUBLE, HV_SINGLE)
+    expected = {"K1": HV_BLOCKS, "K2": 0, "K3": 0, "K3pre": 0, "K4": n_quant, "K5": 0}
+    ok = (run["finite"] and run["rel"] <= SD3_REL_L2_BOUND and run["launches"] == expected
+          and tuple(run["out"].shape) == (1, HV_LATENT_FRAMES, HV_SIZE // 8, HV_SIZE // 8, 16))
+    print(f"[hunyuan_transformer] HunyuanVideo transformer ({HV_DOUBLE} double, {HV_SINGLE} "
+          f"single blocks), NF4, batch 1 over {HV_TOKENS} joint tokens (24 heads of d=128, "
+          f"{HV_REAL_TEXT} of 77 text rows kept): K1 {run['k1_s'] * 1e3:.2f} ms (launches "
+          f"{run['launches']}, expected {expected}), plain attention "
+          f"{run['plain_s'] * 1e3:.2f} ms, rel L2 {run['rel']:.3e} (bound "
+          f"{SD3_REL_L2_BOUND:g}), peak max_memory_allocated {run['peak_gib']:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the HunyuanVideo transformer with K1 disagrees with plain "
+                             "attention")
+
+
+def phase_hunyuan_train(torch, model) -> dict:
+    """LoRA r16 a16 on all 548 dense layers of the NF4 transformer, fp32
+    adapters, AdamW 1e-4, clip 1.0, batch 1 at 512x512 with 9 latent frames
+    through the cache's rows (seeded latents [1, 9, 64, 64, 16] and their
+    logvar, Llama states [1, 77, 4096] with HV_REAL_TEXT rows kept, CLIP
+    pooled [1, 768]; the text encoders and the VAE freed), "full"
+    checkpointing, the config's guidance 1: one warm-up and three timed
+    steps with exact launches per step (K1 twice per block, K2, K3 and the
+    pre-pass once, K4 once per NF4 layer and again per layer inside the
+    recomputed blocks), the LoRA gradients against plain attention and the
+    plain dequant, a profiler split."""
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    config = _lora_config(1, ModelType.HUNYUAN_VIDEO)
+    config.prior.weight_dtype = DataType.NFLOAT_4
+
+    def cached_rows(setup):
+        x = _hunyuan_inputs(torch, model)
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        return {"latent_image": x["latents"],
+                "latent_logvar": torch.full_like(x["latents"], -4.0)
+                + 0.1 * torch.randn(x["latents"].shape, generator=gen, device="cuda"),
+                "text_encoder_1_hidden_state": x["text_states"],
+                "tokens_mask_1": x["text_mask"],
+                "text_encoder_2_pooled_state": x["pooled"],
+                "loss_weight": torch.ones((1,), device="cuda")}
+
+    def free_encoders(setup):
+        model.text_encoder = model.text_encoder_2 = model.vae = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run = _setup_and_steps(torch, model, config, "hunyuan_train", HV_SIZE,
+                           after_batch=free_encoders, make_batch=cached_rows)
+    setup, batch = run["setup"], run["batch"]
+    n_quant, n_in_blocks = hunyuan_nf4_layers(HV_DOUBLE, HV_SINGLE)
+    n = TRAIN_STEPS * HV_BLOCKS
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": 0}
+    grads = _grads_against_plain(torch, setup, batch, "hunyuan_train", plain_dequant=True)
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected and grads["by_seq"] == {HV_TOKENS: 2 * HV_BLOCKS}
+          and grads["rel"] <= GRAD_REL_L2_BOUND
+          and len(setup.state.params["transformer_lora"]) == n_quant
+          and model.transformer_config.remat_policy == "full"
+          and setup.model.prediction_type == "flow")
+    print(f"[hunyuan_train] {n_quant} NF4 layers ({n_in_blocks} in the blocks), all adapted; "
+          f"checkpoint policy {model.transformer_config.remat_policy} (the blocks recompute: "
+          f"K1 twice per block and step, K4 {n_quant + n_in_blocks} per step); launches "
+          f"{run['launches']} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("hunyuan_train failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], "hunyuan_train")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def hunyuan_config_jsons(model) -> dict:
+    """Each component's config.json (diffusers' and transformers' keys) for
+    a diffusers HunyuanVideo directory of the port's `model`."""
+    t, v, ll, c = model.transformer_config, model.vae_config, model.te_config, \
+        model.te2_config
+    return {
+        "transformer": {
+            "in_channels": t.in_channels, "out_channels": t.out_channels,
+            "num_layers": t.num_layers, "num_single_layers": t.num_single_layers,
+            "num_refiner_layers": t.num_refiner_layers,
+            "num_attention_heads": t.num_heads, "attention_head_dim": t.head_dim,
+            "text_embed_dim": t.text_embed_dim,
+            "pooled_projection_dim": t.pooled_projection_dim,
+            "guidance_embeds": t.guidance_embeds, "rope_axes_dim": list(t.axes_dims_rope)},
+        "vae": {"in_channels": v.in_channels, "latent_channels": v.latent_channels,
+                "block_out_channels": list(v.block_out_channels),
+                "layers_per_block": v.layers_per_block,
+                "temporal_compression_ratio": v.temporal_compression,
+                "spatial_compression_ratio": v.spatial_compression,
+                "scaling_factor": v.scaling_factor},
+        "text_encoder": {"vocab_size": ll.vocab_size, "hidden_size": ll.hidden_size,
+                         "intermediate_size": ll.intermediate_size,
+                         "num_hidden_layers": ll.num_layers,
+                         "num_attention_heads": ll.num_heads,
+                         "num_key_value_heads": ll.num_kv_heads, "head_dim": ll.head_dim,
+                         "rope_theta": ll.rope_theta, "rms_norm_eps": ll.rms_norm_eps},
+        "text_encoder_2": {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                           "intermediate_size": c.intermediate_size,
+                           "num_hidden_layers": c.num_layers,
+                           "num_attention_heads": c.num_heads,
+                           "max_position_embeddings": c.max_position_embeddings,
+                           "hidden_act": c.hidden_act, "eos_token_id": c.eos_token_id,
+                           "projection_dim": c.projection_dim,
+                           "architectures": ["CLIPTextModelWithProjection"]},
+    }
+
+
+def hunyuan_files(torch, root: str) -> str:
+    """A seeded HunyuanVideo at full width, its transformer cut to
+    HV_CLI_DOUBLE + HV_CLI_SINGLE blocks and Llama to HV_CLI_LLAMA_LAYERS,
+    written in bf16 by the port's own saver as a diffusers directory in
+    `root` (Llama in two shards behind an index) -> its path."""
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import save_hunyuan_diffusers
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    model = build_hunyuan_model(torch, HV_CLI_DOUBLE, HV_CLI_SINGLE, HV_CLI_LLAMA_LAYERS,
+                                quantize=False)
+    ckpt = os.path.join(root, "hunyuan-video")
+    t0 = time.perf_counter()
+    sd = {name: state_dict_of(m) for name, m in model.modules().items()}
+    save_hunyuan_diffusers(ckpt, model, sd["transformer"], sd["vae"], sd["text_encoder"],
+                           sd["text_encoder_2"], save_dtype=None)
+    llama = os.path.join(ckpt, "text_encoder", "model.safetensors")
+    os.remove(llama)
+    save_sharded(os.path.dirname(llama), "model", sd["text_encoder"], 2)
+    for name, config in hunyuan_config_jsons(model).items():
+        with open(os.path.join(ckpt, name, "config.json"), "w") as f:
+            json.dump(config, f)
+    write_s = time.perf_counter() - t0
+    del model, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    print(f"[hunyuan_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, bf16, diffusers layout, "
+          f"the transformer {HV_CLI_DOUBLE} + {HV_CLI_SINGLE} blocks, Llama "
+          f"{HV_CLI_LLAMA_LAYERS} layers in 2 shards) in {write_s:.2f} s")
+    return ckpt
+
+
+def phase_hunyuan_cli(torch, ckpt: str, dataset: str) -> dict:
+    """HunyuanVideo from `hunyuan_files`' diffusers directory through the
+    train and sample commands (`_dit_lora_cli`) at 512x512, sd15_files' PNGs
+    as 1-frame clips (the card has no OpenCV: no video files), the
+    transformer NF4; the sample (one frame, the sample config's default) in
+    bf16 at guidance 6. Exactly per step K1 twice per block ("full"
+    recomputes the blocks) at 1024 + 77 tokens, K2, K3 and the pre-pass
+    once, K4 once per NF4 layer and again per layer in the blocks."""
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    blocks = HV_CLI_DOUBLE + HV_CLI_SINGLE
+    n_quant, n_in_blocks = hunyuan_nf4_layers(HV_CLI_DOUBLE, HV_CLI_SINGLE)
+    per_step = {"K1": 2 * blocks, "K2": blocks, "K3": blocks, "K3pre": blocks,
+                "K4": n_quant + n_in_blocks, "K5": 0}
+    latent = HV_CLI_SIZE // 8
+    return _dit_lora_cli(
+        torch, "hunyuan_cli", ckpt, dataset, ModelType.HUNYUAN_VIDEO, HV_CLI_SIZE, per_step,
+        n_quant, {"latent_image": (1, latent, latent, 16),
+                  "text_encoder_1_hidden_state": (HV_TEXT_TOKENS, HV_TEXT_DIM),
+                  "tokens_mask_1": (HV_TEXT_TOKENS,),
+                  "text_encoder_2_pooled_state": (HV_POOLED_DIM,)},
+        ["--cfg", str(HV_GUIDANCE)], 4 * blocks, "full",
+        "bf16 diffusers directory to the card, the transformer quantized to NF4",
+        prior_dtype=DataType.NFLOAT_4)
+
+
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
                     err=None) -> list:
     """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
@@ -2603,6 +3066,9 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
                             " at SD3's B2 S4250 H24 d64")
     rows += _attention_rows(k1, k23, FLUX_SHAPE, "flux_train", (2, 4173, 4173, 24, 128),
                             " at FLUX's B2 S4173 H24 d128")
+    rows += _attention_rows(k1, k23, HV_SHAPE, "hunyuan_train",
+                            (1, HV_TOKENS, HV_TOKENS, 24, 128),
+                            f" at HunyuanVideo's B1 S{HV_TOKENS} H24 d128 with the keep mask")
     rows += [
         ("nf4_dequant_flat (K4)", "K4", "nf4_dequant.cu",
          "onetrainer_tpu/ops/nf4_pallas.py:41", "qlora",
@@ -2612,6 +3078,10 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
          "onetrainer_tpu/ops/nf4_pallas.py:41", "flux_train", k4[FLUX_K4]["max_abs_err"],
          k4[FLUX_K4]["ms"], k4[FLUX_K4]["plain_ms"], k4[FLUX_K4]["bound_ms"],
          k4[FLUX_K4]["bound_by"], None, FLUX_K4),
+        ("nf4_dequant_flat (K4) at HunyuanVideo's norm1.linear (FLUX's shape)", "K4",
+         "nf4_dequant.cu", "onetrainer_tpu/ops/nf4_pallas.py:41", "hunyuan_train",
+         k4[FLUX_K4]["max_abs_err"], k4[FLUX_K4]["ms"], k4[FLUX_K4]["plain_ms"],
+         k4[FLUX_K4]["bound_ms"], k4[FLUX_K4]["bound_by"], None, FLUX_K4),
         ("sr_update_leaves (K5, one launch per step)", "K5", "sr_update.cu",
          "onetrainer_tpu/ops/pallas_sr.py:26", "qlora", k5["max_abs_err"], k5["list_ms"],
          k5["list_plain_ms"], k5["list_bound_ms"], k5["list_bound_by"], None,
@@ -2628,6 +3098,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
             "replaces": replaces, "launches": launches[path][tag], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": shape, "path": path,
+            "library_backend": (k1 if tag == "K1" else k23).get(shape, {}).get(
+                "library_backend") if library_ms is not None else None,
             "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
     kernels[-1]["ms_with_wrapper"] = k5_ft["ms_with_wrapper"]
@@ -2729,6 +3201,17 @@ def main() -> int:
     results.pop("flux_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    model = run("hunyuan_model", build_hunyuan_model, torch)
+    if model is not None:
+        run("hunyuan_sample", phase_sample, torch, model, HV_SIZE, {HV_TOKENS: HV_BLOCKS},
+            "hunyuan_sample", HV_GUIDANCE, hunyuan_nf4_layers(HV_DOUBLE, HV_SINGLE)[0],
+            HV_FRAMES)
+        run("hunyuan_transformer", phase_hunyuan_transformer, torch, model)
+        run("hunyuan_train", phase_hunyuan_train, torch, model)
+    del model
+    results.pop("hunyuan_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
@@ -2756,6 +3239,15 @@ def main() -> int:
                 shutil.rmtree(flux_root, ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()
+            hunyuan_root = tempfile.mkdtemp(prefix="hunyuan_files_")
+            try:
+                ckpt = run("hunyuan_files", hunyuan_files, torch, hunyuan_root)
+                if ckpt is not None:
+                    run("hunyuan_cli", phase_hunyuan_cli, torch, ckpt, files["dataset"])
+            finally:
+                shutil.rmtree(hunyuan_root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
             run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2765,10 +3257,11 @@ def main() -> int:
         return 1
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
                 "sd3_sample": results["sd3_sample"], "flux_sample": results["flux_sample"],
+                "hunyuan_sample": results["hunyuan_sample"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
                              "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
-                             "flux_cli")}}
+                             "flux_cli", "hunyuan_train", "hunyuan_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""The training data loader for still images: scan → bucket → cache →
-batch → prefetch.
+"""The training data loader: scan → bucket → cache → batch → prefetch.
 
 Counterpart of onetrainer_tpu/data/loader.py (`Text2ImageDataLoader`),
-with the same epoch plans, cache keys and batches for still images:
+with the same epoch plans, cache keys and batches for still images and,
+for the video families (`video_mode`), video clips of `config.frames`
+consecutive frames from a deterministic start (images stay 1-frame clips):
 every random decision derives from (config seed, concept seed, image
 path, epoch, variation), so a resumed epoch draws what an uninterrupted
 one would. Batches are dicts of torch tensors on the host; the train step
@@ -17,9 +18,11 @@ What differs from the reference:
   Pillow's bilinear resize to the same size is the identity). The mask's
   nearest-neighbour downscale to the latent size is done in numpy, as
   Pillow's does it.
+- Video files are read with OpenCV, imported where a video is read or
+  probed.
 - Depth maps and conditioning images (mask-input and conditioning-image
-  models) raise NotImplementedError; video files are not collected, and
-  cached pixels (VAE fine-tuning) are not ported.
+  models) raise NotImplementedError; cached pixels (VAE fine-tuning) are
+  not ported.
 - The encode functions run on the thread that calls `ensure_cached` and,
   without a cache, on the one iterating `iter_epoch`; the prefetch thread
   only reads cached rows.
@@ -46,7 +49,9 @@ from onetrainer_tpu_torch.data.bucketing import (
     sort_into_batches,
 )
 from onetrainer_tpu_torch.data.cache import DiskCache
-from onetrainer_tpu_torch.data.concepts import SampleEntry, balance_entries, scan_concepts
+from onetrainer_tpu_torch.data.concepts import (
+    SUPPORTED_VIDEO_EXTENSIONS, SampleEntry, balance_entries, scan_concepts,
+)
 from onetrainer_tpu_torch.io import png
 from onetrainer_tpu_torch.util.enums import ConceptType
 
@@ -76,6 +81,44 @@ def load_mask(path: str) -> np.ndarray:
             img = ImageOps.exif_transpose(img)
             pixels = np.asarray(img.convert("L"))
     return (np.asarray(pixels, dtype=np.float32) / 255.0)[..., None]
+
+
+def load_video_frames(path: str, n_frames: int,
+                      rng: np.random.Generator) -> np.ndarray:
+    """[n_frames, H, W, 3] float32 RGB in [0, 1]: consecutive frames from a
+    deterministic random start (one draw from `rng` always, so per-frame
+    augmentation draws stay aligned), the last frame repeated when the
+    video is shorter, as the reference's `load_video_frames`."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) or 0
+    draw = int(rng.integers(0, 1 << 30))
+    start = draw % (total - n_frames + 1) if total > n_frames else 0
+    cap.set(cv2.CAP_PROP_POS_FRAMES, start)
+    frames = []
+    for _ in range(n_frames):
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0)
+    cap.release()
+    if not frames:
+        raise OSError(f"could not read frames from {path}")
+    while len(frames) < n_frames:
+        frames.append(frames[-1])
+    return np.stack(frames)
+
+
+def _probe_video_size(path: str) -> tuple[int, int]:
+    """(w, h) of a video file's frames."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    cap.release()
+    if not (w and h):
+        raise OSError(path)
+    return w, h
 
 
 def resize_nearest(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -148,12 +191,12 @@ class PreparedSample:
 
 
 class Text2ImageDataLoader:
-    """Text→image loader over still images; the family supplies the
-    encode functions.
+    """Text→image loader over still images, and video clips in
+    `video_mode`; the family supplies the encode functions.
 
-    encode_images(images float32 NHWC [-1,1] numpy) -> {'latent_image',
-        'latent_logvar', ...} tensors (any device) or numpy arrays; called
-        in bucket-sized batches during cache fill.
+    encode_images(images float32 NHWC, or clips NTHWC, [-1,1] numpy) ->
+        {'latent_image', 'latent_logvar', ...} tensors (any device) or
+        numpy arrays; called in bucket-sized batches during cache fill.
     encode_text(prompt str) -> {'tokens', ...} likewise (e.g. the text
         encoder's hidden state when text embeddings are cached).
     They may be set after construction (the trainer sizes its schedules
@@ -169,6 +212,7 @@ class Text2ImageDataLoader:
             encode_batch_size: int = 8,
             model_tag: str = "sd",
             latent_scale: int = 8,
+            video_mode: bool = False,
     ):
         model_type = config.model_type
         unported = {
@@ -180,6 +224,9 @@ class Text2ImageDataLoader:
             if asked:
                 raise NotImplementedError(f"the data loader's {what} are not ported yet")
         self.latent_scale = latent_scale
+        # video families: config.frames consecutive frames per video file
+        self.video_mode = video_mode
+        self.frames = max(int(float(config.frames or 1)), 1) if video_mode else 1
         self.config = config
         self.encode_images = encode_images
         self.encode_text = encode_text
@@ -187,7 +234,8 @@ class Text2ImageDataLoader:
 
         concepts = config.concepts or []
         self.entries: list[SampleEntry] = scan_concepts(
-            concepts, masked_training=config.masked_training or model_type.has_mask_input())
+            concepts, masked_training=config.masked_training or model_type.has_mask_input(),
+            allow_videos=video_mode)
         if not self.entries:
             # fail loudly: a loader with no samples would otherwise "train"
             # zero steps per epoch and silently save an untrained model
@@ -211,7 +259,8 @@ class Text2ImageDataLoader:
         self._sizes: list[tuple[int, int]] = []
         for e in self.entries:
             try:
-                w, h = probe_image_size(e.image_path)
+                w, h = (_probe_video_size if self._is_video(e.image_path)
+                        else probe_image_size)(e.image_path)
             except OSError:
                 w = h = max(self.resolutions[0]) if self.resolutions else 512
             self._sizes.append((h, w))
@@ -255,8 +304,13 @@ class Text2ImageDataLoader:
             samples.append(PreparedSample(
                 entry_index=idx, image_variation=image_variation,
                 text_variation=text_variation, bucket=assign_bucket(h, w, buckets),
+                frames=self.frames if self._is_video(e.image_path) else 1,
                 epoch=epoch))
         return samples
+
+    @staticmethod
+    def _is_video(path: str) -> bool:
+        return os.path.splitext(path)[1].lower() in SUPPORTED_VIDEO_EXTENSIONS
 
     def batches_for_epoch(self, epoch: int) -> list[list[PreparedSample]]:
         samples = self.plan_epoch(epoch)
@@ -284,6 +338,8 @@ class Text2ImageDataLoader:
         without a mask file gets an all-ones mask."""
         e = self.entries[sample.entry_index]
         rng = self._sample_rng(e, sample.image_variation)
+        if sample.frames > 1 or (self.video_mode and self._is_video(e.image_path)):
+            return self._load_video_pixels(sample, e, rng)
         mask = load_mask(e.mask_path) if e.mask_path else None
         image, mask = augment_image(load_image_rgb(e.image_path), e.concept, rng, mask)
         info = scale_crop(image.shape[0], image.shape[1], sample.bucket,
@@ -294,6 +350,23 @@ class Text2ImageDataLoader:
         else:
             mask = resize_crop(mask, info)
         return image * 2.0 - 1.0, mask, info
+
+    def _load_video_pixels(self, sample: PreparedSample, e, rng):
+        """([F, H, W, 3] clip in [-1, 1], an all-ones mask, scale/crop info):
+        every frame augmented, scaled and cropped alike (a fresh generator
+        per frame, seeded as the clip's, past its start-frame draw)."""
+        video = load_video_frames(e.image_path, sample.frames, rng)
+        out_frames, info = [], None
+        for frame in video:
+            frng = self._sample_rng(e, sample.image_variation)
+            frng.integers(0, 1 << 30)   # the start-frame draw
+            img, _ = augment_image(frame, e.concept, frng, None)
+            info = scale_crop(img.shape[0], img.shape[1], sample.bucket,
+                              e.concept.image.enable_crop_jitter, frng)
+            out_frames.append(resize_crop(img, info))
+        clip = np.stack(out_frames)
+        mask = np.ones(clip.shape[1:3] + (1,), np.float32)
+        return clip * 2.0 - 1.0, mask, info
 
     def _prompt(self, sample: PreparedSample) -> str:
         e = self.entries[sample.entry_index]

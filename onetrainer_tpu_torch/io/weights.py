@@ -12,11 +12,14 @@
 - `sd3_params_from_flax` does the same for SD3's transformer, three text
   encoders and VAE; `flux_params_from_flax` for FLUX's transformer, CLIP-L,
   T5 and VAE (the transformer's RMS norm `scale` leaves carried as
-  diffusers' `weight`, as the generic key map carries every rank-1 leaf).
+  diffusers' `weight`, as the generic key map carries every rank-1 leaf);
+  `hunyuan_params_from_flax` for HunyuanVideo's transformer (its patchify
+  kernel as the port's dense weight), Llama (`llama_params_from_flax`),
+  CLIP-L and the causal VAE (`video_vae_params_from_flax`).
 - `init_sd_weights` materialises full-width weights of either family on a
   device from a seeded `torch.Generator`, for runs without a checkpoint;
   `init_sd3_weights` those of an SD3 model, `init_flux_weights` those of a
-  FLUX model.
+  FLUX model, `init_hunyuan_weights` those of a HunyuanVideo model.
 """
 
 from __future__ import annotations
@@ -91,6 +94,33 @@ def flux_params_from_flax(model, transformer: dict, te: dict, te2: dict,
     _load(model.text_encoder, clip_flax_to_state_dict(te))
     _load(model.text_encoder_2, t5_flax_to_state_dict(te2))
     _load(model.vae, vae_flax_to_state_dict(vae))
+
+
+def llama_params_from_flax(module: nn.Module, params: dict) -> None:
+    """Load the reference's Llama flax tree into a `LlamaEncoder`."""
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import llama_flax_to_state_dict
+    _load(module, llama_flax_to_state_dict(params))
+
+
+def video_vae_params_from_flax(module: nn.Module, params: dict) -> None:
+    """Load the reference's causal video VAE flax tree into an
+    `AutoencoderKLVideo`."""
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import video_vae_flax_to_state_dict
+    _load(module, video_vae_flax_to_state_dict(params))
+
+
+def hunyuan_params_from_flax(model, transformer: dict, te: dict, te2: dict,
+                             vae: dict) -> None:
+    """Load flax param trees into a HunyuanVideo `model`'s transformer, text
+    encoders (Llama, CLIP-L) and vae."""
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import (
+        hunyuan_flax_to_state_dict, hunyuan_transformer_state_dict,
+    )
+    _load(model.transformer,
+          hunyuan_transformer_state_dict(hunyuan_flax_to_state_dict(transformer)))
+    llama_params_from_flax(model.text_encoder, te)
+    _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
+    video_vae_params_from_flax(model.vae, vae)
 
 
 def lora_params_from_jax(adapters: dict,
@@ -169,7 +199,7 @@ def _init_module(module: nn.Module, gen: torch.Generator,
             sub.bias.zero_()
         elif isinstance(sub, nn.Embedding):
             sub.weight.normal_(0.0, 0.02, generator=gen)
-        elif isinstance(sub, (nn.Linear, nn.Conv2d)):
+        elif isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             # variance-preserving: std 1/sqrt(fan_in)
             fan_in = sub.weight[0].numel()
             sub.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
@@ -190,12 +220,13 @@ def init_sd_weights(model, seed: int, device: torch.device | str) -> None:
 
 @torch.no_grad()
 def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
-    """Seeded random weights for every module of an SD3 or FLUX `model`, on
-    `device`, each parameter in the dtype it has on "meta" (cast a
-    full-width FLUX transformer to bf16 there: 23.8 GB, not 47.6): dense,
-    conv and embedding weights as `init_sd_weights` draws them, RMS and T5
-    norm weights 1, SD3's position table ~ N(0, 0.02)."""
+    """Seeded random weights for every module of an SD3, FLUX or HunyuanVideo
+    `model`, on `device`, each parameter in the dtype it has on "meta" (cast
+    a full-width FLUX transformer to bf16 there: 23.8 GB, not 47.6): dense,
+    conv and embedding weights as `init_sd_weights` draws them, RMS, T5 and
+    Llama norm weights 1, SD3's position table ~ N(0, 0.02)."""
     from onetrainer_tpu_torch.models.flux import RMSNorm
+    from onetrainer_tpu_torch.models.llama import LlamaRMSNorm
     from onetrainer_tpu_torch.models.sd3 import PatchEmbed
     from onetrainer_tpu_torch.models.t5 import T5LayerNorm
     device = torch.device(device)
@@ -203,12 +234,13 @@ def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
     for module in model.modules().values():
         _init_module(module, gen, device)
         for sub in module.modules():
-            if isinstance(sub, (RMSNorm, T5LayerNorm)):
+            if isinstance(sub, (RMSNorm, T5LayerNorm, LlamaRMSNorm)):
                 sub.weight.fill_(1.0)
             elif isinstance(sub, PatchEmbed):
                 sub.pos_embed.normal_(0.0, 0.02, generator=gen)
     model.device = device
 
 
-# FLUX's parts (its DiT, CLIP-L, T5, VAE) draw as SD3's do
-init_flux_weights = init_sd3_weights
+# FLUX's parts (its DiT, CLIP-L, T5, VAE) and HunyuanVideo's (its DiT,
+# Llama, CLIP-L, the causal VAE's conv3d weights) draw as SD3's do
+init_flux_weights = init_hunyuan_weights = init_sd3_weights

@@ -151,7 +151,8 @@ def diffusion_losses(
 ) -> torch.Tensor:
     """Per-sample loss vector [B] for epsilon/v-prediction models; with
     `masked_training`, each elementwise loss weighted by the batch's latent
-    mask (`masked_losses`)."""
+    mask (`masked_losses`). The SNR weightings apply; SIGMA leaves the loss
+    unweighted."""
     if "prior_target" in data:
         raise NotImplementedError("prior preservation is not ported yet")
     if cfg.vb_loss_strength != 0 and "predicted_var_values" in data:
@@ -167,8 +168,8 @@ def diffusion_losses(
             losses = losses * debiased_estimation_weight(snr, cfg.v_prediction)
         elif cfg.loss_weight_fn == LossWeight.P2:
             losses = losses * p2_loss_weight(snr, cfg.loss_weight_strength, cfg.v_prediction)
-        elif cfg.loss_weight_fn != LossWeight.CONSTANT:
-            raise NotImplementedError(f"loss weight {cfg.loss_weight_fn} is not ported yet")
+        # SIGMA weights flow matching only: here the loss stays CONSTANT's,
+        # as the reference's
     return losses
 
 

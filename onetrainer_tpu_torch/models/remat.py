@@ -4,8 +4,9 @@ Counterpart of onetrainer_tpu/models/remat.py. The reference names a
 jax.checkpoint policy per family; the port runs two of them with
 `torch.utils.checkpoint` (non-reentrant), and the loaders build their
 transformers with the reference's family defaults: `SD3_POLICY` for SD3,
-`FLUX_POLICY` for FLUX (the reference's `_DEFAULTS` has no FLUX entry, so
-its default is "full"; the port has no environment override):
+`FLUX_POLICY` for FLUX and `HUNYUAN_POLICY` for HunyuanVideo (the
+reference's `_DEFAULTS` has no entry for either, so their default is
+"full"; the port has no environment override):
 
 - "full": the block is one recomputed segment (its attention forward runs
   again in the backward);
@@ -35,6 +36,9 @@ DIT_POLICIES = ("full", "dots_nb_attn")
 SD3_POLICY = "dots_nb_attn"
 # the reference's FLUX default (no `_DEFAULTS` entry: "full")
 FLUX_POLICY = "full"
+# the reference's HunyuanVideo default (no `_DEFAULTS` entry: "full"), the
+# one policy its blocks run here
+HUNYUAN_POLICY = "full"
 
 
 _NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)

@@ -5,11 +5,13 @@
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
         [--device cuda]
 
-The arguments are the reference's. SD 1.5/2.x, SDXL, SD3 and FLUX.1-dev
-text-to-image run (SD3 and FLUX from a diffusers directory; FLUX takes
-`--cfg` as its guidance embedding and ignores the negative prompt and the
-scheduler); other model types, embeddings, inpainting and Würstchen
-decoders raise
+The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and
+HunyuanVideo text-to-image run (SD3, FLUX and HunyuanVideo from a
+diffusers directory; FLUX and HunyuanVideo take `--cfg` as their guidance
+embedding and ignore the negative prompt and the scheduler; HunyuanVideo
+samples one frame, the sample config's default, and writes it as the
+image); other model types, embeddings, inpainting and Würstchen decoders
+raise
 NotImplementedError. Sampling runs on the card unless `--device` names
 another device. A PNG destination is written by the port's own PNG codec;
 other formats need Pillow.
@@ -85,9 +87,10 @@ def main(argv: list[str] | None = None):
     if not (config.model_type.is_stable_diffusion()
             or config.model_type.is_stable_diffusion_xl()
             or config.model_type.is_stable_diffusion_3()
-            or config.model_type == ModelType.FLUX_DEV_1):
+            or config.model_type in (ModelType.FLUX_DEV_1, ModelType.HUNYUAN_VIDEO)):
         raise NotImplementedError(f"{config.model_type} sampling is not ported "
-                                  "(SD 1.5/2.x, SDXL, SD3 and FLUX.1-dev only)")
+                                  "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and HunyuanVideo "
+                                  "only)")
     config.base_model_name = args.base_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False

@@ -2,12 +2,12 @@
 encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
-text-to-image, SDXL, SD3 and FLUX.1-dev (diffusers directories; SD3's and
-FLUX's single files and FLUX.1-fill are not ported yet) so far. The calls
-mirror the reference's trainer and scripts: `get_family(...)`, then
-`family.load`, `family.create_setup`, `family.make_encode_fns` (the data
-caches) and `setup.train_step` or `family.sample`; `family.save_model` /
-`save_single_file` write the model, LoRA adapters merged into their
+text-to-image, SDXL, SD3, FLUX.1-dev and HunyuanVideo (diffusers
+directories; SD3's, FLUX's and HunyuanVideo's single files and FLUX.1-fill
+are not ported yet) so far. The calls mirror the reference's trainer and
+scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
+`family.make_encode_fns` (the data caches) and `setup.train_step` or
+`family.sample`; `family.save_model` / `save_single_file` write the model, LoRA adapters merged into their
 layers and, when the state holds an EMA, the EMA in place of the trained
 tensors (the reference trainer's `_export_params`), and
 `save_lora_output` the kohya LoRA file. `load` runs on the card unless
@@ -39,6 +39,7 @@ class ModelFamily:
     save_model: Callable    # (setup, dir, source_dir, save_dtype=None, ema=True) -> None
     save_single_file: Callable  # (setup, path, save_dtype=None, ema=True) -> None
     lora_prefixes: dict     # trainable group -> kohya prefix
+    video: bool = False     # the data loader collects video files
 
 
 # module attribute -> (its LoRA group, its adapters' key map)
@@ -334,6 +335,62 @@ def _flux_save_single_file(setup, path, save_dtype=None, ema=True):
                               "yet (output_model_format DIFFUSERS saves)")
 
 
+# -- HunyuanVideo ----------------------------------------------------------------------
+
+def _hunyuan_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import load_hunyuan_diffusers
+    from onetrainer_tpu_torch.models.hunyuan_video_model import HunyuanVideoModel
+    if os.path.isfile(base_dir):
+        raise NotImplementedError("loading a HunyuanVideo single file is not ported yet "
+                                  "(ROADMAP queue 1, item 10; a diffusers directory loads)")
+    # every component in the transformer's (prior) weight dtype, as the reference
+    loaded = load_hunyuan_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    model = HunyuanVideoModel(
+        model_type=config.model_type,
+        transformer_config=loaded["transformer_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        te2_config=loaded["te2_config"],
+        device="meta",
+        tokenizer=loaded["tokenizer_dir"],
+        tokenizer_2=loaded["tokenizer_2_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
+
+
+def _hunyuan_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.hunyuan_setup import create_hunyuan_setup
+    return create_hunyuan_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _hunyuan_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.hunyuan_setup import make_hunyuan_encode_fns
+    return make_hunyuan_encode_fns(setup)
+
+
+def _hunyuan_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.hunyuan_sampler import sample_hunyuan_video
+    transformer, te, te2, extra = setup.merged_inference_params()
+    return sample_hunyuan_video(
+        setup.model, transformer, te, te2, setup.model.vae,
+        setup.tokenizer, setup.tokenizer_2, sample_config,
+        extra_embeddings=extra, on_update_progress=on_progress)
+
+
+def _hunyuan_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import save_hunyuan_diffusers
+    sd = merged_state_dicts(setup, ema)
+    save_hunyuan_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
+                           sd["text_encoder"], sd["text_encoder_2"],
+                           save_dtype=save_dtype or torch.float32, source_dir=source_dir)
+
+
+def _hunyuan_save_single_file(setup, path, save_dtype=None, ema=True):
+    raise NotImplementedError("saving a HunyuanVideo single file is not ported yet "
+                              "(output_model_format DIFFUSERS saves)")
+
+
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_mask_input() or model_type.has_depth_input():
@@ -371,6 +428,15 @@ def get_family(model_type: ModelType) -> ModelFamily:
             make_encode_fns=_flux_encode_fns, sample=_flux_sample,
             save_model=_flux_save_model, save_single_file=_flux_save_single_file,
             lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
+        )
+    if model_type.is_hunyuan_video():
+        return ModelFamily(
+            name="hunyuan", quantization=32,
+            load=_hunyuan_load, create_setup=_hunyuan_create_setup,
+            make_encode_fns=_hunyuan_encode_fns, sample=_hunyuan_sample,
+            save_model=_hunyuan_save_model, save_single_file=_hunyuan_save_single_file,
+            lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
+            video=True,
         )
     if model_type == ModelType.FLUX_FILL_DEV_1:
         raise NotImplementedError("FLUX.1-fill is not ported to torch yet "

@@ -13,9 +13,10 @@ modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
 FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
 (setup/quantize.py). A FINE_TUNE config that trains no part builds no
 trainer (it serves sampling). `refuse_unported` raises for the training
-methods, SD3 and FLUX FINE_TUNE that trains a part, EMA held on the CPU, prior
-preservation and additional embeddings; continuing from a LoRA file, CUSTOM schedulers and
-schedule-free optimizers raise where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
+methods, SD3, FLUX and HunyuanVideo FINE_TUNE that trains a part, EMA
+held on the CPU, prior preservation and additional embeddings; continuing
+from a LoRA file, CUSTOM schedulers and schedule-free optimizers raise
+where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
 `setup_fine_tune` and `image_encoder` serve setup/sdxl_setup.py too.
 """
 
@@ -99,16 +100,18 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
 def refuse_unported(config) -> None:
     """Raise NotImplementedError for what `config` asks of the model, its
     setup and its step that the port does not run: training methods other
-    than LoRA and FINE_TUNE, SD3 and FLUX FINE_TUNE that trains a part (the
-    transformer or CLIP-L: the reference's FINE_TUNE groups), EMA held on
-    the CPU, prior preservation and additional embeddings. The setups call
-    it first, and the trainer before it loads the model."""
+    than LoRA and FINE_TUNE, SD3, FLUX and HunyuanVideo FINE_TUNE that
+    trains a part (the transformer or the first text encoder: the
+    reference's FINE_TUNE groups), EMA held on the CPU, prior preservation
+    and additional embeddings. The setups call it first, and the trainer
+    before it loads the model."""
+    mt = config.model_type
+    dit = "FLUX" if mt.is_flux() else "HunyuanVideo" if mt.is_hunyuan_video() else "SD3"
     asked = {
         f"{config.training_method} training (LoRA and FINE_TUNE only)":
             config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
-        f"{'FLUX' if config.model_type.is_flux() else 'SD3'} FINE_TUNE training "
-        "(LoRA trains SD3 and FLUX)":
-            (config.model_type.is_stable_diffusion_3() or config.model_type.is_flux())
+        f"{dit} FINE_TUNE training (LoRA trains SD3, FLUX and HunyuanVideo)":
+            (mt.is_stable_diffusion_3() or mt.is_flux() or mt.is_hunyuan_video())
             and config.training_method == TrainingMethod.FINE_TUNE
             and (config.prior.train or config.text_encoder.train),
         "EMA on the CPU": config.ema == EMAMode.CPU,

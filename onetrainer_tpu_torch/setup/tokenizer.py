@@ -5,12 +5,15 @@ placeholder -> N unique tokens added to the tokenizer; here placeholders
 splice ids >= vocab_size which index the extra_embeddings table in
 models.clip.CLIPTextModel.)
 
-The port's copies of `SDTokenizer` (CLIP) and `T5TokenizerWrapper` (SD3's
-T5) from onetrainer_tpu/setup/tokenizer.py; transformers is imported only
-when a tokenizer directory is given.
+The port's copies of `SDTokenizer` (CLIP), `T5TokenizerWrapper` (SD3's
+T5) and `LlamaTokenizerWrapper` (HunyuanVideo's Llama) from
+onetrainer_tpu/setup/tokenizer.py; transformers is imported only when a
+tokenizer directory is given.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 
@@ -145,3 +148,65 @@ class T5TokenizerWrapper:
         ids = pieces[: self.max_length - 1] + [self.eos]
         ids = ids + [self.pad] * (self.max_length - len(ids))
         return np.asarray(ids, np.int32)
+
+
+class LlamaTokenizerWrapper(T5TokenizerWrapper):
+    """Llama-3 tokenization for HunyuanVideo: the system prompt template
+    occupies exactly CROP_START tokens before the user text (max_length =
+    77 + CROP_START). The hash fallback emits deterministic filler tokens
+    for the template so the crop boundary holds."""
+
+    CROP_START = 95
+
+    def __init__(self, tokenizer_dir: str | None = None,
+                 max_length: int = 77 + 95, vocab_size: int = 128320):
+        self.max_length = max_length
+        self.vocab_size = vocab_size
+        self.embedding_base = vocab_size
+        self.bos = 128000
+        self.eos = 128001
+        self.pad = 128001
+        self._tokenizer = None
+        if tokenizer_dir:
+            try:
+                from transformers import AutoTokenizer
+                self._tokenizer = AutoTokenizer.from_pretrained(tokenizer_dir)
+                self.vocab_size = self._tokenizer.vocab_size
+                self.bos = self._tokenizer.bos_token_id or self.bos
+                self.pad = self._tokenizer.pad_token_id or self.eos
+            except Exception as e:
+                print(f"llama tokenizer load failed ({e}); using hash fallback")
+        if self._tokenizer is None and self.vocab_size <= self.bos:
+            # tiny test vocabularies (hash fallback only): low special ids.
+            # A real Llama-3 tokenizer reports vocab_size 128000 == bos, and
+            # its specials are valid, so this must not trip for it.
+            self.bos, self.eos, self.pad = 2, 1, 0
+        self.placeholders: dict[str, list[int]] = {}
+        self._next_extra = 0
+
+    def __call__(self, text: str) -> np.ndarray:
+        from onetrainer_tpu_torch.models.hunyuan_video import DEFAULT_PROMPT_TEMPLATE
+        if self._tokenizer is not None:
+            if any(ph in text for ph in self.placeholders):
+                # placeholder ids (>= embedding_base) spliced into the
+                # templated prompt between the template's two halves
+                pre, post = DEFAULT_PROMPT_TEMPLATE.split("{}")
+                ids = list(self._tokenizer(pre)["input_ids"])
+                ids.extend(_splice_pieces(text, self.placeholders, self._encode_words))
+                ids.extend(self._tokenizer(post, add_special_tokens=False)["input_ids"])
+                ids = ids[: self.max_length]
+                ids = ids + [self.pad] * (self.max_length - len(ids))
+                return np.asarray(ids, np.int32)
+            out = self._tokenizer(
+                DEFAULT_PROMPT_TEMPLATE.format(text), padding="max_length",
+                truncation=True, max_length=self.max_length)
+            return np.asarray(out["input_ids"], np.int32)
+        pieces = _splice_pieces(text, self.placeholders, self._encode_words)
+        filler = [(zlib.crc32(f"tmpl{i}".encode()) % (self.vocab_size - 4)) + 2
+                  for i in range(self.CROP_START - 1)]
+        ids = [self.bos] + filler + pieces[: self.max_length - self.CROP_START]
+        ids = ids + [self.pad] * (self.max_length - len(ids))
+        return np.asarray(ids, np.int32)
+
+    def mask(self, tokens: np.ndarray) -> np.ndarray:
+        return (tokens != self.pad).astype(np.int32)

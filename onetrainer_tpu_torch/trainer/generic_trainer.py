@@ -6,7 +6,8 @@ modules/trainer/GenericTrainer.py): the same status sequence, cadence
 (TimedAction-scheduled backup and save, TrainCommands polling, rolling
 backups, backup_before_save), TensorBoard scalars (`loss/train_step`,
 `smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA and
-FINE_TUNE training of the SD-family models the port runs (SD3, FLUX: LoRA), with
+FINE_TUNE training of the SD-family models the port runs (SD3, FLUX and
+HunyuanVideo: LoRA; video clips for HunyuanVideo), with
 EMA and gradient accumulation.
 
 Where the port departs from the reference:
@@ -158,7 +159,8 @@ class GenericTrainer(BaseTrainer):
         self.data_loader = Text2ImageDataLoader(
             config, None, None, quantization=self.family.quantization,
             model_tag=str(config.model_type),
-            latent_scale=self.model.vae_config.spatial_scale)
+            latent_scale=self.model.vae_config.spatial_scale,
+            video_mode=self.family.video)
         steps_per_epoch = max(len(self.data_loader), 1)
         total = config.epochs * steps_per_epoch // max(
             config.gradient_accumulation_steps, 1)

@@ -383,3 +383,65 @@ def test_flux_config_reader_gives_equal_configs():
         assert fields <= {f.name for f in dataclasses.fields(ref)}
         for name in fields:
             assert getattr(port, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("stub", [False, True], ids=["hash_fallback", "stub"])
+def test_llama_tokenizer_gives_equal_ids(stub):
+    """HunyuanVideo's Llama wrapper: the template's 95 positions (the hash
+    fallback's filler, or a transformers-like tokenizer over the template),
+    the text, the padding and its mask, placeholders spliced alike; the
+    prompt template is the reference's."""
+    from onetrainer_tpu.models.hunyuan_video import DEFAULT_PROMPT_TEMPLATE
+    from onetrainer_tpu.setup.tokenizer import LlamaTokenizerWrapper
+    from onetrainer_tpu_torch.models import hunyuan_video as pt_hv
+    from onetrainer_tpu_torch.setup.tokenizer import LlamaTokenizerWrapper as PortLlama
+    assert pt_hv.DEFAULT_PROMPT_TEMPLATE == DEFAULT_PROMPT_TEMPLATE
+    for vocab in (130, 128320):
+        ref = LlamaTokenizerWrapper(None, vocab_size=vocab)
+        port = PortLlama(None, vocab_size=vocab)
+        for tok in (ref, port):
+            if stub:
+                tok._tokenizer = _StubTokenizer()
+            assert tok.register_placeholder("<emb>", 2) == [vocab, vocab + 1]
+        assert (port.bos, port.eos, port.pad) == (ref.bos, ref.eos, ref.pad)
+        for text in ("a photo of <emb> on a table", "", " ".join(["word"] * 90)):
+            if stub and "<emb>" not in text:
+                continue   # the stub takes no template/padding keywords
+            want = ref(text)
+            np.testing.assert_array_equal(port(text), want, err_msg=text)
+            np.testing.assert_array_equal(port.mask(want), ref.mask(want))
+            assert want.shape == (172,)
+
+
+def test_hunyuan_remat_default_and_config_readers_are_the_references():
+    """HunyuanVideo's loader builds with the reference's default policy (no
+    `_DEFAULTS` entry: "full"); its config readers (transformer, Llama,
+    causal VAE) over the default (empty) and non-default configs, field by
+    field."""
+    import dataclasses
+
+    from onetrainer_tpu.io import hunyuan_checkpoints as ref_ckpt
+    from onetrainer_tpu.models import remat as jax_remat
+    from onetrainer_tpu_torch.io import hunyuan_checkpoints as pt_ckpt
+    from onetrainer_tpu_torch.models import remat as pt_remat
+    assert pt_remat.HUNYUAN_POLICY == jax_remat._DEFAULTS.get("hunyuan_video", "full") == "full"
+    transformer = {"num_layers": 2, "num_single_layers": 4, "num_refiner_layers": 1,
+                   "num_attention_heads": 4, "attention_head_dim": 32, "text_embed_dim": 24,
+                   "pooled_projection_dim": 20, "guidance_embeds": False,
+                   "rope_axes_dim": [8, 12, 12]}
+    llama = {"vocab_size": 1000, "hidden_size": 64, "intermediate_size": 96,
+             "num_hidden_layers": 3, "num_attention_heads": 4, "num_key_value_heads": 2,
+             "rope_theta": 10000.0, "rms_norm_eps": 1e-6}
+    vae = {"latent_channels": 8, "block_out_channels": [16, 32], "layers_per_block": 1,
+           "temporal_compression_ratio": 2, "spatial_compression_ratio": 2,
+           "scaling_factor": 0.5}
+    for reader, configs in (("hunyuan_config_from_diffusers", ({}, transformer)),
+                            ("llama_config_from_transformers", ({}, llama)),
+                            ("video_vae_config_from_diffusers", ({}, vae))):
+        for config in configs:
+            ref = getattr(ref_ckpt, reader)(config)
+            port = getattr(pt_ckpt, reader)(config)
+            fields = {f.name for f in dataclasses.fields(port)} - {"dtype"}
+            assert fields <= {f.name for f in dataclasses.fields(ref)}
+            for name in fields:
+                assert getattr(port, name) == getattr(ref, name), (reader, name)

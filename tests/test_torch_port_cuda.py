@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 forward, K2 dq and K3 dk/dv on the delta of
 their shared pre-pass, K4 NF4 dequant, K5 stochastic-rounding update, one
 launch over a list of leaves) against their plain PyTorch versions, on the
-card, and FLUX's blocks on them (the 128 slot at 4173 tokens). The
+card, FLUX's blocks on them (the 128 slot at 4173 tokens), and
+HunyuanVideo's keep mask over its text padding and its blocks. The
 attention cases include tile edges of K1
 and K3 (128-row blocks, 64- or 128-row streamed tiles): sequences shorter
 than one tile, lengths that are no multiple of 128, and head dims 40 and 80,
@@ -426,6 +427,96 @@ def test_flux_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
     pt_ff.reset_launch_counts()
     out = model(packed, ts, pooled, t5, img_ids, None, guidance)
     assert out.shape == (2, 4096, 64)
+    assert pt_ff.flash_attention_folded_fwd.launches == 2
+    grads = torch.autograd.grad(out.square().mean(),
+                                [p for p in model.parameters() if p.requires_grad])
+    torch.cuda.synchronize()
+    assert (pt_ff.flash_attention_folded_fwd.launches,
+            pt_ff.flash_attention_folded_dq.launches,
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (
+        4 if policy == "full" else 2, 2, 2, 2)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def _hunyuan_keep(b: int, s_img: int, real_text: int, device) -> torch.Tensor:
+    """HunyuanVideo's kv keep mask: every image row, then 77 text rows of
+    which the first `real_text` are kept and the padding dropped."""
+    keep = torch.ones((b, s_img + 77), dtype=torch.bool, device=device)
+    keep[:, s_img + real_text:] = False
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_img,h,real_text", [
+    (1, 2304, 4, 29),   # 9 latent frames of 16x16 patches: 2381 = 18 x 128 + 77
+    (2, 512, 2, 3),     # 589 rows; sample 1 keeps more text than sample 0
+])
+def test_hunyuan_keep_mask_attention_matches_plain_versions_on_card(cuda_device, b, s_img,
+                                                                    h, real_text):
+    """HunyuanVideo's joint attention scaled down: image rows first, the 77
+    text rows last, their padding dropped by the -1e30 kv bias, so whole
+    key columns of the ragged last tile are dropped for every query tile,
+    and the padded text queries still attend the kept keys. K1, K2, K3 and
+    the pre-pass against their plain versions at the bounds above."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    s, d = s_img + 77, 128
+
+    def rand():
+        return torch.randn((b, s, h * d), generator=gen, device=cuda_device
+                           ).to(torch.bfloat16)
+    q, k, v, do = rand(), rand(), rand(), rand()
+    keep = _hunyuan_keep(b, s_img, real_text, cuda_device)
+    keep[-1, s_img + real_text:s_img + real_text + 5] = True
+    kw = dict(sm_scale=d ** -0.5, kv_keep=keep)
+    o, lse = pt_ff.flash_attention_folded_fwd(q, k, v, h, **kw)
+    o_ref, lse_ref = pt_ff.flash_attention_folded_reference(q, k, v, h, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    args = (q, k, v, o, lse, do, h)
+    delta = pt_ff.flash_attention_folded_delta(o, do, h)
+    dq = pt_ff.flash_attention_folded_dq(*args, **kw, delta=delta)
+    dk, dv = pt_ff.flash_attention_folded_dkv(*args, **kw, delta=delta)
+    refs = (pt_ff.flash_attention_folded_dq_reference(*args, **kw),
+            *pt_ff.flash_attention_folded_dkv_reference(*args, **kw))
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), refs):
+        diff, ref = got.float() - ref.float(), ref.float()
+        assert diff.abs().max().item() <= 2e-2 * ref.abs().max().item()
+        assert (diff.norm() / ref.norm()).item() <= 2e-3
+    # a dropped key gets no gradient
+    dropped = ~keep
+    assert not dk.float().reshape(b, s, -1)[dropped].any()
+    assert not dv.float().reshape(b, s, -1)[dropped].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "full"])
+def test_hunyuan_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
+    """A HunyuanVideo transformer cut to one double and one single block at
+    full width (24 heads of d=128, 3D RoPE on the image rows) on 3 latent
+    frames of 32x32 (768 packed rows) and 77 Llama rows with 29 kept, bf16
+    compute: each block's attention over 845 tokens launches K1 once in the
+    forward with the keep mask, and K2, K3 and the pre-pass once each in
+    the backward; "full" checkpointing runs K1 again in the backward. The
+    refiner's 77-token attention stays on PyTorch's attention. The
+    parameter gradients are finite."""
+    from onetrainer_tpu_torch.models.hunyuan_video import (
+        HunyuanVideoTransformer3D, hunyuan_video_config,
+    )
+    torch.manual_seed(0)
+    cfg = hunyuan_video_config(num_layers=1, num_single_layers=1,
+                               gradient_checkpointing=policy == "full")
+    model = HunyuanVideoTransformer3D(cfg).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    latents = torch.randn((1, 3, 32, 32, 16), generator=gen, device=cuda_device)
+    states = torch.randn((1, 77, 4096), generator=gen, device=cuda_device)
+    mask = _hunyuan_keep(1, 0, 29, cuda_device).int()
+    pooled = torch.randn((1, 768), generator=gen, device=cuda_device)
+    pt_ff.reset_launch_counts()
+    out = model(latents, torch.tensor([500.0], device=cuda_device), states, mask, pooled,
+                torch.tensor([6000.0], device=cuda_device))
+    assert out.shape == (1, 3, 32, 32, 16)
     assert pt_ff.flash_attention_folded_fwd.launches == 2
     grads = torch.autograd.grad(out.square().mean(),
                                 [p for p in model.parameters() if p.requires_grad])

@@ -4,8 +4,10 @@ QLoRA steps (NF4 UNet, bf16 adapters, stochastic rounding), and the SD 2.x
 slice (v-prediction, text-encoder layer skip 1) samples and takes two LoRA
 steps, the SD3 slice (dots_nb_attn checkpointing) samples and takes two
 LoRA steps on cached text, the FLUX slice ("full" checkpointing) samples
-and takes two LoRA steps on an NF4 transformer and cached text, and the
-train and sample CLIs run a tiny SD 1.5 checkpoint end to
+and takes two LoRA steps on an NF4 transformer and cached text, the
+HunyuanVideo slice ("full" checkpointing) samples a 5-frame clip and takes
+two LoRA steps on an NF4 transformer, 5-frame clips and cached text, and
+the train and sample CLIs run a tiny SD 1.5 checkpoint end to
 end (load, cache, train, back up, save the LoRA file, sample), with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
@@ -219,6 +221,54 @@ _SCRIPT = textwrap.dedent(f"""
     batch = dict(encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1), loss_weight=torch.ones(2),
                  t5_hidden_state=text["t5_hidden_state"].expand(2, -1, -1),
                  clip_pooled_state=text["clip_pooled_state"].expand(2, -1))
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert setup.state.step == 2
+    assert any(e["lora_up"].abs().max() > 0
+               for e in setup.state.params["transformer_lora"].values())
+
+    from onetrainer_tpu_torch.io.weights import init_hunyuan_weights
+    from onetrainer_tpu_torch.models.hunyuan_video import HunyuanVideoConfig
+    from onetrainer_tpu_torch.models.hunyuan_video_model import HunyuanVideoModel
+    from onetrainer_tpu_torch.models.llama import LlamaConfig
+    from onetrainer_tpu_torch.models.video_vae import VideoVAEConfig
+    hv = HunyuanVideoModel(
+        model_type=ModelType.HUNYUAN_VIDEO,
+        transformer_config=HunyuanVideoConfig(
+            num_layers=1, num_single_layers=1, num_refiner_layers=1, hidden_size=32,
+            num_heads=2, head_dim=16, text_embed_dim=24, pooled_projection_dim=32,
+            axes_dims_rope=(4, 6, 6), gradient_checkpointing=True),
+        vae_config=VideoVAEConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1),
+        te_config=LlamaConfig(vocab_size=130, hidden_size=24, intermediate_size=48,
+                              num_layers=2, num_heads=2, num_kv_heads=1, head_dim=12),
+        te2_config=CLIPTextConfig(hidden_size=32, **te),
+        device="meta")
+    init_hunyuan_weights(hv, seed=6, device="cpu")
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.HUNYUAN_VIDEO
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    sc.frames = 5
+    out = family.sample(family.create_setup(hv, config, 1), sc, None)
+    assert out.video.shape == (5, 32, 32, 3) and out.video.dtype.name == "uint8"
+    config.training_method = TrainingMethod.LORA
+    config.prior.train = True
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    hv.transformer = hv.transformer.__class__(hv.transformer_config)
+    init_hunyuan_weights(hv, seed=7, device="cpu")
+    setup = family.create_setup(hv, config, 10)
+    assert sum(is_quantized(getattr(m, "weight", None))
+               for m in hv.transformer.modules()) > 10
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")
+    batch = dict(encode_images(torch.rand((2, 5, 32, 32, 3)) * 2 - 1),
+                 loss_weight=torch.ones(2),
+                 **{{k: torch.as_tensor(text[k]).expand(2, *torch.as_tensor(text[k]).shape)
+                    for k in ("text_encoder_1_hidden_state", "tokens_mask_1",
+                              "text_encoder_2_pooled_state")}})
     for _ in range(2):
         metrics = setup.train_step(setup.state, batch, gen)
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])

@@ -224,6 +224,34 @@ def test_diffusion_losses_match_jax(settings, v_prediction):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
 
 
+@pytest.mark.parametrize("weight_fn", list(E.LossWeight), ids=lambda w: w.value)
+def test_diffusion_losses_match_jax_for_every_loss_weight(weight_fn):
+    """F10: every LossWeight of an epsilon-prediction model, SIGMA included
+    (the reference leaves that loss CONSTANT's), at 1e-6 relative."""
+    config = TrainConfig.default_values()
+    config.loss_weight_fn = weight_fn
+    ref_cfg = jax_losses.LossConfig.from_train_config(config, False)
+    port_cfg = pt_losses.LossConfig.from_train_config(_port_config(config), False)
+    rng = np.random.default_rng(0)
+    predicted, target = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+                         for _ in range(2))
+    timestep = np.asarray([10, 900], np.int32)
+    weight = np.ones(2, np.float32)
+    betas = jax_schedules.make_betas()
+    ref = jax_losses.diffusion_losses(
+        {"loss_weight": jnp.asarray(weight)},
+        {"predicted": jnp.asarray(predicted), "target": jnp.asarray(target),
+         "timestep": jnp.asarray(timestep)},
+        ref_cfg, jax_schedules.DiffusionScheduleCoefficients.from_betas(betas))
+    got = pt_losses.diffusion_losses(
+        {"loss_weight": torch.from_numpy(weight)},
+        {"predicted": torch.from_numpy(predicted), "target": torch.from_numpy(target),
+         "timestep": torch.from_numpy(timestep)},
+        port_cfg, pt_schedules.DiffusionScheduleCoefficients.from_betas(
+            torch.from_numpy(np.array(betas))))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+
+
 def test_unported_loss_settings_raise():
     """Masked training is ported (tests/test_torch_port_finetune_math.py);
     prior preservation and the learned-variance VB term raise."""
