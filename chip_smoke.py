@@ -199,11 +199,37 @@ never falls back to the CPU. Phases, each of which must pass:
      resume for epoch 2 (per step K1 12, K2, K3 and the pre-pass 6, K4 132;
      none while caching), the LoRA file read back bitwise, the sample
      command (4 flow Euler steps, guidance 6, 24 K1), a non-constant image.
+ 28. sdxl_inpaint: the SDXL inpainting UNet (9 input channels) at its
+     published widths with seeded weights: inpainting at 1024x1024 (4 DDIM
+     steps, CFG 7) from a seeded base image and mask written as PNGs at
+     896x1152 and resized by the port's bilinear resize, K1 70 per step;
+     then the LoRA step of phase 6 on a batch whose cache rows carry the
+     conditioning latent and the latent mask: one warm-up and two timed
+     steps with the launches of phase 6 per step, the UNet's input 9 wide;
+ 29. flux_fill_model: FLUX.1-Fill-dev at its published widths (FLUX.1-dev's
+     with a 384-wide x_embedder), built and quantized as flux_model after
+     the dev model is freed; flux_fill_sample: 1024x1024, 4 flow Euler
+     steps, guidance 30, from a base image and mask at 896x1152: K1 57 and
+     K4 504 per pass; flux_fill_train: flux_train's step on cache rows that
+     carry the conditioning latent [2, 128, 128, 16] and the 64-channel
+     mask [2, 128, 128, 64] (384 packed input channels): the same launches
+     per step, the LoRA gradients against plain attention and the plain
+     dequant, a profiler split;
+ 30. sd15_inpaint_cli: a seeded SD 1.5-inpainting written as an fp16
+     single file, sd15_files' PNGs (600x560, not a bucket's size: the
+     loader resizes them in numpy) with their masks and one -condlabel.png,
+     unmasked probability 0.1: the train command (LoRA r16, batch 4 at 512)
+     for epoch 1 with a backup and the resume for epoch 2 (K1, K2, K3 and
+     the pre-pass 5 each per step, none while caching; the cache's rows
+     carry the conditioning latent and the mask), the LoRA file read back
+     bitwise, then the sample command with --sample-inpainting (4 DDIM
+     steps, 20 K1), a non-constant image.
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
-it, named), and k4 FLUX's 3072x18432 norm1.linear (HunyuanVideo's too) and
-15360x3072 proj_out.
+it, named), and k4 FLUX's 3072x18432 norm1.linear (HunyuanVideo's too),
+15360x3072 proj_out and FLUX.1-fill's 384x3072 x_embedder. The CLI phases
+read sd15_files' PNGs at 600x560, which the loader resizes to their bucket.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
 the line before it carries the kernel table as JSON.
@@ -273,11 +299,12 @@ K4_CASES = [
     ("padded_1000x777", (1000, 777)),            # 777,000: both halves padded
     ("flux_norm1_3072x18432", (3072, 18432)),    # FLUX's largest kernel (56.6M)
     ("flux_proj_out_15360x3072", (15360, 3072)),  # a single block's proj_out
+    ("flux_fill_x_embedder_384x3072", (384, 3072)),  # FLUX.1-fill's 384-wide input
 ]
 # the UNet's shapes and FLUX's
 K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280", "flux_norm1_3072x18432",
-            "flux_proj_out_15360x3072")
-FLUX_K4 = "flux_norm1_3072x18432"
+            "flux_proj_out_15360x3072", "flux_fill_x_embedder_384x3072")
+FLUX_K4, FLUX_FILL_K4 = "flux_norm1_3072x18432", "flux_fill_x_embedder_384x3072"
 K5_SIZES = ((1 << 20) + 3, 1_000_003)
 # the step's largest bf16 adapter tensor: lora_down of a 2560->1280 3x3 conv
 K5_LARGEST_ADAPTER_SHAPE = (16, 2560, 3, 3)
@@ -1025,7 +1052,7 @@ def _launch_counts() -> dict:
 
 
 def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: float = 7.0,
-                 k4_per_pass: int = 0, frames: int = 1) -> dict:
+                 k4_per_pass: int = 0, frames: int = 1, inpaint: tuple | None = None) -> dict:
     """Text-to-image through the family registry at size x size, 4 steps
     (DDIM; SD3's, FLUX's and HunyuanVideo's flow Euler), CFG `cfg_scale`
     (FLUX and HunyuanVideo: the guidance embedding): K1 exactly once per
@@ -1033,7 +1060,9 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
     per pass (an NF4 denoiser's layers) and nothing else launched; a uint8
     image that is not constant. With `frames` > 1 (text-to-video), the
     decoded clip finite, its uint8 stack frames x size x size x 3 and not
-    constant, the image its first frame."""
+    constant, the image its first frame. With `inpaint` (base image and mask
+    PNG paths), an inpainting model fills the mask's region of the base
+    image (sample_inpainting)."""
     from onetrainer_tpu_torch.config.sample_config import SampleConfig
     from onetrainer_tpu_torch.config.train_config import TrainConfig
     from onetrainer_tpu_torch.setup.families import get_family
@@ -1057,6 +1086,9 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
     sc.seed = 42
     sc.noise_scheduler = NoiseScheduler.DDIM
     sc.frames = frames
+    if inpaint is not None:
+        sc.sample_inpainting = True
+        sc.base_image_path, sc.mask_image_path = inpaint
 
     stamps, decoded = [], []
     if frames > 1:
@@ -1106,8 +1138,10 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
                  f"{clip.std():.2f}, decoded finite {decoded}, VAE decode {decode_ms:.1f} ms")
     sampler = "DDIM" if model.model_type.is_stable_diffusion() \
         or model.model_type.is_stable_diffusion_xl() else "flow Euler"
+    fill = (f", inpainting {os.path.basename(sc.base_image_path)} under "
+            f"{os.path.basename(sc.mask_image_path)}" if inpaint is not None else "")
     print(f"[{tag}] {model.model_type.value} {size}x{size} {sampler} {sc.diffusion_steps} steps "
-          f"CFG {sc.cfg_scale:g}: total {total_s:.3f} s, denoiser step median "
+          f"CFG {sc.cfg_scale:g}{fill}: total {total_s:.3f} s, denoiser step median "
           f"{statistics.median(step_ms):.2f} ms (steps 2..{sc.diffusion_steps}: "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms), peak "
           f"max_memory_allocated {peak_gib:.2f} GiB, K1 launches {launches['K1']} "
@@ -1148,6 +1182,46 @@ def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
     return batch
 
 
+def inpaint_inputs(torch, root: str, height: int, width: int) -> tuple[str, str]:
+    """A seeded base image and a gray mask (a bright rectangle over dim
+    noise) written by the port's PNG codec at height x width, a size the
+    samplers resize (bilinear, in numpy) -> their paths."""
+    from onetrainer_tpu_torch.io.png import write_png
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    base = (torch.rand((height, width, 3), generator=gen, device="cuda") * 255).byte()
+    mask = (torch.rand((height, width), generator=gen, device="cuda") * 48).byte()
+    mask[height // 4:height * 2 // 3, width // 5:width * 3 // 5] = 255
+    paths = (os.path.join(root, "base.png"), os.path.join(root, "mask.png"))
+    write_png(paths[0], base.cpu().numpy())
+    write_png(paths[1], mask.cpu().numpy())
+    return paths
+
+
+def _inpaint_batch(torch, family, setup, batch_size: int, size: int) -> dict:
+    """`_train_batch` with an inpainting model's cache rows beside it: the
+    VAE latent of a seeded image with a rectangle blanked, and the mask at
+    the latent's size (FLUX.1-fill: its 8x8 pixel patches as 64 channels
+    per latent cell), tiled."""
+    import numpy as np
+
+    from onetrainer_tpu_torch.sampling.inpaint import downsample_mask, flux_fill_mask_channels
+    batch = _train_batch(torch, family, setup, batch_size, size)
+    encode_images, _ = family.make_encode_fns(setup)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    mask = np.zeros((size, size, 1), np.float32)
+    mask[size // 4:size * 3 // 4, size // 8:size // 2] = 1.0
+    cond = image * (1 - torch.from_numpy(mask).to("cuda"))
+    fill = setup.config.model_type.is_flux()
+    latent_mask = flux_fill_mask_channels(mask) if fill else downsample_mask(mask, 8)
+
+    def tile(t):
+        return t.expand(batch_size, *t.shape[1:]).contiguous()
+    batch["latent_conditioning_image"] = tile(encode_images(cond)["latent_image"])
+    batch["latent_mask"] = tile(torch.from_numpy(latent_mask)[None].to("cuda"))
+    return batch
+
+
 def _lora_grads(torch, setup, batch, timestep, noise, latent_noise):
     """The LoRA gradients of one step's loss at fixed randomness, without
     the update (the step's own forward and backward)."""
@@ -1183,10 +1257,10 @@ def _finite(values) -> bool:
 
 
 def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
-                     after_batch=None, make_batch=None) -> dict:
+                     after_batch=None, make_batch=None, steps: int = TRAIN_STEPS) -> dict:
     """Setup through the family registry, the cached batch at size x size
     (`make_batch(setup)` when given), then `after_batch(setup)`, when given,
-    one warm-up step, then TRAIN_STEPS timed steps with every launch count
+    one warm-up step, then `steps` timed steps with every launch count
     zeroed just before them and read just after."""
     from onetrainer_tpu_torch.setup.families import get_family
     family = get_family(config.model_type)
@@ -1219,7 +1293,7 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     step_s, losses, norms = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         metrics = setup.train_step(setup.state, batch, gen)
         losses.append(metrics["loss"].item())
@@ -1228,7 +1302,7 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
     launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     med = statistics.median(step_s)
-    print(f"[{tag}] {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
+    print(f"[{tag}] {steps} timed steps: sec/step median {med:.4f} "
           f"(min {min(step_s):.4f}, max {max(step_s):.4f}; "
           f"{', '.join(f'{x:.4f}' for x in step_s)}), images/s "
           f"{config.batch_size / med:.3f}, peak max_memory_allocated {peak_gib:.2f} GiB, "
@@ -1402,6 +1476,46 @@ def phase_fp8(torch) -> dict:
             "peak_gib": run["peak_gib"]}
 
 
+# the sdxl_inpaint phase: two timed steps (the other SDXL phases time three)
+SDXL_INPAINT_STEPS = 2
+
+
+def phase_sdxl_inpaint(torch, root: str) -> dict:
+    """The SDXL inpainting UNet (9 input channels) at its published widths,
+    fp32 with bf16 compute: the LoRA step of phase 6 on a batch with the
+    conditioning latent and the mask beside the latents (two timed steps,
+    the same launches per step as phase 6), then inpainting at 1024x1024
+    (4 DDIM steps, CFG 7) from a seeded base image and mask at 896x1152:
+    K1 70 per step, the UNet's input 9 channels wide."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import ModelType
+    config = _lora_config(2, ModelType.STABLE_DIFFUSION_XL_10_BASE_INPAINTING)
+    model = build_model(torch, None, config.model_type)
+    family = get_family(config.model_type)
+    widths = []
+    hook = model.unet.register_forward_pre_hook(
+        lambda module, args: widths.append(args[0].shape[-1]))
+    try:
+        inputs = inpaint_inputs(torch, root, 896, 1152)
+        launches = phase_sample(torch, model, 1024, SDXL_SELF_ATTN, "sdxl_inpaint_sample",
+                                inpaint=inputs)
+        run = _setup_and_steps(
+            torch, model, config, "sdxl_inpaint", 1024, steps=SDXL_INPAINT_STEPS,
+            make_batch=lambda setup: _inpaint_batch(torch, family, setup, 2, 1024))
+    finally:
+        hook.remove()
+    n = SDXL_INPAINT_STEPS * sum(SDXL_SELF_ATTN.values())
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
+    ok = (run["finite"] and run["up_max"] > 0 and run["launches"] == expected
+          and set(widths) == {9} and model.unet.conv_in.weight.shape[1] == 9)
+    print(f"[sdxl_inpaint] UNet input widths {sorted(set(widths))}; launches "
+          f"{run['launches']} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sdxl_inpaint failed its checks")
+    return {"launches": run["launches"], "sample_launches": launches,
+            "sec_per_step": run["sec_per_step"], "peak_gib": run["peak_gib"]}
+
+
 # the port's kernels live in an anonymous namespace: PyTorch's own flash
 # kernels (pytorch_flash::flash_fwd_kernel) must not count as K1
 _PORT = "(anonymous namespace)::"
@@ -1486,6 +1600,8 @@ def profile_train_step(torch, setup, batch, gen, tag: str):
 SD15_LORA_LAYERS = 282
 CLI_IMAGES = 8
 CLI_SIZE = 512
+# the PNGs' size (h, w): not a bucket's, so the loader resizes every image
+CLI_PNG_SIZE = (600, 560)
 CLI_CAPTION = "a photograph of an astronaut riding a horse, number {}"
 
 
@@ -1578,10 +1694,12 @@ def _cli_timeline(*runs) -> tuple[list, list, dict]:
 
 
 def sd15_files(torch, root: str) -> dict:
-    """The files both SD 1.5 CLI phases read, in `root`: a seeded
-    full-width SD 1.5 written as one ldm-keyed fp16 single file, and
-    CLI_IMAGES PNGs at CLI_SIZE with captions and grayscale
-    `-masklabel.png` masks (at the bucket size: resizing needs Pillow)."""
+    """The files the CLI phases read, in `root`: a seeded full-width SD 1.5
+    written as one ldm-keyed fp16 single file, and CLI_IMAGES PNGs at
+    CLI_PNG_SIZE (the loader scales them to the bucket's scale, bilinear in
+    numpy, and crops) with captions, grayscale `-masklabel.png` masks and,
+    for the first image, a `-condlabel.png` conditioning image (read only
+    where the config asks for custom conditioning images)."""
     from onetrainer_tpu_torch.io.png import write_png
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file, state_dict_of
     from onetrainer_tpu_torch.util.enums import ModelType
@@ -1599,20 +1717,23 @@ def sd15_files(torch, root: str) -> dict:
     dataset = os.path.join(root, "dataset")
     os.makedirs(dataset)
     gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w = CLI_PNG_SIZE
     for i in range(CLI_IMAGES):
-        pixels = (torch.rand((CLI_SIZE, CLI_SIZE, 3), generator=gen, device="cuda")
-                  * 255).byte()
+        pixels = (torch.rand((h, w, 3), generator=gen, device="cuda") * 255).byte()
         write_png(os.path.join(dataset, f"{i:02d}.png"), pixels.cpu().numpy())
         # a bright square of the subject over a dim, noisy surround
-        mask = (torch.rand((CLI_SIZE, CLI_SIZE), generator=gen, device="cuda") * 64).byte()
-        lo, hi = CLI_SIZE // 8 * (1 + i % 3), CLI_SIZE // 8 * (5 + i % 3)
+        mask = (torch.rand((h, w), generator=gen, device="cuda") * 64).byte()
+        lo, hi = h // 8 * (1 + i % 3), h // 8 * (5 + i % 3)
         mask[lo:hi, lo:hi] = 255
         write_png(os.path.join(dataset, f"{i:02d}-masklabel.png"), mask.cpu().numpy())
+        if i == 0:
+            cond = (torch.rand((h, w, 3), generator=gen, device="cuda") * 255).byte()
+            write_png(os.path.join(dataset, f"{i:02d}-condlabel.png"), cond.cpu().numpy())
         with open(os.path.join(dataset, f"{i:02d}.txt"), "w") as f:
             f.write(CLI_CAPTION.format(i))
     print(f"[sd15_files] wrote {ckpt} ({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB, fp16, "
-          f"ldm keys) in {write_s:.2f} s, {CLI_IMAGES} PNGs {CLI_SIZE}x{CLI_SIZE} with "
-          f"their captions and grayscale masks")
+          f"ldm keys) in {write_s:.2f} s, {CLI_IMAGES} PNGs {h}x{w} with their captions "
+          f"and grayscale masks, one conditioning image")
     return {"ckpt": ckpt, "dataset": dataset}
 
 
@@ -2278,14 +2399,16 @@ def sd3_files(torch, root: str) -> str:
 
 def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: int,
                   per_step: dict, lora_layers: int, cache_shapes: dict, sample_argv: list,
-                  sample_k1: int, policy: str, load_note: str, prior_dtype=None) -> dict:
-    """A DiT family's LoRA r16 a16 from a diffusers directory through the
-    train and sample commands: size x size, batch 4 over sd15_files' eight
-    PNGs, bf16 weights (the transformer in `prior_dtype` when given),
-    gradient checkpointing on (the loader's `policy`), epoch 1 with a
-    backup, the resume for epoch 2, the LoRA file read back bitwise and
-    its reload loss, the sample command (`sample_argv` past the model and
-    the destination). Exactly `per_step` launches per step and none while
+                  sample_k1: int, policy: str, load_note: str, prior_dtype=None,
+                  denoiser: str = "transformer", configure=None) -> dict:
+    """A family's LoRA r16 a16 on its `denoiser` ("transformer" or "unet")
+    from a checkpoint through the train and sample commands: size x size,
+    batch 4 over sd15_files' eight PNGs, bf16 weights (the transformer in
+    `prior_dtype` when given), gradient checkpointing on (the loader's
+    `policy`), then `configure(config)` when given, epoch 1 with a backup,
+    the resume for epoch 2, the LoRA file read back bitwise and its reload
+    loss, the sample command (`sample_argv` past the model and the
+    destination). Exactly `per_step` launches per step and none while
     caching, `sample_k1` K1 over the sample; the cache's rows of
     `cache_shapes`; `lora_layers` adapted layers."""
     from onetrainer_tpu_torch.io.png import read_png
@@ -2303,6 +2426,8 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
     if prior_dtype is not None:
         config.prior.weight_dtype = prior_dtype
     config.gradient_checkpointing = GradientCheckpointingMethod.ON
+    if configure is not None:
+        configure(config)
     config_path = os.path.join(root, "epoch1.json")
     with open(config_path, "w") as f:
         json.dump(config.to_dict(), f)
@@ -2323,13 +2448,13 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
     gc.collect()
     torch.cuda.empty_cache()
     resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
-    loaded_policy = resumed.model.transformer_config.remat_policy
+    loaded_policy = getattr(resumed.model, f"{denoiser}_config").remat_policy
     train_launches = _launch_counts()
     image_path = os.path.join(root, "sample.png")
     lora = load_safetensors(config.output_model_destination)
-    adapters = resumed.setup.state.params["transformer_lora"]
-    keys = peft_module_keys(resumed.model.transformer, resumed.setup.peft_cfg)
-    read, alpha = kohya_state_dict_to_peft(lora, "lora_transformer", keys)
+    adapters = resumed.setup.state.params[f"{denoiser}_lora"]
+    keys = peft_module_keys(getattr(resumed.model, denoiser), resumed.setup.peft_cfg)
+    read, alpha = kohya_state_dict_to_peft(lora, f"lora_{denoiser}", keys)
     bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
                and all(torch.equal(read[k][n], t.detach().cpu())
                        for k, e in adapters.items() for n, t in e.items()))
@@ -2397,7 +2522,8 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
           f"{statistics.median(step_s):.4f} s over the unprofiled steps (the first includes "
           f"the warm-up); step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
           f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
-    print(f"[{tag}] on {card}: sample (load + 4 flow Euler steps + decode + PNG) "
+    sampler = "DDIM" if denoiser == "unet" else "flow Euler"
+    print(f"[{tag}] on {card}: sample (load + 4 {sampler} steps + decode + PNG) "
           f"{sample_s:.2f} s; peak max_memory_allocated {peak_gib:.2f} GiB; launches "
           f"{launches} (sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
           f"{reload_loss:.6f}; checks {checks}")
@@ -2405,6 +2531,52 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
         raise AssertionError(f"{tag} failed: "
                              f"{[name for name, ok in checks.items() if not ok]}")
     return {"launches": launches, "step_s": statistics.median(step_s), "peak_gib": peak_gib}
+
+
+def phase_sd15_inpaint_cli(torch, files: dict) -> dict:
+    """SD 1.5 inpainting from files through the train and sample commands:
+    a seeded full-width SD 1.5-inpainting UNet (9 input channels) written
+    beside sd15_files' checkpoint as one fp16 single file, sd15_files' PNGs
+    (not at their bucket's size) with their masks and the one
+    `-condlabel.png` (custom conditioning images on), unmasked probability
+    0.1; LoRA r16 a16 at batch 4, 512x512, fp32 weights in bf16, no
+    gradient checkpointing: exactly K1, K2, K3 and the pre-pass 5 each per
+    step, none while caching; the cache's rows carry the conditioning
+    latent and the mask; then `--sample-inpainting` at 512x512 from a base
+    image and mask at 600x560 (4 DDIM steps, 20 K1)."""
+    from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file, state_dict_of
+    from onetrainer_tpu_torch.util.enums import GradientCheckpointingMethod, ModelType
+    root = os.path.join(os.path.dirname(files["ckpt"]), "inpaint")
+    os.makedirs(root)
+    model = build_model(torch, None, ModelType.STABLE_DIFFUSION_15_INPAINTING)
+    ckpt = os.path.join(root, "sd15-inpainting.safetensors")
+    t0 = time.perf_counter()
+    save_sd_single_file(ckpt, model, *(state_dict_of(m) for m in
+                                       (model.unet, model.vae, model.text_encoder)),
+                        save_dtype=torch.float16)
+    print(f"[sd15_inpaint_files] wrote {ckpt} ({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB, "
+          f"fp16, conv_in {tuple(model.unet.conv_in.weight.shape)}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    base, mask = inpaint_inputs(torch, root, *CLI_PNG_SIZE)
+
+    def configure(config):
+        config.gradient_checkpointing = GradientCheckpointingMethod.OFF
+        config.custom_conditioning_image = True
+        config.unmasked_probability = 0.1
+
+    per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+    latent = CLI_SIZE // 8
+    return _dit_lora_cli(
+        torch, "sd15_inpaint_cli", ckpt, files["dataset"],
+        ModelType.STABLE_DIFFUSION_15_INPAINTING, CLI_SIZE, per_step, SD15_LORA_LAYERS,
+        {"latent_image": (latent, latent, 4), "latent_conditioning_image": (latent, latent, 4),
+         "latent_mask": (latent, latent, 1), "text_encoder_hidden_state": (77, 768)},
+        ["--cfg", "7", "--sample-inpainting", "--base-image-path", base,
+         "--mask-image-path", mask], 4 * 5, "tx_only",
+        "fp16 single file to bf16 on the card", denoiser="unet", configure=configure)
 
 
 def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
@@ -2430,6 +2602,7 @@ FLUX_DOUBLE, FLUX_SINGLE = 19, 38
 FLUX_BLOCKS = FLUX_DOUBLE + FLUX_SINGLE
 FLUX_TOKENS = 77 + 4096
 FLUX_GUIDANCE = 3.5         # the sampling guidance FLUX.1-dev's card suggests
+FLUX_FILL_GUIDANCE = 30.0   # the guidance BFL's FLUX.1-Fill-dev card suggests
 # the flux_cli phase's diffusers directory: FLUX.1-dev's widths, its
 # transformer cut to 2 double and 4 single blocks (the full one is a 23.8 GB
 # bf16 file to write and read three times)
@@ -2449,8 +2622,9 @@ def flux_nf4_layers(double: int, single: int) -> tuple[int, int]:
 
 
 def build_flux_model(torch, double: int = FLUX_DOUBLE, single: int = FLUX_SINGLE,
-                     quantize: bool = True):
-    """FLUX.1-dev at its published widths with seeded weights on the card
+                     quantize: bool = True, model_type=None):
+    """FLUX.1-dev (FLUX.1-Fill-dev for FLUX_FILL_DEV_1: a 384-wide
+    x_embedder) at its published widths with seeded weights on the card
     (`double` + `single` blocks of 24 d=128 heads, hidden 3072, RoPE axes
     (16, 56, 56), the guidance embedding; CLIP-L; T5-XXL; the 16-channel
     VAE, scaling 0.3611 and shift 0.1159), bf16 compute, the reference's
@@ -2469,8 +2643,11 @@ def build_flux_model(torch, double: int = FLUX_DOUBLE, single: int = FLUX_SINGLE
     from onetrainer_tpu_torch.ops.quant import is_quantized
     from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
     from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    model_type = model_type or ModelType.FLUX_DEV_1
+    label = "FLUX.1-Fill-dev" if model_type == ModelType.FLUX_FILL_DEV_1 else "FLUX.1-dev"
+    tag = "flux_fill_model" if model_type == ModelType.FLUX_FILL_DEV_1 else "flux_model"
     t0 = time.perf_counter()
-    model = create_flux_model(ModelType.FLUX_DEV_1, dtype=torch.bfloat16,
+    model = create_flux_model(model_type, dtype=torch.bfloat16,
                               gradient_checkpointing=True, remat_policy=FLUX_POLICY,
                               device="meta")
     if (double, single) != (FLUX_DOUBLE, FLUX_SINGLE):
@@ -2487,7 +2664,8 @@ def build_flux_model(torch, double: int = FLUX_DOUBLE, single: int = FLUX_SINGLE
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     built_gib = torch.cuda.memory_allocated() / 2 ** 30
-    line = (f"[flux_model] FLUX.1-dev ({double} double, {single} single blocks), parameters "
+    line = (f"[{tag}] {label} ({double} double, {single} single blocks, x_embedder "
+            f"{tuple(model.transformer.x_embedder.weight.shape)}), parameters "
             f"{counts} (total {sum(counts.values())}), seeded on the card in {init_s:.2f} s, "
             f"{built_gib:.2f} GiB allocated")
     if not quantize:
@@ -2603,6 +2781,60 @@ def phase_flux_train(torch, model) -> dict:
     if not ok:
         raise AssertionError("flux_train failed its checks")
     profile_train_step(torch, setup, batch, run["gen"], "flux_train")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def phase_flux_fill_train(torch, model) -> dict:
+    """flux_train on FLUX.1-Fill-dev: the same LoRA, batch, checkpointing
+    and optimizer, the batch's cache rows with the conditioning latent
+    [2, 128, 128, 16] and the 64-channel mask [2, 128, 128, 64] beside the
+    latents (the transformer takes 64 + 64 + 256 = 384 packed channels):
+    the same launches per step as flux_train (x_embedder is one of the 504
+    NF4 layers), the LoRA gradients against plain attention and the plain
+    dequant, a profiler split."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    config = _lora_config(2, ModelType.FLUX_FILL_DEV_1)
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    family = get_family(config.model_type)
+    widths = []
+
+    def free_encoders(setup):
+        model.text_encoder = model.text_encoder_2 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    hook = model.transformer.register_forward_pre_hook(
+        lambda module, args: widths.append(args[0].shape[-1]))
+    try:
+        run = _setup_and_steps(
+            torch, model, config, "flux_fill_train", 1024, after_batch=free_encoders,
+            make_batch=lambda setup: _inpaint_batch(torch, family, setup, 2, 1024))
+    finally:
+        hook.remove()
+    setup, batch = run["setup"], run["batch"]
+    n_quant, n_in_blocks = flux_nf4_layers(FLUX_DOUBLE, FLUX_SINGLE)
+    n = TRAIN_STEPS * FLUX_BLOCKS
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": 0}
+    grads = _grads_against_plain(torch, setup, batch, "flux_fill_train", plain_dequant=True)
+    rows = {k: tuple(batch[k].shape) for k in ("latent_image", "latent_conditioning_image",
+                                              "latent_mask")}
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected and grads["by_seq"] == {FLUX_TOKENS: 2 * FLUX_BLOCKS}
+          and grads["rel"] <= GRAD_REL_L2_BOUND and set(widths) == {384}
+          and rows == {"latent_image": (2, 128, 128, 16),
+                       "latent_conditioning_image": (2, 128, 128, 16),
+                       "latent_mask": (2, 128, 128, 64)}
+          and len(setup.state.params["transformer_lora"]) == n_quant
+          and "x_embedder" in setup.state.params["transformer_lora"])
+    print(f"[flux_fill_train] cache rows {rows}; transformer input widths {sorted(set(widths))}; "
+          f"{n_quant} NF4 layers, all adapted (x_embedder 384 x 3072 among them); launches "
+          f"{run['launches']} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flux_fill_train failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], "flux_fill_train")
     return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
             "peak_gib": run["peak_gib"]}
 
@@ -3078,6 +3310,10 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
          "onetrainer_tpu/ops/nf4_pallas.py:41", "flux_train", k4[FLUX_K4]["max_abs_err"],
          k4[FLUX_K4]["ms"], k4[FLUX_K4]["plain_ms"], k4[FLUX_K4]["bound_ms"],
          k4[FLUX_K4]["bound_by"], None, FLUX_K4),
+        ("nf4_dequant_flat (K4) at FLUX.1-fill's x_embedder", "K4", "nf4_dequant.cu",
+         "onetrainer_tpu/ops/nf4_pallas.py:41", "flux_fill_train",
+         k4[FLUX_FILL_K4]["max_abs_err"], k4[FLUX_FILL_K4]["ms"], k4[FLUX_FILL_K4]["plain_ms"],
+         k4[FLUX_FILL_K4]["bound_ms"], k4[FLUX_FILL_K4]["bound_by"], None, FLUX_FILL_K4),
         ("nf4_dequant_flat (K4) at HunyuanVideo's norm1.linear (FLUX's shape)", "K4",
          "nf4_dequant.cu", "onetrainer_tpu/ops/nf4_pallas.py:41", "hunyuan_train",
          k4[FLUX_K4]["max_abs_err"], k4[FLUX_K4]["ms"], k4[FLUX_K4]["plain_ms"],
@@ -3155,6 +3391,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run(name, fn, torch)
+    import shutil
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = tempfile.mkdtemp(prefix="inpaint_inputs_")
+    try:
+        run("sdxl_inpaint", phase_sdxl_inpaint, torch, inputs)
+    finally:
+        shutil.rmtree(inputs, ignore_errors=True)
 
     from onetrainer_tpu_torch.util.enums import ModelType
     gc.collect()
@@ -3180,8 +3425,6 @@ def main() -> int:
     results.pop("sd21_model", None)
     gc.collect()
     torch.cuda.empty_cache()
-    import shutil
-    import tempfile
     model = run("sd3_model", build_sd3_model, torch)
     if model is not None:
         run("sd3_sample", phase_sample, torch, model, 1024, {4250: SD3_BLOCKS}, "sd3_sample")
@@ -3201,6 +3444,22 @@ def main() -> int:
     results.pop("flux_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    model = run("flux_fill_model", build_flux_model, torch, FLUX_DOUBLE, FLUX_SINGLE, True,
+                ModelType.FLUX_FILL_DEV_1)
+    if model is not None:
+        inputs = tempfile.mkdtemp(prefix="inpaint_inputs_")
+        try:
+            run("flux_fill_sample", phase_sample, torch, model, 1024,
+                {FLUX_TOKENS: FLUX_BLOCKS}, "flux_fill_sample", FLUX_FILL_GUIDANCE,
+                flux_nf4_layers(FLUX_DOUBLE, FLUX_SINGLE)[0], 1,
+                inpaint_inputs(torch, inputs, 896, 1152))
+        finally:
+            shutil.rmtree(inputs, ignore_errors=True)
+        run("flux_fill_train", phase_flux_fill_train, torch, model)
+    del model
+    results.pop("flux_fill_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     model = run("hunyuan_model", build_hunyuan_model, torch)
     if model is not None:
         run("hunyuan_sample", phase_sample, torch, model, HV_SIZE, {HV_TOKENS: HV_BLOCKS},
@@ -3218,6 +3477,9 @@ def main() -> int:
         if files is not None:
             run("sd15_cli", phase_sd15_cli, torch,
                 (results.get("sd15_train") or {}).get("sec_per_step"), files)
+            gc.collect()
+            torch.cuda.empty_cache()
+            run("sd15_inpaint_cli", phase_sd15_inpaint_cli, torch, files)
             gc.collect()
             torch.cuda.empty_cache()
             # the 15 GB SD3 directory lives only for its phase
@@ -3258,10 +3520,13 @@ def main() -> int:
     launches = {"sample": results["sample"], "sd15_sample": results["sd15_sample"],
                 "sd3_sample": results["sd3_sample"], "flux_sample": results["flux_sample"],
                 "hunyuan_sample": results["hunyuan_sample"],
+                "flux_fill_sample": results["flux_fill_sample"],
+                "sdxl_inpaint_sample": results["sdxl_inpaint"]["sample_launches"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
                              "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
-                             "flux_cli", "hunyuan_train", "hunyuan_cli")}}
+                             "flux_cli", "hunyuan_train", "hunyuan_cli", "flux_fill_train",
+                             "sdxl_inpaint", "sd15_inpaint_cli")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches)))
     print(json.dumps({"ok": True, "device": {

@@ -10,19 +10,24 @@ one would. Batches are dicts of torch tensors on the host; the train step
 moves them to the model's device.
 
 What differs from the reference:
-- PNG files, images and `-masklabel.png` masks, are read by the port's
-  standard-library codec (io/png.py), which decodes bit for bit as Pillow
-  does (a mask converted to gray as Pillow's convert("L")); other formats,
-  EXIF orientation and resizing to a new size need Pillow, imported where
-  they happen (an image or mask at its bucket's size is not resized:
-  Pillow's bilinear resize to the same size is the identity). The mask's
-  nearest-neighbour downscale to the latent size is done in numpy, as
-  Pillow's does it.
+- PNG files, images, `-masklabel.png` masks and `-condlabel.png`
+  conditioning images, are read by the port's standard-library codec
+  (io/png.py), which decodes bit for bit as Pillow does (a mask converted
+  to gray as Pillow's convert("L")); other formats and EXIF orientation
+  need Pillow, imported where they happen. The bilinear resize to the
+  bucket's scale (`resize_bilinear`) and the mask's nearest-neighbour
+  downscale to the latent size (`resize_nearest`) are done in numpy, bit
+  for bit as Pillow does them.
 - Video files are read with OpenCV, imported where a video is read or
   probed.
-- Depth maps and conditioning images (mask-input and conditioning-image
-  models) raise NotImplementedError; cached pixels (VAE fine-tuning) are
-  not ported.
+- Inpainting models (`conditioning_image`) cache the VAE latent of a
+  conditioning image beside the image's: the `-condlabel` file when the
+  config asks for custom conditioning images and the sample has one, else
+  the image with its masked region blanked; FLUX.1-fill
+  (`fill_mask_channels`) carries the 8x8 pixel-mask patch of each latent
+  cell as 64 mask channels. The cache key of such a sample covers its mask
+  and conditioning files too. Depth maps raise NotImplementedError; cached
+  pixels (VAE fine-tuning) are not ported.
 - The encode functions run on the thread that calls `ensure_cached` and,
   without a cache, on the one iterating `iter_epoch`; the prefetch thread
   only reads cached rows.
@@ -31,6 +36,8 @@ What differs from the reference:
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 import queue
 import threading
@@ -139,6 +146,74 @@ def resize_nearest(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
     return pixels[taps(h, height)[:, None], taps(w, width)[None, :]]
 
 
+# libImaging's fixed-point resampling: coefficients scaled by 2^22, sums
+# rounded by adding half a step and shifted back
+_PRECISION_BITS = 22
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """(source indices [n_out, k], int32 weights [n_out, k]) of Pillow's
+    BILINEAR resampling along one axis (libImaging's precompute_coeffs and
+    normalize_coeffs_8bpc): a triangle filter whose support is scaled by
+    max(n_in / n_out, 1), each output's weights normalized to sum 1 in
+    double precision, then rounded to 22-bit fixed point. Unused taps point
+    at the first source index with weight 0."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ss = 1.0 / filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    index = np.zeros((n_out, ksize), np.int64)
+    weight = np.zeros((n_out, ksize), np.int32)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        taps = []
+        for x in range(xmax):
+            d = abs((x + xmin - center + 0.5) * ss)
+            taps.append(1.0 - d if d < 1.0 else 0.0)
+        total = 0.0
+        for w in taps:
+            total += w
+        for x, w in enumerate(taps):
+            if total != 0.0:
+                w /= total
+            weight[xx, x] = int(0.5 + w * (1 << _PRECISION_BITS))
+            index[xx, x] = xmin + x
+        index[xx, xmax:] = xmin
+    return index, weight
+
+
+def _resample_axis(pixels: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+    """One pass of Pillow's BILINEAR resampling of uint8 `pixels` along
+    `axis`: per output, the fixed-point sum over its taps plus half a step,
+    shifted back and clipped to 0-255 (ImagingResampleHorizontal_8bpc and
+    its vertical twin)."""
+    index, weight = _bilinear_taps(pixels.shape[axis], n_out)
+    src = np.ascontiguousarray(np.moveaxis(pixels, axis, 0)).astype(np.int32)
+    expand = (slice(None),) + (None,) * (src.ndim - 1)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
+    for k in range(index.shape[1]):
+        acc += src[index[:, k]] * weight[:, k][expand]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] resized to [height, width] as Pillow's
+    Image.resize(..., BILINEAR) does it on an "L" or "RGB" image
+    (libImaging's ImagingResample): a horizontal pass, then a vertical
+    one, each only where that size changes, each rounded to uint8."""
+    h, w = pixels.shape[:2]
+    if w != width:
+        pixels = _resample_axis(pixels, 1, width)
+    if h != height:
+        pixels = _resample_axis(pixels, 0, height)
+    return pixels.copy() if (h, w) == (height, width) else pixels
+
+
 def probe_image_size(path: str) -> tuple[int, int]:
     """(w, h) after EXIF orientation, without decoding pixels -- the
     aspect-bucket probe must agree with load_image_rgb's transpose."""
@@ -160,11 +235,7 @@ def resize_crop(image: np.ndarray, info) -> np.ndarray:
     """Scale to `info.scale` (bilinear, through uint8 as the reference
     does) and crop the bucket at `info.crop_offset`."""
     sh, sw = info.scale
-    pixels = (image * 255).astype(np.uint8)
-    if (sh, sw) != image.shape[:2]:
-        from PIL import Image
-        pil = Image.fromarray(pixels.squeeze() if image.shape[-1] == 1 else pixels)
-        pixels = np.asarray(pil.resize((sw, sh), Image.BILINEAR))
+    pixels = resize_bilinear((image * 255).astype(np.uint8), sw, sh)
     arr = np.asarray(pixels, dtype=np.float32) / 255.0
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -212,18 +283,18 @@ class Text2ImageDataLoader:
             encode_batch_size: int = 8,
             model_tag: str = "sd",
             latent_scale: int = 8,
+            conditioning_image: bool = False,
+            fill_mask_channels: bool = False,
             video_mode: bool = False,
     ):
         model_type = config.model_type
-        unported = {
-            "conditioning images": (config.custom_conditioning_image
-                                    or model_type.has_conditioning_image_input()),
-            "depth maps": model_type.has_depth_input(),
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"the data loader's {what} are not ported yet")
+        if model_type.has_depth_input():
+            raise NotImplementedError("the data loader's depth maps are not ported yet")
         self.latent_scale = latent_scale
+        # inpainting models: a masked conditioning image per sample
+        self.conditioning_image = conditioning_image
+        # FLUX.1-fill: the latent mask as 64 channels of 8x8 pixel-mask patches
+        self.fill_mask_channels = fill_mask_channels
         # video families: config.frames consecutive frames per video file
         self.video_mode = video_mode
         self.frames = max(int(float(config.frames or 1)), 1) if video_mode else 1
@@ -235,6 +306,7 @@ class Text2ImageDataLoader:
         concepts = config.concepts or []
         self.entries: list[SampleEntry] = scan_concepts(
             concepts, masked_training=config.masked_training or model_type.has_mask_input(),
+            custom_conditioning_image=config.custom_conditioning_image,
             allow_videos=video_mode)
         if not self.entries:
             # fail loudly: a loader with no samples would otherwise "train"
@@ -272,6 +344,14 @@ class Text2ImageDataLoader:
                 self.cache.clear()
 
         self._threads = max(int(config.dataloader_threads or 1), 1)
+
+        # RandomLatentMaskRemove: a mask-input model trains a sample fully
+        # unmasked with probability config.unmasked_probability (an all-ones
+        # latent mask and the conditioning latent of a blank image)
+        self.mask_remove_probability = (
+            float(config.unmasked_probability or 0.0)
+            if model_type.has_mask_input() else 0.0)
+        self._blank_cond_latents: dict[tuple, torch.Tensor] = {}
 
     # -- epoch plan -------------------------------------------------------------
 
@@ -368,6 +448,18 @@ class Text2ImageDataLoader:
         mask = np.ones(clip.shape[1:3] + (1,), np.float32)
         return clip * 2.0 - 1.0, mask, info
 
+    def _conditioning_pixels(self, sample: PreparedSample, image: np.ndarray,
+                             mask: np.ndarray, info) -> np.ndarray | None:
+        """The conditioning image in [-1, 1] of an inpainting model's sample:
+        its `-condlabel` file scaled and cropped as the image, else the
+        image with the masked region blanked; None for other models."""
+        if not self.conditioning_image:
+            return None
+        e = self.entries[sample.entry_index]
+        if e.cond_path:
+            return resize_crop(load_image_rgb(e.cond_path), info) * 2.0 - 1.0
+        return image * (1.0 - mask)
+
     def _prompt(self, sample: PreparedSample) -> str:
         e = self.entries[sample.entry_index]
         rng = self._sample_rng(e, 1000 + sample.text_variation)
@@ -390,7 +482,36 @@ class Text2ImageDataLoader:
                           "text_encoder_2_layer_skip",
                           "text_encoder_3_layer_skip",
                           "text_encoder_4_layer_skip")],
+            **self._conditioning_key(e),
         }
+
+    def _conditioning_key(self, e: SampleEntry) -> dict:
+        """An inpainting sample's mask and conditioning files with their
+        modification times: editing either changes the cached conditioning
+        latent, so it changes the cache key."""
+        if not self.conditioning_image:
+            return {}
+
+        def stamp(path):
+            if not path:
+                return None
+            try:
+                return [os.path.abspath(path), os.path.getmtime(path)]
+            except OSError:
+                return [os.path.abspath(path), 0.0]
+        return {"conditioning": {"mask": stamp(e.mask_path), "cond": stamp(e.cond_path),
+                                 "fill_mask_channels": self.fill_mask_channels}}
+
+    def _blank_cond_latent(self, bucket: tuple[int, int]) -> torch.Tensor:
+        """The conditioning latent of a blank (all-masked) image at `bucket`,
+        encoded once per bucket: RandomLatentMaskRemove's replacement."""
+        blank = self._blank_cond_latents.get(bucket)
+        if blank is None:
+            h, w = bucket
+            blank = _host(self.encode_images(
+                np.zeros((1, h, w, 3), np.float32))["latent_image"])[0]
+            self._blank_cond_latents[bucket] = blank
+        return blank
 
     def _safe_encode(self, images: np.ndarray) -> dict:
         """encode_images, halving the batch on a device out-of-memory error
@@ -414,7 +535,12 @@ class Text2ImageDataLoader:
 
     def ensure_cached(self, batches: list[list[PreparedSample]],
                       on_progress: Callable[[int, int], None] | None = None):
-        """Cache-fill pass: encode any missing samples, bucket-batched."""
+        """Cache-fill pass: encode any missing samples, bucket-batched; the
+        blank conditioning latents of mask removal are encoded here too, not
+        in the prefetch thread."""
+        if self.mask_remove_probability > 0 and self.conditioning_image:
+            for bucket in {s.bucket for batch in batches for s in batch}:
+                self._blank_cond_latent(bucket)
         if self.cache is None:
             return
         missing = [s for batch in batches for s in batch
@@ -438,10 +564,17 @@ class Text2ImageDataLoader:
                 else:
                     loaded = [self._load_pixels(s) for s in chunk]
                 encoded = self._safe_encode(np.stack([img for img, _, _ in loaded]))
+                encoded_cond = None
+                if self.conditioning_image:
+                    encoded_cond = self._safe_encode(np.stack([
+                        self._conditioning_pixels(s, *pixels)
+                        for s, pixels in zip(chunk, loaded)]))["latent_image"]
                 for j, (s, (_, mask, info)) in enumerate(zip(chunk, loaded)):
                     tensors = {k: _host(v[j]) for k, v in encoded.items()}
                     tensors["latent_mask"] = self._latent_mask(mask)
                     tensors.update(self._crop_metadata(s, info))
+                    if encoded_cond is not None:
+                        tensors["latent_conditioning_image"] = _host(encoded_cond[j])
                     text = self.encode_text(self._prompt(s))
                     tensors.update({k: _host(v) for k, v in text.items()})
                     self.cache.save(s.cache_key, tensors)
@@ -463,7 +596,11 @@ class Text2ImageDataLoader:
 
     def _latent_mask(self, mask: np.ndarray) -> np.ndarray:
         """The mask at the latent resolution: through uint8 and a
-        nearest-neighbour downscale by the VAE's factor, as the reference's."""
+        nearest-neighbour downscale by the VAE's factor, as the reference's;
+        FLUX.1-fill's as 64 channels of 8x8 pixel-mask patches."""
+        if self.fill_mask_channels:
+            from onetrainer_tpu_torch.sampling.inpaint import flux_fill_mask_channels
+            return flux_fill_mask_channels(mask, int(self.latent_scale))
         h, w = mask.shape[:2]
         s = self.latent_scale
         pixels = resize_nearest((mask[..., 0] * 255).astype(np.uint8),
@@ -471,6 +608,29 @@ class Text2ImageDataLoader:
         return (np.asarray(pixels, np.float32) / 255.0)[..., None]
 
     # -- batch materialization ------------------------------------------------------
+
+    def _maybe_remove_mask(self, sample: PreparedSample, row: dict) -> dict:
+        """RandomLatentMaskRemove: with `mask_remove_probability` the sample
+        trains unmasked (an all-ones latent mask, the blank conditioning
+        latent). Drawn per (image, epoch, variation) after the cache, as the
+        reference's, so the cached rows serve both outcomes."""
+        p = self.mask_remove_probability
+        if p <= 0 or "latent_mask" not in row:
+            return row
+        e = self.entries[sample.entry_index]
+        rng = np.random.default_rng([
+            zlib.crc32(b"mask_remove"), zlib.crc32(e.image_path.encode("utf-8")),
+            int(sample.epoch), int(sample.image_variation)])
+        if rng.random() >= p:
+            return row
+        h, w = sample.bucket
+        row = dict(row)
+        row["latent_mask"] = _host(self._latent_mask(np.ones((h, w, 1), np.float32))).to(
+            row["latent_mask"].dtype)
+        if "latent_conditioning_image" in row:
+            row["latent_conditioning_image"] = self._blank_cond_latent((h, w)).to(
+                row["latent_conditioning_image"].dtype)
+        return row
 
     def _row(self, sample: PreparedSample) -> dict:
         e = self.entries[sample.entry_index]
@@ -481,8 +641,13 @@ class Text2ImageDataLoader:
             row = {k: _host(v[0]) for k, v in self.encode_images(img[None]).items()}
             row["latent_mask"] = _host(self._latent_mask(mask))
             row.update({k: _host(v) for k, v in self._crop_metadata(sample, info).items()})
+            cond = self._conditioning_pixels(sample, img, mask, info)
+            if cond is not None:
+                row["latent_conditioning_image"] = _host(
+                    self.encode_images(cond[None])["latent_image"])[0]
             row.update({k: _host(v)
                         for k, v in self.encode_text(self._prompt(sample)).items()})
+        row = self._maybe_remove_mask(sample, row)
         row["loss_weight"] = torch.tensor(e.concept.loss_weight, dtype=torch.float32)
         row["prior_flag"] = torch.tensor(
             1.0 if e.concept.type == ConceptType.PRIOR_PREDICTION else 0.0,

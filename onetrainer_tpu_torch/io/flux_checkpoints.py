@@ -11,8 +11,9 @@ tensors load as they are stored (T5's tied `encoder.embed_tokens.weight`
 copy is dropped, as the reference's key map drops it); the savers write
 one file per component, as the reference's do. The transformer is built
 with the reference's FLUX checkpoint policy (models/remat.py:
-FLUX_POLICY). The BFL single-file layout and FLUX.1-fill are not ported
-yet (setup/families.py raises for them).
+FLUX_POLICY), its input width read from the config: 64 for FLUX.1-dev,
+384 for FLUX.1-fill. The BFL single-file layout is not ported yet
+(setup/families.py raises for it).
 """
 
 from __future__ import annotations

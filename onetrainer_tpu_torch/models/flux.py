@@ -1,7 +1,7 @@
 """FLUX.1 rectified-flow DiT, and the blocks SD3's MMDiT shares.
 
 Counterpart of onetrainer_tpu/models/flux.py (weight-parity contract with
-`diffusers.FluxTransformer2DModel`, dev): double-stream blocks (image and
+`diffusers.FluxTransformer2DModel`, dev and fill): double-stream blocks (image and
 text joint attention, AdaLN-Zero) followed by single-stream blocks, 3-axis
 RoPE on interleaved pairs, the guidance embedding and 2x2 latent packing.
 The shared blocks (`RMSNorm`, `AdaLayerNormZero`, `AdaNormContinuous`,
@@ -64,6 +64,13 @@ class FluxConfig:
 
 def flux_dev_config(**overrides) -> FluxConfig:
     return FluxConfig(**overrides)
+
+
+def flux_fill_config(**overrides) -> FluxConfig:
+    """FLUX.1-fill: the packed input is the noisy latent (64), the
+    conditioning latent (64) and the 8x8-shuffled pixel mask (256); the
+    output stays 64 wide."""
+    return FluxConfig(in_channels=384, **overrides)
 
 
 # -- latent packing ---------------------------------------------------------------------

@@ -6,7 +6,8 @@ holds configs plus param trees, this holds configs plus `nn.Module`s.
 Modules left unset are built on `device`; build on "meta" and materialise
 with `io.weights.init_flux_weights` to skip a throwaway default init at
 full width (cast the transformer to bf16 on "meta" first: its fp32
-parameters alone are 47.6 GB). FLUX.1-fill raises (ROADMAP queue 1).
+parameters alone are 47.6 GB). FLUX.1-fill differs from FLUX.1-dev only in
+the transformer's input width (`flux_fill_config`: 384 packed channels).
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from dataclasses import dataclass
 import torch
 
 from onetrainer_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_vit_l_config
-from onetrainer_tpu_torch.models.flux import FluxConfig, FluxTransformer2D, flux_dev_config
+from onetrainer_tpu_torch.models.flux import (
+    FluxConfig, FluxTransformer2D, flux_dev_config, flux_fill_config,
+)
 from onetrainer_tpu_torch.models.t5 import T5Config, T5Encoder, t5_xxl_config
 from onetrainer_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from onetrainer_tpu_torch.util.enums import ModelType
@@ -46,9 +49,6 @@ class FluxModel:
     tokenizer_2: object | None = None    # T5 tokenizer
 
     def __post_init__(self):
-        if self.model_type == ModelType.FLUX_FILL_DEV_1:
-            raise NotImplementedError("FLUX.1-fill is not ported yet (ROADMAP queue 1, "
-                                      "item 10); FLUX_DEV_1 runs")
         with torch.device(self.device):
             if self.transformer is None:
                 self.transformer = FluxTransformer2D(self.transformer_config)
@@ -69,12 +69,14 @@ def create_flux_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16
                       gradient_checkpointing: bool = False,
                       remat_policy: str | None = None,
                       device: torch.device | str = "cuda") -> FluxModel:
-    """FLUX.1-dev at its published widths, built on `device` (the card
-    unless the caller passes another). The remat policy defaults to
-    "full", the reference's FLUX default (models/remat.py:FLUX_POLICY)."""
+    """FLUX.1-dev, or FLUX.1-fill for FLUX_FILL_DEV_1, at its published
+    widths, built on `device` (the card unless the caller passes another).
+    The remat policy defaults to "full", the reference's FLUX default
+    (models/remat.py:FLUX_POLICY)."""
+    config = flux_fill_config if model_type == ModelType.FLUX_FILL_DEV_1 else flux_dev_config
     return FluxModel(
         model_type=model_type,
-        transformer_config=flux_dev_config(
+        transformer_config=config(
             dtype=dtype, gradient_checkpointing=gradient_checkpointing,
             remat_policy=remat_policy or "full"),
         vae_config=flux_vae_config(dtype),

@@ -5,8 +5,9 @@ Counterpart of onetrainer_tpu/models/sd.py. Where the reference holds
 configs plus param trees, this holds configs plus `nn.Module`s. Modules
 left unset are built on `device`; build on "meta" and materialise with
 `io.weights.init_sd_weights` to skip a throwaway default init at full
-width. The inpainting (9 input channels) and depth (5) model types are
-not ported.
+width. The inpainting types take 9 input channels (the noisy latent, the
+mask and the conditioning image's latent); the depth type (5) is not
+ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from onetrainer_tpu_torch.models.clip import (
     CLIPTextConfig, CLIPTextModel, clip_vit_l_config, open_clip_vit_h_config,
 )
 from onetrainer_tpu_torch.models.unet import (
-    UNet2DCondition, UNetConfig, sd15_unet_config, sd21_unet_config,
+    UNet2DCondition, UNetConfig, sd15_inpaint_unet_config, sd15_unet_config,
+    sd21_inpaint_unet_config, sd21_unet_config,
 )
 from onetrainer_tpu_torch.models.vae import AutoencoderKL, VAEConfig, sd15_vae_config
 from onetrainer_tpu_torch.util.enums import ModelType
@@ -80,7 +82,8 @@ def create_sd_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16,
                     ) -> StableDiffusionModel:
     """SD 1.5 (CLIP ViT-L, conv projections, 8 heads) or SD 2.0/2.1 and
     their -base variants (OpenCLIP ViT-H read at its penultimate layer,
-    linear projections, 5/10/20/20 heads) at their published widths, built
+    linear projections, 5/10/20/20 heads), and SD 1.5 and SD 2.0
+    inpainting (9 input channels), at their published widths, built
     on `device` (the card unless the caller passes another). The
     prediction type starts at epsilon, as the reference's; a 768-v
     checkpoint's v-prediction comes from its loader or from the training
@@ -89,17 +92,17 @@ def create_sd_model(model_type: ModelType, dtype: torch.dtype = torch.bfloat16,
     `weight_dtypes().unet.to_load_dtype()`)."""
     if not model_type.is_stable_diffusion():
         raise ValueError(f"not an SD 1/2 model type: {model_type}")
-    if model_type.has_mask_input() or model_type.has_depth_input():
-        raise NotImplementedError(
-            f"{model_type} (inpainting / depth UNet) is not ported yet")
+    if model_type.has_depth_input():
+        raise NotImplementedError(f"{model_type} (the depth UNet) is not ported yet")
     common = dict(dtype=dtype, gradient_checkpointing=gradient_checkpointing,
                   remat_policy=remat_policy or "tx_only")
+    inpainting = model_type.has_mask_input()
     if model_type.is_sd_v2():
-        unet_cfg = sd21_unet_config(**common)
+        unet_cfg = (sd21_inpaint_unet_config if inpainting else sd21_unet_config)(**common)
         te_cfg = open_clip_vit_h_config(dtype=dtype)
         layer_skip = 1   # SD 2.x reads the penultimate hidden state
     else:
-        unet_cfg = sd15_unet_config(**common)
+        unet_cfg = (sd15_inpaint_unet_config if inpainting else sd15_unet_config)(**common)
         te_cfg = clip_vit_l_config(dtype=dtype)
         layer_skip = 0
     model = StableDiffusionModel(

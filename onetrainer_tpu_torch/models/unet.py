@@ -1,5 +1,6 @@
-"""UNet2DCondition for SD 1.5/2.x and SDXL (text-to-image; the 9-channel
-inpainting and 5-channel depth configs of SD 1.5/2.x are not ported).
+"""UNet2DCondition for SD 1.5/2.x and SDXL, text-to-image and the
+9-channel inpainting configs (the 5-channel SD 2.0 depth config is not
+ported).
 
 Counterpart of onetrainer_tpu/models/unet.py. Public layout is the
 reference's: NHWC `sample` in, NHWC fp32 noise prediction out; convolutions
@@ -78,6 +79,11 @@ def sd15_unet_config(**overrides) -> UNetConfig:
     return UNetConfig(**overrides)
 
 
+def sd15_inpaint_unet_config(**overrides) -> UNetConfig:
+    """SD 1.5 inpainting: 4 noisy + 1 mask + 4 conditioning-latent channels."""
+    return UNetConfig(in_channels=9, **overrides)
+
+
 def sd21_unet_config(**overrides) -> UNetConfig:
     kwargs = dict(
         num_heads=(5, 10, 20, 20),
@@ -86,6 +92,11 @@ def sd21_unet_config(**overrides) -> UNetConfig:
     )
     kwargs.update(overrides)
     return UNetConfig(**kwargs)
+
+
+def sd21_inpaint_unet_config(**overrides) -> UNetConfig:
+    """SD 2.0 inpainting: SD 2.x's UNet with 9 input channels."""
+    return sd21_unet_config(in_channels=9, **overrides)
 
 
 def sdxl_unet_config(**overrides) -> UNetConfig:

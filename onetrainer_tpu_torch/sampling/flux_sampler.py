@@ -6,9 +6,12 @@ modules/modelSampler/FluxSampler.py:52-205): linspace(1, 1/steps) under
 the latent size's µ shift, the prompt through CLIP-L (pooled) and T5 (with
 the T5 output at pad ids zeroed under `prior_attention_mask`), the packed
 latents through one transformer pass per step with guidance = cfg_scale,
-then the VAE decode of latents / scaling + shift. The reference's params
-become the port's modules; the sampler runs on the transformer's device.
-FLUX.1-fill raises.
+then the VAE decode of latents / scaling + shift. FLUX.1-fill (384 input
+channels) encodes the conditioning image once (shifted, then scaled) and
+appends it and the 8x8-shuffled mask, packed (64 + 256 channels), to the
+packed latents at every transformer call (sampling/inpaint.py). The
+reference's params become the port's modules; the sampler runs on the
+transformer's device.
 """
 
 from __future__ import annotations
@@ -20,9 +23,21 @@ from onetrainer_tpu_torch.math.timesteps import flux_mu_shift
 from onetrainer_tpu_torch.models.flux import (
     pack_latents, prepare_latent_image_ids, unpack_latents,
 )
+from onetrainer_tpu_torch.sampling.inpaint import flux_fill_mask_channels, inpainting_latents
 from onetrainer_tpu_torch.sampling.sd_sampler import (
     SamplerOutput, _initial_latents, sample_rng_for,
 )
+
+
+def fill_channels(vae, vae_config, sample_config, height: int, width: int,
+                  device: torch.device) -> torch.Tensor:
+    """FLUX.1-fill's packed channels after the noisy latent's 64, [1, S,
+    64 + 256]: the conditioning latent, shifted then scaled, and the pixel
+    mask's 8x8 patches as 64 channels per latent cell, each packed."""
+    latent, mask = inpainting_latents(vae, sample_config, height, width, device)
+    cond = (latent - vae_config.shift_factor) * vae_config.scaling_factor
+    mask64 = torch.from_numpy(np.ascontiguousarray(flux_fill_mask_channels(mask)))[None]
+    return torch.cat([pack_latents(cond), pack_latents(mask64.to(device))], dim=-1)
 
 
 def flux_sigmas(steps: int, latent_width: int, latent_height: int) -> np.ndarray:
@@ -43,9 +58,6 @@ def sample_flux(
         generator: torch.Generator | None = None,
         on_update_progress=None,
 ):
-    if model.transformer_config.in_channels > 64:
-        raise NotImplementedError("FLUX.1-fill sampling is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
     device = next(transformer.parameters()).device
     steps = sample_config.diffusion_steps
     height, width = sample_config.height, sample_config.width
@@ -70,11 +82,17 @@ def sample_flux(
     latents = _initial_latents((1, lh, lw, vc.latent_channels), generator, device)
     img_ids = prepare_latent_image_ids(lh, lw, device)
     guidance = torch.tensor([sample_config.cfg_scale], dtype=torch.float32, device=device)
+    extra_packed = None
+    if model.transformer_config.in_channels > 64:
+        extra_packed = fill_channels(vae, vc, sample_config, height, width, device)
     packed = pack_latents(latents)
     for i in range(steps):
         sigma, sigma_next = float(sigmas[i]), float(sigmas[i + 1])
         t = torch.full((1,), sigma, dtype=torch.float32, device=device)
-        v = transformer(packed.float(), t, pooled, t5_states, img_ids, None, guidance)
+        x = packed.float()
+        if extra_packed is not None:
+            x = torch.cat([x, extra_packed], dim=-1)
+        v = transformer(x, t, pooled, t5_states, img_ids, None, guidance)
         packed = packed + (sigma_next - sigma) * v
         if on_update_progress:
             on_update_progress(i + 1, steps)

@@ -5,8 +5,10 @@ denoising loop and the VAE decode.
 Counterpart of onetrainer_tpu/sampling/sd_sampler.py (text-to-image): the
 prompt and the negative prompt through the text encoder in one batch of 2,
 the scheduler loop with cond and uncond in one batched UNet pass, then the
-VAE decode. The reference's params become the port's modules; the sampler
-runs on the UNet's device. The 9-channel inpainting branch is not ported.
+VAE decode. A 9-channel (inpainting) UNet takes the mask and the
+conditioning image's latent, encoded once (sampling/inpaint.py), beside
+the latents at every step. The reference's params become the port's
+modules; the sampler runs on the UNet's device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.sampling import schedulers as sched
+from onetrainer_tpu_torch.sampling.inpaint import unet_inpainting_channels
 
 
 @dataclass
@@ -41,6 +44,16 @@ def _initial_latents(shape: tuple[int, ...], generator: torch.Generator,
     """The sampler's one noise draw: unit-normal fp32 latents."""
     return torch.randn(shape, generator=generator, device=device,
                        dtype=torch.float32)
+
+
+def with_channels(unet_call, extra: torch.Tensor | None):
+    """`unet_call` with `extra` [1, h, w, c] concatenated after the input's
+    channels, repeated over its batch (the CFG pair); `unet_call` itself
+    without extra channels."""
+    if extra is None:
+        return unet_call
+    return lambda x, ts: unet_call(
+        torch.cat([x, extra.expand(x.shape[0], *extra.shape[1:])], dim=-1), ts)
 
 
 def denoise(unet_call, state, latents: torch.Tensor, steps: int, cfg_scale: float,
@@ -80,8 +93,6 @@ def sample_stable_diffusion(
         generator: torch.Generator | None = None,
         on_update_progress=None,
 ) -> SamplerOutput:
-    if model.unet_config.in_channels == 9:
-        raise NotImplementedError("SD inpainting sampling is not ported yet")
     device = next(unet.parameters()).device
     steps = sample_config.diffusion_steps
     height, width = sample_config.height, sample_config.width
@@ -106,6 +117,11 @@ def sample_stable_diffusion(
                     model.vae_config.latent_channels)
     latents = _initial_latents(latent_shape, generator, device)
     latents = latents * state.init_noise_sigma
-    latents = denoise(lambda x, ts: unet(x, ts, context), state, latents, steps,
-                      sample_config.cfg_scale, generator, on_update_progress)
+    extra = None
+    if model.unet_config.in_channels == 9:
+        extra = unet_inpainting_channels(vae, model.vae_config, sample_config,
+                                         height, width, device)
+    latents = denoise(with_channels(lambda x, ts: unet(x, ts, context), extra), state,
+                      latents, steps, sample_config.cfg_scale, generator,
+                      on_update_progress)
     return SamplerOutput(image=decode_image(vae, model.vae_config, latents))

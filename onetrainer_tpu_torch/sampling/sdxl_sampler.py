@@ -1,9 +1,10 @@
 """SDXL sampler: dual text encoders, pooled conditioning, size/crop time
 ids, CFG in one batched UNet pass.
 
-Counterpart of onetrainer_tpu/sampling/sdxl_sampler.py (text-to-image).
-The reference's params become the port's modules; the sampler runs on the
-UNet's device. The 9-channel inpainting branch is not ported yet.
+Counterpart of onetrainer_tpu/sampling/sdxl_sampler.py: text-to-image, and
+inpainting on a 9-channel UNet (the mask and the conditioning image's
+latent, encoded once, beside the latents at every step). The reference's
+params become the port's modules; the sampler runs on the UNet's device.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import torch
 
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.sampling import schedulers as sched
+from onetrainer_tpu_torch.sampling.inpaint import unet_inpainting_channels
 from onetrainer_tpu_torch.sampling.sd_sampler import (
-    SamplerOutput, _initial_latents, decode_image, denoise, sample_rng_for,
+    SamplerOutput, _initial_latents, decode_image, denoise, sample_rng_for, with_channels,
 )
 
 
@@ -26,8 +28,6 @@ def sample_stable_diffusion_xl(
         generator: torch.Generator | None = None,
         on_update_progress=None,
 ) -> SamplerOutput:
-    if model.unet_config.in_channels == 9:
-        raise NotImplementedError("SDXL inpainting sampling is not ported yet")
     device = next(unet.parameters()).device
     steps = sample_config.diffusion_steps
     height, width = sample_config.height, sample_config.width
@@ -66,7 +66,12 @@ def sample_stable_diffusion_xl(
                     model.vae_config.latent_channels)
     latents = _initial_latents(latent_shape, generator, device)
     latents = latents * state.init_noise_sigma
-    latents = denoise(lambda x, ts: unet(x, ts, context, pooled, time_ids), state,
-                      latents, steps, sample_config.cfg_scale, generator,
+    extra = None
+    if model.unet_config.in_channels == 9:
+        extra = unet_inpainting_channels(vae, model.vae_config, sample_config,
+                                         height, width, device)
+    latents = denoise(with_channels(lambda x, ts: unet(x, ts, context, pooled, time_ids),
+                                    extra),
+                      state, latents, steps, sample_config.cfg_scale, generator,
                       on_update_progress)
     return SamplerOutput(image=decode_image(vae, model.vae_config, latents))

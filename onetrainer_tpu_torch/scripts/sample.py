@@ -3,6 +3,7 @@
     python -m onetrainer_tpu_torch.scripts.sample --model-type STABLE_DIFFUSION_15 \
         --base-model-name <dir-or-file> --prompt "a cat" \
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
+        [--sample-inpainting --base-image-path base.png --mask-image-path mask.png] \
         [--device cuda]
 
 The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and
@@ -10,11 +11,14 @@ HunyuanVideo text-to-image run (SD3, FLUX and HunyuanVideo from a
 diffusers directory; FLUX and HunyuanVideo take `--cfg` as their guidance
 embedding and ignore the negative prompt and the scheduler; HunyuanVideo
 samples one frame, the sample config's default, and writes it as the
-image); other model types, embeddings, inpainting and Würstchen decoders
-raise
-NotImplementedError. Sampling runs on the card unless `--device` names
-another device. A PNG destination is written by the port's own PNG codec;
-other formats need Pillow.
+image), and so do the inpainting models: SD 1.5 and SD 2.0 inpainting,
+SDXL inpainting and FLUX.1-fill, which with `--sample-inpainting` fill the
+white region of `--mask-image-path` in `--base-image-path` (both resized to
+the sample's size; PNGs need no Pillow) and without it start from a black
+image and a full mask, as the reference does. Other model types,
+embeddings and Würstchen decoders raise NotImplementedError. Sampling runs
+on the card unless `--device` names another device. A PNG destination is
+written by the port's own PNG codec; other formats need Pillow.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ def parse_args(argv: list[str] | None = None):
     p.add_argument("--text-encoder-layer-skip", type=int, default=0)
     p.add_argument("--sample-inpainting", action="store_true", default=False)
     p.add_argument("--base-image-path", default="",
-                   help="base image for inpainting sampling (not ported)")
+                   help="base image for inpainting sampling")
     p.add_argument("--mask-image-path", default="",
-                   help="mask image for inpainting sampling (not ported)")
+                   help="mask image for inpainting sampling")
     p.add_argument("--weight-dtype", default="",
                    help="weight dtype during sampling (e.g. BFLOAT_16)")
     p.add_argument("--device", default="cuda",
@@ -77,8 +81,7 @@ def main(argv: list[str] | None = None):
     )
 
     unported = {"--decoder-model-name": args.decoder_model_name,
-                "--embedding-name": args.embedding_name,
-                "--sample-inpainting": args.sample_inpainting}
+                "--embedding-name": args.embedding_name}
     asked = [flag for flag, value in unported.items() if value]
     if asked:
         raise NotImplementedError(f"not ported to the torch sampler yet: {', '.join(asked)}")
@@ -87,10 +90,10 @@ def main(argv: list[str] | None = None):
     if not (config.model_type.is_stable_diffusion()
             or config.model_type.is_stable_diffusion_xl()
             or config.model_type.is_stable_diffusion_3()
-            or config.model_type in (ModelType.FLUX_DEV_1, ModelType.HUNYUAN_VIDEO)):
+            or config.model_type.is_flux() or config.model_type.is_hunyuan_video()):
         raise NotImplementedError(f"{config.model_type} sampling is not ported "
-                                  "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and HunyuanVideo "
-                                  "only)")
+                                  "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev, FLUX.1-fill and "
+                                  "HunyuanVideo only)")
     config.base_model_name = args.base_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False
@@ -114,6 +117,9 @@ def main(argv: list[str] | None = None):
     sample_config.seed = args.seed
     sample_config.noise_scheduler = NoiseScheduler[args.scheduler]
     sample_config.text_encoder_1_layer_skip = args.text_encoder_layer_skip
+    sample_config.sample_inpainting = args.sample_inpainting
+    sample_config.base_image_path = args.base_image_path
+    sample_config.mask_image_path = args.mask_image_path
 
     out = family.sample(setup, sample_config, lambda s, m: print(f"step {s}/{m}"))
     os.makedirs(os.path.dirname(os.path.abspath(args.destination)), exist_ok=True)

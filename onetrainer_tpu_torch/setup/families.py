@@ -2,9 +2,10 @@
 encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
-text-to-image, SDXL, SD3, FLUX.1-dev and HunyuanVideo (diffusers
-directories; SD3's, FLUX's and HunyuanVideo's single files and FLUX.1-fill
-are not ported yet) so far. The calls mirror the reference's trainer and
+text-to-image and inpainting, SDXL and its inpainting UNet, SD3,
+FLUX.1-dev, FLUX.1-fill and HunyuanVideo (diffusers directories; SD3's,
+FLUX's and HunyuanVideo's single files and SD 2.0 depth are not ported
+yet) so far. The calls mirror the reference's trainer and
 scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
 `family.sample`; `family.save_model` / `save_single_file` write the model, LoRA adapters merged into their
@@ -393,9 +394,8 @@ def _hunyuan_save_single_file(setup, path, save_dtype=None, ema=True):
 
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
-        if model_type.has_mask_input() or model_type.has_depth_input():
-            raise NotImplementedError(
-                f"{model_type} (inpainting / depth) is not ported to torch yet")
+        if model_type.has_depth_input():
+            raise NotImplementedError(f"{model_type} (depth) is not ported to torch yet")
         return ModelFamily(
             name="sd", quantization=8,
             load=_sd_load, create_setup=_sd_create_setup,
@@ -421,7 +421,7 @@ def get_family(model_type: ModelType) -> ModelFamily:
             lora_prefixes={"transformer_lora": "lora_transformer",
                            "te_lora": "lora_te1", "te2_lora": "lora_te2"},
         )
-    if model_type == ModelType.FLUX_DEV_1:
+    if model_type.is_flux():
         return ModelFamily(
             name="flux", quantization=64,
             load=_flux_load, create_setup=_flux_create_setup,
@@ -438,9 +438,6 @@ def get_family(model_type: ModelType) -> ModelFamily:
             lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
             video=True,
         )
-    if model_type == ModelType.FLUX_FILL_DEV_1:
-        raise NotImplementedError("FLUX.1-fill is not ported to torch yet "
-                                  "(ROADMAP queue 1, item 10)")
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")
 

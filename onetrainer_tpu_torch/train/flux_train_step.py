@@ -9,9 +9,12 @@ sampled, shifted and scaled; t in (0, 1] from 10000 buckets, µ-shifted by
 the latent size when dynamic shifting is on; x_t = t * noise + (1 - t) *
 x_0 in fp32; per-encoder conditioning dropout; packing, image ids, the
 guidance `config.prior.guidance_scale`; the target noise - x_0) and
-`make_flux_train_step`. The loss, backward, clip, update and EMA are the SD
-family's shared step (train/sd_train_step.py:make_train_step) with the
-flow-matching losses. FLUX-fill batches and output embeddings raise.
+`make_flux_train_step`. A FLUX.1-fill batch (`latent_conditioning_image`
+and the 64-channel `latent_mask`) packs the transformer's input as [noisy
+(64) | (conditioning - shift) * scale (64) | 8x8-shuffled mask (256)]. The
+loss, backward, clip, update and EMA are the SD family's shared step
+(train/sd_train_step.py:make_train_step) with the flow-matching losses.
+Output embeddings raise.
 """
 
 from __future__ import annotations
@@ -53,9 +56,6 @@ def flux_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConf
     (0, 1]), `noise`, `latent_noise` and `dropout_keep` (the CLIP and T5
     keep masks) replace the generator's draws when given; `coefficients` is
     unused (flow matching has no noise schedule)."""
-    if "latent_conditioning_image" in batch:
-        raise NotImplementedError("FLUX.1-fill training is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
     latent = batch["latent_image"]
     device = latent.device
     if "latent_logvar" in batch:
@@ -87,10 +87,15 @@ def flux_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConf
         dropout_masks(cfg, generator, b, 2)
     pooled, t5_states = keep_samples(pooled, m_clip), keep_samples(t5_states, m_t5)
 
+    packed = pack_latents(noisy)
+    if "latent_conditioning_image" in batch:
+        cond = (batch["latent_conditioning_image"] - cfg.vae_shift_factor) \
+            * cfg.vae_scaling_factor
+        packed = torch.cat([packed, pack_latents(cond.to(packed.dtype)),
+                            pack_latents(batch["latent_mask"].to(packed.dtype))], dim=-1)
     img_ids = prepare_latent_image_ids(h, w, device)
     guidance = torch.full((b,), guidance_scale, dtype=torch.float32, device=device)
-    predicted = model.transformer(pack_latents(noisy), t, pooled, t5_states, img_ids,
-                                  None, guidance)
+    predicted = model.transformer(packed, t, pooled, t5_states, img_ids, None, guidance)
     return {
         "loss_type": "target",
         "predicted": unpack_latents(predicted, h, w),

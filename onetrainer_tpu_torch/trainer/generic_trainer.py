@@ -57,7 +57,7 @@ from onetrainer_tpu_torch.train.optimizers import opt_state_tensors, set_opt_sta
 from onetrainer_tpu_torch.trainer.base_trainer import BaseTrainer
 from onetrainer_tpu_torch.util.callbacks import TrainCallbacks
 from onetrainer_tpu_torch.util.commands import TrainCommands
-from onetrainer_tpu_torch.util.enums import TimeUnit, TrainingMethod
+from onetrainer_tpu_torch.util.enums import ModelType, TimeUnit, TrainingMethod
 from onetrainer_tpu_torch.util.path_util import get_string_timestamp
 from onetrainer_tpu_torch.util.train_progress import TrainProgress
 
@@ -160,6 +160,9 @@ class GenericTrainer(BaseTrainer):
             config, None, None, quantization=self.family.quantization,
             model_tag=str(config.model_type),
             latent_scale=self.model.vae_config.spatial_scale,
+            conditioning_image=(config.model_type.has_conditioning_image_input()
+                                or config.custom_conditioning_image),
+            fill_mask_channels=config.model_type == ModelType.FLUX_FILL_DEV_1,
             video_mode=self.family.video)
         steps_per_epoch = max(len(self.data_loader), 1)
         total = config.epochs * steps_per_epoch // max(

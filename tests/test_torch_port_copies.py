@@ -445,3 +445,35 @@ def test_hunyuan_remat_default_and_config_readers_are_the_references():
             assert fields <= {f.name for f in dataclasses.fields(ref)}
             for name in fields:
                 assert getattr(port, name) == getattr(ref, name), (reader, name)
+
+
+def _function_ast(package: str, path: str, name: str) -> str:
+    """One top-level function's AST without its docstring."""
+    with open(os.path.join(_REPO, package, path), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    if (node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)):
+        node.body.pop(0)
+    return ast.dump(node)
+
+
+def test_inpainting_copies_equal_their_originals():
+    """sampling/inpaint.py's `flux_fill_mask_channels` is the reference's
+    code, and the FLUX.1-fill transformer config its `flux_fill_config`;
+    the loader's conditioning flags are the reference's, by name."""
+    import inspect
+
+    from onetrainer_tpu.data.loader import Text2ImageDataLoader as RefLoader
+    from onetrainer_tpu.models import flux as jax_flux
+    from onetrainer_tpu_torch.data.loader import Text2ImageDataLoader as PortLoader
+    from onetrainer_tpu_torch.models import flux as pt_flux
+    path = "sampling/inpaint.py"
+    assert _function_ast("onetrainer_tpu_torch", path, "flux_fill_mask_channels") == \
+        _function_ast("onetrainer_tpu", path, "flux_fill_mask_channels")
+    port, ref = pt_flux.flux_fill_config(), jax_flux.flux_fill_config()
+    assert (port.in_channels, port.out_channels) == (ref.in_channels, ref.out_channels) \
+        == (384, 64)
+    for flag in ("conditioning_image", "fill_mask_channels"):
+        assert inspect.signature(PortLoader).parameters[flag].default is \
+            inspect.signature(RefLoader).parameters[flag].default is False

@@ -237,6 +237,7 @@ def test_dkv_is_bitwise_deterministic_on_card(cuda_device, b, sq, skv, h, d):
     (1280, 10240), (3, 3, 320, 640), (1000, 777),
     (3072, 18432),   # FLUX's largest kernel, norm1.linear (56.6M elements)
     (15360, 3072),   # FLUX's single-block proj_out
+    (384, 3072),     # FLUX.1-fill's x_embedder (its 384 packed input channels)
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_nf4_dequant_is_bitwise_equal_on_card(cuda_device, shape, dtype):
@@ -437,6 +438,51 @@ def test_flux_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
             pt_ff.flash_attention_folded_delta.launches) == (
         4 if policy == "full" else 2, 2, 2, 2)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+def test_flux_fill_forward_with_k1_matches_plain_attention_on_card(cuda_device, monkeypatch):
+    """A FLUX.1-fill transformer (384 packed input channels) cut to one
+    double and one single block at full width, bf16 compute, on a 128x128
+    latent with its conditioning latent and 8x8-shuffled mask (4096 packed
+    rows) and T5's 77 rows: K1 once per block, and the output within 5e-2
+    relative L2 of the same forward on the plain attention (bf16 roundings
+    of two attentions carried through a network of random weights, as
+    chip_smoke.py's transformer phases bound it)."""
+    from onetrainer_tpu_torch.models.flux import (
+        FluxTransformer2D, flux_fill_config, pack_latents, prepare_latent_image_ids,
+    )
+    torch.manual_seed(0)
+    model = FluxTransformer2D(flux_fill_config(num_layers=1, num_single_layers=1)).to(
+        cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    mask = (torch.rand((2, 128, 128, 64), generator=gen, device=cuda_device) > 0.5).float()
+    packed = torch.cat([pack_latents(torch.randn((2, 128, 128, 16), generator=gen,
+                                                 device=cuda_device)),
+                        pack_latents(torch.randn((2, 128, 128, 16), generator=gen,
+                                                 device=cuda_device)),
+                        pack_latents(mask)], dim=-1)
+    assert packed.shape == (2, 4096, 384)
+    args = (packed, torch.tensor([0.25, 0.75], device=cuda_device),
+            torch.randn((2, 768), generator=gen, device=cuda_device),
+            torch.randn((2, 77, 4096), generator=gen, device=cuda_device),
+            prepare_latent_image_ids(128, 128, cuda_device), None,
+            torch.full((2,), 30.0, device=cuda_device))
+    pt_ff.reset_launch_counts()
+    with torch.no_grad():
+        out = model(*args)
+        torch.cuda.synchronize()
+        assert pt_ff.flash_attention_folded_fwd.launches == 2
+
+        def plain(q, k, v, num_heads, *, sm_scale, kv_keep=None):
+            return pt_ff.flash_attention_folded_reference(
+                q, k, v, num_heads, sm_scale=sm_scale, kv_keep=kv_keep)[0]
+        monkeypatch.setattr(pt_ff, "flash_attention_folded", plain)
+        want = model(*args)
+    assert out.shape == want.shape == (2, 4096, 64)
+    assert torch.isfinite(out).all()
+    rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= 5e-2, rel
 
 
 def _hunyuan_keep(b: int, s_img: int, real_text: int, device) -> torch.Tensor:

@@ -142,16 +142,15 @@ def test_cache_fill_encodes_on_the_calling_thread_only(dataset, tmp_path):
     assert batches and threads == {threading.get_ident()}
 
 
-@pytest.mark.parametrize("what", ["depth_maps", "custom_conditioning_image"])
+@pytest.mark.parametrize("what", ["depth_maps", "depth_maps_with_conditioning_image"])
 def test_unported_inputs_raise(dataset, tmp_path, what):
-    """Depth maps and conditioning images raise; masks are ported
-    (tests/test_torch_port_masks.py)."""
+    """Depth maps raise, with or without custom conditioning images; masks
+    (tests/test_torch_port_masks.py) and conditioning images
+    (tests/test_torch_port_inpaint.py) are ported."""
     _, port_cfg = _configs(dataset, str(tmp_path))
-    if what == "depth_maps":
-        port_cfg.model_type = type(port_cfg.model_type).STABLE_DIFFUSION_20_DEPTH
-    else:
-        setattr(port_cfg, what, True)
-    with pytest.raises(NotImplementedError):
+    port_cfg.model_type = type(port_cfg.model_type).STABLE_DIFFUSION_20_DEPTH
+    port_cfg.custom_conditioning_image = what != "depth_maps"
+    with pytest.raises(NotImplementedError, match="depth"):
         pt_loader.Text2ImageDataLoader(port_cfg, None, None)
     port_cfg = _configs(dataset, str(tmp_path))[1]
     port_cfg.masked_training = True

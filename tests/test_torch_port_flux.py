@@ -24,7 +24,8 @@ The LoRA steps run both setups from one config (the reference's
 a8 on the transformer, CLIP-L and T5 dropout 0.5, guidance 3.5, dynamic
 timestep shifting, two steps; three cases: the text cached by each side's
 `make_flux_encode_fns` on an fp32 base, CLIP-L trained (text encoded in
-the step) on an INT_8 base, and the text cached on an NF4 base (the
+the step, from token ids drawn from the test's numpy seed) on an INT_8
+base, and the text cached on an NF4 base (the
 port's plain dequant on the CPU; the reference's gather dequant). Torch
 and JAX draw different numbers, so the reference's key splits
 (`train_step` :174, `loss_fn` :165, `flux_predict` :62 and the dropout key
@@ -35,6 +36,12 @@ two steps (1e-3 on the NF4 base, as tests/test_torch_port_train_sdxl.py
 states for QLoRA). The checkpoint policies: one step's LoRA gradients with
 "full" and "dots_nb_attn" equal those without checkpointing to 1e-6
 relative L2.
+
+The tokenizers' no-file fallback hashes words with Python's salted `hash`,
+so each process would feed other token ids, and some of them miss the
+bounds (cached_text at 1.46e-4 to 2.13e-4 for 3 of 16 hash seeds, and
+live_text_int8 for about 1 in 14): both sides' tokenizers here map words
+by crc32 instead (`_tokenizers`), and the live case takes seeded ids.
 
 The reference setups are built once per module; torch runs one thread.
 """
@@ -71,6 +78,7 @@ from onetrainer_tpu_torch.setup.tokenizer import T5TokenizerWrapper as PortT5Tok
 from onetrainer_tpu_torch.train.train_state import param_groups
 from onetrainer_tpu_torch.util import enums as pt_enums
 from tests.test_flux import tiny_flux_config, tiny_flux_model
+from tests.test_torch_port_inpaint import crc32_words
 from tests.test_torch_port_models import _port_config, _random_like
 from tests.test_torch_port_train_sdxl import (
     CACHE_ATOL, PROMPTS, QLORA_REL, REL, SEED, STEPS, _assert_matches_reference, _rel,
@@ -84,8 +92,10 @@ GUIDANCE = 3.5
 
 
 def _tokenizers(clip_cls, t5_cls):
-    return (clip_cls(None, max_length=16, vocab_size=100, bos=98, eos=99),
-            t5_cls(None, max_length=T5_LENGTH, vocab_size=110))
+    """Both sides' no-file tokenizers with crc32 word ids in place of the
+    salted-hash fallback, so the cached text is the same in every process."""
+    return (crc32_words(clip_cls(None, max_length=16, vocab_size=100, bos=98, eos=99)),
+            crc32_words(t5_cls(None, max_length=T5_LENGTH, vocab_size=110)))
 
 
 def port_flux_like(jax_model, device="cpu", **transformer_overrides) -> FluxModel:
@@ -300,6 +310,22 @@ def _batch(encode_images, encode_text, images, as_array):
     return batch
 
 
+def _seeded_tokens() -> dict:
+    """The live-text case's token rows, drawn from the test's numpy seed
+    in the tokenizers' layouts: CLIP (BOS, one id per prompt word, EOS
+    padding) and T5 (the ids, EOS, PAD padding)."""
+    rng = np.random.default_rng(SEED)
+    clip = np.full((2, 16), 99, np.int32)
+    clip[:, 0] = 98
+    t5 = np.zeros((2, T5_LENGTH), np.int32)
+    for i, prompt in enumerate(PROMPTS):
+        n = len(prompt.split())
+        clip[i, 1:1 + n] = rng.integers(1, 98, n)
+        t5[i, :n] = rng.integers(2, 110, n)
+        t5[i, n] = 1
+    return {"tokens": clip, "tokens_2": t5}
+
+
 def _jax_draws(step_cfg, batch, rng, step):
     """The draws of the reference's step `step` (its own key splits):
     flux_predict's t, noise and latent-sampling noise, and the CLIP and T5
@@ -332,8 +358,11 @@ def _reference(case: str) -> dict:
     init = jax.device_get(setup.state.params)
     images = _images()
     encode_images, encode_text = jax_setup.make_flux_encode_fns(setup)
-    batch = jax.tree.map(jnp.asarray, _batch(encode_images, encode_text, images,
-                                             jnp.asarray))
+    batch = _batch(encode_images, encode_text, images, jnp.asarray)
+    if train_te:
+        assert set(_seeded_tokens()) <= set(batch)
+        batch.update(_seeded_tokens())
+    batch = jax.tree.map(jnp.asarray, batch)
     rng = jax.random.PRNGKey(SEED)
     state, steps = setup.state, []
     for step in range(STEPS):
@@ -379,6 +408,8 @@ def _port_setup(ref, **transformer_overrides):
     encode_images, encode_text = family.make_encode_fns(setup)
     batch = _batch(encode_images, encode_text, torch.from_numpy(ref["images"]),
                    torch.as_tensor)
+    if ref["train_te"]:
+        batch.update({k: torch.from_numpy(v) for k, v in _seeded_tokens().items()})
     assert set(batch) == set(ref["batch"])
     for name, value in ref["batch"].items():
         if np.issubdtype(np.asarray(value).dtype, np.floating):

@@ -17,9 +17,10 @@ uninterrupted, and again as one epoch with a backup and a resume from it:
 the resumed adapters and optimizer state equal the uninterrupted run's
 within 1e-6 relative L2 (the same computation on the same draws; the
 generator is re-seeded per step). Refused, each with NotImplementedError:
-FLUX.1-fill, the BFL single file (load and save), FINE_TUNE that trains a
-part and EMBEDDING training (by the setup and by the train command before
-it loads the model). Torch runs one thread.
+the BFL single file (load and save, FLUX.1-dev's and FLUX.1-fill's),
+FINE_TUNE that trains a part and EMBEDDING training (by the setup and by
+the train command before it loads the model). FLUX.1-fill itself runs
+(tests/test_torch_port_flux_fill.py). Torch runs one thread.
 """
 
 import json
@@ -187,11 +188,15 @@ def test_single_file_and_fill_are_refused(flux_dir, tmp_path):
     single.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="single file"):
         family.load(str(single), _config(), device="cpu")
-    fill = pt_enums.ModelType.FLUX_FILL_DEV_1
-    with pytest.raises(NotImplementedError, match="fill"):
-        get_family(fill)
-    with pytest.raises(NotImplementedError, match="fill"):
-        create_flux_model(fill, device="meta")
+    # FLUX.1-fill's family loads diffusers directories; its single file is
+    # the BFL layout too, refused alike
+    fill = get_family(pt_enums.ModelType.FLUX_FILL_DEV_1)
+    config = _config()
+    config.model_type = pt_enums.ModelType.FLUX_FILL_DEV_1
+    with pytest.raises(NotImplementedError, match="single file"):
+        fill.load(str(single), config, device="cpu")
+    assert create_flux_model(config.model_type, device="meta").transformer_config \
+        .in_channels == 384
 
 
 def _write_config(config, path) -> str:

@@ -6,9 +6,14 @@ steps, the SD3 slice (dots_nb_attn checkpointing) samples and takes two
 LoRA steps on cached text, the FLUX slice ("full" checkpointing) samples
 and takes two LoRA steps on an NF4 transformer and cached text, the
 HunyuanVideo slice ("full" checkpointing) samples a 5-frame clip and takes
-two LoRA steps on an NF4 transformer, 5-frame clips and cached text, and
-the train and sample CLIs run a tiny SD 1.5 checkpoint end to
-end (load, cache, train, back up, save the LoRA file, sample), with
+two LoRA steps on an NF4 transformer, 5-frame clips and cached text, the
+FLUX.1-fill slice inpaints from PNGs at another size than the sample's and
+takes two LoRA steps on an NF4 transformer with the conditioning latent
+and the 64-channel mask, and the train and sample CLIs run a tiny SD 1.5
+checkpoint end to end (load, cache, train, back up, save the LoRA file,
+sample) and a tiny SD 1.5 inpainting checkpoint over PNGs that are not at
+their bucket's size (resized without Pillow), with masks and a
+conditioning image, then `--sample-inpainting`, with
 the JAX package (onetrainer_tpu), jax, flax, optax, ml_dtypes,
 transformers, PIL and safetensors blocked (none but the port's own code is
 installed on the machine with the card). chip_smoke.py refuses to run
@@ -275,6 +280,65 @@ _SCRIPT = textwrap.dedent(f"""
     assert setup.state.step == 2
     assert any(e["lora_up"].abs().max() > 0
                for e in setup.state.params["transformer_lora"].values())
+    import os, tempfile
+    import numpy as np
+    from onetrainer_tpu_torch.io.png import write_png
+    from onetrainer_tpu_torch.sampling.inpaint import flux_fill_mask_channels
+    fill = FluxModel(
+        model_type=ModelType.FLUX_FILL_DEV_1,
+        transformer_config=FluxConfig(
+            in_channels=288, out_channels=16, num_layers=1, num_single_layers=1,
+            hidden_size=32, num_heads=2, head_dim=16, joint_attention_dim=24,
+            pooled_projection_dim=32, axes_dims_rope=(4, 6, 6),
+            gradient_checkpointing=True),
+        vae_config=VAEConfig(block_out_channels=(32, 32, 32, 32), layers_per_block=1,
+                             latent_channels=4, scaling_factor=0.3611, shift_factor=0.1159),
+        te_config=CLIPTextConfig(hidden_size=32, **te),
+        te2_config=T5Config(vocab_size=110, d_model=24, d_kv=6, d_ff=48, num_layers=2,
+                            num_heads=4),
+        device="meta")
+    init_flux_weights(fill, seed=8, device="cpu")
+    inputs = tempfile.mkdtemp()
+    rng = np.random.default_rng(0)
+    write_png(os.path.join(inputs, "base.png"),
+              rng.integers(0, 256, (41, 57, 3), dtype=np.uint8))
+    mask = np.zeros((41, 57), np.uint8)
+    mask[10:30, 5:40] = 255
+    write_png(os.path.join(inputs, "mask.png"), mask)
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.FLUX_FILL_DEV_1
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    sc.frames, sc.height, sc.width, sc.cfg_scale = 1, 64, 64, 30.0
+    sc.sample_inpainting = True
+    sc.base_image_path = os.path.join(inputs, "base.png")
+    sc.mask_image_path = os.path.join(inputs, "mask.png")
+    image = family.sample(family.create_setup(fill, config, 1), sc, None).image
+    assert image.shape == (64, 64, 3) and image.dtype.name == "uint8"
+    config.training_method = TrainingMethod.LORA
+    config.prior.train = True
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+    setup = family.create_setup(fill, config, 10)
+    assert is_quantized(fill.transformer.x_embedder.weight)
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")
+    images = torch.rand((2, 64, 64, 3)) * 2 - 1
+    pixel_mask = np.zeros((64, 64, 1), np.float32)
+    pixel_mask[16:48, 8:40] = 1.0
+    batch = dict(encode_images(images), loss_weight=torch.ones(2),
+                 t5_hidden_state=text["t5_hidden_state"].expand(2, -1, -1),
+                 clip_pooled_state=text["clip_pooled_state"].expand(2, -1),
+                 latent_conditioning_image=encode_images(
+                     images * (1 - torch.from_numpy(pixel_mask)))["latent_image"],
+                 latent_mask=torch.from_numpy(flux_fill_mask_channels(pixel_mask))[None]
+                 .expand(2, -1, -1, -1))
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert any(e["lora_up"].abs().max() > 0
+               for e in setup.state.params["transformer_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked
@@ -419,6 +483,68 @@ _CLI_SCRIPT = textwrap.dedent(f"""
         trainer.data_loader.batches_for_epoch(0)[0])["latent_mask"].min()) < 1.0
     out = load_safetensors(config.output_model_destination)
     assert {{v.dtype for v in out.values()}} == {{torch.float16}}
+
+    # SD 1.5 inpainting: 9 input channels, PNGs at sizes no bucket has,
+    # masks and one conditioning image, then --sample-inpainting
+    inp = StableDiffusionModel(
+        model_type=ModelType.STABLE_DIFFUSION_15_INPAINTING,
+        unet_config=UNetConfig(in_channels=9, block_out_channels=(32, 64),
+                               cross_attn_blocks=(True, False), layers_per_block=1,
+                               num_heads=(4, 4), cross_attention_dim=32),
+        vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+        te_config=model.te_config, device="meta")
+    init_sd_weights(inp, seed=1, device="cpu")
+    ibase = os.path.join(root, "inpaint")
+    save_sd_diffusers(ibase, inp, *(state_dict_of(m) for m in
+                                    (inp.unet, inp.vae, inp.text_encoder)))
+    configs["unet"]["in_channels"] = 9
+    for name, cfg in configs.items():
+        with open(os.path.join(ibase, name, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    ids = os.path.join(root, "ids")
+    os.makedirs(ids)
+    for i in range(4):
+        h, w = 40 + 3 * i, 37 + 5 * i
+        write_png(os.path.join(ids, f"img{{i}}.png"),
+                  (rng.random((h, w, 3)) * 255).astype(np.uint8))
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4:h // 2, w // 3:] = 255
+        write_png(os.path.join(ids, f"img{{i}}-masklabel.png"), m)
+        with open(os.path.join(ids, f"img{{i}}.txt"), "w") as f:
+            f.write(f"a photo of thing {{i}}")
+    write_png(os.path.join(ids, "img1-condlabel.png"),
+              (rng.random((43, 42, 3)) * 255).astype(np.uint8))
+    config = TrainConfig.default_values()
+    config.base_model_name = ibase
+    config.model_type = ModelType.STABLE_DIFFUSION_15_INPAINTING
+    config.training_method = TrainingMethod.LORA
+    config.workspace_dir, config.cache_dir = os.path.join(root, "iws"), os.path.join(root, "ic")
+    config.epochs, config.batch_size, config.resolution = 1, 2, "32"
+    config.lora_rank, config.learning_rate_warmup_steps = 4, 0.0
+    config.tensorboard, config.aspect_ratio_bucketing = False, False
+    config.backup_after_unit = config.save_every_unit = TimeUnit.NEVER
+    config.text_encoder.train = False
+    config.custom_conditioning_image = True
+    concept = ConceptConfig.default_values()
+    concept.path = ids
+    config.concepts, config.samples = [concept], []
+    config.output_model_destination = os.path.join(root, "inpaint.safetensors")
+    with open(os.path.join(root, "inpaint.json"), "w") as f:
+        json.dump(config.to_dict(), f)
+    trainer = train.main(["--config-path", os.path.join(root, "inpaint.json"),
+                          "--device", "cpu"])
+    assert trainer.train_progress.global_step == 2
+    batch = trainer.data_loader.materialize_batch(trainer.data_loader.batches_for_epoch(0)[0])
+    assert batch["latent_conditioning_image"].shape == (2, 16, 16, 4)
+    assert batch["latent_mask"].shape == (2, 16, 16, 1)
+    assert [e.cond_path is not None for e in trainer.data_loader.entries].count(True) == 1
+    out = os.path.join(root, "filled.png")
+    sample.main(["--model-type", "STABLE_DIFFUSION_15_INPAINTING", "--base-model-name",
+                 ibase, "--prompt", "a cat", "--destination", out, "--steps", "2",
+                 "--width", "32", "--height", "32", "--device", "cpu",
+                 "--sample-inpainting", "--base-image-path", os.path.join(ids, "img0.png"),
+                 "--mask-image-path", os.path.join(ids, "img0-masklabel.png")])
+    assert read_png(out).shape == (32, 32, 3)
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked

@@ -41,9 +41,9 @@ from tests.test_torch_port_train_sd import SHAPES, tiny_sd_pair
 TEXT_TO_IMAGE = [ModelType.STABLE_DIFFUSION_15, ModelType.STABLE_DIFFUSION_20,
                  ModelType.STABLE_DIFFUSION_20_BASE, ModelType.STABLE_DIFFUSION_21,
                  ModelType.STABLE_DIFFUSION_21_BASE]
-NOT_PORTED = [ModelType.STABLE_DIFFUSION_15_INPAINTING,
-              ModelType.STABLE_DIFFUSION_20_INPAINTING,
-              ModelType.STABLE_DIFFUSION_20_DEPTH]
+# SD 1.5/2.0 inpainting run since the inpainting slice
+# (tests/test_torch_port_inpaint.py); SD 2.0 depth is not ported
+NOT_PORTED = [ModelType.STABLE_DIFFUSION_20_DEPTH]
 
 
 @pytest.fixture(autouse=True)
@@ -128,8 +128,8 @@ def test_inpainting_and_depth_types_are_refused(model_type):
 def test_sd_load_is_not_ported():
     """The SD loader reads checkpoints now (tests/test_torch_port_io.py
     holds it to the reference); a path that holds none raises rather than
-    building a model from nothing, and the inpainting and depth types'
-    loads stay unported (their family raises)."""
+    building a model from nothing, and the depth type's load stays
+    unported (its family raises)."""
     config = PortTrainConfig.default_values()
     config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_15
     with pytest.raises(FileNotFoundError):
