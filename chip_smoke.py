@@ -101,7 +101,8 @@ never falls back to the CPU. Phases, each of which must pass:
      exact launches per step (K1 140, K2 70, K3 70, pre-pass 70, K5 once:
      one launch per update dtype over every UNet tensor), then one step
      whose K5 call is captured: K5 bit for bit against the plain rounding
-     on the largest leaf (29,491,200 elements), a 1-D and a 4-D conv leaf,
+     on the largest leaf (29,491,200 elements), a 1-D, a 2-D and a 4-D
+     conv leaf,
      and on every leaf each output a bf16 neighbour of p + u and exact
      where p + u is a bf16 value; K5's device time over the whole update
      against its byte bound, the wrapper's host time, the updates that came
@@ -137,8 +138,9 @@ never falls back to the CPU. Phases, each of which must pass:
      attention stays outside the recomputed halves of each block, so K1
      runs once), the LoRA gradients against plain attention, a profiler
      split;
- 19. sd3_cli: a seeded full-width SD3-medium written as a 14.4 GiB fp16
-     diffusers directory in a temporary directory (removed after the
+ 19. sd3_cli: a seeded full-width SD3-medium, T5-XXL cut to CUT_T5_LAYERS
+     of its 24 layers (the script's disk writes), written as a 6.5 GiB
+     fp16 diffusers directory in a temporary directory (removed after the
      phase), sd15_files' PNGs at 512x512: the train command (LoRA r16,
      batch 4, weights in bf16) for epoch 1 with a backup and the resume
      for epoch 2 (24 each of K1-K3 and the pre-pass per step at 1178
@@ -161,7 +163,8 @@ never falls back to the CPU. Phases, each of which must pass:
      pre-pass 57 each and K4 998 per step, the LoRA gradients against plain
      attention and the plain dequant, a profiler split;
  23. flux_cli: a seeded FLUX.1-dev at full width with its transformer cut to
-     2 double and 4 single blocks, written in bf16 as a diffusers directory
+     2 double and 4 single blocks and T5-XXL to CUT_T5_LAYERS layers,
+     written in bf16 as a diffusers directory
      (transformer and T5 sharded behind their indices) in a temporary
      directory removed after the phase; sd15_files' PNGs at 512x512: the
      train command (LoRA r16, batch 4, NF4 transformer, "full"
@@ -224,6 +227,49 @@ never falls back to the CPU. Phases, each of which must pass:
      carry the conditioning latent and the mask), the LoRA file read back
      bitwise, then the sample command with --sample-inpainting (4 DDIM
      steps, 20 K1), a non-constant image.
+ 31. sd3_ft (after sd3_transformer, on sd3_model's weights cast to bf16,
+     the loader's cast of every part to the transformer's weight dtype):
+     FINE_TUNE of the MMDiT and CLIP-L (2,208,601,408 bf16 elements, two
+     groups), CLIP-G and T5-XXL frozen and run live in the step on the
+     batch's tokens, Adafactor with the reference's defaults and stochastic
+     rounding, lr 1e-5, clip 1.0, batch 2 at 1024x1024, dots_nb_attn: one
+     warm-up step (the groups' largest tensors must move), three timed
+     steps with exactly K1, K2, K3 and the pre-pass 24 each and K5 once per
+     step (the text encoders' attention, at 77 tokens, stays on SDPA and
+     the T5's plain path: no K1-K3), one step with K5's call captured (bit
+     for bit against the plain rounding on the largest leaf, a 1-D, a 2-D
+     and a 4-D conv leaf; every output a bf16 neighbour of p + u; device
+     time over the update against its byte bound, the wrapper's host
+     time), the gradients of every trained tensor with K1-K3 against
+     plain attention, a profiler split; sd3_train then quantizes the
+     transformer to fp8 as before;
+ 32. flux_ft: FLUX.1-dev built again in bf16 after the NF4 models are
+     freed (19 + 38 blocks, 11,901,408,320 transformer parameters), the
+     transformer fine-tuned with Adafactor and stochastic rounding, lr
+     1e-5, clip 1.0, batch 1 at 1024x1024, "full" checkpointing, text
+     cached, T5 and the VAE freed: the memory reckoning printed beside the
+     peak; three timed steps with exactly K1 114, K2, K3 and the pre-pass
+     57 and K5 3 per step (the update made and rounded in chunks of at
+     most 2^32 elements); K5 against the plain rounding on the largest, a
+     1-D and a 2-D leaf (FLUX has no conv), every output a bf16 neighbour,
+     each chunk's device time; the gradients of the first double block,
+     the last single block, x_embedder and proj_out against plain
+     attention; a profiler split;
+ 33. dit_single_file (after hunyuan_cli, on its directory): hunyuan_cli's
+     transformer as a HunyuanVideo single file (the reference's layout);
+     SD3-medium (SF_SD3_BLOCKS joint blocks, CLIP-G SF_CLIP_G_LAYERS layers)
+     and FLUX.1-dev (SF_FLUX_BLOCKS) at full width, T5-XXL cut to
+     CUT_T5_LAYERS layers, written by the families' savers as bundled bf16
+     SAI and BFL single files; each read back on the card bit for bit;
+     then the train command's FINE_TUNE of the transformer from the SD3 and
+     the FLUX file (Adafactor, stochastic rounding, batch 4 at 512x512 over
+     sd15_files' PNGs, text cached): epoch 1 with a backup (the model as
+     an fp32 single file), the resume from it for epoch 2, the bf16
+     single-file output read back bit for bit as the trained transformer,
+     per step exactly K1-K3, the pre-pass and K5 once (SD3: K1 once per
+     block; FLUX: twice) and none while caching; the sample command on
+     each output at 512x512, a non-constant uint8 image; each family's
+     files deleted once checked.
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
@@ -1158,7 +1204,8 @@ def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
     """A size x size batch through the port's caches: a seeded image
     through the VAE encoder and a prompt through the text encoder(s),
     tiled; SDXL's also carries TE2's states and the crop metadata, SD3's
-    the assembled context and pooled embeddings of its three encoders."""
+    the assembled context and pooled embeddings of its three encoders; a
+    step that trains a text encoder gets the prompt's tokens instead."""
     encode_images, encode_text = family.make_encode_fns(setup)
     gen = torch.Generator(device="cuda").manual_seed(11)
     image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
@@ -1175,6 +1222,8 @@ def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
     for name, value in text.items():
         if isinstance(value, torch.Tensor):   # the cached states (tokens are numpy)
             batch[name] = tile(value[None])
+        elif setup.step_cfg.train_text_encoder:   # the step runs the text encoders
+            batch[name] = tile(torch.as_tensor(value, device="cuda")[None])
     if setup.config.model_type.is_stable_diffusion_xl():
         batch["original_resolution"] = torch.full((batch_size, 2), size, device="cuda")
         batch["crop_offset"] = torch.zeros((batch_size, 2), device="cuda")
@@ -1886,32 +1935,109 @@ def _fine_tune_config(model_type, batch_size: int):
     return config
 
 
-class _K5Capture:
-    """Wraps the stochastic-rounding update of one step: records how many
-    updates came in other strides than their parameter's (the layout copies
-    apply_updates_stochastic makes), and the K5 call's inputs (p before the
-    update, u, seeds) and host time."""
+def _queued_ms(torch, fn, reps: int) -> float:
+    """Device time per call of `fn` from CUDA events around `reps` calls
+    queued behind a first one: each call's host work runs while the one
+    before it runs on the card, so the events span only device time when a
+    call's kernel outlasts its wrapper's host time (K5 over a chunk of an
+    update: milliseconds each)."""
+    fn()
+    torch.cuda.synchronize()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
-    def __init__(self, torch):
+
+def _k5_device_ms(torch, fn, reps: int, bound_ms: float) -> tuple[float, str]:
+    """(K5's device time per launch of `fn`, its source): the profiler's,
+    or queued CUDA events' when the profiler's sessions see no launch of K5
+    or give a time below `bound_ms`, the least time the launch can take
+    (late in the whole script they have dropped every K5 record, and once
+    gave 6.32 ms for a launch whose bytes need 7.69)."""
+    try:
+        ms = _device_ms(torch, fn, "sr_update_kernel", reps=reps, min_seen=0.1)
+        if ms >= bound_ms:
+            return ms, "profiler"
+        print(f"[profile] {ms:.4f} ms from the profiler, below the least time "
+              f"{bound_ms:.4f} ms: CUDA events around {reps} queued calls instead")
+    except AssertionError as e:
+        print(f"[profile] {e}: CUDA events around {reps} queued calls instead")
+    return _queued_ms(torch, fn, reps), "events"
+
+
+class _K5Capture:
+    """Wraps the stochastic-rounding update of one step, K5 call by K5 call
+    (one per chunk of the update): counts the updates that came in other
+    strides than their parameter's (the layout copies
+    apply_updates_stochastic makes); for each call its leaves, elements, u
+    dtypes and host time, every output checked at once against the two
+    bf16 neighbours of p + u (and p + u itself where it is a bf16 value);
+    the named leaves' inputs and outputs kept (the largest, the first 1-D,
+    2-D and 4-D ones); with `time_reps`, the call run again on a copy of
+    its inputs: its device time per launch from the profiler and the
+    wrapper's host time per call. Only one chunk's copies exist at a time
+    (FLUX's whole update is 22 GiB of bf16)."""
+
+    def __init__(self, torch, time_reps: int = 0):
         from onetrainer_tpu_torch.ops import sr_update
         from onetrainer_tpu_torch.train import sd_train_step
         self.torch, self.sr_update, self.step_module = torch, sr_update, sd_train_step
         self.real_apply = sd_train_step.apply_updates_stochastic
         self.real_leaves = sr_update.sr_update_leaves
-        self.layout_copies, self.calls = None, []
+        self.time_reps = time_reps
+        self.layout_copies, self.calls, self.named = 0, [], {}
+        self.neighbours = self.exact = True
 
-    def apply(self, params, updates, generator=None, bits=None):
-        self.layout_copies = sum(not u.is_contiguous() for u in updates)
-        return self.real_apply(params, updates, generator, bits)
+    def apply(self, params, updates, *args, **kwargs):
+        self.layout_copies += sum(not u.is_contiguous() for u in updates)
+        return self.real_apply(params, updates, *args, **kwargs)
+
+    def _keep(self, name, p, u, out, seed) -> None:
+        self.named[name] = dict(before=p.clone(), u=u.clone(), out=out.clone(),
+                                seed=seed.clone())
 
     def leaves(self, ps, us, seeds, *, seed_index=None, outs=None):
+        torch = self.torch
         before = [p.detach().clone() for p in ps]
         t0 = time.perf_counter()
         result = self.real_leaves(ps, us, seeds, seed_index=seed_index, outs=outs)
         host_ms = (time.perf_counter() - t0) * 1e3
-        self.calls.append(dict(before=before, us=list(us), seeds=seeds.clone(),
-                               seed_index=list(seed_index), outs=list(result),
-                               host_ms=host_ms))
+        for i, (p, u, out) in enumerate(zip(before, us, result)):
+            s = p.float() + u.float()
+            low, high = _bf16_neighbours(torch, s)
+            got = out.float().view(torch.int32)
+            self.neighbours = self.neighbours and bool(((got == low) | (got == high)).all())
+            representable = (s.view(torch.int32) & 0xFFFF) == 0
+            self.exact = self.exact and bool((got[representable] == low[representable]).all())
+            seed = seeds[seed_index[i]:seed_index[i] + 1]
+            largest = self.named.get("largest")
+            if largest is None or p.numel() > largest["before"].numel():
+                self._keep("largest", p, u, out, seed)
+            name = {1: "1-D", 2: "2-D", 4: "4-D conv"}.get(p.dim())
+            if name and name not in self.named:
+                self._keep(name, p, u, out, seed)
+        call = dict(leaves=len(ps), elements=sum(p.numel() for p in ps),
+                    u_dtypes={u.dtype for u in us}, host_ms=host_ms)
+        if self.time_reps:
+            def again():
+                self.real_leaves(before, us, seeds, seed_index=seed_index, outs=before)
+            nbytes = sum((8 if u.dtype == torch.float32 else 6) * u.numel() for u in us)
+            call["device_ms"], call["timed_by"] = _k5_device_ms(
+                torch, again, self.time_reps, _bound_ms(0.0, nbytes)[0])
+            host = []
+            for _ in range(self.time_reps):
+                t0 = time.perf_counter()
+                again()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            call["wrapper_host_ms"] = statistics.median(host)
+        del before
+        self.calls.append(call)
         return result
 
     def __enter__(self):
@@ -1929,38 +2055,54 @@ class _K5Capture:
         self.sr_update.sr_update_leaves = self.real_leaves
 
 
-def _k5_on_the_update(torch, call: dict) -> dict:
+def _k5_on_the_update(torch, capture: _K5Capture) -> dict:
     """K5's outputs of one fine-tune update against the plain rounding: bit
-    for bit on the Philox bits of the largest leaf, one 1-D leaf and one
-    4-D conv leaf; on every leaf, each output one of the two bf16
-    neighbours of the fp32 sum p + u, and p + u itself where it is a bf16
-    value. -> the checks and the named leaves."""
+    for bit on the Philox bits of the named leaves (the largest, the first
+    1-D and 2-D ones and, in a model that has them, a 4-D conv leaf); on
+    every leaf, each output one of the two bf16 neighbours of the fp32 sum
+    p + u, and p + u itself where it is a bf16 value (checked as each K5
+    call ran). -> the checks, the largest leaf's size and the update's
+    totals over its calls."""
     from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
-    before, us, outs = call["before"], call["us"], call["outs"]
-    seeds, seed_index = call["seeds"], call["seed_index"]
-    sizes = [p.numel() for p in before]
-    largest = max(range(len(before)), key=lambda i: sizes[i])
-    one_d = next(i for i, p in enumerate(before) if p.dim() == 1)
-    conv = next(i for i, p in enumerate(before) if p.dim() == 4 and i != largest)
     bitwise, max_err = {}, 0.0
-    for name, i in (("largest", largest), ("1-D", one_d), ("4-D conv", conv)):
-        bits = philox_bits(seeds[seed_index[i]:seed_index[i] + 1], sizes[i],
-                           before[i].device).view(before[i].shape)
-        ref = stochastic_round_to_bf16(before[i].float() + us[i].float(), bits)
-        bitwise[f"{name} {tuple(before[i].shape)}"] = bool(
-            torch.equal(outs[i].view(torch.int16), ref.view(torch.int16)))
-        max_err = max(max_err, (outs[i].float() - ref.float()).abs().max().item())
+    for name, leaf in capture.named.items():
+        p, u, out = leaf["before"], leaf["u"], leaf["out"]
+        bits = philox_bits(leaf["seed"], p.numel(), p.device).view(p.shape)
+        ref = stochastic_round_to_bf16(p.float() + u.float(), bits)
+        bitwise[f"{name} {tuple(p.shape)}"] = bool(
+            torch.equal(out.view(torch.int16), ref.view(torch.int16)))
+        max_err = max(max_err, (out.float() - ref.float()).abs().max().item())
         del bits, ref
-    neighbours = exact = True
-    for p, u, out in zip(before, us, outs):
-        s = p.float() + u.float()
-        low, high = _bf16_neighbours(torch, s)
-        got = out.float().view(torch.int32)
-        neighbours = neighbours and bool(((got == low) | (got == high)).all())
-        representable = (s.view(torch.int32) & 0xFFFF) == 0
-        exact = exact and bool((got[representable] == low[representable]).all())
-    return dict(bitwise=bitwise, neighbours=neighbours, exact=exact, max_err=max_err,
-                largest=largest, largest_numel=sizes[largest])
+    calls = capture.calls
+    return dict(bitwise=bitwise, neighbours=capture.neighbours, exact=capture.exact,
+                max_err=max_err, largest_numel=capture.named["largest"]["before"].numel(),
+                launches=len(calls), leaves=sum(c["leaves"] for c in calls),
+                elements=sum(c["elements"] for c in calls),
+                u_dtypes=set().union(*(c["u_dtypes"] for c in calls)),
+                host_ms=sum(c["host_ms"] for c in calls),
+                device_ms=sum(c.get("device_ms", 0.0) for c in calls),
+                wrapper_host_ms=sum(c.get("wrapper_host_ms", 0.0) for c in calls))
+
+
+def _k5_largest_leaf(torch, capture: _K5Capture) -> dict:
+    """K5 over the update's largest leaf alone, in place on its copy: device
+    time per launch (profiler), time per call with the wrapper (events), the
+    plain rounding's time, the byte bound."""
+    from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
+    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+    leaf = capture.named["largest"]
+    p, u, seed = leaf["before"], leaf["u"], leaf["seed"]
+    # the mean over the launches the profiler records (it has dropped some
+    # of K5's here); CUDA events around one call beside it (the wrapper's
+    # host time included)
+    bound = _bound_ms(0.0, (8 if u.dtype == torch.float32 else 6) * p.numel())
+    ms, _ = _k5_device_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]), 40,
+                          bound[0])
+    event_ms = _median_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]))
+    plain_ms = _median_ms(torch, lambda: p.copy_(stochastic_round_to_bf16(
+        p.float() + u.float(), philox_bits(seed, p.numel(), p.device).view(p.shape))), reps=3)
+    return dict(ms=ms, ms_with_wrapper=event_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], shape=tuple(p.shape))
 
 
 def phase_sdxl_ft(torch) -> dict:
@@ -2019,50 +2161,30 @@ def phase_sdxl_ft(torch) -> dict:
           f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches} (expected {expected})")
 
     # one more step with K5's inputs captured: K5 against the plain rounding
-    with _K5Capture(torch) as capture:
+    with _K5Capture(torch, time_reps=10) as capture:
         setup.train_step(setup.state, batch, gen)["loss"].item()
-    (call,) = capture.calls
-    k5 = _k5_on_the_update(torch, call)
-    u_dtypes = {u.dtype for u in call["us"]}
-    n_el = sum(u.numel() for u in call["us"])
+    k5 = _k5_on_the_update(torch, capture)
+    u_dtypes, n_el = k5["u_dtypes"], k5["elements"]
     set_bound = _bound_ms(0.0, (8 if torch.float32 in u_dtypes else 6) * n_el)
-    ps, us, seeds, idx = call["before"], call["us"], call["seeds"], call["seed_index"]
-    set_ms = _device_ms(torch, lambda: sr_update_leaves(ps, us, seeds, seed_index=idx,
-                                                        outs=ps), "sr_update_kernel",
-                        reps=10, min_seen=0.1)
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        sr_update_leaves(ps, us, seeds, seed_index=idx, outs=ps)
-        host.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    set_host_ms = statistics.median(host)
-    i = k5["largest"]
-    p, u = ps[i], us[i]
-    seed = seeds[idx[i]:idx[i] + 1]
-    # the mean over the launches the profiler records (it has dropped some
-    # of K5's here); CUDA events around one call beside it (the wrapper's
-    # host time included)
-    leaf_ms = _device_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]),
-                         "sr_update_kernel", reps=40, min_seen=0.1)
-    leaf_event_ms = _median_ms(torch, lambda: sr_update_leaves([p], [u], seed, outs=[p]))
-    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
-    leaf_plain_ms = _median_ms(torch, lambda: p.copy_(stochastic_round_to_bf16(
-        p.float() + u.float(), philox_bits(seed, p.numel(), p.device).view(p.shape))), reps=3)
-    leaf_bound = _bound_ms(0.0, (8 if u.dtype == torch.float32 else 6) * p.numel())
+    set_ms, set_host_ms = k5["device_ms"], k5["wrapper_host_ms"]
+    leaf = _k5_largest_leaf(torch, capture)
+    leaf_ms, leaf_event_ms, leaf_plain_ms = leaf["ms"], leaf["ms_with_wrapper"], \
+        leaf["plain_ms"]
+    leaf_bound = (leaf["bound_ms"], leaf["bound_by"])
     card = gpu_line()
-    print(f"[sdxl_ft] K5 over the update on {card}: {len(us)} leaves, {n_el} elements, "
-          f"u {sorted(str(d) for d in u_dtypes)}, {capture.layout_copies} updates in other "
+    print(f"[sdxl_ft] K5 over the update on {card}: {k5['leaves']} leaves, {n_el} elements, "
+          f"{k5['launches']} launch(es), u {sorted(str(d) for d in u_dtypes)}, "
+          f"{capture.layout_copies} updates in other "
           f"strides than their parameter (copied); bitwise equal to the plain rounding on "
           f"{k5['bitwise']}; every output a bf16 neighbour of p + u {k5['neighbours']}, "
           f"exact where representable {k5['exact']}; device {set_ms:.4f} ms per launch, "
           f"least time {set_bound[0]:.4f} ms ({set_bound[1]}; "
           f"{100 * set_bound[0] / set_ms:.1f}% of it), wrapper host time "
-          f"{set_host_ms:.4f} ms per call ({call['host_ms']:.4f} ms in the step); the "
+          f"{set_host_ms:.4f} ms per call ({k5['host_ms']:.4f} ms in the step); the "
           f"largest leaf ({k5['largest_numel']} elements) alone {leaf_ms:.4f} ms per launch "
           f"on the device ({leaf_event_ms:.4f} ms per call with the wrapper, events), "
           f"plain {leaf_plain_ms:.4f} ms, least time {leaf_bound[0]:.4f} ms")
-    del capture, call, ps, us, p, u
+    del capture
     gc.collect()
     profile_train_step(torch, setup, batch, gen, "sdxl_ft")
     checks = {
@@ -2071,7 +2193,7 @@ def phase_sdxl_ft(torch) -> dict:
         "finite": _finite(first + losses + norms),
         "UNet changed after the first step": changed > n_tensors // 2,
         "launches per step": launches == expected,
-        "K5 one launch per update dtype": len(u_dtypes) == 1,
+        "K5 one launch per update dtype": len(u_dtypes) == 1 and k5["launches"] == 1,
         "K5 bitwise on the named leaves": all(k5["bitwise"].values()),
         "K5 neighbours on every leaf": k5["neighbours"] and k5["exact"],
         "largest leaf": k5["largest_numel"] == SDXL_LARGEST_LEAF,
@@ -2084,9 +2206,187 @@ def phase_sdxl_ft(torch) -> dict:
                        bound_ms=leaf_bound[0],
                        bound_by=leaf_bound[1], max_abs_err=k5["max_err"],
                        set_ms=set_ms, set_bound_ms=set_bound[0], set_host_ms=set_host_ms,
-                       leaves=len(idx), elements=n_el, u_dtype=sorted(str(d) for d in u_dtypes),
+                       leaves=k5["leaves"], elements=n_el,
+                       u_dtype=sorted(str(d) for d in u_dtypes),
                        shape=f"largest leaf of the SDXL fine-tune update, "
                              f"{k5['largest_numel']} elements")}
+
+
+def update_launches(sizes: list) -> int:
+    """K5 launches of one bf16 update of leaves of `sizes` elements, one u
+    dtype: one per chunk of the train step's (consecutive leaves of at most
+    UPDATE_CHUNK_ELEMENTS elements, a larger leaf alone)."""
+    from onetrainer_tpu_torch.train.optimizers import chunk_lengths
+    from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
+    return len(chunk_lengths(sizes, UPDATE_CHUNK_ELEMENTS))
+
+
+def _ft_grads_against_plain(torch, setup, batch, tag: str, params: dict) -> dict:
+    """The gradients of one FINE_TUNE step's loss with respect to `params`
+    ({name: tensor}) with K1-K3 against plain attention, at fixed
+    timesteps and noise: relative L2 over all of them, summed tensor by
+    tensor (no copy of the whole set); the K1 launches of one forward by
+    sequence length."""
+    from onetrainer_tpu_torch.ops import flash_folded as ff
+    draws = _fixed_draws(torch, batch, setup.config.model_type.is_flux())
+    names, tensors = list(params), list(params.values())
+    seqs = []
+    kernel_fn = ff.flash_attention_folded
+
+    def grads():
+        loss = setup.train_step.loss(batch, None, timestep=draws[0], noise=draws[1],
+                                     latent_noise=draws[2])
+        return torch.autograd.grad(loss, tensors)
+
+    def recorded(q, *args, **kwargs):
+        seqs.append(q.shape[1])
+        return kernel_fn(q, *args, **kwargs)
+    ff.flash_attention_folded = recorded
+    try:
+        g_kernel = grads()
+    finally:
+        ff.flash_attention_folded = kernel_fn
+    ff.flash_attention_folded = _plain_attention(ff)
+    try:
+        g_plain = grads()
+    finally:
+        ff.flash_attention_folded = kernel_fn
+    diff = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(g_kernel, g_plain))
+    ref = sum(float(b.float().square().sum()) for b in g_plain)
+    rel = (diff / ref) ** 0.5
+    finite = all(bool(torch.isfinite(g).all()) for g in (*g_kernel, *g_plain))
+    by_seq = {n: seqs.count(n) for n in sorted(set(seqs), reverse=True)}
+    n = sum(t.numel() for t in tensors)
+    print(f"[{tag}] gradients of {len(names)} trained tensors ({n} values: {names[0]} .. "
+          f"{names[-1]}), kernels vs plain attention: rel L2 {rel:.3e} (bound "
+          f"{GRAD_REL_L2_BOUND:g}); K1 launches of one forward by sequence length {by_seq}")
+    return {"rel": rel, "finite": finite, "by_seq": by_seq}
+
+
+def _dit_fine_tune(torch, model, config, tag: str, size: int, per_step_attn: dict,
+                   k1_by_seq: dict, grad_params, make_batch=None, after_batch=None,
+                   steps: int = TRAIN_STEPS, reckoning: str = "") -> dict:
+    """A DiT FINE_TUNE in bf16 through the family registry: the setup, the
+    cached batch (`make_batch(setup)` when given), `after_batch(setup)`,
+    one warm-up step (after which the trained parts must have moved), then
+    `steps` timed steps with every launch count zeroed just before them and
+    read just after (K1-K3 and the pre-pass `per_step_attn`, K5 one launch
+    per chunk of the update), one step with K5's calls captured (against
+    the plain rounding; each call's device time), one step's gradients of
+    `grad_params(setup)` against plain attention (K1 `k1_by_seq` times by
+    sequence length in its forward and backward), a profiler split."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
+    from onetrainer_tpu_torch.train.train_state import param_groups
+    family = get_family(config.model_type)
+    t0 = time.perf_counter()
+    setup = family.create_setup(model, config, 100)
+    batch = make_batch(setup) if make_batch is not None else \
+        _train_batch(torch, family, setup, config.batch_size, size)
+    if after_batch is not None:
+        after_batch(setup)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    groups = param_groups(setup.state.params)
+    sizes = [t.numel() for g in groups.values() for t in g]
+    dtypes = {t.dtype for g in groups.values() for t in g}
+    elements = {name: sum(t.numel() for t in g) for name, g in groups.items()}
+    k5_per_step = update_launches(sizes)
+    print(f"[{tag}] FINE_TUNE of {elements} ({len(sizes)} tensors, {sum(sizes)} elements, "
+          f"{dtypes}); Adafactor (the reference's defaults), lr {config.learning_rate:g}, "
+          f"clip {config.clip_grad_norm:g}, stochastic rounding, batch {config.batch_size} at "
+          f"{size}x{size}, the update in chunks of at most {UPDATE_CHUNK_ELEMENTS} elements "
+          f"({k5_per_step} per step); {reckoning}set up in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    # the trained parts moved: each group's 4 largest tensors (a small one
+    # may keep every element: lr 1e-5 is a fraction of one bf16 step)
+    watched = {name: sorted(g, key=lambda t: -t.numel())[:4] for name, g in groups.items()}
+    start = {name: [t.detach().clone() for t in ts] for name, ts in watched.items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    metrics = setup.train_step(setup.state, batch, gen)
+    first = [metrics["loss"].item(), metrics["grad_norm"].item()]
+    warm_s = time.perf_counter() - t0
+    moved = {name: sum(not torch.equal(a, t) for a, t in zip(start[name], ts))
+             for name, ts in watched.items()}
+    del start
+    print(f"[{tag}] warm-up step {warm_s:.3f} s: loss {first[0]:.6f} grad_norm "
+          f"{first[1]:.6f}; of the 4 largest tensors of each group moved {moved}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    step_s, losses, norms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = setup.train_step(setup.state, batch, gen)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        step_s.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(step_s)
+    expected = {**{k: steps * v for k, v in per_step_attn.items()}, "K4": 0,
+                "K5": steps * k5_per_step}
+    print(f"[{tag}] {steps} timed steps: sec/step median {med:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in step_s)}), images/s {config.batch_size / med:.3f}, "
+          f"peak max_memory_allocated {peak_gib:.2f} GiB, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, grad_norms "
+          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches} (expected {expected})")
+
+    with _K5Capture(torch, time_reps=3) as capture:
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+    k5 = _k5_on_the_update(torch, capture)
+    set_bound = _bound_ms(0.0, (8 if torch.float32 in k5["u_dtypes"] else 6) * k5["elements"])
+    leaf = _k5_largest_leaf(torch, capture)
+    card = gpu_line()
+    per_launch = ", ".join(f"{c['device_ms']:.4f} ({c['timed_by']})" for c in capture.calls)
+    print(f"[{tag}] K5 over the update on {card}: {k5['leaves']} leaves, {k5['elements']} "
+          f"elements in {k5['launches']} launches (leaves per launch "
+          f"{[c['leaves'] for c in capture.calls]}), u {sorted(str(d) for d in k5['u_dtypes'])}, "
+          f"{capture.layout_copies} updates in other strides (copied); bitwise equal to the "
+          f"plain rounding on {k5['bitwise']}; every output a bf16 neighbour of p + u "
+          f"{k5['neighbours']}, exact where representable {k5['exact']}; device "
+          f"{k5['device_ms']:.4f} ms over the update ({per_launch} per launch), least time "
+          f"{set_bound[0]:.4f} ms ({set_bound[1]}; "
+          f"{100 * set_bound[0] / k5['device_ms']:.1f}% of it), wrapper host time "
+          f"{k5['wrapper_host_ms']:.4f} ms over the update's calls ({k5['host_ms']:.4f} ms in "
+          f"the step); the largest leaf {leaf['shape']} alone {leaf['ms']:.4f} ms per launch "
+          f"({leaf['ms_with_wrapper']:.4f} ms per call with the wrapper), plain "
+          f"{leaf['plain_ms']:.4f} ms, least time {leaf['bound_ms']:.4f} ms")
+    del capture
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = _ft_grads_against_plain(torch, setup, batch, tag, grad_params(setup))
+    profile_train_step(torch, setup, batch, gen, tag)
+    checks = {
+        "bf16 parameters": dtypes == {torch.bfloat16},
+        "finite": _finite(first + losses + norms) and grads["finite"],
+        "every group moved": all(m == len(watched[n]) for n, m in moved.items()),
+        "launches per step": launches == expected,
+        "K5 one launch per chunk": k5["launches"] == k5_per_step
+        and len(k5["u_dtypes"]) == 1 and k5["leaves"] == len(sizes),
+        "K5 bitwise on the named leaves": all(k5["bitwise"].values())
+        and {"largest", "1-D", "2-D"} <= {n.split()[0] for n in k5["bitwise"]},
+        "K5 neighbours on every leaf": k5["neighbours"] and k5["exact"],
+        "gradients against plain attention": grads["rel"] <= GRAD_REL_L2_BOUND,
+        "K1 per forward and backward": grads["by_seq"] == k1_by_seq,
+    }
+    print(f"[{tag}] checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": launches, "sec_per_step": med, "peak_gib": peak_gib,
+            "k5": dict(ms=leaf["ms"], ms_with_wrapper=leaf["ms_with_wrapper"],
+                       plain_ms=leaf["plain_ms"], bound_ms=leaf["bound_ms"],
+                       bound_by=leaf["bound_by"], max_abs_err=k5["max_err"],
+                       set_ms=k5["device_ms"], set_bound_ms=set_bound[0],
+                       set_host_ms=k5["wrapper_host_ms"], leaves=k5["leaves"],
+                       elements=k5["elements"], launches_per_update=k5["launches"],
+                       u_dtype=sorted(str(d) for d in k5["u_dtypes"]),
+                       shape=f"largest leaf of the {tag} update, {k5['largest_numel']} "
+                             f"elements")}
 
 
 def _ft_cli_config(root: str, files: dict):
@@ -2337,6 +2637,52 @@ def phase_sd3_train(torch, model) -> dict:
             "peak_gib": run["peak_gib"]}
 
 
+# the fine-tunes' images: 1024x1024, as bench.py's SD3 stage and flux_train
+DIT_FT_SIZE = 1024
+
+
+def _dit_ft_config(model_type, batch_size: int, train_te: bool):
+    """FINE_TUNE of the transformer (`prior`) and, with `train_te`, CLIP-L,
+    both in bf16, the other text encoders frozen; Adafactor (the
+    reference's defaults) with stochastic rounding, lr 1e-5, clip 1.0."""
+    from onetrainer_tpu_torch.util.enums import DataType, Optimizer
+    config = _fine_tune_config(model_type, batch_size)
+    config.prior.train = True
+    config.prior.weight_dtype = DataType.BFLOAT_16
+    config.text_encoder.train = train_te
+    config.text_encoder.weight_dtype = DataType.BFLOAT_16
+    config.optimizer.optimizer = Optimizer.ADAFACTOR
+    config.optimizer.stochastic_rounding = True
+    return config
+
+
+def _gib(n_elements: int, nbytes: int = 2) -> float:
+    return n_elements * nbytes / 2 ** 30
+
+
+def phase_sd3_ft(torch, model) -> dict:
+    """sd3_ft: SD3-medium's FINE_TUNE at full width and depth in bf16 (see
+    the module docstring), on sd3_model's weights cast to bf16 (the
+    loader's cast of every part to the transformer's weight dtype)."""
+    from onetrainer_tpu_torch.util.enums import ModelType
+    config = _dit_ft_config(ModelType.STABLE_DIFFUSION_3, 2, train_te=True)
+    for module in model.modules().values():
+        module.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS}
+    n = sum(p.numel() for name in ("transformer", "text_encoder")
+            for p in model.modules()[name].parameters())
+    reckoning = (f"weights, gradients and the update {3 * _gib(n):.2f} GiB in bf16 beside "
+                 f"CLIP-G and T5-XXL (frozen, live) ")
+
+    def every_trained_tensor(setup):
+        return {f"{group}.{name}": t for group, tensors in setup.state.params.items()
+                for name, t in tensors.items()}
+
+    return _dit_fine_tune(torch, model, config, "sd3_ft", DIT_FT_SIZE, per_step,
+                          {4250: SD3_BLOCKS}, every_trained_tensor, reckoning=reckoning)
+
+
 def sd3_config_jsons(model) -> dict:
     """Each component's config.json (diffusers' and transformers' keys) for
     a diffusers SD3 directory of the port's `model`."""
@@ -2373,11 +2719,12 @@ def sd3_config_jsons(model) -> dict:
 
 
 def sd3_files(torch, root: str) -> str:
-    """A seeded full-width SD3-medium written as an fp16 diffusers directory
-    in `root` -> its path."""
+    """A seeded full-width SD3-medium, T5-XXL cut to CUT_T5_LAYERS layers,
+    written as an fp16 diffusers directory in `root` -> its path."""
     from onetrainer_tpu_torch.io.sd3_checkpoints import save_sd3_diffusers
     from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
-    model = build_sd3_model(torch)
+    from onetrainer_tpu_torch.util.enums import ModelType
+    model = build_cut_dit(torch, ModelType.STABLE_DIFFUSION_3, (SD3_BLOCKS,), CUT_T5_LAYERS)
     ckpt = os.path.join(root, "sd3-medium")
     t0 = time.perf_counter()
     m = model.modules()
@@ -2392,8 +2739,8 @@ def sd3_files(torch, root: str) -> str:
     gc.collect()
     torch.cuda.empty_cache()
     size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
-    print(f"[sd3_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, fp16, diffusers layout) in "
-          f"{write_s:.2f} s")
+    print(f"[sd3_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, fp16, diffusers layout, T5 "
+          f"{CUT_T5_LAYERS} layers) in {write_s:.2f} s")
     return ckpt
 
 
@@ -2839,6 +3186,38 @@ def phase_flux_fill_train(torch, model) -> dict:
             "peak_gib": run["peak_gib"]}
 
 
+def phase_flux_ft(torch, model) -> dict:
+    """flux_ft: FLUX.1-dev's FINE_TUNE at full width and depth in bf16 (see
+    the module docstring): the transformer trained, text cached, T5 and
+    the VAE freed once the batch is cached; the gradients against plain
+    attention taken for the first double block, the last single block,
+    x_embedder and proj_out (every attention of the network lies on their
+    backward path)."""
+    from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
+    from onetrainer_tpu_torch.util.enums import ModelType
+    config = _dit_ft_config(ModelType.FLUX_DEV_1, 1, train_te=False)
+    n = sum(p.numel() for p in model.transformer.parameters())
+    chunk = min(n, UPDATE_CHUNK_ELEMENTS)
+    reckoning = (f"the reckoning: weights {_gib(n):.2f} + gradients {_gib(n):.2f} + one chunk "
+                 f"of updates {_gib(chunk):.2f} GiB (all at once: {3 * _gib(n):.2f}) of "
+                 f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} GiB; ")
+
+    def free_encoders(setup):
+        model.text_encoder_2 = model.vae = None
+
+    def watched(setup):
+        last = f"single_transformer_blocks.{FLUX_SINGLE - 1}."
+        return {name: t for name, t in setup.state.params["transformer"].items()
+                if name.startswith(("transformer_blocks.0.", last, "x_embedder.",
+                                    "proj_out."))}
+
+    per_step = {"K1": 2 * FLUX_BLOCKS, "K2": FLUX_BLOCKS, "K3": FLUX_BLOCKS,
+                "K3pre": FLUX_BLOCKS}
+    return _dit_fine_tune(torch, model, config, "flux_ft", DIT_FT_SIZE, per_step,
+                          {FLUX_TOKENS: 2 * FLUX_BLOCKS}, watched, after_batch=free_encoders,
+                          reckoning=reckoning)
+
+
 def flux_config_jsons(model) -> dict:
     """Each component's config.json (diffusers' and transformers' keys) for
     a diffusers FLUX directory of the port's `model`."""
@@ -2909,9 +3288,12 @@ def write_flux_dir(ckpt: str, model) -> None:
 
 def flux_files(torch, root: str) -> str:
     """A seeded FLUX.1-dev at full width, its transformer cut to
-    FLUX_CLI_DOUBLE + FLUX_CLI_SINGLE blocks, written in bf16 as a diffusers
-    directory in `root` (`write_flux_dir`) -> its path."""
-    model = build_flux_model(torch, FLUX_CLI_DOUBLE, FLUX_CLI_SINGLE, quantize=False)
+    FLUX_CLI_DOUBLE + FLUX_CLI_SINGLE blocks and T5-XXL to CUT_T5_LAYERS
+    layers, written in bf16 as a diffusers directory in `root`
+    (`write_flux_dir`) -> its path."""
+    from onetrainer_tpu_torch.util.enums import ModelType
+    model = build_cut_dit(torch, ModelType.FLUX_DEV_1, (FLUX_CLI_DOUBLE, FLUX_CLI_SINGLE),
+                          CUT_T5_LAYERS)
     ckpt = os.path.join(root, "flux-dev")
     t0 = time.perf_counter()
     write_flux_dir(ckpt, model)
@@ -2921,8 +3303,8 @@ def flux_files(torch, root: str) -> str:
     torch.cuda.empty_cache()
     size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
     print(f"[flux_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, bf16, diffusers layout, the "
-          f"transformer {FLUX_CLI_DOUBLE} + {FLUX_CLI_SINGLE} blocks in 3 shards, T5 in 2) in "
-          f"{write_s:.2f} s")
+          f"transformer {FLUX_CLI_DOUBLE} + {FLUX_CLI_SINGLE} blocks in 3 shards, T5 "
+          f"{CUT_T5_LAYERS} layers in 2) in {write_s:.2f} s")
     return ckpt
 
 
@@ -3244,6 +3626,282 @@ def phase_hunyuan_cli(torch, ckpt: str, dataset: str) -> dict:
         prior_dtype=DataType.NFLOAT_4)
 
 
+# the files the CLI phases write hold T5-XXL cut to CUT_T5_LAYERS of its 24
+# layers (all of it is 9.5 GB in 16 bits, and a machine's disk takes about
+# 45 GiB of writes over the whole script); dit_single_file's models are cut
+# further: SD3-medium to SF_SD3_BLOCKS joint blocks and CLIP-G to
+# SF_CLIP_G_LAYERS layers, FLUX.1-dev to SF_FLUX_BLOCKS (double, single) (a
+# FINE_TUNE backup holds the model in fp32)
+CUT_T5_LAYERS = 2
+SF_SD3_BLOCKS = 2
+SF_CLIP_G_LAYERS = 4
+SF_FLUX_BLOCKS = (1, 1)
+SF_SIZE = 512
+
+
+def build_cut_dit(torch, model_type, blocks: tuple, t5_layers: int,
+                  clip_g_layers: int | None = None):
+    """SD3-medium or FLUX.1-dev at full width with seeded bf16 weights on
+    the card, the transformer cut to `blocks` (SD3: (joint blocks,); FLUX:
+    (double, single)), T5-XXL to `t5_layers` and SD3's CLIP-G to
+    `clip_g_layers` when given."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.io.weights import init_sd3_weights
+    from onetrainer_tpu_torch.models.clip import CLIPTextModel
+    from onetrainer_tpu_torch.models.flux import FluxTransformer2D
+    from onetrainer_tpu_torch.models.flux_model import create_flux_model
+    from onetrainer_tpu_torch.models.sd3 import SD3Transformer2D
+    from onetrainer_tpu_torch.models.sd3_model import create_sd3_model
+    from onetrainer_tpu_torch.models.t5 import T5Encoder
+    sd3 = model_type.is_stable_diffusion_3()
+    create = create_sd3_model if sd3 else create_flux_model
+    model = create(model_type, dtype=torch.bfloat16, gradient_checkpointing=True,
+                   device="meta")
+    layers = dict(num_layers=blocks[0]) if sd3 else dict(num_layers=blocks[0],
+                                                         num_single_layers=blocks[1])
+    model.transformer_config = replace(model.transformer_config, **layers)
+    t5 = "text_encoder_3" if sd3 else "text_encoder_2"
+    t5_config = "te3_config" if sd3 else "te2_config"
+    setattr(model, t5_config, replace(getattr(model, t5_config), num_layers=t5_layers))
+    if clip_g_layers is not None:
+        model.te2_config = replace(model.te2_config, num_layers=clip_g_layers)
+    with torch.device("meta"):
+        model.transformer = (SD3Transformer2D if sd3 else FluxTransformer2D)(
+            model.transformer_config)
+        setattr(model, t5, T5Encoder(getattr(model, t5_config)))
+        if clip_g_layers is not None:
+            model.text_encoder_2 = CLIPTextModel(model.te2_config)
+    for module in model.modules().values():
+        module.to(torch.bfloat16)
+    init_sd3_weights(model, seed=0, device="cuda")
+    return model
+
+
+def _frozen_config(model_type):
+    """A FINE_TUNE config that trains no part (its setup serves sampling and
+    saving), every part loaded in bf16."""
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _fine_tune_config(model_type, 1)
+    config.unet.train = config.prior.train = False
+    config.weight_dtype = config.prior.weight_dtype = DataType.BFLOAT_16
+    return config
+
+
+def _sf_config(root: str, ckpt: str, dataset: str, model_type):
+    """FINE_TUNE of the transformer from a single file through the train
+    command: bf16 weights, text cached, Adafactor with stochastic rounding,
+    lr 1e-5, clip 1.0, batch 4 at 512x512 over sd15_files' PNGs, gradient
+    checkpointing on, epoch 1 with a backup, a single-file bf16 output."""
+    from onetrainer_tpu_torch.util.enums import (
+        DataType, GradientCheckpointingMethod, ModelFormat, Optimizer, TrainingMethod,
+    )
+    config = _cli_config(root, ckpt, dataset)
+    config.model_type = model_type
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.resolution = str(SF_SIZE)
+    config.learning_rate = 1e-5
+    config.weight_dtype = DataType.BFLOAT_16
+    config.prior.weight_dtype = DataType.BFLOAT_16
+    config.prior.train = True
+    config.text_encoder.train = config.text_encoder_2.train = False
+    config.gradient_checkpointing = GradientCheckpointingMethod.ON
+    config.optimizer.optimizer = Optimizer.ADAFACTOR
+    config.optimizer.stochastic_rounding = True
+    config.output_dtype = DataType.BFLOAT_16
+    config.output_model_format = ModelFormat.SAFETENSORS
+    config.output_model_destination = os.path.join(root, "fine_tuned.safetensors")
+    return config
+
+
+def _sf_fine_tune_cli(torch, tag: str, ckpt: str, dataset: str, model_type, per_step: dict,
+                      sample_argv: list, sample_k1: int) -> dict:
+    """The train command's FINE_TUNE from the single file `ckpt`: epoch 1
+    with a backup (the model a single file in the base's layout, fp32), the
+    resume from it for epoch 2 and the bf16 single-file output, read back
+    bit for bit as the trained transformer; exactly `per_step` launches per
+    step and none while caching; then the sample command on the output
+    (`sample_k1` K1), a non-constant uint8 image."""
+    from onetrainer_tpu_torch.io.png import read_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.scripts import sample
+    from onetrainer_tpu_torch.setup.families import get_family
+    root = os.path.join(os.path.dirname(ckpt), tag)
+    os.makedirs(root)
+    config = _sf_config(root, ckpt, dataset, model_type)
+    paths = []
+    for epochs in (1, 2):
+        config.epochs, config.continue_last_backup = epochs, epochs == 2
+        config.backup_before_save = epochs == 1
+        paths.append(os.path.join(root, f"epoch{epochs}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(config.to_dict(), f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    events1, events2 = [], []
+    t0 = time.perf_counter()
+    first, _ = _cli_run(torch, paths[0], events1)
+    first_s = time.perf_counter() - t0
+    step_after_first = first.train_progress.global_step
+    backup = first.config.get_last_backup_path()
+    backup_model = os.path.join(backup, "model.safetensors")
+    backup_gib = os.path.getsize(backup_model) / 2 ** 30 if os.path.isfile(backup_model) else 0
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed, _ = _cli_run(torch, paths[1], events2)
+    resume_s = time.perf_counter() - t0
+    train_launches = _launch_counts()
+    source = resumed._source_dir
+    trained = {k: t.detach() for k, t in resumed.model.transformer.state_dict().items()}
+    step_after_resume = resumed.train_progress.global_step
+    loss = resumed._loss_ema
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    family = get_family(model_type)
+    read = family.load(config.output_model_destination, _frozen_config(model_type),
+                       device="cuda")
+    written = read.transformer.state_dict()
+    output_bitwise = set(written) == set(trained) and all(
+        torch.equal(written[k].to(torch.bfloat16), t) for k, t in trained.items())
+    del read, written, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_sample = _launch_counts()
+    image_path = os.path.join(root, "sample.png")
+    t0 = time.perf_counter()
+    out = sample.main(["--model-type", model_type.value, "--base-model-name",
+                       config.output_model_destination,
+                       "--prompt", "a photograph of an astronaut riding a horse",
+                       "--destination", image_path, "--steps", "4",
+                       "--width", str(SF_SIZE), "--height", str(SF_SIZE),
+                       "--weight-dtype", "BFLOAT_16"] + sample_argv)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sample_launches = _delta(_launch_counts(), before_sample)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    none = {k: 0 for k in per_step}
+    steps, cache_launches, times = _cli_timeline(events1, events2)
+    image = read_png(image_path)
+    checks = {
+        "launches per step": all(d == per_step for _, d, _ in steps) and len(steps) == 4,
+        "none while caching": all(c == none for c in cache_launches)
+        and len(cache_launches) == 2,
+        "main-path launches": train_launches == {k: 4 * v for k, v in per_step.items()},
+        "K1 over the sample": sample_launches == {**none, "K1": sample_k1},
+        "global steps": (step_after_first, step_after_resume) == (2, 4),
+        "resumed from the backup's single file": source == backup_model,
+        "output read back bitwise": output_bitwise,
+        "finite loss": _finite([loss]),
+        "image": image.dtype.name == "uint8" and image.shape == (SF_SIZE, SF_SIZE, 3)
+        and image.std() > 0 and bool((image == out.image).all()),
+    }
+    card = gpu_line()
+    print(f"[{tag}] on {card}: epoch 1 with its backup {first_s:.2f} s (backup model "
+          f"{backup_gib:.3f} GiB, fp32), the resume with the output {resume_s:.2f} s; load "
+          f"{', '.join(f'{x:.2f}' for x in times['load_s'])} s, caching "
+          f"{times['cache_s'][0]:.3f} s; steps (global step, s): "
+          f"{', '.join(f'{g}: {x:.4f}' for g, _, x in steps)}; sample {sample_s:.2f} s; "
+          f"peak max_memory_allocated {peak_gib:.2f} GiB; launches {train_launches} "
+          f"(sample {sample_launches}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": {k: train_launches[k] + sample_launches[k] for k in train_launches},
+            "step_s": statistics.median(x for g, _, x in steps if g != 1)}
+
+
+def _write_and_read_back(torch, tag: str, model, family, path: str, config,
+                         transformer_only: bool = False) -> dict:
+    """`model` through its family's single-file saver (bf16, a setup that
+    trains nothing; with `transformer_only`, the transformer alone, the
+    reference's HunyuanVideo layout) and loader on the card: every tensor
+    of every part written back bit for bit. -> {"write_s", "read_s",
+    "gib"}."""
+    from onetrainer_tpu_torch.io.single_file import save_hunyuan_single_file
+    t0 = time.perf_counter()
+    if transformer_only:
+        save_hunyuan_single_file(path, model.transformer.state_dict(), None, None, None,
+                                 save_dtype=torch.bfloat16)
+    else:
+        family.save_single_file(family.create_setup(model, config, 1), path,
+                                save_dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = family.load(path, config, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    parts = {"transformer": model.transformer} if transformer_only else model.modules()
+    mismatched = [f"{name}.{key}" for name, module in parts.items()
+                  for key, value in module.state_dict().items()
+                  if not torch.equal(read.modules()[name].state_dict()[key],
+                                     value.to(torch.bfloat16))]
+    gib = os.path.getsize(path) / 2 ** 30
+    print(f"[dit_single_file] {tag}: wrote {path} ({gib:.3f} GiB, bf16) in {write_s:.2f} s, "
+          f"read it to the card in {read_s:.2f} s; parts "
+          f"{ {n: sum(p.numel() for p in m.parameters()) for n, m in parts.items()} }"
+          f"; tensors that differ from those written: {mismatched[:5]} ({len(mismatched)})")
+    del read
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mismatched:
+        raise AssertionError(f"{tag}: {len(mismatched)} tensors read back differ")
+    return dict(write_s=write_s, read_s=read_s, gib=gib)
+
+
+def phase_dit_single_file(torch, hunyuan_ckpt: str, dataset: str) -> dict:
+    """dit_single_file (see the module docstring): the SAI, BFL and
+    HunyuanVideo single files written and read back bitwise on the card,
+    then the train command's FINE_TUNE from the SD3 and FLUX files with a
+    backup, a resume and a single-file output, and the sample command on
+    each output. Each file is deleted once its checks ran (the disk)."""
+    import shutil
+
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import ModelType
+    root = os.path.dirname(hunyuan_ckpt)
+    family = get_family(ModelType.HUNYUAN_VIDEO)
+    config = _frozen_config(ModelType.HUNYUAN_VIDEO)
+    model = family.load(hunyuan_ckpt, config, device="cuda")
+    path = os.path.join(root, "hunyuan-video.safetensors")
+    _write_and_read_back(torch, "HunyuanVideo (hunyuan_cli's model), the transformer", model,
+                         family, path, config, transformer_only=True)
+    os.remove(path)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for model_type, blocks, name, per_step, sample_argv in (
+            (ModelType.STABLE_DIFFUSION_3, (SF_SD3_BLOCKS,), "sd3-medium-sai.safetensors",
+             {"K1": SF_SD3_BLOCKS, "K2": SF_SD3_BLOCKS, "K3": SF_SD3_BLOCKS,
+              "K3pre": SF_SD3_BLOCKS, "K4": 0, "K5": 1}, ["--cfg", "7"]),
+            (ModelType.FLUX_DEV_1, SF_FLUX_BLOCKS, "flux1-dev-bfl.safetensors",
+             {"K1": 2 * sum(SF_FLUX_BLOCKS), "K2": sum(SF_FLUX_BLOCKS),
+              "K3": sum(SF_FLUX_BLOCKS), "K3pre": sum(SF_FLUX_BLOCKS), "K4": 0, "K5": 1},
+             ["--cfg", str(FLUX_GUIDANCE)])):
+        sd3 = model_type.is_stable_diffusion_3()
+        model = build_cut_dit(torch, model_type, blocks, CUT_T5_LAYERS,
+                              SF_CLIP_G_LAYERS if sd3 else None)
+        path = os.path.join(root, name)
+        _write_and_read_back(torch, f"{model_type.value} {blocks} blocks, T5 {CUT_T5_LAYERS} "
+                             f"layers{f', CLIP-G {SF_CLIP_G_LAYERS}' if sd3 else ''}, bundled",
+                             model, get_family(model_type), path, _frozen_config(model_type))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        tag = "sd3_sf_ft_cli" if sd3 else "flux_sf_ft_cli"
+        run = _sf_fine_tune_cli(torch, tag, path, dataset, model_type, per_step, sample_argv,
+                                4 * per_step["K2"])
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        os.remove(path)
+        shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
+    return {"launches": launches}
+
+
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
                     err=None) -> list:
     """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
@@ -3272,14 +3930,16 @@ def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
     ]
 
 
-def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
+def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
     """One row per kernel and path: `launches` from the path that runs it
     (K1-K3 the fp32-base SDXL LoRA step, and again at SD 1.5's, SD 2.1's,
     SD3's and FLUX's shapes with their steps' launches; K4-K5 the QLoRA step,
     K4 again at FLUX's largest kernel with the FLUX step's; K5 again at
     the SDXL fine-tune's largest leaf, with the call's time with its
     wrapper and the whole update's device time, bound and host time beside
-    it), the device time at that path's shape, and the
+    it; and at the SD3 and FLUX fine-tunes' largest leaves, `k5_dit`, with
+    their whole updates beside them; K1-K3 again at the fine-tunes' shapes,
+    FLUX's at batch 1), the device time at that path's shape, and the
     counts of every path."""
     worst = {
         "K1": max(c["err_o"] for c in k1.values()),
@@ -3326,6 +3986,15 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
          "onetrainer_tpu/ops/pallas_sr.py:26", "sdxl_ft", k5_ft["max_abs_err"], k5_ft["ms"],
          k5_ft["plain_ms"], k5_ft["bound_ms"], k5_ft["bound_by"], None, k5_ft["shape"]),
     ]
+    rows += [(f"sr_update_leaves (K5) at the {label} fine-tune's largest leaf", "K5",
+              "sr_update.cu", "onetrainer_tpu/ops/pallas_sr.py:26", path,
+              k5_dit[path]["max_abs_err"], k5_dit[path]["ms"], k5_dit[path]["plain_ms"],
+              k5_dit[path]["bound_ms"], k5_dit[path]["bound_by"], None, k5_dit[path]["shape"])
+             for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"))]
+    rows += _attention_rows(k1, k23, SD3_SHAPE, "sd3_ft", (2, 4250, 4250, 24, 64),
+                            " at SD3's B2 S4250 H24 d64 (the fine-tune)")
+    rows += _attention_rows(k1, k23, FLUX_SAMPLE_SHAPE, "flux_ft", (1, 4173, 4173, 24, 128),
+                            " at FLUX's B1 S4173 H24 d128 (the fine-tune)")
     kernels = []
     for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,
          library_ms, shape) in rows:
@@ -3338,9 +4007,16 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict) -> dict:
                 "library_backend") if library_ms is not None else None,
             "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
-    kernels[-1]["ms_with_wrapper"] = k5_ft["ms_with_wrapper"]
-    kernels[-1].update({f"update_{k}": k5_ft[k] for k in (
-        "set_ms", "set_bound_ms", "set_host_ms", "leaves", "elements", "u_dtype")})
+    # the fine-tunes' K5 rows: the whole update's time, bound and host time
+    updates = {"sdxl_ft": k5_ft, **k5_dit}
+    extras = ("set_ms", "set_bound_ms", "set_host_ms", "leaves", "elements", "u_dtype")
+    for row in kernels:
+        k5_row = updates.get(row["path"])
+        if k5_row is None or not row["name"].startswith("sr_update_leaves"):
+            continue
+        row["ms_with_wrapper"] = k5_row["ms_with_wrapper"]
+        row.update({f"update_{k}": k5_row[k] for k in extras})
+        row["update_launches"] = k5_row.get("launches_per_update", 1)
     return {"kernels": kernels}
 
 
@@ -3429,6 +4105,11 @@ def main() -> int:
     if model is not None:
         run("sd3_sample", phase_sample, torch, model, 1024, {4250: SD3_BLOCKS}, "sd3_sample")
         run("sd3_transformer", phase_sd3_transformer, torch, model)
+        # the fine-tune casts the model to bf16 and trains it; the LoRA step
+        # after it quantizes the transformer to fp8 and frees the encoders
+        run("sd3_ft", phase_sd3_ft, torch, model)
+        gc.collect()
+        torch.cuda.empty_cache()
         run("sd3_train", phase_sd3_train, torch, model)
     del model
     results.pop("sd3_model", None)
@@ -3458,6 +4139,14 @@ def main() -> int:
         run("flux_fill_train", phase_flux_fill_train, torch, model)
     del model
     results.pop("flux_fill_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 FLUX.1-dev of the full fine-tune, after the NF4 models are freed
+    model = run("flux_ft_model", build_flux_model, torch, FLUX_DOUBLE, FLUX_SINGLE, False)
+    if model is not None:
+        run("flux_ft", phase_flux_ft, torch, model)
+    del model
+    results.pop("flux_ft_model", None)
     gc.collect()
     torch.cuda.empty_cache()
     model = run("hunyuan_model", build_hunyuan_model, torch)
@@ -3506,6 +4195,10 @@ def main() -> int:
                 ckpt = run("hunyuan_files", hunyuan_files, torch, hunyuan_root)
                 if ckpt is not None:
                     run("hunyuan_cli", phase_hunyuan_cli, torch, ckpt, files["dataset"])
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    run("dit_single_file", phase_dit_single_file, torch, ckpt,
+                        files["dataset"])
             finally:
                 shutil.rmtree(hunyuan_root, ignore_errors=True)
             gc.collect()
@@ -3526,9 +4219,11 @@ def main() -> int:
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
                              "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
                              "flux_cli", "hunyuan_train", "hunyuan_cli", "flux_fill_train",
-                             "sdxl_inpaint", "sd15_inpaint_cli")}}
+                             "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
+                             "dit_single_file")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
-                                   results["k5"], results["sdxl_ft"]["k5"], launches)))
+                                   results["k5"], results["sdxl_ft"]["k5"], launches,
+                                   {p: results[p]["k5"] for p in ("sd3_ft", "flux_ft")})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,8 +12,7 @@ copy is dropped, as the reference's key map drops it); the savers write
 one file per component, as the reference's do. The transformer is built
 with the reference's FLUX checkpoint policy (models/remat.py:
 FLUX_POLICY), its input width read from the config: 64 for FLUX.1-dev,
-384 for FLUX.1-fill. The BFL single-file layout is not ported yet
-(setup/families.py raises for it).
+384 for FLUX.1-fill. The BFL single file is io/single_file.py's.
 """
 
 from __future__ import annotations

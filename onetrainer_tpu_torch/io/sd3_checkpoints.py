@@ -13,8 +13,7 @@ dtype, as the reference's loader does.
 SD3.5-medium's dual attention (`dual_attention_layers`, the blocks'
 `attn2`) is not in the reference's model, whose loader reads those
 weights and never uses them; the port refuses such a checkpoint instead
-of dropping them (ROADMAP F9). The SD3 single-file layout is not ported
-yet (setup/families.py raises for it).
+of dropping them (ROADMAP F9). The SAI single file is io/single_file.py's.
 """
 
 from __future__ import annotations

@@ -84,15 +84,27 @@ def stochastic_round_to_bf16(x: torch.Tensor, bits: torch.Tensor | None = None,
     return signed.to(torch.int32).view(torch.float32).to(torch.bfloat16)
 
 
+def draw_seeds(n: int, generator: torch.Generator) -> torch.Tensor:
+    """n int64 seeds drawn from `generator` on its device (no host sync):
+    one per leaf of an update."""
+    seeds = torch.empty(n, dtype=torch.int64, device=generator.device)
+    return seeds.random_(generator=generator)
+
+
 @torch.no_grad()
 def apply_updates_stochastic(params: list[torch.Tensor], updates: list[torch.Tensor],
                              generator: torch.Generator | None = None,
-                             bits: list | None = None) -> None:
+                             bits: list | None = None, *, seeds: torch.Tensor | None = None,
+                             first: int = 0) -> None:
     """params[i] += updates[i] in place; bf16 params round stochastically.
 
     Each leaf gets its own seed, drawn from `generator` on its device (no
-    host sync), and one K5 launch rounds every bf16 leaf on the card. `bits`
-    (one tensor of 16 random low bits per bf16 leaf, CPU only) replaces the
+    host sync), and one K5 launch rounds every bf16 leaf on the card. A
+    caller that applies one update in chunks of leaves draws the update's
+    seeds once (`draw_seeds`) and passes them with each chunk's position
+    `first` in the update: leaf i of the chunk takes seeds[first + i], so
+    the result is bitwise what one call over every leaf gives. `bits` (one
+    tensor of 16 random low bits per bf16 leaf, CPU only) replaces the
     seeds with given bits."""
     from onetrainer_tpu_torch.ops.sr_update import sr_update_leaves
     rounded = [i for i, p in enumerate(params) if p.dtype == torch.bfloat16]
@@ -107,10 +119,10 @@ def apply_updates_stochastic(params: list[torch.Tensor], updates: list[torch.Ten
                                  "which a CUDA tensor never does")
             p.copy_(stochastic_round_to_bf16(p.float() + u.float(), bits[i]))
         return
-    seeds = torch.empty(len(params), dtype=torch.int64, device=generator.device)
-    seeds.random_(generator=generator)
+    if seeds is None:
+        seeds = draw_seeds(len(params), generator)
     ps = [params[i] for i in rounded]
     # a gradient, and so its update, may come in the conv weight's
     # channels-last strides; K5 walks both tensors in one order
     sr_update_leaves(ps, [updates[i].contiguous() for i in rounded], seeds,
-                     seed_index=rounded, outs=ps)
+                     seed_index=[first + i for i in rounded], outs=ps)

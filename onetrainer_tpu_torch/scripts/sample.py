@@ -8,7 +8,9 @@
 
 The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and
 HunyuanVideo text-to-image run (SD3, FLUX and HunyuanVideo from a
-diffusers directory; FLUX and HunyuanVideo take `--cfg` as their guidance
+diffusers directory or their single file: SAI's, BFL's and HunyuanVideo's,
+with the VAE and text encoders bundled; FLUX and HunyuanVideo take `--cfg`
+as their guidance
 embedding and ignore the negative prompt and the scheduler; HunyuanVideo
 samples one frame, the sample config's default, and writes it as the
 image), and so do the inpainting models: SD 1.5 and SD 2.0 inpainting,

@@ -3,16 +3,18 @@ encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
 text-to-image and inpainting, SDXL and its inpainting UNet, SD3,
-FLUX.1-dev, FLUX.1-fill and HunyuanVideo (diffusers directories; SD3's,
-FLUX's and HunyuanVideo's single files and SD 2.0 depth are not ported
-yet) so far. The calls mirror the reference's trainer and
+FLUX.1-dev, FLUX.1-fill and HunyuanVideo (diffusers directories and
+single files: LDM, SAI, BFL and HunyuanVideo's; SD 2.0 depth is not
+ported yet) so far. The calls mirror the reference's trainer and
 scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
 `family.sample`; `family.save_model` / `save_single_file` write the model, LoRA adapters merged into their
 layers and, when the state holds an EMA, the EMA in place of the trained
 tensors (the reference trainer's `_export_params`), and
 `save_lora_output` the kohya LoRA file. `load` runs on the card unless
-the caller passes another device.
+the caller passes another device. A DiT single file may lack the VAE or a
+text encoder: that part stays on the "meta" device, without weights, and
+the savers leave it out.
 """
 
 from __future__ import annotations
@@ -61,10 +63,14 @@ def _load_kwargs(config, device, part: str = "unet") -> dict:
     )
 
 
-def _assign(model, loaded: dict, device) -> None:
+def _assign(model, loaded: dict, device, optional=()) -> None:
+    """Give the model's parts (built on "meta") the loaded state dicts; a
+    part of `optional` that the checkpoint lacks stays on "meta"."""
     from onetrainer_tpu_torch.io.sd_checkpoints import assign_state_dict
     for name in model.modules():
         if loaded.get(name) is None:
+            if name in optional:
+                continue
             raise FileNotFoundError(f"the checkpoint has no {name} weights")
         assign_state_dict(getattr(model, name), loaded[name])
         loaded[name] = None   # the model holds them now
@@ -76,7 +82,8 @@ def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
     part with its adapters merged into the weights (W + up.down.alpha/r),
     for export. With `ema` and an EMA in the train state, the EMA's fp32
     tensors stand in for the trained ones (adapters, or a fine-tuned
-    module's parameters)."""
+    module's parameters). A part left on "meta" (a single file without it)
+    maps to None."""
     from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
     state = setup.state
     params = state.params if state is not None else {}
@@ -84,6 +91,9 @@ def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
         params = state.ema.params
     out = {}
     for name, module in setup.model.modules().items():
+        if next(module.parameters()).is_meta:
+            out[name] = None
+            continue
         group, key_map = _LORA_PARTS.get(name, (None, None))
         if group in params:
             out[name] = apply_peft(module, params[group], setup.peft_cfg, key_map)
@@ -94,12 +104,24 @@ def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
     return out
 
 
-def _modelspec(setup) -> dict:
+def _load_dit(base_dir, config, device, load_single_file, load_diffusers):
+    """A DiT family's checkpoint, every component in the transformer's
+    (prior) weight dtype, as the reference -> (the loader's dict, the parts
+    it may lack: a single file's VAE and text encoders)."""
+    single = os.path.isfile(base_dir)
+    loaded = (load_single_file if single else load_diffusers)(
+        base_dir, **_load_kwargs(config, device, "prior"))
+    return loaded, ("vae", "text_encoder", "text_encoder_2", "text_encoder_3") if single else ()
+
+
+def _modelspec(setup, prediction_type: bool = True) -> dict:
+    """The safetensors header's modelspec; the reference's DiT single files
+    carry no prediction type."""
     from onetrainer_tpu_torch.util.model_spec import make_modelspec_metadata
     return make_modelspec_metadata(
         setup.config.model_type, setup.config.training_method,
         resolution=setup.config.resolution,
-        prediction_type=setup.model.prediction_type,
+        prediction_type=setup.model.prediction_type if prediction_type else "",
         train_config=setup.config)
 
 
@@ -225,12 +247,10 @@ def _sdxl_save_single_file(setup, path, save_dtype=None, ema=True):
 
 def _sd3_load(base_dir, config, device: torch.device | str = "cuda"):
     from onetrainer_tpu_torch.io.sd3_checkpoints import load_sd3_diffusers
+    from onetrainer_tpu_torch.io.single_file import load_sd3_single_file
     from onetrainer_tpu_torch.models.sd3_model import StableDiffusion3Model
-    if os.path.isfile(base_dir):
-        raise NotImplementedError("loading an SD3 single file is not ported yet "
-                                  "(a diffusers directory loads)")
-    # every component in the transformer's (prior) weight dtype, as the reference
-    loaded = load_sd3_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    loaded, optional = _load_dit(base_dir, config, device, load_sd3_single_file,
+                                 load_sd3_diffusers)
     model = StableDiffusion3Model(
         model_type=config.model_type,
         transformer_config=loaded["transformer_config"],
@@ -243,7 +263,7 @@ def _sd3_load(base_dir, config, device: torch.device | str = "cuda"):
         tokenizer_2=loaded["tokenizer_2_dir"],
         tokenizer_3=loaded["tokenizer_3_dir"],
     )
-    _assign(model, loaded, device)
+    _assign(model, loaded, device, optional)
     return model
 
 
@@ -275,21 +295,22 @@ def _sd3_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 
 def _sd3_save_single_file(setup, path, save_dtype=None, ema=True):
-    raise NotImplementedError("saving an SD3 single file is not ported yet "
-                              "(output_model_format DIFFUSERS saves)")
+    from onetrainer_tpu_torch.io.single_file import save_sd3_single_file
+    sd = merged_state_dicts(setup, ema)
+    save_sd3_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
+                         sd["text_encoder_2"], sd["text_encoder_3"],
+                         save_dtype=save_dtype or torch.float32,
+                         metadata=_modelspec(setup, prediction_type=False))
 
 
 # -- FLUX ----------------------------------------------------------------------------
 
 def _flux_load(base_dir, config, device: torch.device | str = "cuda"):
     from onetrainer_tpu_torch.io.flux_checkpoints import load_flux_diffusers
+    from onetrainer_tpu_torch.io.single_file import load_flux_single_file
     from onetrainer_tpu_torch.models.flux_model import FluxModel
-    if os.path.isfile(base_dir):
-        raise NotImplementedError("loading a FLUX single file (the BFL layout) is not "
-                                  "ported yet (ROADMAP queue 1, item 10; a diffusers "
-                                  "directory loads)")
-    # every component in the transformer's (prior) weight dtype, as the reference
-    loaded = load_flux_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    loaded, optional = _load_dit(base_dir, config, device, load_flux_single_file,
+                                 load_flux_diffusers)
     model = FluxModel(
         model_type=config.model_type,
         transformer_config=loaded["transformer_config"],
@@ -300,7 +321,7 @@ def _flux_load(base_dir, config, device: torch.device | str = "cuda"):
         tokenizer=loaded["tokenizer_dir"],
         tokenizer_2=loaded["tokenizer_2_dir"],
     )
-    _assign(model, loaded, device)
+    _assign(model, loaded, device, optional)
     return model
 
 
@@ -332,20 +353,21 @@ def _flux_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 
 def _flux_save_single_file(setup, path, save_dtype=None, ema=True):
-    raise NotImplementedError("saving a FLUX single file (the BFL layout) is not ported "
-                              "yet (output_model_format DIFFUSERS saves)")
+    from onetrainer_tpu_torch.io.single_file import save_flux_single_file
+    sd = merged_state_dicts(setup, ema)
+    save_flux_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
+                          sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
+                          metadata=_modelspec(setup, prediction_type=False))
 
 
 # -- HunyuanVideo ----------------------------------------------------------------------
 
 def _hunyuan_load(base_dir, config, device: torch.device | str = "cuda"):
     from onetrainer_tpu_torch.io.hunyuan_checkpoints import load_hunyuan_diffusers
+    from onetrainer_tpu_torch.io.single_file import load_hunyuan_single_file
     from onetrainer_tpu_torch.models.hunyuan_video_model import HunyuanVideoModel
-    if os.path.isfile(base_dir):
-        raise NotImplementedError("loading a HunyuanVideo single file is not ported yet "
-                                  "(ROADMAP queue 1, item 10; a diffusers directory loads)")
-    # every component in the transformer's (prior) weight dtype, as the reference
-    loaded = load_hunyuan_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    loaded, optional = _load_dit(base_dir, config, device, load_hunyuan_single_file,
+                                 load_hunyuan_diffusers)
     model = HunyuanVideoModel(
         model_type=config.model_type,
         transformer_config=loaded["transformer_config"],
@@ -356,7 +378,7 @@ def _hunyuan_load(base_dir, config, device: torch.device | str = "cuda"):
         tokenizer=loaded["tokenizer_dir"],
         tokenizer_2=loaded["tokenizer_2_dir"],
     )
-    _assign(model, loaded, device)
+    _assign(model, loaded, device, optional)
     return model
 
 
@@ -388,8 +410,11 @@ def _hunyuan_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 
 def _hunyuan_save_single_file(setup, path, save_dtype=None, ema=True):
-    raise NotImplementedError("saving a HunyuanVideo single file is not ported yet "
-                              "(output_model_format DIFFUSERS saves)")
+    from onetrainer_tpu_torch.io.single_file import save_hunyuan_single_file
+    sd = merged_state_dicts(setup, ema)
+    save_hunyuan_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
+                             sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
+                             metadata=_modelspec(setup, prediction_type=False))
 
 
 def get_family(model_type: ModelType) -> ModelFamily:

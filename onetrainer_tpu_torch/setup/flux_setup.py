@@ -10,11 +10,13 @@ when it trains, CLIP-L, seeded 0 and 1 as the reference's PRNGKeys; a
 exist (setup/quantize.py: the transformer as `prior`, CLIP-L and T5), the
 clipped optimizer, the flow-matching train step with the guidance
 `config.prior.guidance_scale` and the train state; and
-`make_flux_encode_fns` for latent and text-embedding caching. A FINE_TUNE
-config that trains no part builds no trainer (it serves sampling); one
-that trains the transformer or CLIP-L raises, as EMBEDDING training,
-output embeddings and continuing from a LoRA file do
-(setup/sd_setup.py: refuse_unported, setup_lora).
+`make_flux_encode_fns` for latent and text-embedding caching. FINE_TUNE
+trains the transformer (as `prior`) and CLIP-L, each when its part
+trains, as parameter groups with their own schedules
+(setup/sd_setup.py:setup_fine_tune; the reference's flux_setup.py:
+170-184); a FINE_TUNE config that trains no part builds no trainer (it
+serves sampling). EMBEDDING training, output embeddings and continuing
+from a LoRA file raise (setup/sd_setup.py: refuse_unported, setup_lora).
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ _LORA_GROUPS = {
     "transformer_lora": ("transformer", None, 0),
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
 }
+# FINE_TUNE groups: the model attributes that may train (the reference's)
+_FINE_TUNE_GROUPS = ("transformer", "text_encoder")
 # model attribute -> its config part, where they differ
 _PARTS = {"transformer": "prior"}
 
@@ -88,9 +92,11 @@ def create_flux_setup(model: FluxModel, config, total_steps: int = 10_000,
                       steps_per_epoch: int = 100) -> FluxSetup:
     """Bind `model` and `config`: the tokenizers, the LoRA groups
     (setup/sd_setup.py:setup_lora, the transformer's config part being
-    `prior`), the clipped optimizer, the train step and the train state.
-    FINE_TUNE trains no part here (refuse_unported): its setup freezes and
-    quantizes the base for sampling."""
+    `prior`) or the FINE_TUNE groups (the transformer and CLIP-L, each when
+    its part trains: setup/sd_setup.py:setup_fine_tune; CLIP-L training
+    runs the text encoders in the step), the clipped optimizer, the train
+    step and the train state. A FINE_TUNE config that trains nothing
+    freezes and quantizes the base for sampling and builds no trainer."""
     refuse_unported(config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     if not isinstance(model.tokenizer_2, T5TokenizerWrapper):
@@ -109,8 +115,10 @@ def create_flux_setup(model: FluxModel, config, total_steps: int = 10_000,
             parts=_PARTS, peft_cfg=flux_peft_config(config))
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, (), _QUANTIZABLE, total_steps, steps_per_epoch)
-        return setup
+            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
+            parts=_PARTS)
+        if not setup.trainable:
+            return setup
     setup.train_step = make_flux_train_step(model, step_cfg, setup.tx,
                                             guidance_scale=config.prior.guidance_scale)
     setup.state = create_train_state(setup.trainable, setup.tx,

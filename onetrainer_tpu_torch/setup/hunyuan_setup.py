@@ -11,9 +11,9 @@ quantized after the adapters exist (setup/quantize.py: the transformer as
 step with the guidance `config.prior.guidance_scale` and the train state;
 and `make_hunyuan_encode_fns` for latent and text-embedding caching. A
 FINE_TUNE config that trains no part builds no trainer (it serves
-sampling); one that trains a part raises, as EMBEDDING training, output
-embeddings and continuing from a LoRA file do (setup/sd_setup.py:
-refuse_unported, setup_lora).
+sampling); one that trains a part raises (ROADMAP queue 1, item 10), as
+EMBEDDING training, output embeddings and continuing from a LoRA file do
+(setup/sd_setup.py: refuse_unported, setup_lora).
 """
 
 from __future__ import annotations

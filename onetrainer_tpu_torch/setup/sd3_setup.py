@@ -9,9 +9,12 @@ encoder, seeded 0, 1, 2 as the reference's PRNGKeys), the frozen base
 quantized after the adapters exist (setup/quantize.py: the transformer as
 `prior`, and each text encoder), the clipped optimizer, the flow-matching
 train step and the train state; and `make_sd3_encode_fns` for latent and
-text-embedding caching. A FINE_TUNE config that trains no part builds no
-trainer (it serves sampling); one that trains the transformer or CLIP-L
-raises, as EMBEDDING training does (setup/sd_setup.py: refuse_unported).
+text-embedding caching. FINE_TUNE trains the transformer (as `prior`)
+and CLIP-L, each when its part trains, as parameter groups with their own
+schedules (setup/sd_setup.py:setup_fine_tune; the reference's
+sd3_setup.py:137-151); a FINE_TUNE config that trains no part builds no
+trainer (it serves sampling). EMBEDDING training raises
+(setup/sd_setup.py: refuse_unported).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ _LORA_GROUPS = {
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
     "te2_lora": ("text_encoder_2", clip_torch_key_map, 2),
 }
+# FINE_TUNE groups: the model attributes that may train (the reference's)
+_FINE_TUNE_GROUPS = ("transformer", "text_encoder")
 # model attribute -> its config part, where they differ
 _PARTS = {"transformer": "prior"}
 
@@ -77,8 +82,11 @@ def create_sd3_setup(model: StableDiffusion3Model, config, total_steps: int = 10
     (setup/sd_setup.py:setup_lora, the transformer's config part being
     `prior`), the clipped optimizer, the train step (sigma-interpolated flow
     matching; the reference's step config takes layer skip 0 for CLIP-L)
-    and the train state. FINE_TUNE trains no part here (refuse_unported):
-    its setup freezes and quantizes the base for sampling."""
+    and the train state. FINE_TUNE trains the transformer and CLIP-L, each
+    when its part trains (setup/sd_setup.py:setup_fine_tune); the text
+    encoders then run in the step whenever CLIP-L or CLIP-G trains, as the
+    reference's. One that trains nothing freezes and quantizes the base
+    for sampling and builds no trainer."""
     refuse_unported(config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     model.tokenizer_2 = wrap_tokenizer(model.tokenizer_2, model.te2_config)
@@ -100,8 +108,10 @@ def create_sd3_setup(model: StableDiffusion3Model, config, total_steps: int = 10
             parts=_PARTS)
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, (), _QUANTIZABLE, total_steps, steps_per_epoch)
-        return setup
+            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
+            parts=_PARTS)
+        if not setup.trainable:
+            return setup
     setup.train_step = make_sd3_train_step(model, step_cfg, setup.tx)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)

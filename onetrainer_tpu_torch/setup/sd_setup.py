@@ -13,11 +13,12 @@ modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
 FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
 (setup/quantize.py). A FINE_TUNE config that trains no part builds no
 trainer (it serves sampling). `refuse_unported` raises for the training
-methods, SD3, FLUX and HunyuanVideo FINE_TUNE that trains a part, EMA
-held on the CPU, prior preservation and additional embeddings; continuing
+methods, HunyuanVideo FINE_TUNE that trains a part, EMA held on the CPU,
+prior preservation and additional embeddings; continuing
 from a LoRA file, CUSTOM schedulers and schedule-free optimizers raise
 where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
-`setup_fine_tune` and `image_encoder` serve setup/sdxl_setup.py too.
+`setup_fine_tune` and `image_encoder` serve the SDXL, SD3, FLUX and
+HunyuanVideo setups too.
 """
 
 from __future__ import annotations
@@ -100,19 +101,17 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
 def refuse_unported(config) -> None:
     """Raise NotImplementedError for what `config` asks of the model, its
     setup and its step that the port does not run: training methods other
-    than LoRA and FINE_TUNE, SD3, FLUX and HunyuanVideo FINE_TUNE that
-    trains a part (the transformer or the first text encoder: the
-    reference's FINE_TUNE groups), EMA held on the CPU, prior preservation
-    and additional embeddings. The setups call it first, and the trainer
-    before it loads the model."""
+    than LoRA and FINE_TUNE, HunyuanVideo FINE_TUNE that trains a part (the
+    transformer or Llama: the reference's FINE_TUNE groups), EMA held on
+    the CPU, prior preservation and additional embeddings. The setups call
+    it first, and the trainer before it loads the model."""
     mt = config.model_type
-    dit = "FLUX" if mt.is_flux() else "HunyuanVideo" if mt.is_hunyuan_video() else "SD3"
     asked = {
         f"{config.training_method} training (LoRA and FINE_TUNE only)":
             config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
-        f"{dit} FINE_TUNE training (LoRA trains SD3, FLUX and HunyuanVideo)":
-            (mt.is_stable_diffusion_3() or mt.is_flux() or mt.is_hunyuan_video())
-            and config.training_method == TrainingMethod.FINE_TUNE
+        "HunyuanVideo FINE_TUNE training (ROADMAP queue 1, item 10; LoRA trains "
+        "HunyuanVideo)":
+            mt.is_hunyuan_video() and config.training_method == TrainingMethod.FINE_TUNE
             and (config.prior.train or config.text_encoder.train),
         "EMA on the CPU": config.ema == EMAMode.CPU,
         "prior preservation": config.masked_prior_preservation_weight > 0 or any(
@@ -204,16 +203,18 @@ def _optimizer(config, group_schedules: dict):
 
 
 def setup_fine_tune(model, config, groups: tuple, quantizable: dict,
-                    total_steps: int, steps_per_epoch: int):
+                    total_steps: int, steps_per_epoch: int, parts: dict | None = None):
     """The FINE_TUNE branch of the SD-family setups: each part of `groups`
     whose config part trains becomes a group of its module's parameters,
     {diffusers name: parameter} in the module's order; every other part
     stops requiring grads and, when its weight dtype is quantized, is
-    quantized in place. -> (trainable, group_schedules, tx)."""
+    quantized in place. `parts` names the config part of a model attribute
+    where the two differ (SD3's and FLUX's transformer trains as
+    `config.prior`). -> (trainable, group_schedules, tx)."""
     modules = model.modules()
     trainable, group_schedules = {}, {}
     for name, module in modules.items():
-        part = getattr(config, name, None) if name in groups else None
+        part = getattr(config, (parts or {}).get(name, name), None) if name in groups else None
         module.requires_grad_(bool(part is not None and part.train))
         if part is None or not part.train:
             continue

@@ -9,7 +9,7 @@ sampled, shifted and scaled; t in (0, 1] from 10000 buckets, µ-shifted by
 the latent size when dynamic shifting is on; x_t = t * noise + (1 - t) *
 x_0 in fp32; per-encoder conditioning dropout; packing, image ids, the
 guidance `config.prior.guidance_scale`; the target noise - x_0) and
-`make_flux_train_step`. A FLUX.1-fill batch (`latent_conditioning_image`
+`make_flux_train_step` (LoRA or FINE_TUNE). A FLUX.1-fill batch (`latent_conditioning_image`
 and the 64-channel `latent_mask`) packs the transformer's input as [noisy
 (64) | (conditioning - shift) * scale (64) | 8x8-shuffled mask (256)]. The
 loss, backward, clip, update and EMA are the SD family's shared step
@@ -107,8 +107,11 @@ def flux_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConf
 
 
 def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0):
-    """The FLUX LoRA step (train/sd_train_step.py:make_train_step with the
-    flow-matching losses and the guidance `guidance_scale`)."""
+    """The FLUX LoRA or FINE_TUNE step (train/sd_train_step.py:
+    make_train_step with the flow-matching losses and the guidance
+    `guidance_scale`): LoRA adapters, or the transformer's and CLIP-L's own
+    parameters, CLIP-L and T5 then running in the step on the batch's
+    tokens (the reference's flux_train_step.py:148-168)."""
     def predict(model, batch, generator, cfg, coefficients, **draws):
         return flux_predict(model, batch, generator, cfg, coefficients,
                             guidance_scale=guidance_scale, **draws)

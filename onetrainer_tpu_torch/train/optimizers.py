@@ -114,6 +114,13 @@ class AdamW:
         torch._foreach_mul_(update, rounded(-lr))
         return update
 
+    @torch.no_grad()
+    def leaf_updates(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+                     state: AdamWState):
+        """`updates`' tensors one by one (all made at once: the moments
+        update with one `_foreach` launch per operation)."""
+        yield from self.updates(params, grads, state)
+
 
 # optax.adafactor's default, which the reference keeps
 _MIN_DIM_SIZE_TO_FACTOR = 128
@@ -199,16 +206,22 @@ class Adafactor:
                                                   device=p.device))
         return state
 
-    @torch.no_grad()
     def updates(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                 state: AdafactorState) -> list[torch.Tensor]:
         """One step's updates (to add to `params`), advancing `state`."""
+        return list(self.leaf_updates(params, grads, state))
+
+    @torch.no_grad()
+    def leaf_updates(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+                     state: AdafactorState):
+        """One step's updates leaf by leaf, each made when the caller asks
+        for it (the step applies them in chunks, freeing each leaf's
+        gradient and update as it goes); `state` advances at the first."""
         t = _f32(state.count + 1)
         decay = 1.0 - t ** _f32(-self.decay_rate)
         d, one_minus_d = decay.item(), (1.0 - decay).item()
         lr = _f32(self.schedule(state.count)).item()
         state.count += 1
-        out = []
         for i, (p, g) in enumerate(zip(params, grads)):
             g = g.float()
             grad_sqr = g * g + self.eps
@@ -237,8 +250,7 @@ class Adafactor:
                 u = u.to(p.dtype)
             if self.weight_decay_rate is not None:
                 u = u + p * self.weight_decay_rate
-            out.append(-u)
-        return out
+            yield -u
 
 
 def create_optimizer(optimizer: Optimizer, cfg, learning_rate):
@@ -261,17 +273,42 @@ def create_optimizer(optimizer: Optimizer, cfg, learning_rate):
                  eps=_d(cfg.eps, 1e-8), weight_decay=_d(cfg.weight_decay, 1e-2))
 
 
+# elements of the bf16 squares global_norm holds at once: each tensor's sum
+# is its own, so the chunks give what one list would without a second
+# copy of every gradient (22 GiB for FLUX's transformer)
+SQUARES_CHUNK_ELEMENTS = 1 << 30
+
+
+def chunk_lengths(sizes: list[int], max_elements: int) -> list[int]:
+    """The lengths of the consecutive runs of `sizes` that hold at most
+    `max_elements` elements each (a larger size alone)."""
+    out, total = [], 0
+    for n in sizes:
+        if not out or total + n > max_elements:
+            out.append(0)
+            total = 0
+        out[-1] += 1
+        total += n
+    return out
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over every element (optax.global_norm): fp32 on
     the tensors' device when any tensor is fp32; else, as optax over bf16
     leaves, in bf16: each tensor's sum of bf16 squares rounded to bf16, the
     sums added one by one in bf16, and the square root of the total. The
     one-by-one additions run on the host (one copy of the per-tensor sums,
-    which waits for them) rather than as one launch each on the card."""
+    which waits for them) rather than as one launch each on the card; the
+    squares are made in chunks of `SQUARES_CHUNK_ELEMENTS`."""
     if any(t.dtype == torch.float32 for t in tensors) or not tensors:
         norms = torch._foreach_norm([t.float() for t in tensors])
         return torch.linalg.vector_norm(torch.stack(norms))
-    sums = torch.stack(torch._foreach_norm(torch._foreach_mul(tensors, tensors), 1)).cpu()
+    sums, first = [], 0
+    for n in chunk_lengths([t.numel() for t in tensors], SQUARES_CHUNK_ELEMENTS):
+        chunk = tensors[first:first + n]
+        sums += torch._foreach_norm(torch._foreach_mul(chunk, chunk), 1)
+        first += n
+    sums = torch.stack(sums).cpu()
     total = sums[0]
     for s in sums[1:]:
         total = total + s
@@ -313,12 +350,32 @@ class GroupOptimizer:
                 norm: torch.Tensor | None = None) -> dict[str, list[torch.Tensor]]:
         """Clip (when configured; `norm` is the gradients' global norm,
         taken here when None) and return every group's updates."""
+        return _regroup(params, self.groups, list(self.leaf_updates(params, grads, state,
+                                                                    norm)))
+
+    @torch.no_grad()
+    def leaf_updates(self, params: dict[str, list[torch.Tensor]],
+                     grads: dict[str, list[torch.Tensor]], state: dict,
+                     norm: torch.Tensor | None = None):
+        """`updates`, leaf by leaf in the groups' order (each group's
+        optimizer makes a leaf's update when it is asked for)."""
         if self.clip_grad_norm:
             flat = [g for n in self.groups for g in grads[n]]
             clip_by_global_norm_(flat, self.clip_grad_norm,
                                  global_norm(flat) if norm is None else norm)
-        return {name: opt.updates(params[name], grads[name], state[name])
-                for name, opt in self.groups.items()}
+            del flat
+        for name, opt in self.groups.items():
+            yield from opt.leaf_updates(params[name], grads[name], state[name])
+
+
+def _regroup(params: dict, groups, leaves: list) -> dict[str, list[torch.Tensor]]:
+    """{group: its leaves' updates} from the updates of every group's leaves
+    in the groups' order."""
+    out, i = {}, 0
+    for name in groups:
+        out[name] = leaves[i:i + len(params[name])]
+        i += len(params[name])
+    return out
 
 
 @dataclass
@@ -349,6 +406,13 @@ class MultiSteps:
                 norm: torch.Tensor | None = None) -> dict | None:
         """Fold in this micro-step's gradients (`norm`, theirs, is not the
         mean's and goes unused); -> the updates on every k-th, else None."""
+        leaves = list(self.leaf_updates(params, grads, state, norm))
+        return None if state.mini_step else _regroup(params, self.tx.groups, leaves)
+
+    @torch.no_grad()
+    def leaf_updates(self, params: dict, grads: dict, state: MultiStepsState,
+                     norm: torch.Tensor | None = None):
+        """`updates` leaf by leaf: nothing between every k-th micro-step."""
         n = state.mini_step
         for name, acc in state.acc_grads.items():
             delta = torch._foreach_sub(grads[name], acc)
@@ -356,12 +420,11 @@ class MultiSteps:
             torch._foreach_add_(acc, delta)
         if n + 1 < self.every_k:
             state.mini_step = n + 1
-            return None
-        out = self.tx.updates(params, state.acc_grads, state.inner)
+            return
+        yield from self.tx.leaf_updates(params, state.acc_grads, state.inner)
         for acc in state.acc_grads.values():
             torch._foreach_zero_(acc)
         state.mini_step = 0
-        return out
 
 
 def create_group_optimizer(group_schedules: dict, optimizer: Optimizer, cfg,

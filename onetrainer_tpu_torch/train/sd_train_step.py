@@ -30,6 +30,7 @@ zero updates, which leave every tensor as it is).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import islice
 
 import numpy as np
 import torch
@@ -39,9 +40,9 @@ from onetrainer_tpu_torch.math.noise import add_noise_discrete, create_noise
 from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.math.timesteps import TimestepConfig, sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
-from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic
+from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic, draw_seeds
 from onetrainer_tpu_torch.train.ema import maybe_update_ema
-from onetrainer_tpu_torch.train.optimizers import global_norm
+from onetrainer_tpu_torch.train.optimizers import chunk_lengths, global_norm
 from onetrainer_tpu_torch.train.train_state import TrainState, leaves_like, param_groups
 from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
 
@@ -241,6 +242,12 @@ def sd_predict(model, batch: dict, generator: torch.Generator,
     return prediction_data(predicted, noised, cfg, coefficients)
 
 
+# elements of one chunk of the update: the optimizer's updates of that many
+# elements exist at a time (8 GiB in bf16; FLUX's transformer is 11.9e9
+# elements, three chunks), and K5 rounds each chunk in one launch
+UPDATE_CHUNK_ELEMENTS = 1 << 32
+
+
 def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
     """The LoRA or FINE_TUNE step of `model` around its family's `predict`
     (`sd_predict`, `sdxl_predict`, `sd3_predict`) and per-sample `losses`
@@ -264,10 +271,16 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
     onetrainer_tpu/train/sd_train_step.py:396-400). `round_bits`, shaped
     like `state.params`, gives the 16 random low bits of each bf16
     tensor's stochastic rounding in place of the generator's draws (CPU
-    only). `train_step.loss(batch, generator, **draws)` is the step's loss
-    alone, for a caller that wants its gradients without the update."""
+    only). The update is made and applied in chunks of consecutive leaves
+    of at most `UPDATE_CHUNK_ELEMENTS` elements (read when the step is
+    made), each leaf's gradient freed once
+    its update exists: the weights, the gradients and one chunk of
+    updates are what the update holds at its peak. `train_step.loss(batch,
+    generator, **draws)` is the step's loss alone, for a caller that wants
+    its gradients without the update."""
     denoiser = next(iter(model.modules().values()))
     device = next(denoiser.parameters()).device
+    chunk_elements = UPDATE_CHUNK_ELEMENTS
     coefficients = None
     if losses is None:
         coefficients = _coefficients_on(model, device)
@@ -296,22 +309,46 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
             grouped[name] = grads[i:i + len(tensors)]
             i += len(tensors)
         del grads
-        updates = tx.updates(groups, grouped, state.opt_state, norm)
-        del grouped
-        if updates is not None:
-            updates = [u for g in updates.values() for u in g]
-            if cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat):
-                bits = None if round_bits is None else leaves_like(round_bits, state.params)
-                apply_updates_stochastic(flat, updates, generator, bits)
-            else:
-                with torch.no_grad():
-                    torch._foreach_add_(flat, updates)
-            del updates
+        apply_update(state, flat, tx.leaf_updates(groups, grouped, state.opt_state, norm),
+                     grouped, generator, round_bits)
         if state.ema is not None and cfg.ema_decay > 0:
             maybe_update_ema(state.ema, state.params, cfg.ema_decay, state.step,
                              cfg.ema_update_interval, cfg.accum)
         state.step += 1
         return {"loss": value.detach(), "grad_norm": norm}
+
+    @torch.no_grad()
+    def apply_update(state, flat, leaf_updates, grouped, generator, round_bits) -> None:
+        """Add the optimizer's updates to `flat` in chunks of consecutive
+        leaves of at most `chunk_elements` elements (a larger leaf alone),
+        each chunk's gradients and updates freed once it is applied; bf16
+        leaves through K5 under stochastic rounding, one launch per chunk,
+        on seeds drawn once for the whole update (so bitwise what one
+        launch gives)."""
+        rounding = cfg.stochastic_rounding and any(t.dtype == torch.bfloat16 for t in flat)
+        bits = None if round_bits is None or not rounding \
+            else leaves_like(round_bits, state.params)
+        seeds = None
+        where = [(name, j) for name, g in grouped.items() for j in range(len(g))]
+        first = 0
+        for n in chunk_lengths([t.numel() for t in flat], chunk_elements):
+            chunk = list(islice(leaf_updates, n))
+            if not chunk:   # a micro-step between updates: nothing to apply, no seeds
+                return
+            for name, j in where[first:first + n]:
+                grouped[name][j] = None   # these leaves' gradients are spent
+            params = flat[first:first + n]
+            if not rounding:
+                torch._foreach_add_(params, chunk)
+            elif bits is not None:
+                apply_updates_stochastic(params, chunk, bits=bits[first:])
+            else:
+                if seeds is None:
+                    seeds = draw_seeds(len(flat), generator)
+                apply_updates_stochastic(params, chunk, seeds=seeds, first=first)
+            del chunk
+            first += n
+        next(leaf_updates, None)   # past the last leaf: MultiSteps resets its mean
 
     train_step.loss = loss
     return train_step

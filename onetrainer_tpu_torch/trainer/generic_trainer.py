@@ -6,9 +6,9 @@ modules/trainer/GenericTrainer.py): the same status sequence, cadence
 (TimedAction-scheduled backup and save, TrainCommands polling, rolling
 backups, backup_before_save), TensorBoard scalars (`loss/train_step`,
 `smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA and
-FINE_TUNE training of the SD-family models the port runs (SD3, FLUX and
-HunyuanVideo: LoRA; video clips for HunyuanVideo), with
-EMA and gradient accumulation.
+FINE_TUNE training of the models the port runs (SD 1.5/2.x, SDXL, SD3 and
+FLUX: both; HunyuanVideo: LoRA, over video clips), with EMA and gradient
+accumulation.
 
 Where the port departs from the reference:
 - Features it has not ported raise at `start()` instead of being
@@ -21,9 +21,11 @@ Where the port departs from the reference:
   and `onetrainer_config/args.json`. For FINE_TUNE it holds the trained
   model too, in fp32 as the reference writes it: a
   diffusers directory `model/` when the base is one, else a single file
-  `model.safetensors` (a diffusers directory written from a single-file
-  base would carry no configs), and a resume loads the trained weights
-  from it. A LoRA backup holds no model: a resume loads the base from
+  `model.safetensors` in the base's layout (LDM, SAI, BFL or
+  HunyuanVideo's; a diffusers directory written from a single-file base
+  would carry no configs), and a resume loads the trained weights from
+  it. The FINE_TUNE output is a diffusers directory or, with a
+  single-file `output_model_format`, the family's single file. A LoRA backup holds no model: a resume loads the base from
   `config.base_model_name` and the adapters from the backup, as
   OneTrainer does. (The reference's LoRA backup holds the merged base +
   LoRA as `model/` and its resume loads that as the base and applies the

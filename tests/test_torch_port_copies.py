@@ -477,3 +477,42 @@ def test_inpainting_copies_equal_their_originals():
     for flag in ("conditioning_image", "fill_mask_channels"):
         assert inspect.signature(PortLoader).parameters[flag].default is \
             inspect.signature(RefLoader).parameters[flag].default is False
+
+
+@pytest.mark.parametrize("family", ["sd3", "sd3_qk_norm", "flux", "flux_fill", "hunyuan"])
+def test_single_file_key_maps_give_the_originals_both_ways(family):
+    """io/single_file.py's key maps (the SAI, BFL and HunyuanVideo layouts)
+    are the reference's on torch tensors: on the same seeded transformer's
+    tensors (numpy to the reference's, torch to the port's) they give the
+    same keys in the same order and the same values, exactly, both ways.
+    Every map is a rename, a concatenation, a split or a swap of halves,
+    so the helpers (`_swap_chunks`, `_cat`, `_split3`, the single blocks'
+    four-way split) are held with them."""
+    from onetrainer_tpu.io import single_file as ref
+    from onetrainer_tpu_torch.io import single_file as port
+    from onetrainer_tpu_torch.io.hunyuan_checkpoints import hunyuan_diffusers_state_dict
+    if family.startswith("sd3"):
+        from tests.test_torch_port_sd3 import tiny_sd3_pair
+        model = tiny_sd3_pair(qk_norm=family == "sd3_qk_norm")[2]
+        maps = ("sd3_transformer_to_sai", "sd3_sai_to_transformer")
+    elif family.startswith("flux"):
+        from tests.test_torch_port_flux import tiny_flux_pair
+        from tests.test_torch_port_flux_fill import tiny_fill_pair
+        model = (tiny_fill_pair if family == "flux_fill" else tiny_flux_pair)()[2]
+        maps = ("flux_transformer_to_bfl", "flux_bfl_to_transformer")
+    else:
+        from tests.test_torch_port_hunyuan import tiny_hunyuan_pair
+        model = tiny_hunyuan_pair()[2]
+        maps = ("hunyuan_transformer_to_ckpt", "hunyuan_ckpt_to_transformer")
+    sd = {k: v.detach() for k, v in model.transformer.state_dict().items()}
+    if family == "hunyuan":
+        sd = hunyuan_diffusers_state_dict(sd)
+    for name in maps:   # to the layout, then back from what the reference gave
+        want = getattr(ref, name)({k: v.numpy() for k, v in sd.items()})
+        got = getattr(port, name)(sd)
+        assert list(got) == list(want), name
+        for key, value in want.items():
+            assert got[key].dtype == torch.float32
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(value),
+                                          err_msg=f"{name} {key}")
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in want.items()}

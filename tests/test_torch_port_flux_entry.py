@@ -179,24 +179,36 @@ def test_load_and_save_match_the_reference_bitwise(flux_dir, tmp_path):
 
 
 def test_single_file_and_fill_are_refused(flux_dir, tmp_path):
+    """The BFL single file is ported (it was refused until the DiT
+    fine-tune slice): FLUX.1-dev's round-trips bit for bit, VAE and text
+    encoders bundled; FLUX.1-fill's loads with its wider x_embedder read
+    from the file."""
     family = get_family(FLUX)
     model = family.load(flux_dir["base"], _config(), device="cpu")
     setup = family.create_setup(model, _config(), 1)
-    with pytest.raises(NotImplementedError, match="single file"):
-        family.save_single_file(setup, str(tmp_path / "flux.safetensors"))
-    single = tmp_path / "flux.safetensors"
-    single.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="single file"):
-        family.load(str(single), _config(), device="cpu")
-    # FLUX.1-fill's family loads diffusers directories; its single file is
-    # the BFL layout too, refused alike
+    single = str(tmp_path / "flux.safetensors")
+    family.save_single_file(setup, single)
+    assert any(k.startswith("double_blocks.0.img_attn.qkv") for k in load_safetensors(single))
+    again = family.load(single, _config(), device="cpu")
+    for name, module in model.modules().items():
+        for key, value in module.state_dict().items():
+            assert torch.equal(again.modules()[name].state_dict()[key], value), key
+    # FLUX.1-fill: the published model's 384 packed input channels, and a
+    # single file's width from its x_embedder (a fill file of the tiny
+    # model: its x_embedder widened to the fill layout's 4 + 2 inputs)
     fill = get_family(pt_enums.ModelType.FLUX_FILL_DEV_1)
     config = _config()
     config.model_type = pt_enums.ModelType.FLUX_FILL_DEV_1
-    with pytest.raises(NotImplementedError, match="single file"):
-        fill.load(str(single), config, device="cpu")
     assert create_flux_model(config.model_type, device="meta").transformer_config \
         .in_channels == 384
+    sd = load_safetensors(single)
+    wide = torch.cat([sd["img_in.weight"]] * 6, dim=1)
+    sd["img_in.weight"] = wide
+    fill_file = str(tmp_path / "fill.safetensors")
+    save_safetensors(fill_file, sd)
+    fill_model = fill.load(fill_file, config, device="cpu")
+    assert fill_model.transformer_config.in_channels == wide.shape[1]
+    assert torch.equal(fill_model.transformer.x_embedder.weight, wide)
 
 
 def _write_config(config, path) -> str:
@@ -207,22 +219,47 @@ def _write_config(config, path) -> str:
 
 @pytest.mark.parametrize("case", ["fine_tune_prior", "fine_tune_text_encoder", "embedding"])
 def test_unported_training_is_refused(flux_dir, tmp_path, case):
-    """FLUX trains LoRA only: a FINE_TUNE config that trains the transformer
-    (`prior`) or CLIP-L, and EMBEDDING training, raise in the setup, and in
-    the train command before the model loads."""
+    """EMBEDDING training raises in the setup, and in the train command
+    before the model loads. FINE_TUNE is ported (it was refused until the
+    DiT fine-tune slice): a config that trains the transformer (`prior`)
+    or CLIP-L builds that group alone, one step moves it and no other
+    part, and the train command passes its refusals and reaches the
+    load."""
     if case == "embedding":
         config, match = _config(pt_enums.TrainingMethod.EMBEDDING), "EMBEDDING"
     else:
-        config, match = _config(), "FLUX FINE_TUNE"
+        config, match = _config(), None
         getattr(config, case.removeprefix("fine_tune_")).train = True
+        config.learning_rate_warmup_steps = 0.0
     family = get_family(FLUX)
     model = family.load(flux_dir["base"], _config(), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        family.create_setup(model, config, 1)
+    if match:
+        with pytest.raises(NotImplementedError, match=match):
+            family.create_setup(model, config, 1)
+    else:
+        setup = family.create_setup(model, config, 1)
+        group = "transformer" if case == "fine_tune_prior" else "text_encoder"
+        assert set(setup.state.params) == {group}
+        before = {name: {k: v.clone() for k, v in m.state_dict().items()}
+                  for name, m in model.modules().items()}
+        encode_images, encode_text = family.make_encode_fns(setup)
+        images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+        batch = {k: torch.as_tensor(v) for k, v in encode_images(images).items()}
+        texts = [encode_text(p) for p in ("a cat", "a red dog")]
+        batch.update({k: torch.as_tensor(np.stack([np.asarray(t[k]) for t in texts]))
+                      for k in texts[0]})
+        batch["loss_weight"] = torch.ones(2)
+        assert ("t5_hidden_state" in batch) is (group == "transformer")
+        setup.train_step(setup.state, batch, torch.Generator().manual_seed(0))
+        for name, module in model.modules().items():
+            changed = any(not torch.equal(v, before[name][k])
+                          for k, v in module.state_dict().items())
+            assert changed is (name == group), name
     config.base_model_name = str(tmp_path / "absent")
     config.workspace_dir = str(tmp_path / "ws")
     path = _write_config(config, str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError if match else FileNotFoundError,
+                       match=match):
         pt_train.main(["--config-path", path, "--device", "cpu"])
 
 

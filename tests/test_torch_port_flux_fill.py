@@ -358,7 +358,8 @@ def test_fill_directory_loads_and_saves_as_the_reference(tmp_path):
     """A FLUX.1-fill diffusers directory (the transformer's config with
     in_channels 288, sharded) loads into the port bitwise as into the
     reference, the 288-wide x_embedder included, and the port's save reads
-    back into the reference unchanged; its single file stays refused."""
+    back into the reference unchanged; so does its BFL single file (ported
+    in the DiT fine-tune slice), into the port and into the reference."""
     _, _, port = tiny_fill_pair(seed=6)
     base = str(tmp_path / "ckpt")
     write_flux_dir(base, port)
@@ -387,5 +388,17 @@ def test_fill_directory_loads_and_saves_as_the_reference(tmp_path):
         for key, value in module.state_dict().items():
             np.testing.assert_array_equal(np.asarray(saved[name][key]), value.numpy(),
                                           err_msg=key)
-    with pytest.raises(NotImplementedError, match="single file"):
-        family.save_single_file(setup, str(tmp_path / "fill.safetensors"))
+    single = str(tmp_path / "fill.safetensors")
+    family.save_single_file(setup, single)
+    again = family.load(single, config, device="cpu")
+    assert again.transformer_config.in_channels == 288
+    for name, module in model.modules().items():
+        for key, value in module.state_dict().items():
+            assert torch.equal(again.modules()[name].state_dict()[key], value), key
+    from onetrainer_tpu.io.single_file import load_flux_single_file
+    from onetrainer_tpu.io.torch_flax import unet_flax_to_state_dict
+    ref_single = load_flux_single_file(single, compute_dtype=jnp.float32, device=False)
+    assert ref_single["transformer_config"].in_channels == 288
+    for key, value in unet_flax_to_state_dict(ref_single["transformer_params"]).items():
+        np.testing.assert_array_equal(np.asarray(value),
+                                      model.transformer.state_dict()[key].numpy(), err_msg=key)

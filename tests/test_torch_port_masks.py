@@ -23,6 +23,8 @@ from onetrainer_tpu_torch.io import png
 from tests.test_data import make_dataset
 from tests.test_torch_port_data import _configs, _encoders
 
+MASK_VARIATIONS = 8
+
 
 @pytest.fixture(scope="module")
 def masked_dataset(tmp_path_factory):
@@ -48,6 +50,11 @@ def _masked_loaders(root, tmp):
     ref_cfg, port_cfg = _configs(root, os.path.join(tmp, "ref_cache"))
     port_cfg.cache_dir = os.path.join(tmp, "port_cache")
     ref_cfg.masked_training = port_cfg.masked_training = True
+    # each image's augments are drawn per variation from a seed that its
+    # path (the test run's temporary directory) enters: eight variations
+    # make a run without a flip or a crop jitter unlikely on any path
+    for cfg in (ref_cfg, port_cfg):
+        cfg.concepts[0].image_variations = MASK_VARIATIONS
     enc_i, enc_t = _encoders()
     return (jax_loader.Text2ImageDataLoader(ref_cfg, enc_i, enc_t, quantization=64),
             pt_loader.Text2ImageDataLoader(port_cfg, enc_i, enc_t, quantization=64))
@@ -58,7 +65,9 @@ def test_latent_masks_match_the_reference_loader(masked_dataset, tmp_path):
     assert [e.mask_path for e in port.entries] == [e.mask_path for e in ref.entries]
     assert sum(e.mask_path is not None for e in port.entries) == 5
     flipped = cropped = 0
-    for epoch in (0, 1):
+    for epoch in range(MASK_VARIATIONS):   # one variation per epoch
+        if epoch >= 2 and cropped and flipped:
+            break
         for ref_batch, port_batch in zip(ref.batches_for_epoch(epoch),
                                          port.batches_for_epoch(epoch)):
             for r, p in zip(ref_batch, port_batch):

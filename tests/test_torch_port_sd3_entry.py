@@ -13,9 +13,10 @@ r4 on the transformer, text and latents cached, fp32) uninterrupted, and
 again as one epoch with a backup and a resume from it: the resumed
 adapters and optimizer state equal the uninterrupted run's within 1e-6
 relative L2 (the same computation on the same draws; the generator is
-re-seeded per step). A FINE_TUNE config that trains a part is refused,
-by the setup and by the train command before it loads the model. Torch
-runs one thread.
+re-seeded per step). The family's SAI single file round-trips bitwise,
+and a FINE_TUNE config that trains a part (the transformer as `prior`,
+or CLIP-L) builds that part's group, whose step moves it alone; the
+train command no longer refuses it. Torch runs one thread.
 """
 
 import json
@@ -104,12 +105,15 @@ def test_load_and_save_match_the_reference_bitwise(sd3_dir, tmp_path):
         for key, value in module.state_dict().items():
             np.testing.assert_array_equal(
                 np.asarray(saved[name][key]), value.to(torch.float16).numpy(), err_msg=key)
-    with pytest.raises(NotImplementedError, match="single file"):
-        family.save_single_file(setup, str(tmp_path / "sd3.safetensors"))
-    single = tmp_path / "sd3.safetensors"
-    single.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="single file"):
-        family.load(str(single), _config(), device="cpu")
+    # the SAI single file: every part back bit for bit
+    single = str(tmp_path / "sd3.safetensors")
+    family.save_single_file(setup, single)
+    assert any(k.startswith("model.diffusion_model.joint_blocks.")
+               for k in load_safetensors(single))
+    again = family.load(single, _config(), device="cpu")
+    for name, module in model.modules().items():
+        for key, value in module.state_dict().items():
+            assert torch.equal(again.modules()[name].state_dict()[key], value), key
 
 
 def _train_config(root, name, base, ds, epochs):
@@ -177,21 +181,42 @@ def test_train_command_resumes_to_the_uninterrupted_run(sd3_dir):
 
 @pytest.mark.parametrize("part", ["prior", "text_encoder"])
 def test_fine_tune_training_is_refused(sd3_dir, tmp_path, part):
-    """SD3 trains LoRA only: a FINE_TUNE config that trains the transformer
-    (`prior`) or CLIP-L, the reference's FINE_TUNE groups, raises in the
-    setup, and in the train command before the model loads."""
+    """SD3 FINE_TUNE is ported (it was refused until the DiT fine-tune
+    slice): a config that trains the transformer (`prior`) or CLIP-L, the
+    reference's FINE_TUNE groups, builds that group alone from the
+    module's parameters; one step moves it and leaves every other part as
+    it was; the train command passes its refusals and reaches the load."""
     config = _config()
     getattr(config, part).train = True
+    config.text_encoder_2.train = False   # CLIP-G trains under LoRA only
+    config.learning_rate_warmup_steps = 0.0
     family = get_family(pt_enums.ModelType.STABLE_DIFFUSION_3)
     model = family.load(sd3_dir["base"], _config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="SD3 FINE_TUNE"):
-        family.create_setup(model, config, 1)
+    setup = family.create_setup(model, config, 1)
+    group = "transformer" if part == "prior" else "text_encoder"
+    assert set(setup.state.params) == {group}
+    assert setup.step_cfg.train_text_encoder is (part == "text_encoder")
+    before = {name: {k: v.clone() for k, v in m.state_dict().items()}
+              for name, m in model.modules().items()}
+    encode_images, encode_text = family.make_encode_fns(setup)
+    images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    batch = {k: torch.as_tensor(v) for k, v in encode_images(images).items()}
+    texts = [encode_text(p) for p in ("a cat", "a red dog")]
+    batch.update({k: torch.as_tensor(np.stack([np.asarray(t[k]) for t in texts]))
+                  for k in texts[0]})
+    batch["loss_weight"] = torch.ones(2)
+    metrics = setup.train_step(setup.state, batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["loss"]))
+    for name, module in model.modules().items():
+        changed = any(not torch.equal(v, before[name][k])
+                      for k, v in module.state_dict().items())
+        assert changed is (name == group), name
     config.base_model_name = str(tmp_path / "absent")
     config.workspace_dir = str(tmp_path / "ws")
     path = str(tmp_path / "config.json")
     with open(path, "w") as f:
         json.dump(config.to_dict(), f)
-    with pytest.raises(NotImplementedError, match="SD3 FINE_TUNE"):
+    with pytest.raises(FileNotFoundError):
         pt_train.main(["--config-path", path, "--device", "cpu"])
 
 
