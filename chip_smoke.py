@@ -59,12 +59,12 @@ never falls back to the CPU. Phases, each of which must pass:
      the wrapper's host time per call;
   9. QLoRA: the training step of phase 6 on a UNet loaded in bf16 and
      quantized to NF4, with bf16 adapters and stochastic rounding: one
-     warm-up and three timed steps with exact K1-K5 (and pre-pass)
+     warm-up and two timed steps with exact K1-K5 (and pre-pass)
      launch counts per step (K5 once), its adapters of the shapes phase 8
      rounds, the LoRA gradients with K4 against the plain dequant, and a
      torch.profiler split of one more step;
  10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
-     (the reference's bench.py headline stage): three timed steps, finite;
+     (the reference's bench.py headline stage): two timed steps, finite;
  11. SD 1.5 at its published widths (seeded weights, fp32 base, bf16
      compute) through get_family -> create_sd_model -> init_sd_weights ->
      create_setup: text-to-image at 512x512 (DDIM, 4 steps, CFG 7), K1
@@ -97,7 +97,7 @@ never falls back to the CPU. Phases, each of which must pass:
      2,567,463,684 elements), text encoders frozen and cached, batch 2 at
      1024x1024, tx_only checkpointing, Adafactor with the reference's
      defaults, lr 1e-5, clip 1.0, stochastic rounding, no EMA: one warm-up
-     step (after which the UNet must have changed), three timed steps with
+     step (after which the UNet must have changed), two timed steps with
      exact launches per step (K1 140, K2 70, K3 70, pre-pass 70, K5 once:
      one launch per update dtype over every UNet tensor), then one step
      whose K5 call is captured: K5 bit for bit against the plain rounding
@@ -133,7 +133,7 @@ never falls back to the CPU. Phases, each of which must pass:
      per-tensor e4m3 frozen base, batch 2 at 1024x1024 through the port's
      caches (one seeded image and prompt through the VAE and all three
      text encoders, which are then freed), the loader's dots_nb_attn
-     checkpointing, AdamW 1e-4, clip 1.0: one warm-up and three timed
+     checkpointing, AdamW 1e-4, clip 1.0: one warm-up and two timed
      steps with exactly K1, K2, K3 and the pre-pass 24 each per step (the
      attention stays outside the recomputed halves of each block, so K1
      runs once), the LoRA gradients against plain attention, a profiler
@@ -159,7 +159,7 @@ never falls back to the CPU. Phases, each of which must pass:
  22. flux_train: LoRA r16 a16 on all 504 NF4 transformer layers, fp32
      adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the
      port's caches (the text encoders freed after), "full" checkpointing:
-     one warm-up and three timed steps with exactly K1 114, K2, K3 and the
+     one warm-up and two timed steps with exactly K1 114, K2, K3 and the
      pre-pass 57 each and K4 998 per step, the LoRA gradients against plain
      attention and the plain dequant, a profiler split;
  23. flux_cli: a seeded FLUX.1-dev at full width with its transformer cut to
@@ -190,7 +190,7 @@ never falls back to the CPU. Phases, each of which must pass:
      adapters, AdamW 1e-4, clip 1.0, batch 1 at 512x512 with 9 latent
      frames from the cache's rows (seeded latents, Llama states with the
      keep mask, CLIP pooled; the encoders freed), "full" checkpointing: one
-     warm-up and three timed steps with exactly K1 120, K2, K3 and the
+     warm-up and two timed steps with exactly K1 120, K2, K3 and the
      pre-pass 60 each and K4 1068 per step, the LoRA gradients against plain
      attention and the plain dequant, a profiler split;
  27. hunyuan_cli: a seeded HunyuanVideo at full width with its transformer
@@ -233,7 +233,7 @@ never falls back to the CPU. Phases, each of which must pass:
      groups), CLIP-G and T5-XXL frozen and run live in the step on the
      batch's tokens, Adafactor with the reference's defaults and stochastic
      rounding, lr 1e-5, clip 1.0, batch 2 at 1024x1024, dots_nb_attn: one
-     warm-up step (the groups' largest tensors must move), three timed
+     warm-up step (the groups' largest tensors must move), two timed
      steps with exactly K1, K2, K3 and the pre-pass 24 each and K5 once per
      step (the text encoders' attention, at 77 tokens, stays on SDPA and
      the T5's plain path: no K1-K3), one step with K5's call captured (bit
@@ -248,7 +248,7 @@ never falls back to the CPU. Phases, each of which must pass:
      transformer fine-tuned with Adafactor and stochastic rounding, lr
      1e-5, clip 1.0, batch 1 at 1024x1024, "full" checkpointing, text
      cached, T5 and the VAE freed: the memory reckoning printed beside the
-     peak; three timed steps with exactly K1 114, K2, K3 and the pre-pass
+     peak; two timed steps with exactly K1 114, K2, K3 and the pre-pass
      57 and K5 3 per step (the update made and rounded in chunks of at
      most 2^32 elements); K5 against the plain rounding on the largest, a
      1-D and a 2-D leaf (FLUX has no conv), every output a bf16 neighbour,
@@ -288,6 +288,7 @@ import json
 import os
 import statistics
 import subprocess
+import tempfile
 import sys
 import time
 import traceback
@@ -327,7 +328,7 @@ GRAD_REL_L2_BOUND = 1e-2
 # bitwise equal to it (phase k4), so only the step's own run-to-run noise
 # remains (cuDNN and cuBLAS pick their algorithms per call)
 QLORA_GRAD_REL_L2_BOUND = 1e-3
-TRAIN_STEPS = 3                # timed steps after one warm-up step
+TRAIN_STEPS = 2                # timed steps after one warm-up step
 # the self-attentions K1 takes per UNet pass, {sequence length: count}:
 # SDXL at a 128x128 latent; SD 1.5 at a 64x64 latent, the d=40 level (d=80
 # at 1024 and d=160 at 256 tokens stay on SDPA); SD 2.1 at a 96x96 latent,
@@ -427,6 +428,17 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _once_ms(torch, fn) -> float:
+    """One call of `fn` timed by CUDA events, for a plain version whose call
+    takes seconds (Philox in int64 ops, tensor by tensor)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def _device_ms(torch, fn, kernel: str, reps: int = 20, min_seen: float = 1.0) -> float:
@@ -940,8 +952,8 @@ def phase_k5(torch) -> dict:
         host.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     list_host_ms = statistics.median(host)
-    list_plain_ms = _median_ms(torch, lambda: [
-        p.copy_(plain(p, u, seeds[i:i + 1])) for i, (p, u) in enumerate(zip(ps, us))], reps=3)
+    list_plain_ms = _once_ms(torch, lambda: [
+        p.copy_(plain(p, u, seeds[i:i + 1])) for i, (p, u) in enumerate(zip(ps, us))])
     list_bound = _bound_ms(0.0, 6 * n_el)
     print(f"[k5] QLoRA adapter set: {len(shapes)} bf16 tensors, {n_el} elements, bf16 u, "
           f"out = p: {launches} launch, bitwise equal to the plain rounding of every leaf "
@@ -1323,8 +1335,10 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
     group = "transformer_lora" if "transformer_lora" in setup.state.params else "unet_lora"
     adapters = setup.state.params[group]
     n_lora = sum(t.numel() for e in adapters.values() for t in e.values())
-    dtype = next(iter(adapters.values()))["lora_up"].dtype
-    print(f"[{tag}] LoRA r{config.lora_rank} a{config.lora_alpha:g} ({dtype}) on "
+    dtype = next(iter(next(iter(adapters.values())).values())).dtype
+    kind = {"LOHA": "LoHa"}.get(config.peft_type.name, "DoRA" if config.lora_decompose
+                                else "LoRA")
+    print(f"[{tag}] {kind} r{config.lora_rank} a{config.lora_alpha:g} ({dtype}) on "
           f"{len(adapters)} {group[:-5]} layers ({n_lora} params), batch {config.batch_size} "
           f"at {size}x{size} cached through the VAE encoder and the text encoders, "
           f"{setup.model.prediction_type}, set up in {time.perf_counter() - t0:.2f} s")
@@ -1334,9 +1348,11 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
     metrics = setup.train_step(setup.state, batch, gen)
     first = [metrics["loss"].item(), metrics["grad_norm"].item()]
     warm_s = time.perf_counter() - t0
-    up_max = max(e["lora_up"].abs().max().item() for e in adapters.values())
+    # the zero-initialised factor (LoRA's and DoRA's up, LoHa's w2a) moved
+    up = "hada_w2_a" if kind == "LoHa" else "lora_up"
+    up_max = max(e[up].abs().max().item() for e in adapters.values())
     print(f"[{tag}] warm-up step {warm_s:.3f} s: loss {first[0]:.6f} grad_norm "
-          f"{first[1]:.6f}, max |lora_up| after it {up_max:.3e}")
+          f"{first[1]:.6f}, max |{up}| after it {up_max:.3e}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1508,7 +1524,7 @@ def phase_qlora(torch) -> dict:
         raise AssertionError("QLoRA training run failed its checks")
     profile_train_step(torch, setup, batch, run["gen"], "qlora")
     return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
-            "peak_gib": run["peak_gib"]}
+            "peak_gib": run["peak_gib"], "model": model}
 
 
 def phase_fp8(torch) -> dict:
@@ -1522,11 +1538,210 @@ def phase_fp8(torch) -> dict:
     if not ok:
         raise AssertionError("fp8-base training run failed its checks")
     return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
-            "peak_gib": run["peak_gib"]}
+            "peak_gib": run["peak_gib"], "model": model}
 
 
-# the sdxl_inpaint phase: two timed steps (the other SDXL phases time three)
-SDXL_INPAINT_STEPS = 2
+# the PEFT phases' adapter sets at rank 16 on the SDXL UNet's 794 layers
+DORA_DROPOUT = 0.1
+# a UNet forward with the adapters merged into the base against the
+# adapters in the layers. Every merged weight equals the bf16 weight its
+# layer computes with in-layer, bit for bit (checked); conv_out computes
+# in fp32, and sees DoRA's W' in fp32 in the layer but rounded to bf16 in
+# the merged base (the reference's `_merged_kernel` gives bf16 over
+# a quantized base): that rounding is the whole gap (CPU:
+# tests/test_torch_port_peft.py::test_dora_merge_into_nf4_equals_in_layer).
+# lora_up first gets seeded values of a trained adapter's size (after the
+# steps at lr 1e-4 it moves the output about as little as the rounding),
+# and the adapters must move the output MERGE_EFFECT_RATIO times more than
+# the merge's gap
+MERGED_REL_L2_BOUND = 1e-2
+MERGE_UP_STD = 0.02
+MERGE_EFFECT_RATIO = 10.0
+
+
+def _peft_config(batch_size: int, **fields):
+    """The SDXL LoRA config (`_lora_config`) with bf16 adapters under
+    stochastic rounding and `fields` set (the PEFT type, DoRA, dropout)."""
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _lora_config(batch_size)
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    config.optimizer.stochastic_rounding = True
+    for name, value in fields.items():
+        setattr(config, name, value)
+    return config
+
+
+def _k5_over_the_adapters(torch, setup, batch, gen, tag: str) -> dict:
+    """One PEFT step's K5 call captured: every adapter tensor in one
+    launch, bitwise against the plain rounding on the named leaves and a
+    bf16 neighbour of p + u on all; its device time, bound and wrapper
+    host time."""
+    with _K5Capture(torch, time_reps=10) as capture:
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+    k5 = _k5_on_the_update(torch, capture)
+    n = sum(1 for g in setup.state.params.values() for e in g.values() for _ in e)
+    bound = _bound_ms(0.0, (8 if torch.float32 in k5["u_dtypes"] else 6) * k5["elements"])
+    ok = (k5["launches"] == 1 and k5["leaves"] == n and all(k5["bitwise"].values())
+          and k5["neighbours"] and k5["exact"])
+    print(f"[{tag}] K5 over the adapter set on {gpu_line()}: {k5['leaves']} tensors, "
+          f"{k5['elements']} elements in {k5['launches']} launch, u "
+          f"{sorted(str(d) for d in k5['u_dtypes'])}; bitwise to the plain rounding on "
+          f"{k5['bitwise']}, neighbours {k5['neighbours']}, exact {k5['exact']}; device "
+          f"{k5['device_ms']:.4f} ms ({capture.calls[0]['timed_by']}), least time "
+          f"{bound[0]:.4f} ms ({bound[1]}; {100 * bound[0] / k5['device_ms']:.1f}% of it), "
+          f"wrapper host time {k5['wrapper_host_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: K5 over the adapter set failed its checks")
+    return dict(ms=k5["device_ms"], bound_ms=bound[0], bound_by=bound[1],
+                max_abs_err=k5["max_err"], host_ms=k5["wrapper_host_ms"],
+                leaves=k5["leaves"], elements=k5["elements"])
+
+
+def phase_sdxl_dora(torch, model) -> dict:
+    """sdxl_dora: DoRA r16 a16 on the qlora phase's NF4 UNet (its 794
+    layers), bf16 adapters and magnitudes, rank dropout DORA_DROPOUT,
+    AdamW 1e-4 with stochastic rounding, clip 1.0, batch 2 at 1024,
+    tx_only: the setup (each magnitude the norm of its K4-decoded weight:
+    one K4 per NF4 layer), one warm-up and TRAIN_STEPS timed steps with
+    exact launches (K1 140, K2, K3 and the pre-pass 70, K4 once per NF4
+    layer and again per layer in the recomputed blocks, K5 1), one step's
+    K5 call over the adapter set captured, a profiler split; then the kohya
+    file written and read back bitwise, and the adapters merged into the
+    NF4 base (K4 once per layer, bf16 weights) after lora_up is given
+    seeded values of MERGE_UP_STD: each merged weight against its
+    layer's in-layer bf16 weight bitwise, one UNet forward merged against
+    in-layer, against the adapters' own effect on it (in-layer against
+    the bare base)."""
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors, save_safetensors
+    from onetrainer_tpu_torch.models.layers import weight_in
+    from onetrainer_tpu_torch.peft.layers import adapter_of
+    from onetrainer_tpu_torch.peft.lora import (
+        attach_peft, kohya_state_dict_to_peft, merge_peft_into_base, peft_module_keys,
+        peft_to_kohya_state_dict,
+    )
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _peft_config(2, lora_decompose=True, dropout_probability=DORA_DROPOUT)
+    config.unet.weight_dtype = DataType.NFLOAT_4
+    # the qlora phase left the base in NF4: each magnitude is a K4 decode
+    quantized_before, _ = _quantized_layers(torch, model.unet)
+    init = {}
+    _reset_launch_counts()
+    run = _setup_and_steps(torch, model, config, "sdxl_dora",
+                           after_batch=lambda setup: init.update(_launch_counts()))
+    setup, batch, gen = run["setup"], run["batch"], run["gen"]
+    n_quant, n_in_blocks = _quantized_layers(torch, model.unet)
+    rank_dropout = setup.train_step.rank_dropout
+    adapters = setup.state.params["unet_lora"]
+    per_pass = sum(SDXL_SELF_ATTN.values())
+    n = TRAIN_STEPS * per_pass
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS}
+    leaves = {name for e in adapters.values() for name in e}
+    k5 = _k5_over_the_adapters(torch, setup, batch, gen, "sdxl_dora")
+    profile_train_step(torch, setup, batch, gen, "sdxl_dora")
+
+    # the kohya file out and in
+    path = os.path.join(tempfile.mkdtemp(prefix="sdxl_dora_"), "dora.safetensors")
+    save_safetensors(path, {k: v.cpu() for k, v in peft_to_kohya_state_dict(
+        adapters, setup.peft_cfg, "lora_unet").items()})
+    read, alpha = kohya_state_dict_to_peft(load_safetensors(path), "lora_unet",
+                                           peft_module_keys(model.unet, setup.peft_cfg))
+    kohya_bitwise = alpha == config.lora_alpha and set(read) == set(adapters) and all(
+        set(read[k]) == set(e) and all(torch.equal(read[k][n].cuda(), t) for n, t in e.items())
+        for k, e in adapters.items())
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+
+    # lora_up at a trained adapter's size; one UNet forward through the
+    # layers, through the bare base, then through the merged base
+    # (phase_unet's inputs)
+    gen_up = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        for entry in adapters.values():
+            up = entry["lora_up"]
+            up.copy_(MERGE_UP_STD * torch.randn(up.shape, generator=gen_up, device="cuda"))
+    gen_in = torch.Generator(device="cuda").manual_seed(7)
+    args = (torch.randn((2, 128, 128, 4), generator=gen_in, device="cuda"),
+            torch.full((2,), 500, dtype=torch.int32, device="cuda"),
+            torch.randn((2, 77, 2048), generator=gen_in, device="cuda"),
+            torch.randn((2, 1280), generator=gen_in, device="cuda"),
+            torch.tensor([[1024, 1024, 0, 0, 1024, 1024]] * 2, dtype=torch.float32,
+                         device="cuda"))
+    with torch.inference_mode():
+        in_layer = model.unet(*args)
+        in_layer_weights = {name: weight_in(layer, torch.bfloat16)
+                            for name, layer in model.unet.named_modules()
+                            if adapter_of(layer) is not None}
+    attach_peft(model.unet, None, None)
+    with torch.inference_mode():
+        effect = _rel_l2(in_layer, model.unet(*args))
+    _reset_launch_counts()
+    detached = {k: {n: t.detach() for n, t in e.items()} for k, e in adapters.items()}
+    merge_peft_into_base(model.unet, detached, setup.peft_cfg)
+    merge_launches = _launch_counts()
+    layers = dict(model.unet.named_modules())
+    weights_bitwise = len(in_layer_weights) == len(adapters) and all(
+        torch.equal(w, layers[name].weight) for name, w in in_layer_weights.items())
+    del in_layer_weights
+    with torch.inference_mode():
+        merged = model.unet(*args)
+    rel = _rel_l2(merged, in_layer)
+    bf16_base = all(p.dtype == torch.bfloat16 for p in model.unet.parameters())
+    checks = {
+        "finite": run["finite"] and bool(torch.isfinite(merged).all()),
+        "up moved": run["up_max"] > 0,
+        "DoRA leaves": leaves == {"lora_down", "lora_up", "dora_scale"},
+        "rank dropout in the step": rank_dropout is not None and rank_dropout.p == DORA_DROPOUT,
+        "K4 once per NF4 layer at init": init["K4"] == quantized_before == n_quant,
+        "launches per step": run["launches"] == expected,
+        "kohya round trip bitwise": kohya_bitwise,
+        "merge decodes each NF4 layer once": merge_launches["K4"] == n_quant,
+        "merged base bf16": bf16_base,
+        "merged weights equal the in-layer bf16 weights": weights_bitwise,
+        "merged forward against in-layer": rel <= MERGED_REL_L2_BOUND,
+        "adapters move the output far more": effect >= MERGE_EFFECT_RATIO * rel,
+    }
+    print(f"[sdxl_dora] {len(adapters)} DoRA layers over {n_quant} NF4 layers ({n_in_blocks} in "
+          f"the recomputed blocks); K4 at init {init['K4']}, per step "
+          f"{run['launches']['K4'] // TRAIN_STEPS} (QLoRA's {n_quant + n_in_blocks}), at the "
+          f"merge {merge_launches['K4']}; launches {run['launches']} (expected {expected}); "
+          f"merged forward against in-layer rel L2 {rel:.3e} (bound "
+          f"{MERGED_REL_L2_BOUND:g}), in-layer against the bare base {effect:.3e} (lora_up "
+          f"std {MERGE_UP_STD:g}; at least {MERGE_EFFECT_RATIO:g}x the gap); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sdxl_dora failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"], "k5": k5, "k4_init": init["K4"],
+            "k4_merge": merge_launches["K4"]}
+
+
+def phase_sdxl_loha(torch, model) -> dict:
+    """sdxl_loha: LoHa r16 a16 on the fp8 phase's UNet (794 layers, the
+    3x3 convs' deltas full 3x3 kernels), bf16 factors, AdamW 1e-4 with
+    stochastic rounding, clip 1.0, batch 2 at 1024, tx_only: one warm-up
+    and TRAIN_STEPS timed steps with exact launches (K1 140, K2, K3 and
+    the pre-pass 70, K4 0, K5 1), one step's K5 call over the factor set
+    captured, a profiler split; peak memory and seconds per step."""
+    from onetrainer_tpu_torch.util.enums import PeftType
+    config = _peft_config(2, peft_type=PeftType.LOHA)
+    run = _setup_and_steps(torch, model, config, "sdxl_loha")
+    setup, batch, gen = run["setup"], run["batch"], run["gen"]
+    adapters = setup.state.params["unet_lora"]
+    n = TRAIN_STEPS * sum(SDXL_SELF_ATTN.values())
+    expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": TRAIN_STEPS}
+    k5 = _k5_over_the_adapters(torch, setup, batch, gen, "sdxl_loha")
+    profile_train_step(torch, setup, batch, gen, "sdxl_loha")
+    convs = sum(e["hada_w1_b"].dim() == 4 for e in adapters.values())
+    checks = {"finite": run["finite"], "w2a moved": run["up_max"] > 0,
+              "launches per step": run["launches"] == expected,
+              "LoHa on 3x3 convs": convs > 0 and len(adapters) == 794}
+    print(f"[sdxl_loha] {len(adapters)} LoHa layers ({convs} convs); sec/step "
+          f"{run['sec_per_step']:.4f}, peak {run['peak_gib']:.2f} GiB; launches "
+          f"{run['launches']} (expected {expected}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sdxl_loha failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"], "k5": k5}
 
 
 def phase_sdxl_inpaint(torch, root: str) -> dict:
@@ -1549,11 +1764,11 @@ def phase_sdxl_inpaint(torch, root: str) -> dict:
         launches = phase_sample(torch, model, 1024, SDXL_SELF_ATTN, "sdxl_inpaint_sample",
                                 inpaint=inputs)
         run = _setup_and_steps(
-            torch, model, config, "sdxl_inpaint", 1024, steps=SDXL_INPAINT_STEPS,
+            torch, model, config, "sdxl_inpaint", 1024,
             make_batch=lambda setup: _inpaint_batch(torch, family, setup, 2, 1024))
     finally:
         hook.remove()
-    n = SDXL_INPAINT_STEPS * sum(SDXL_SELF_ATTN.values())
+    n = TRAIN_STEPS * sum(SDXL_SELF_ATTN.values())
     expected = {"K1": 2 * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
     ok = (run["finite"] and run["up_max"] > 0 and run["launches"] == expected
           and set(widths) == {9} and model.unet.conv_in.weight.shape[1] == 9)
@@ -1907,8 +2122,86 @@ def phase_sd15_cli(torch, bare_step_s, files: dict) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"sd15_cli failed: "
                              f"{[name for name, ok in checks.items() if not ok]}")
-    return {"launches": launches, "step_s": statistics.median(step_s),
-            "peak_gib": peak_gib}
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    dora = _sd15_dora_cli(torch, files)
+    return {"launches": {k: launches[k] + dora[k] for k in launches},
+            "step_s": statistics.median(step_s), "peak_gib": peak_gib}
+
+
+def _sd15_dora_cli(torch, files: dict) -> dict:
+    """DoRA r16 a16 through the train command on sd15_cli's files (one
+    epoch, its kohya file with `dora_scale`), then a second run continuing
+    from that file (`lora_model_name`): after its start the adapters equal
+    the file's bit for bit (fp32 here), it trains one epoch with exactly
+    sd15_cli's launches per step and writes its own file. -> the launches
+    of both runs."""
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.peft.lora import kohya_state_dict_to_peft, peft_module_keys
+    from onetrainer_tpu_torch.util.create import create_trainer
+    root = os.path.join(os.path.dirname(files["ckpt"]), "dora")
+    os.makedirs(root)
+    config = _cli_config(root, files["ckpt"], files["dataset"])
+    config.lora_decompose = True
+    config.backup_before_save = False
+    config.output_model_destination = os.path.join(root, "dora.safetensors")
+    path = os.path.join(root, "dora.json")
+    with open(path, "w") as f:
+        json.dump(config.to_dict(), f)
+    _reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    first, _ = _cli_run(torch, path, events)
+    first_s = time.perf_counter() - t0
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    written = load_safetensors(config.output_model_destination)
+
+    config.lora_model_name = config.output_model_destination
+    config.output_model_destination = os.path.join(root, "dora_continued.safetensors")
+    config.workspace_dir = os.path.join(root, "workspace_continued")
+    config.lora_rank, config.lora_alpha = 4, 1.0     # the file's r16 a16 are adopted
+    trainer = create_trainer(config, device="cuda")
+    t0 = time.perf_counter()
+    trainer.start()
+    cfg = trainer.setup.peft_cfg
+    adapters = trainer.setup.state.params["unet_lora"]
+    read, alpha = kohya_state_dict_to_peft(written, "lora_unet",
+                                           peft_module_keys(trainer.model.unet, cfg))
+    loaded_bitwise = (set(read) == set(adapters) and alpha == 16.0
+                      and (cfg.rank, cfg.alpha) == (16, 16.0) and all(
+                          set(read[k]) == set(e) == {"lora_down", "lora_up", "dora_scale"}
+                          and all(t.dtype == torch.float32
+                                  and torch.equal(read[k][n].to("cuda", t.dtype), t)
+                                  for n, t in e.items())
+                          for k, e in adapters.items()))
+    trainer.train()
+    trainer.end()
+    second_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    continued = load_safetensors(config.output_model_destination)
+    del trainer, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+    checks = {
+        "DoRA file": sum(k.endswith(".dora_scale") for k in written) == SD15_LORA_LAYERS
+        and len(written) == 4 * SD15_LORA_LAYERS,
+        "loaded bitwise at the file's rank and alpha": loaded_bitwise,
+        "continued file": set(continued) == set(written)
+        and any(not torch.equal(continued[k], written[k]) for k in written),
+        "launches": launches == {k: 4 * v for k, v in per_step.items()},
+    }
+    print(f"[sd15_cli] DoRA through the train command: {first_s:.2f} s, its file "
+          f"{len(written)} keys; continued from it (lora_model_name) {second_s:.2f} s; "
+          f"launches of both runs {launches}; checks {checks}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_cli DoRA failed: {[k for k, ok in checks.items() if not ok]}")
+    return launches
 
 
 # the SDXL fine-tune (phase sdxl_ft): the UNet's tensors and elements (a
@@ -2274,7 +2567,8 @@ def _dit_fine_tune(torch, model, config, tag: str, size: int, per_step_attn: dic
     per chunk of the update), one step with K5's calls captured (against
     the plain rounding; each call's device time), one step's gradients of
     `grad_params(setup)` against plain attention (K1 `k1_by_seq` times by
-    sequence length in its forward and backward), a profiler split."""
+    sequence length in its forward and backward; skipped when
+    `grad_params` is None), a profiler split."""
     from onetrainer_tpu_torch.setup.families import get_family
     from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
     from onetrainer_tpu_torch.train.train_state import param_groups
@@ -2359,11 +2653,12 @@ def _dit_fine_tune(torch, model, config, tag: str, size: int, per_step_attn: dic
     del capture
     gc.collect()
     torch.cuda.empty_cache()
-    grads = _ft_grads_against_plain(torch, setup, batch, tag, grad_params(setup))
+    grads = None if grad_params is None else \
+        _ft_grads_against_plain(torch, setup, batch, tag, grad_params(setup))
     profile_train_step(torch, setup, batch, gen, tag)
     checks = {
         "bf16 parameters": dtypes == {torch.bfloat16},
-        "finite": _finite(first + losses + norms) and grads["finite"],
+        "finite": _finite(first + losses + norms) and (grads is None or grads["finite"]),
         "every group moved": all(m == len(watched[n]) for n, m in moved.items()),
         "launches per step": launches == expected,
         "K5 one launch per chunk": k5["launches"] == k5_per_step
@@ -2371,9 +2666,10 @@ def _dit_fine_tune(torch, model, config, tag: str, size: int, per_step_attn: dic
         "K5 bitwise on the named leaves": all(k5["bitwise"].values())
         and {"largest", "1-D", "2-D"} <= {n.split()[0] for n in k5["bitwise"]},
         "K5 neighbours on every leaf": k5["neighbours"] and k5["exact"],
-        "gradients against plain attention": grads["rel"] <= GRAD_REL_L2_BOUND,
-        "K1 per forward and backward": grads["by_seq"] == k1_by_seq,
     }
+    if grads is not None:
+        checks["gradients against plain attention"] = grads["rel"] <= GRAD_REL_L2_BOUND
+        checks["K1 per forward and backward"] = grads["by_seq"] == k1_by_seq
     print(f"[{tag}] checks {checks}")
     if not all(checks.values()):
         raise AssertionError(f"{tag} failed: {[k for k, ok in checks.items() if not ok]}")
@@ -3094,7 +3390,7 @@ def phase_flux_train(torch, model) -> dict:
     adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the port's
     caches (one seeded image and prompt through the VAE, CLIP-L and T5,
     which are then freed), "full" checkpointing, guidance 1 (the config's
-    default): one warm-up and three timed steps with exact launches per
+    default): one warm-up and two timed steps with exact launches per
     step (K1 twice per block, K2, K3 and the pre-pass once, K4 once per NF4
     layer and again per layer inside the recomputed blocks), the LoRA
     gradients against plain attention and the plain dequant, a profiler
@@ -3483,7 +3779,7 @@ def phase_hunyuan_train(torch, model) -> dict:
     through the cache's rows (seeded latents [1, 9, 64, 64, 16] and their
     logvar, Llama states [1, 77, 4096] with HV_REAL_TEXT rows kept, CLIP
     pooled [1, 768]; the text encoders and the VAE freed), "full"
-    checkpointing, the config's guidance 1: one warm-up and three timed
+    checkpointing, the config's guidance 1: one warm-up and two timed
     steps with exact launches per step (K1 twice per block, K2, K3 and the
     pre-pass once, K4 once per NF4 layer and again per layer inside the
     recomputed blocks), the LoRA gradients against plain attention and the
@@ -3531,6 +3827,73 @@ def phase_hunyuan_train(torch, model) -> dict:
     profile_train_step(torch, setup, batch, run["gen"], "hunyuan_train")
     return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
             "peak_gib": run["peak_gib"]}
+
+
+def hunyuan_ft_reckoning(torch, model) -> str:
+    """hunyuan_ft's memory reckoning from the shapes, before its first step:
+    bf16 weights and gradients, one chunk of updates, Adafactor's state
+    (factored for the 2-D weights: a row and a column vector; full for the
+    others), the activations "full" checkpointing keeps (each block's
+    input, [1, 9293, 3072] bf16) and one block's recompute, Llama, CLIP-L
+    and the VAE freed after the batch is cached."""
+    from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
+    params = list(model.transformer.parameters())
+    n = sum(p.numel() for p in params)
+    state = sum(4 * (sum(p.shape) if p.dim() == 2 else p.numel()) for p in params)
+    chunk = min(n, UPDATE_CHUNK_ELEMENTS)
+    saved = HV_BLOCKS * HV_TOKENS * 3072 * 2
+    # one single block's recompute and backward: its fused [9293, 21504]
+    # projection in bf16 and fp32 grads of it, a few times over
+    block = 6 * HV_TOKENS * 21504 * 2
+    encoders = {name: sum(p.numel() for p in getattr(model, name).parameters())
+                for name in ("text_encoder", "text_encoder_2", "vae")}
+    total = 2 * _gib(n) + _gib(chunk) + state / 2 ** 30 + (saved + block) / 2 ** 30
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    return (f"the reckoning: weights {_gib(n):.2f} + gradients {_gib(n):.2f} + one chunk of "
+            f"updates {_gib(chunk):.2f} + Adafactor's state {state / 2 ** 30:.2f} + "
+            f"activations {saved / 2 ** 30:.2f} (each block's input) + one block's "
+            f"recompute about {block / 2 ** 30:.2f} = {total:.2f} GiB of {card:.2f} GiB "
+            f"({card - total:.2f} left); Llama, CLIP-L and the VAE "
+            f"{ {k: round(_gib(v), 2) for k, v in encoders.items()} } GiB freed after caching; ")
+
+
+def phase_hunyuan_ft(torch, model) -> dict:
+    """hunyuan_ft: HunyuanVideo's FINE_TUNE at full width and depth in bf16
+    on the seeded transformer built after the NF4 model is freed: the
+    transformer trained (12.8e9 elements, the update in chunks of at most
+    UPDATE_CHUNK_ELEMENTS, K5 once per chunk), Adafactor with stochastic
+    rounding, lr 1e-5, clip 1.0, batch 1 at 512x512 with 9 latent frames
+    (9293 tokens) through the cache's rows (hunyuan_train's), "full"
+    checkpointing; Llama, CLIP-L and the VAE freed once the batch is
+    cached; the memory reckoning printed before the steps, the peak after
+    them. Its gradients are not taken again against plain attention:
+    hunyuan_train holds K1-K3 against it at this shape and keep mask."""
+    from onetrainer_tpu_torch.util.enums import ModelType
+    config = _dit_ft_config(ModelType.HUNYUAN_VIDEO, 1, train_te=False)
+    reckoning = hunyuan_ft_reckoning(torch, model)
+    print(f"[hunyuan_ft] {reckoning}")
+
+    def cached_rows(setup):
+        x = _hunyuan_inputs(torch, model)
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        return {"latent_image": x["latents"],
+                "latent_logvar": torch.full_like(x["latents"], -4.0)
+                + 0.1 * torch.randn(x["latents"].shape, generator=gen, device="cuda"),
+                "text_encoder_1_hidden_state": x["text_states"],
+                "tokens_mask_1": x["text_mask"],
+                "text_encoder_2_pooled_state": x["pooled"],
+                "loss_weight": torch.ones((1,), device="cuda")}
+
+    def free_encoders(setup):
+        model.text_encoder = model.text_encoder_2 = model.vae = None
+
+    per_step = {"K1": 2 * HV_BLOCKS, "K2": HV_BLOCKS, "K3": HV_BLOCKS, "K3pre": HV_BLOCKS}
+    out = _dit_fine_tune(torch, model, config, "hunyuan_ft", HV_SIZE, per_step,
+                         {HV_TOKENS: 2 * HV_BLOCKS}, None, make_batch=cached_rows,
+                         after_batch=free_encoders, reckoning=reckoning)
+    print(f"[hunyuan_ft] peak max_memory_allocated over the timed steps "
+          f"{out['peak_gib']:.2f} GiB on {gpu_line()}")
+    return out
 
 
 def hunyuan_config_jsons(model) -> dict:
@@ -3716,12 +4079,13 @@ def _sf_config(root: str, ckpt: str, dataset: str, model_type):
 
 def _sf_fine_tune_cli(torch, tag: str, ckpt: str, dataset: str, model_type, per_step: dict,
                       sample_argv: list, sample_k1: int) -> dict:
-    """The train command's FINE_TUNE from the single file `ckpt`: epoch 1
-    with a backup (the model a single file in the base's layout, fp32), the
-    resume from it for epoch 2 and the bf16 single-file output, read back
-    bit for bit as the trained transformer; exactly `per_step` launches per
-    step and none while caching; then the sample command on the output
-    (`sample_k1` K1), a non-constant uint8 image."""
+    """The train command's FINE_TUNE from `ckpt` (a single file, or a
+    diffusers directory): epoch 1 with a backup (the model in the base's
+    layout, in the trained dtype), the resume from it for epoch 2 and the
+    bf16 single-file output, read back bit for bit as the trained
+    transformer; exactly `per_step` launches per step and none while
+    caching; then the sample command on the output (`sample_k1` K1), a
+    non-constant uint8 image."""
     from onetrainer_tpu_torch.io.png import read_png
     from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
     from onetrainer_tpu_torch.scripts import sample
@@ -3745,8 +4109,13 @@ def _sf_fine_tune_cli(torch, tag: str, ckpt: str, dataset: str, model_type, per_
     first_s = time.perf_counter() - t0
     step_after_first = first.train_progress.global_step
     backup = first.config.get_last_backup_path()
-    backup_model = os.path.join(backup, "model.safetensors")
-    backup_gib = os.path.getsize(backup_model) / 2 ** 30 if os.path.isfile(backup_model) else 0
+    # the backup's model in the base's layout: a single file, or a
+    # diffusers directory from a diffusers base
+    backup_model = os.path.join(backup, "model.safetensors" if os.path.isfile(ckpt)
+                                else "model")
+    backup_gib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(backup_model)
+                     for f in fs) / 2 ** 30 if os.path.isdir(backup_model) else \
+        os.path.getsize(backup_model) / 2 ** 30 if os.path.isfile(backup_model) else 0
     del first
     gc.collect()
     torch.cuda.empty_cache()
@@ -3801,7 +4170,7 @@ def _sf_fine_tune_cli(torch, tag: str, ckpt: str, dataset: str, model_type, per_
     }
     card = gpu_line()
     print(f"[{tag}] on {card}: epoch 1 with its backup {first_s:.2f} s (backup model "
-          f"{backup_gib:.3f} GiB, fp32), the resume with the output {resume_s:.2f} s; load "
+          f"{backup_gib:.3f} GiB), the resume with the output {resume_s:.2f} s; load "
           f"{', '.join(f'{x:.2f}' for x in times['load_s'])} s, caching "
           f"{times['cache_s'][0]:.3f} s; steps (global step, s): "
           f"{', '.join(f'{g}: {x:.4f}' for g, _, x in steps)}; sample {sample_s:.2f} s; "
@@ -3854,8 +4223,10 @@ def _write_and_read_back(torch, tag: str, model, family, path: str, config,
 def phase_dit_single_file(torch, hunyuan_ckpt: str, dataset: str) -> dict:
     """dit_single_file (see the module docstring): the SAI, BFL and
     HunyuanVideo single files written and read back bitwise on the card,
-    then the train command's FINE_TUNE from the SD3 and FLUX files with a
-    backup, a resume and a single-file output, and the sample command on
+    then the train command's FINE_TUNE from the SD3 and FLUX files, and
+    from hunyuan_cli's diffusers directory (its transformer cut to
+    HV_CLI_DOUBLE + HV_CLI_SINGLE blocks), each with a backup, a resume and
+    a single-file output (HunyuanVideo's own), and the sample command on
     each output. Each file is deleted once its checks ran (the disk)."""
     import shutil
 
@@ -3873,7 +4244,15 @@ def phase_dit_single_file(torch, hunyuan_ckpt: str, dataset: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    launches = {}
+    blocks = HV_CLI_DOUBLE + HV_CLI_SINGLE
+    tag = "hunyuan_sf_ft_cli"
+    run = _sf_fine_tune_cli(torch, tag, hunyuan_ckpt, dataset, ModelType.HUNYUAN_VIDEO,
+                            {"K1": 2 * blocks, "K2": blocks, "K3": blocks, "K3pre": blocks,
+                             "K4": 0, "K5": 1}, ["--cfg", str(HV_GUIDANCE)], 4 * blocks)
+    launches = dict(run["launches"])
+    shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for model_type, blocks, name, per_step, sample_argv in (
             (ModelType.STABLE_DIFFUSION_3, (SF_SD3_BLOCKS,), "sd3-medium-sai.safetensors",
              {"K1": SF_SD3_BLOCKS, "K2": SF_SD3_BLOCKS, "K3": SF_SD3_BLOCKS,
@@ -3938,9 +4317,10 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
     the SDXL fine-tune's largest leaf, with the call's time with its
     wrapper and the whole update's device time, bound and host time beside
     it; and at the SD3 and FLUX fine-tunes' largest leaves, `k5_dit`, with
-    their whole updates beside them; K1-K3 again at the fine-tunes' shapes,
-    FLUX's at batch 1), the device time at that path's shape, and the
-    counts of every path."""
+    their whole updates beside them, and HunyuanVideo's; K4 again with the
+    DoRA step's launches; K1-K3 again at the fine-tunes' shapes, FLUX's at batch 1,
+    HunyuanVideo's), the device time at that path's shape, and the counts
+    of every path."""
     worst = {
         "K1": max(c["err_o"] for c in k1.values()),
         "K2": max(c["errs"]["dq"] for c in k23.values()),
@@ -3990,7 +4370,14 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
               "sr_update.cu", "onetrainer_tpu/ops/pallas_sr.py:26", path,
               k5_dit[path]["max_abs_err"], k5_dit[path]["ms"], k5_dit[path]["plain_ms"],
               k5_dit[path]["bound_ms"], k5_dit[path]["bound_by"], None, k5_dit[path]["shape"])
-             for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"))]
+             for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"),
+                                 ("hunyuan_ft", "HunyuanVideo"))]
+    rows.append(("nf4_dequant_flat (K4) under DoRA", "K4", "nf4_dequant.cu",
+                 "onetrainer_tpu/ops/nf4_pallas.py:41", "sdxl_dora",
+                 max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
+                 k4[ff]["plain_ms"], k4[ff]["bound_ms"], k4[ff]["bound_by"], None, ff))
+    rows += _attention_rows(k1, k23, HV_SHAPE, "hunyuan_ft", (1, HV_TOKENS, HV_TOKENS, 24, 128),
+                            f" at HunyuanVideo's B1 S{HV_TOKENS} H24 d128 (the fine-tune)")
     rows += _attention_rows(k1, k23, SD3_SHAPE, "sd3_ft", (2, 4250, 4250, 24, 64),
                             " at SD3's B2 S4250 H24 d64 (the fine-tune)")
     rows += _attention_rows(k1, k23, FLUX_SAMPLE_SHAPE, "flux_ft", (1, 4173, 4173, 24, 128),
@@ -4038,6 +4425,7 @@ def main() -> int:
     results: dict = {}
 
     def run(name, fn, *args):
+        t0 = time.perf_counter()
         try:
             results[name] = fn(*args)
             return results[name]
@@ -4045,6 +4433,8 @@ def main() -> int:
             failures.append(name)
             print(f"[{name}] FAILED\n{traceback.format_exc()}", file=sys.stderr)
             return None
+        finally:
+            print(f"[{name}] phase wall time {time.perf_counter() - t0:.1f} s")
 
     gpu = run("nvidia-smi", gpu_line)
     if gpu is not None:
@@ -4063,10 +4453,19 @@ def main() -> int:
     # the fp32 model must not stay alive into the later phases' peak memory
     del model
     results.pop("model", None)
-    for name, fn in (("qlora", phase_qlora), ("fp8", phase_fp8), ("sdxl_ft", phase_sdxl_ft)):
+    # the PEFT phases train on the qlora and fp8 phases' models
+    for name, fn, peft in (("qlora", phase_qlora, ("sdxl_dora", phase_sdxl_dora)),
+                           ("fp8", phase_fp8, ("sdxl_loha", phase_sdxl_loha)),
+                           ("sdxl_ft", phase_sdxl_ft, None)):
         gc.collect()
         torch.cuda.empty_cache()
-        run(name, fn, torch)
+        out = run(name, fn, torch)
+        if peft is not None and out is not None:
+            model = out.pop("model")
+            gc.collect()
+            torch.cuda.empty_cache()
+            run(*peft, torch, model)
+            del model
     import shutil
     import tempfile
     gc.collect()
@@ -4160,6 +4559,15 @@ def main() -> int:
     results.pop("hunyuan_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    # the bf16 HunyuanVideo of the full fine-tune, after the NF4 model is freed
+    model = run("hunyuan_ft_model", build_hunyuan_model, torch, HV_DOUBLE, HV_SINGLE, None,
+                False)
+    if model is not None:
+        run("hunyuan_ft", phase_hunyuan_ft, torch, model)
+    del model
+    results.pop("hunyuan_ft_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
@@ -4220,10 +4628,11 @@ def main() -> int:
                              "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
                              "flux_cli", "hunyuan_train", "hunyuan_cli", "flux_fill_train",
                              "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
-                             "dit_single_file")}}
+                             "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft")}}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches,
-                                   {p: results[p]["k5"] for p in ("sd3_ft", "flux_ft")})))
+                                   {p: results[p]["k5"] for p in ("sd3_ft", "flux_ft",
+                                                                  "hunyuan_ft")})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -123,18 +123,43 @@ def hunyuan_params_from_flax(model, transformer: dict, te: dict, te2: dict,
     video_vae_params_from_flax(model.vae, vae)
 
 
+# the adapter leaves of LoRA, DoRA and LoHa (peft/lora.py), in both packages
+ADAPTER_LEAVES = frozenset({"lora_down", "lora_up", "dora_scale", "hada_w1_a",
+                            "hada_w1_b", "hada_w2_a", "hada_w2_b"})
+
+
 def lora_params_from_jax(adapters: dict,
                          device: torch.device | str = "cuda") -> dict:
-    """The reference's adapter tree {module_key: {"lora_down", "lora_up"}}
-    (numpy; down [r, in] or [r, in, kh, kw], up [out, r]) as the port's
-    adapters on `device`, in the reference's dtype (fp32 or bf16)."""
+    """The reference's adapter tree {module_key: {leaf: array}} (numpy, in
+    the torch layout both packages store adapters in: LoRA's, DoRA's and
+    LoHa's leaves) as the port's adapters on `device`, in the reference's
+    dtype (fp32, fp16 or bf16)."""
     out = {}
     for key, entry in adapters.items():
-        if set(entry) != {"lora_down", "lora_up"}:
+        if not set(entry) <= ADAPTER_LEAVES:
             raise NotImplementedError(
-                f"{key}: only LoRA adapters are ported, got {sorted(entry)}")
+                f"{key}: not a LoRA, DoRA or LoHa adapter, got {sorted(entry)}")
         out[key] = {name: tensor_from_numpy(value, device)
                     for name, value in entry.items()}
+    return out
+
+
+def lora_params_to_jax(adapters: dict) -> dict:
+    """The port's adapters as the reference's tree: numpy arrays on the
+    host in the same layout, bf16 and fp8 as ml_dtypes' (bit for bit)."""
+    import ml_dtypes
+    views = {dtype: (view, name) for name, (view, dtype) in _VIEWS.items()}
+    out = {}
+    for key, entry in adapters.items():
+        out[key] = {}
+        for name, t in entry.items():
+            t = t.detach().cpu()
+            if t.dtype in views:
+                view, ml_name = views[t.dtype]
+                out[key][name] = t.view(torch.int16 if view == np.int16 else torch.uint8) \
+                    .numpy().view(getattr(ml_dtypes, ml_name))
+            else:
+                out[key][name] = t.numpy().copy()
     return out
 
 

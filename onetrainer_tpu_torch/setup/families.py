@@ -79,11 +79,11 @@ def _assign(model, loaded: dict, device, optional=()) -> None:
 
 def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
     """{module attribute: state dict} of the setup's model, each LoRA-trained
-    part with its adapters merged into the weights (W + up.down.alpha/r),
-    for export. With `ema` and an EMA in the train state, the EMA's fp32
-    tensors stand in for the trained ones (adapters, or a fine-tuned
-    module's parameters). A part left on "meta" (a single file without it)
-    maps to None."""
+    part with its adapters merged into the weights (peft/lora.py:
+    apply_peft; over a quantized base, bf16 results), for export. With
+    `ema` and an EMA in the train state, the EMA's fp32 tensors stand in
+    for the trained ones (adapters, or a fine-tuned module's parameters). A
+    part left on "meta" (a single file without it) maps to None."""
     from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
     state = setup.state
     params = state.params if state is not None else {}
@@ -421,46 +421,49 @@ def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_depth_input():
             raise NotImplementedError(f"{model_type} (depth) is not ported to torch yet")
+        from onetrainer_tpu_torch.setup.sd_setup import LORA_PREFIXES as sd_prefixes
         return ModelFamily(
             name="sd", quantization=8,
             load=_sd_load, create_setup=_sd_create_setup,
             make_encode_fns=_sd_encode_fns, sample=_sd_sample,
             save_model=_sd_save_model, save_single_file=_sd_save_single_file,
-            lora_prefixes={"unet_lora": "lora_unet", "te_lora": "lora_te"},
+            lora_prefixes=sd_prefixes,
         )
     if model_type.is_stable_diffusion_xl():
+        from onetrainer_tpu_torch.setup.sdxl_setup import LORA_PREFIXES as sdxl_prefixes
         return ModelFamily(
             name="sdxl", quantization=64,
             load=_sdxl_load, create_setup=_sdxl_create_setup,
             make_encode_fns=_sdxl_encode_fns, sample=_sdxl_sample,
             save_model=_sdxl_save_model, save_single_file=_sdxl_save_single_file,
-            lora_prefixes={"unet_lora": "lora_unet", "te_lora": "lora_te1",
-                           "te2_lora": "lora_te2"},
+            lora_prefixes=sdxl_prefixes,
         )
     if model_type.is_stable_diffusion_3():
+        from onetrainer_tpu_torch.setup.sd3_setup import LORA_PREFIXES as sd3_prefixes
         return ModelFamily(
             name="sd3", quantization=64,
             load=_sd3_load, create_setup=_sd3_create_setup,
             make_encode_fns=_sd3_encode_fns, sample=_sd3_sample,
             save_model=_sd3_save_model, save_single_file=_sd3_save_single_file,
-            lora_prefixes={"transformer_lora": "lora_transformer",
-                           "te_lora": "lora_te1", "te2_lora": "lora_te2"},
+            lora_prefixes=sd3_prefixes,
         )
     if model_type.is_flux():
+        from onetrainer_tpu_torch.setup.flux_setup import LORA_PREFIXES as flux_prefixes
         return ModelFamily(
             name="flux", quantization=64,
             load=_flux_load, create_setup=_flux_create_setup,
             make_encode_fns=_flux_encode_fns, sample=_flux_sample,
             save_model=_flux_save_model, save_single_file=_flux_save_single_file,
-            lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
+            lora_prefixes=flux_prefixes,
         )
     if model_type.is_hunyuan_video():
+        from onetrainer_tpu_torch.setup.hunyuan_setup import LORA_PREFIXES as hunyuan_prefixes
         return ModelFamily(
             name="hunyuan", quantization=32,
             load=_hunyuan_load, create_setup=_hunyuan_create_setup,
             make_encode_fns=_hunyuan_encode_fns, sample=_hunyuan_sample,
             save_model=_hunyuan_save_model, save_single_file=_hunyuan_save_single_file,
-            lora_prefixes={"transformer_lora": "lora_transformer", "te_lora": "lora_te1"},
+            lora_prefixes=hunyuan_prefixes,
             video=True,
         )
     raise NotImplementedError(

@@ -15,8 +15,8 @@ trains the transformer (as `prior`) and CLIP-L, each when its part
 trains, as parameter groups with their own schedules
 (setup/sd_setup.py:setup_fine_tune; the reference's flux_setup.py:
 170-184); a FINE_TUNE config that trains no part builds no trainer (it
-serves sampling). EMBEDDING training, output embeddings and continuing
-from a LoRA file raise (setup/sd_setup.py: refuse_unported, setup_lora).
+serves sampling). EMBEDDING training and output embeddings raise
+(setup/sd_setup.py: refuse_unported).
 """
 
 from __future__ import annotations
@@ -51,6 +51,8 @@ _LORA_GROUPS = {
     "transformer_lora": ("transformer", None, 0),
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
 }
+# the kohya prefix of each LoRA group (the reference's setup/flux_setup.py:186-191)
+LORA_PREFIXES = {"transformer_lora": "lora_transformer", "te_lora": "lora_te1"}
 # FINE_TUNE groups: the model attributes that may train (the reference's)
 _FINE_TUNE_GROUPS = ("transformer", "text_encoder")
 # model attribute -> its config part, where they differ
@@ -109,10 +111,13 @@ def create_flux_setup(model: FluxModel, config, total_steps: int = 10_000,
         train_text_encoder=config.train_text_encoder_or_embedding())
     setup = FluxSetup(model=model, config=config, tokenizer=model.tokenizer,
                       tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
+    rank_dropout = None
     if config.training_method == TrainingMethod.LORA:
-        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS, peft_cfg=flux_peft_config(config))
+        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
+         rank_dropout) = setup_lora(
+            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
+            total_steps, steps_per_epoch, parts=_PARTS,
+            peft_cfg=flux_peft_config(config))
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
             model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
@@ -120,7 +125,8 @@ def create_flux_setup(model: FluxModel, config, total_steps: int = 10_000,
         if not setup.trainable:
             return setup
     setup.train_step = make_flux_train_step(model, step_cfg, setup.tx,
-                                            guidance_scale=config.prior.guidance_scale)
+                                            guidance_scale=config.prior.guidance_scale,
+                                            rank_dropout=rank_dropout)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

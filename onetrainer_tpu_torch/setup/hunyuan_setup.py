@@ -9,11 +9,14 @@ Llama, seeded 0 and 1 as the reference's PRNGKeys), the frozen base
 quantized after the adapters exist (setup/quantize.py: the transformer as
 `prior`, Llama, CLIP-L), the clipped optimizer, the flow-matching train
 step with the guidance `config.prior.guidance_scale` and the train state;
-and `make_hunyuan_encode_fns` for latent and text-embedding caching. A
-FINE_TUNE config that trains no part builds no trainer (it serves
-sampling); one that trains a part raises (ROADMAP queue 1, item 10), as
-EMBEDDING training, output embeddings and continuing from a LoRA file do
-(setup/sd_setup.py: refuse_unported, setup_lora).
+and `make_hunyuan_encode_fns` for latent and text-embedding caching.
+FINE_TUNE trains the transformer (as `prior`), when its part trains, as a
+parameter group with its own schedule (setup/sd_setup.py:setup_fine_tune;
+the reference's hunyuan_setup.py:164-171); Llama and CLIP-L stay frozen,
+and with `text_encoder.train` set the text is not cached and both run in
+the step (the reference's :197-200). A FINE_TUNE config that trains no
+part builds no trainer (it serves sampling). EMBEDDING training and
+output embeddings raise (setup/sd_setup.py: refuse_unported).
 """
 
 from __future__ import annotations
@@ -43,8 +46,12 @@ _LORA_GROUPS = {
     "transformer_lora": ("transformer", None, 0),
     "te_lora": ("text_encoder", None, 1),
 }
+# the kohya prefix of each LoRA group (the reference's setup/hunyuan_setup.py:173-177)
+LORA_PREFIXES = {"transformer_lora": "lora_transformer", "te_lora": "lora_te1"}
 # model attribute -> its config part, where they differ
 _PARTS = {"transformer": "prior"}
+# FINE_TUNE groups: the model attributes that may train
+_FINE_TUNE_GROUPS = ("transformer",)
 
 
 @dataclass
@@ -72,10 +79,11 @@ class HunyuanSetup:
 def create_hunyuan_setup(model: HunyuanVideoModel, config, total_steps: int = 10_000,
                          steps_per_epoch: int = 100) -> HunyuanSetup:
     """Bind `model` and `config`: the tokenizers, the LoRA groups
-    (setup/sd_setup.py:setup_lora, the transformer's config part being
-    `prior`), the clipped optimizer, the train step and the train state.
-    FINE_TUNE trains no part here (refuse_unported): its setup freezes and
-    quantizes the base for sampling."""
+    (setup/sd_setup.py:setup_lora) or the FINE_TUNE group
+    (setup/sd_setup.py:setup_fine_tune), the transformer's config part
+    being `prior`, the clipped optimizer, the train step and the train
+    state. A FINE_TUNE config that does not train the transformer builds
+    no trainer: its setup freezes and quantizes the base for sampling."""
     refuse_unported(config)
     if not isinstance(model.tokenizer, LlamaTokenizerWrapper):
         model.tokenizer = LlamaTokenizerWrapper(model.tokenizer,
@@ -86,16 +94,21 @@ def create_hunyuan_setup(model: HunyuanVideoModel, config, total_steps: int = 10
         vae_scaling_factor=model.vae_config.scaling_factor)
     setup = HunyuanSetup(model=model, config=config, tokenizer=model.tokenizer,
                          tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
+    rank_dropout = None
     if config.training_method == TrainingMethod.LORA:
-        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS)
+        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
+         rank_dropout) = setup_lora(
+            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
+            total_steps, steps_per_epoch, parts=_PARTS)
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, (), _QUANTIZABLE, total_steps, steps_per_epoch)
-        return setup
+            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
+            parts=_PARTS)
+        if not setup.trainable:
+            return setup
     setup.train_step = make_hunyuan_train_step(
-        model, step_cfg, setup.tx, guidance_scale=config.prior.guidance_scale or 1.0)
+        model, step_cfg, setup.tx, guidance_scale=config.prior.guidance_scale or 1.0,
+        rank_dropout=rank_dropout)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

@@ -46,6 +46,9 @@ _LORA_GROUPS = {
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
     "te2_lora": ("text_encoder_2", clip_torch_key_map, 2),
 }
+# the kohya prefix of each LoRA group (the reference's setup/sd3_setup.py:195-200)
+LORA_PREFIXES = {"transformer_lora": "lora_transformer", "te_lora": "lora_te1",
+                 "te2_lora": "lora_te2"}
 # FINE_TUNE groups: the model attributes that may train (the reference's)
 _FINE_TUNE_GROUPS = ("transformer", "text_encoder")
 # model attribute -> its config part, where they differ
@@ -102,17 +105,19 @@ def create_sd3_setup(model: StableDiffusion3Model, config, total_steps: int = 10
     setup = SD3Setup(model=model, config=config, tokenizer=model.tokenizer,
                      tokenizer_2=model.tokenizer_2, tokenizer_3=model.tokenizer_3,
                      step_cfg=step_cfg)
+    rank_dropout = None
     if config.training_method == TrainingMethod.LORA:
-        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS)
+        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
+         rank_dropout) = setup_lora(
+            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
+            total_steps, steps_per_epoch, parts=_PARTS)
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
             model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
             parts=_PARTS)
         if not setup.trainable:
             return setup
-    setup.train_step = make_sd3_train_step(model, step_cfg, setup.tx)
+    setup.train_step = make_sd3_train_step(model, step_cfg, setup.tx, rank_dropout)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

@@ -13,10 +13,10 @@ modules/util/create.py:1114-1232). Frozen parts whose weight dtype is
 FLOAT_8, INT_8 or NFLOAT_4 are quantized after the adapters exist
 (setup/quantize.py). A FINE_TUNE config that trains no part builds no
 trainer (it serves sampling). `refuse_unported` raises for the training
-methods, HunyuanVideo FINE_TUNE that trains a part, EMA held on the CPU,
-prior preservation and additional embeddings; continuing
-from a LoRA file, CUSTOM schedulers and schedule-free optimizers raise
-where they are built. `prepare_model`, `wrap_tokenizer`, `setup_lora`,
+methods, EMA held on the CPU, prior preservation and additional
+embeddings; CUSTOM schedulers and schedule-free optimizers raise where
+they are built. `setup_lora` continues from a LoRA file
+(`lora_model_name`). `prepare_model`, `wrap_tokenizer`, `setup_lora`,
 `setup_fine_tune` and `image_encoder` serve the SDXL, SD3, FLUX and
 HunyuanVideo setups too.
 """
@@ -29,7 +29,9 @@ import torch
 
 from onetrainer_tpu_torch.io.torch_flax import clip_torch_key_map
 from onetrainer_tpu_torch.models.clip import encode_clip_text
-from onetrainer_tpu_torch.peft.lora import PeftConfig, attach_peft, init_peft_params
+from onetrainer_tpu_torch.peft.lora import (
+    PeftConfig, RankDropout, apply_lora_checkpoint, attach_peft, init_peft_params,
+)
 from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer
 from onetrainer_tpu_torch.train.lr_schedules import make_schedule, resolve_warmup_steps
@@ -49,6 +51,8 @@ _LORA_GROUPS = {
     "unet_lora": ("unet", None, 0),
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
 }
+# the kohya prefix of each LoRA group (the reference's setup/sd_setup.py:329-335)
+LORA_PREFIXES = {"unet_lora": "lora_unet", "te_lora": "lora_te"}
 # FINE_TUNE groups: the model attributes (and config parts) that may train
 _FINE_TUNE_GROUPS = ("unet", "text_encoder")
 
@@ -101,18 +105,12 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
 def refuse_unported(config) -> None:
     """Raise NotImplementedError for what `config` asks of the model, its
     setup and its step that the port does not run: training methods other
-    than LoRA and FINE_TUNE, HunyuanVideo FINE_TUNE that trains a part (the
-    transformer or Llama: the reference's FINE_TUNE groups), EMA held on
-    the CPU, prior preservation and additional embeddings. The setups call
-    it first, and the trainer before it loads the model."""
-    mt = config.model_type
+    than LoRA and FINE_TUNE, EMA held on the CPU, prior preservation and
+    additional embeddings. The setups call it first, and the trainer
+    before it loads the model."""
     asked = {
         f"{config.training_method} training (LoRA and FINE_TUNE only)":
             config.training_method not in (TrainingMethod.LORA, TrainingMethod.FINE_TUNE),
-        "HunyuanVideo FINE_TUNE training (ROADMAP queue 1, item 10; LoRA trains "
-        "HunyuanVideo)":
-            mt.is_hunyuan_video() and config.training_method == TrainingMethod.FINE_TUNE
-            and (config.prior.train or config.text_encoder.train),
         "EMA on the CPU": config.ema == EMAMode.CPU,
         "prior preservation": config.masked_prior_preservation_weight > 0 or any(
             c.type == ConceptType.PRIOR_PREDICTION for c in (config.concepts or [])),
@@ -151,25 +149,26 @@ def quantize_frozen(model, config, quantizable: dict, trained=()) -> None:
                           config.weight_dtypes(), quantizable)
 
 
-def setup_lora(model, config, lora_groups: dict, quantizable: dict,
+def setup_lora(model, config, lora_groups: dict, lora_prefixes: dict, quantizable: dict,
                total_steps: int, steps_per_epoch: int, parts: dict | None = None,
                peft_cfg: PeftConfig | None = None):
-    """The LoRA branch of the SD-family setups: adapters for each group
-    whose config part trains, drawn on the model's device from a generator
-    seeded per group in the LoRA weight dtype and attached to the layers;
-    the frozen base stops requiring grads, and frozen parts configured with
-    a quantized weight dtype are quantized in place after the adapters
-    exist (their shapes are the logical ones, as the reference's). `parts`
-    names the config part of a model attribute where the two differ (SD3's
-    and FLUX's transformer trains as `config.prior`); `peft_cfg` replaces
-    the config's own (FLUX's layer presets).
-    -> (peft_cfg, trainable, group_schedules, tx)."""
-    if config.lora_model_name:
-        raise NotImplementedError("continuing from a LoRA file is not ported yet")
+    """The LoRA branch of the SD-family setups: adapters (LoRA, DoRA or
+    LoHa) for each group whose config part trains, drawn on the model's
+    device from a generator seeded per group in the LoRA weight dtype;
+    with `config.lora_model_name` the file's tensors replace them and its
+    rank and alpha are adopted (peft/lora.py:apply_lora_checkpoint, with
+    the family's kohya prefix of each group, `lora_prefixes`); then they
+    are attached to the layers. The
+    frozen base stops requiring grads, and frozen parts configured with a
+    quantized weight dtype are quantized in place after the adapters exist
+    (their shapes are the logical ones, as the reference's). `parts` names
+    the config part of a model attribute where the two differ (SD3's and
+    FLUX's transformer trains as `config.prior`); `peft_cfg` replaces the
+    config's own (FLUX's layer presets).
+    -> (peft_cfg, trainable, group_schedules, tx, rank_dropout): the
+    last a `RankDropout` over the attached adapters for the step, None
+    when the config drops no rank."""
     peft_cfg = peft_cfg or PeftConfig.from_train_config(config)
-    if peft_cfg.weight_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"{peft_cfg.weight_dtype} LoRA weights are not ported yet (fp32, bf16)")
     modules = model.modules()
     for module in modules.values():
         module.requires_grad_(False)
@@ -180,16 +179,23 @@ def setup_lora(model, config, lora_groups: dict, quantizable: dict,
             continue
         module = modules[attr]
         gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
-        adapters = init_peft_params(gen, module, peft_cfg, key_map)
+        trainable[group] = init_peft_params(gen, module, peft_cfg, key_map)
+        group_schedules[group] = _group_schedule(
+            config, part.learning_rate, total_steps, part, steps_per_epoch)
+    if config.lora_model_name:
+        peft_cfg = apply_lora_checkpoint(config.lora_model_name, trainable,
+                                         lora_prefixes, peft_cfg)
+    attached = {}
+    for group, adapters in trainable.items():
+        attr, key_map, _ = lora_groups[group]
         for entry in adapters.values():
             for tensor in entry.values():
                 tensor.requires_grad_()
-        attach_peft(module, adapters, peft_cfg, key_map)
-        trainable[group] = adapters
-        group_schedules[group] = _group_schedule(
-            config, part.learning_rate, total_steps, part, steps_per_epoch)
+        attached[group] = attach_peft(modules[attr], adapters, peft_cfg, key_map)
     quantize_frozen(model, config, quantizable)
-    return peft_cfg, trainable, group_schedules, _optimizer(config, group_schedules)
+    rank_dropout = RankDropout(peft_cfg.dropout, attached) if peft_cfg.dropout > 0 else None
+    return (peft_cfg, trainable, group_schedules, _optimizer(config, group_schedules),
+            rank_dropout)
 
 
 def _optimizer(config, group_schedules: dict):
@@ -276,15 +282,17 @@ def create_sd_setup(model, config, total_steps: int = 10_000,
     step_cfg = replace(step_cfg, vae_scaling_factor=model.vae_config.scaling_factor)
     setup = SDSetup(model=model, config=config, tokenizer=model.tokenizer,
                     step_cfg=step_cfg)
+    rank_dropout = None
     if config.training_method == TrainingMethod.LORA:
-        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
+         rank_dropout) = setup_lora(model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
+                                    total_steps, steps_per_epoch)
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
             model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
         if not setup.trainable:
             return setup
-    setup.train_step = make_sd_train_step(model, step_cfg, setup.tx)
+    setup.train_step = make_sd_train_step(model, step_cfg, setup.tx, rank_dropout)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

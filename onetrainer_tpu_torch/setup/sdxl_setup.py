@@ -10,7 +10,7 @@ text-embedding caching. Frozen parts whose weight dtype is FLOAT_8, INT_8
 or NFLOAT_4 are quantized after the adapters exist (setup/quantize.py;
 QLoRA is LoRA over an NF4 UNet with bf16 adapters). A FINE_TUNE config
 that trains no part builds no trainer (it serves sampling); EMBEDDING
-training, additional embeddings and continuing from a LoRA file raise.
+training and additional embeddings raise.
 """
 
 from __future__ import annotations
@@ -43,6 +43,9 @@ _LORA_GROUPS = {
     "te_lora": ("text_encoder", clip_torch_key_map, 1),
     "te2_lora": ("text_encoder_2", clip_torch_key_map, 2),
 }
+# the kohya prefix of each LoRA group (the reference's setup/sdxl_setup.py:186-191)
+LORA_PREFIXES = {"unet_lora": "lora_unet", "te_lora": "lora_te1",
+                 "te2_lora": "lora_te2"}
 # FINE_TUNE groups: the model attributes (and config parts) that may train
 _FINE_TUNE_GROUPS = ("unet", "text_encoder", "text_encoder_2")
 
@@ -94,15 +97,18 @@ def create_sdxl_setup(model: StableDiffusionXLModel, config,
                             or config.train_text_encoder_2_or_embedding()))
     setup = SDXLSetup(model=model, config=config, tokenizer=model.tokenizer,
                       tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
+    rank_dropout = None
     if config.training_method == TrainingMethod.LORA:
-        setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx = setup_lora(
-            model, config, _LORA_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
+        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
+         rank_dropout) = setup_lora(
+            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
+            total_steps, steps_per_epoch)
     else:
         setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
             model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch)
         if not setup.trainable:
             return setup
-    setup.train_step = make_sdxl_train_step(model, step_cfg, setup.tx)
+    setup.train_step = make_sdxl_train_step(model, step_cfg, setup.tx, rank_dropout)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

@@ -106,7 +106,8 @@ def flux_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConf
     }
 
 
-def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0):
+def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0,
+                         rank_dropout=None):
     """The FLUX LoRA or FINE_TUNE step (train/sd_train_step.py:
     make_train_step with the flow-matching losses and the guidance
     `guidance_scale`): LoRA adapters, or the transformer's and CLIP-L's own
@@ -117,4 +118,5 @@ def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1
                             guidance_scale=guidance_scale, **draws)
 
     return make_train_step(model, cfg, tx, predict,
-                           losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss))
+                           losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss),
+                           rank_dropout=rank_dropout)

@@ -101,9 +101,13 @@ def hunyuan_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepC
     }
 
 
-def make_hunyuan_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0):
-    """The HunyuanVideo LoRA step (train/sd_train_step.py:make_train_step
-    with the flow-matching losses and the guidance `guidance_scale`)."""
+def make_hunyuan_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0,
+                            rank_dropout=None):
+    """The HunyuanVideo LoRA or FINE_TUNE step (train/sd_train_step.py:
+    make_train_step with the flow-matching losses and the guidance
+    `guidance_scale`): LoRA adapters, or the transformer's own parameters,
+    updated in chunks of at most UPDATE_CHUNK_ELEMENTS elements (K5 once
+    per chunk for bf16 parameters under stochastic rounding)."""
     def predict(model, batch, generator, cfg, coefficients, **draws):
         return hunyuan_predict(model, batch, generator, cfg, coefficients,
                                guidance_scale=guidance_scale, **draws)
@@ -111,4 +115,5 @@ def make_hunyuan_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float 
     return make_train_step(
         model, cfg, tx, predict,
         losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss,
-                                                        cfg.num_train_timesteps))
+                                                        cfg.num_train_timesteps),
+        rank_dropout=rank_dropout)

@@ -19,14 +19,23 @@ same steps:
   and none in between (`MultiSteps`).
 
 The optimizer returns each step's updates and the caller adds them
-(optax.apply_updates), or rounds them in stochastically for bf16
-parameters. AdamW's `updates` keeps optax's dtypes and operation order:
+(optax.apply_updates, `add_updates_`), or rounds them in stochastically
+for bf16 parameters. AdamW's `updates` keeps optax's dtypes and operation order:
 the moments are held in the parameters' dtype (bf16 for bf16 adapters),
 the bias corrections and the learning rate are rounded to that dtype
 before use, and every operation rounds its result, so a bf16 update is
 what optax computes in bf16 and an fp32 update what it computes in fp32.
-The global norm of bf16 gradients is taken in bf16 too. Other optimizers
-and amsgrad raise.
+fp16 parameters (fp16 LoRA weights) are the exception: in fp16, optax's
+eps 1e-8 and the squares of small gradients underflow to 0, and every
+element with a zero gradient gets 0/0 (ROADMAP F15), so their moments are
+fp32 and their update is computed and returned in fp32: `add_updates_`
+adds it in fp32 and rounds the sum once to fp16. fp8 parameters (fp8 LoRA
+weights) are updated alike (optax computes it all in fp8, where AdamW's
+first update is NaN in every element: ROADMAP F17), and torch has no
+arithmetic in 1-byte floats, so their gradients and MultiSteps' means are
+fp32 too (`arithmetic_dtype`). The global norm of bf16 gradients is taken
+in bf16 too. Other optimizers and
+amsgrad raise.
 """
 
 from __future__ import annotations
@@ -41,6 +50,35 @@ from onetrainer_tpu_torch.util.enums import Optimizer
 
 def _d(value, default):
     return default if value is None else value
+
+
+def arithmetic_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the gradients, means and updates of parameters of
+    `dtype`: their own, but fp32 for 1-byte floats (fp8), in which torch
+    has no arithmetic."""
+    return torch.float32 if dtype.is_floating_point and dtype.itemsize == 1 else dtype
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """AdamW's moments and arithmetic for parameters of `dtype`: their own,
+    but fp32 for fp16 and fp8 (see the module docstring)."""
+    return torch.float32 if dtype == torch.float16 else arithmetic_dtype(dtype)
+
+
+@torch.no_grad()
+def add_updates_(params: list[torch.Tensor], updates: list[torch.Tensor]) -> None:
+    """p += u for each pair (optax.apply_updates); a parameter whose
+    update is wider (the fp32 updates of fp16 and fp8 parameters) takes
+    the sum made in the update's dtype, rounded once."""
+    same = [i for i, (p, u) in enumerate(zip(params, updates)) if p.dtype == u.dtype]
+    if len(same) == len(params):
+        torch._foreach_add_(params, updates)
+        return
+    if same:
+        torch._foreach_add_([params[i] for i in same], [updates[i] for i in same])
+    for p, u in zip(params, updates):
+        if p.dtype != u.dtype:
+            p.copy_(p.to(u.dtype) + u)
 
 
 @dataclass
@@ -65,21 +103,27 @@ class AdamW:
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
 
     def init(self, params: list[torch.Tensor]) -> AdamWState:
-        return AdamWState(0, [torch.zeros_like(p) for p in params],
-                          [torch.zeros_like(p) for p in params])
+        def zeros(p):
+            return torch.zeros_like(p, dtype=_compute_dtype(p.dtype))
+        return AdamWState(0, [zeros(p) for p in params], [zeros(p) for p in params])
 
     @torch.no_grad()
     def updates(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                 state: AdamWState) -> list[torch.Tensor]:
         """One step's updates (to add to `params`), advancing `state`, in
-        optax.adamw's order and the parameters' dtype:
+        optax.adamw's order and the parameters' dtype (fp32 for fp16 and
+        fp8 parameters):
         mu = (1-b1) g + b1 mu; nu = (1-b2) g^2 + b2 nu;
         u = -lr * (mu / c1 / (sqrt(nu / c2) + eps) + wd p)."""
         if not params:
             return []
-        dtype = params[0].dtype
-        if any(p.dtype != dtype for p in params):
+        param_dtype = params[0].dtype
+        if any(p.dtype != param_dtype for p in params):
             raise TypeError("one optimizer group must hold one dtype")
+        dtype = _compute_dtype(param_dtype)
+        if dtype != param_dtype:
+            grads = [g.to(dtype) for g in grads]
+            params = [p.to(dtype) for p in params] if self.weight_decay else params
 
         def rounded(x) -> float:
             return torch.as_tensor(x, dtype=torch.float32).to(dtype).item()
@@ -247,9 +291,9 @@ class Adafactor:
             if self.momentum is not None:
                 u = state.momentum[i].mul_(self.momentum).add_(u * (1.0 - self.momentum))
             elif p.dtype != torch.float32:
-                u = u.to(p.dtype)
+                u = u.to(arithmetic_dtype(p.dtype))
             if self.weight_decay_rate is not None:
-                u = u + p * self.weight_decay_rate
+                u = u + p.to(arithmetic_dtype(p.dtype)) * self.weight_decay_rate
             yield -u
 
 
@@ -398,7 +442,8 @@ class MultiSteps:
 
     def init(self, params: dict[str, list[torch.Tensor]]) -> MultiStepsState:
         return MultiStepsState(self.tx.init(params),
-                               {name: [torch.zeros_like(p) for p in params[name]]
+                               {name: [torch.zeros_like(p, dtype=arithmetic_dtype(p.dtype))
+                                       for p in params[name]]
                                 for name in self.tx.groups})
 
     @torch.no_grad()

@@ -112,10 +112,11 @@ def sd3_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConfi
     }
 
 
-def make_sd3_train_step(model, cfg: SDStepConfig, tx):
+def make_sd3_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
     """The SD3 LoRA or FINE_TUNE step (train/sd_train_step.py:make_train_step
     with the flow-matching losses): LoRA adapters, or the transformer's and
     CLIP-L's own parameters, the three text encoders then running in the
     step on the batch's tokens."""
     return make_train_step(model, cfg, tx, sd3_predict,
-                           losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss))
+                           losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss),
+                           rank_dropout=rank_dropout)

@@ -29,6 +29,7 @@ zero updates, which leave every tensor as it is).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from itertools import islice
 
@@ -41,8 +42,11 @@ from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.math.timesteps import TimestepConfig, sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.ops.stochastic import apply_updates_stochastic, draw_seeds
+from onetrainer_tpu_torch.peft.lora import RankDropout
 from onetrainer_tpu_torch.train.ema import maybe_update_ema
-from onetrainer_tpu_torch.train.optimizers import chunk_lengths, global_norm
+from onetrainer_tpu_torch.train.optimizers import (
+    add_updates_, arithmetic_dtype, chunk_lengths, global_norm,
+)
 from onetrainer_tpu_torch.train.train_state import TrainState, leaves_like, param_groups
 from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
 
@@ -248,7 +252,8 @@ def sd_predict(model, batch: dict, generator: torch.Generator,
 UPDATE_CHUNK_ELEMENTS = 1 << 32
 
 
-def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
+def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
+                    rank_dropout: RankDropout | None = None):
     """The LoRA or FINE_TUNE step of `model` around its family's `predict`
     (`sd_predict`, `sdxl_predict`, `sd3_predict`) and per-sample `losses`
     (batch, data) -> [B] (default: `diffusion_losses` on the model's
@@ -260,7 +265,12 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
             -> {"loss", "grad_norm"}
 
     `draws` replace the generator's draws of `predict` (`timestep`,
-    `noise`, `latent_noise`; SD3's `dropout_keep` too). The step updates
+    `noise`, `latent_noise`; SD3's `dropout_keep` too). Under LoRA rank
+    dropout (`rank_dropout`, from the LoRA setup) the step first draws
+    each adapter group's keep masks from the generator
+    (peft/lora.py:RankDropout.draw), or takes `rank_keep` {group:
+    {module_key: mask}} in their place, and holds them on the layers'
+    adapters through the forward and the backward. The step updates
     `state.params`, `state.opt_state` and `state.ema` in place and
     advances `state.step`; the returned loss (fp32, on the model's device:
     reading it synchronises) and pre-clip global norm of this micro-step's
@@ -277,7 +287,8 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
     its update exists: the weights, the gradients and one chunk of
     updates are what the update holds at its peak. `train_step.loss(batch,
     generator, **draws)` is the step's loss alone, for a caller that wants
-    its gradients without the update."""
+    its gradients without the update (and without rank dropout);
+    `train_step.rank_dropout` is `rank_dropout`."""
     denoiser = next(iter(model.modules().values()))
     device = next(denoiser.parameters()).device
     chunk_elements = UPDATE_CHUNK_ELEMENTS
@@ -294,15 +305,21 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
         return losses(batch, data).mean()
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
-                   *, round_bits=None, **draws) -> dict:
+                   *, round_bits=None, rank_keep=None, **draws) -> dict:
         groups = param_groups(state.params)
         flat = [t.requires_grad_() for g in groups.values() for t in g]
-        with torch.enable_grad():
-            value = loss(batch, generator, **draws)
-        # a tensor off the loss's path (TE1's last layer under layer skip)
-        # gets a zero gradient, as under jax.grad
-        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
-            flat, torch.autograd.grad(value, flat, allow_unused=True))]
+        if rank_dropout is not None and rank_keep is None and generator is not None:
+            rank_keep = rank_dropout.draw(state.params, generator)
+        with rank_dropout.masked(rank_keep) if rank_dropout is not None and rank_keep \
+                else nullcontext():
+            with torch.enable_grad():
+                value = loss(batch, generator, **draws)
+            # a tensor off the loss's path (TE1's last layer under layer
+            # skip) gets a zero gradient, as under jax.grad
+            grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+                flat, torch.autograd.grad(value, flat, allow_unused=True))]
+        if any(t.dtype.itemsize == 1 for t in flat):   # fp8 leaves: fp32 gradients
+            grads = [g.to(arithmetic_dtype(g.dtype)) for g in grads]
         norm = global_norm(grads)
         grouped, i = {}, 0
         for name, tensors in groups.items():
@@ -339,7 +356,7 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
                 grouped[name][j] = None   # these leaves' gradients are spent
             params = flat[first:first + n]
             if not rounding:
-                torch._foreach_add_(params, chunk)
+                add_updates_(params, chunk)
             elif bits is not None:
                 apply_updates_stochastic(params, chunk, bits=bits[first:])
             else:
@@ -351,9 +368,10 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None):
         next(leaf_updates, None)   # past the last leaf: MultiSteps resets its mean
 
     train_step.loss = loss
+    train_step.rank_dropout = rank_dropout
     return train_step
 
 
-def make_sd_train_step(model, cfg: SDStepConfig, tx):
+def make_sd_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
     """The SD 1.5/2.x LoRA or FINE_TUNE step (see `make_train_step`)."""
-    return make_train_step(model, cfg, tx, sd_predict)
+    return make_train_step(model, cfg, tx, sd_predict, rank_dropout=rank_dropout)

@@ -76,6 +76,6 @@ def sdxl_predict(model, batch: dict, generator: torch.Generator,
     return prediction_data(predicted, noised, cfg, coefficients)
 
 
-def make_sdxl_train_step(model, cfg: SDStepConfig, tx):
+def make_sdxl_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
     """The SDXL LoRA or FINE_TUNE step (train/sd_train_step.py:make_train_step)."""
-    return make_train_step(model, cfg, tx, sdxl_predict)
+    return make_train_step(model, cfg, tx, sdxl_predict, rank_dropout=rank_dropout)

@@ -29,6 +29,7 @@ from onetrainer_tpu_torch.peft.lora import PeftConfig, adapter_shapes
 from onetrainer_tpu_torch.ops import sr_update as pt_sr
 from onetrainer_tpu_torch.ops.sr_update import sr_update, sr_update_leaves
 from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+from onetrainer_tpu_torch.util.enums import PeftType
 
 
 @pytest.fixture
@@ -303,27 +304,35 @@ def test_sr_update_keeps_the_properties_on_card(cuda_device, n, u_dtype):
     assert torch.equal(in_place, out)
 
 
+# the SDXL adapter sets at rank 16: QLoRA's 1588 tensors, DoRA's 2382
+# (dora_scale beside each pair), LoHa's 3176
+_ADAPTER_SETS = {"qlora_adapters": (dict(), 1588),
+                 "dora_adapters": (dict(decompose=True), 2382),
+                 "loha_adapters": (dict(peft_type=PeftType.LOHA), 3176)}
+
+
 def _leaf_shapes(name):
     if name == "odd_sizes":
         return [(1,), (3,), (5,), (4,), ((1 << 20) + 3,), (7, 9), (2,), (16, 2560, 3, 3)]
-    # the SDXL QLoRA step's adapters at rank 16: 1588 tensors
     with torch.device("meta"):
         unet = UNet2DCondition(sdxl_unet_config())
-    return [s for e in adapter_shapes(unet, PeftConfig(rank=16)).values()
+    fields, _ = _ADAPTER_SETS[name]
+    return [s for e in adapter_shapes(unet, PeftConfig(rank=16, **fields)).values()
             for s in e.values()]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alias", [False, True], ids=["new_out", "out_is_p"])
 @pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("leaves", ["qlora_adapters", "odd_sizes"])
+@pytest.mark.parametrize("leaves", ["qlora_adapters", "odd_sizes", "dora_adapters",
+                                    "loha_adapters"])
 def test_sr_update_leaves_matches_the_plain_rounding_on_card(cuda_device, leaves, u_dtype,
                                                              alias):
     """One K5 launch over a list of leaves, bit for bit against the plain
     rounding on each leaf's own Philox bits (seeds[seed_index[i]])."""
     shapes = _leaf_shapes(leaves)
-    if leaves == "qlora_adapters":
-        assert len(shapes) == 1588
+    if leaves in _ADAPTER_SETS:
+        assert len(shapes) == _ADAPTER_SETS[leaves][1]
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     ps = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
           for s in shapes]
@@ -573,3 +582,137 @@ def test_hunyuan_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
             pt_ff.flash_attention_folded_delta.launches) == (
         4 if policy == "full" else 2, 2, 2, 2)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output_axis", [False, True])
+def test_dora_over_nf4_decodes_through_k4_on_card(cuda_device, monkeypatch, output_axis):
+    """DoRA on an NF4 linear layer and a 3x3 conv (SDXL widths), bf16
+    compute: the magnitude at init, each forward and the merge decode each
+    layer once through K4, never through the plain decode; the outputs,
+    the adapter gradients and the merged bf16 weights equal the plain
+    decode's bit for bit (K4 is its plain version's bit for bit)."""
+    from onetrainer_tpu_torch.models.layers import conv, linear
+    from onetrainer_tpu_torch.ops import quant
+    from onetrainer_tpu_torch.ops.quant import quantize_module
+    from onetrainer_tpu_torch.peft import lora as pt_lora
+
+    class Layers(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(1280, 1280)
+            self.conv = torch.nn.Conv2d(640, 640, 3, padding=1)
+
+    torch.manual_seed(0)
+    layers = quantize_module(Layers().to(cuda_device), "nf4")
+    cfg = PeftConfig(rank=16, alpha=16.0, decompose=True, decompose_output_axis=output_axis,
+                     weight_dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((2, 77, 1280), generator=gen, device=cuda_device)
+    img = torch.randn((1, 640, 32, 32), generator=gen, device=cuda_device)
+
+    def run():
+        before = pt_nf4.nf4_dequant_flat.launches
+        adapters = pt_lora.init_peft_params(torch.Generator(device=cuda_device).manual_seed(2),
+                                            layers, cfg)
+        for entry in adapters.values():
+            entry["lora_up"].normal_(0.0, 0.01, generator=gen.manual_seed(4))
+            for t in entry.values():
+                t.requires_grad_()
+        pt_lora.attach_peft(layers, adapters, cfg)
+        y = linear(layers.lin, x, torch.bfloat16)
+        c = conv(layers.conv, img, torch.bfloat16)
+        flat = [t for e in adapters.values() for t in e.values()]
+        grads = torch.autograd.grad(y.float().square().mean() + c.float().square().mean(), flat)
+        merged = pt_lora.apply_peft(layers, {k: {n: t.detach() for n, t in e.items()}
+                                             for k, e in adapters.items()}, cfg)
+        pt_lora.attach_peft(layers, None, None)
+        torch.cuda.synchronize()
+        return (y, c, grads, merged["lin.weight"], merged["conv.weight"],
+                pt_nf4.nf4_dequant_flat.launches - before)
+
+    y, c, grads, w_lin, w_conv, launches = run()
+    assert launches == 2 * 3          # init, forward, merge: each layer once
+    assert w_lin.dtype == w_conv.dtype == torch.bfloat16
+    monkeypatch.setattr(quant, "nf4_dequant_flat", pt_nf4.nf4_dequant_reference)
+    py, pc, pgrads, pw_lin, pw_conv, plain_launches = run()
+    assert plain_launches == 0
+    assert torch.equal(y, py) and torch.equal(c, pc)
+    assert torch.equal(w_lin, pw_lin) and torch.equal(w_conv, pw_conv)
+    assert all(torch.equal(g, h) for g, h in zip(grads, pgrads))
+
+
+
+@pytest.mark.cuda
+def test_fp8_lora_weights_train_on_card(cuda_device):
+    """fp8 LoRA adapters (`lora_weight_dtype` FLOAT_8) on a linear layer
+    and a 3x3 conv at SDXL widths, one step of the train step on the card
+    (the factors scaled in fp32, AdamW in fp32, each update added in fp32
+    and rounded once to fp8): the loss equals that of the same step with
+    fp32 adapters holding the same values, the adapters stay fp8 and
+    finite, and every element that moved equals the fp32 step's result
+    rounded to fp8 or lies one fp8 step from it."""
+    from types import SimpleNamespace
+
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.models.layers import conv, linear
+    from onetrainer_tpu_torch.peft import lora as pt_lora
+    from onetrainer_tpu_torch.train.optimizers import create_group_optimizer
+    from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, make_train_step
+    from onetrainer_tpu_torch.train.train_state import create_train_state
+
+    class Layers(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(1280, 1280)
+            self.conv = torch.nn.Conv2d(640, 640, 3, padding=1)
+
+    torch.manual_seed(0)
+    layers = Layers().to(cuda_device).requires_grad_(False)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((2, 77, 1280), generator=gen, device=cuda_device)
+    img = torch.randn((1, 640, 32, 32), generator=gen, device=cuda_device)
+    cfg = PeftConfig(rank=16, alpha=32.0, weight_dtype=torch.float8_e4m3fn)
+    fp8 = pt_lora.init_peft_params(torch.Generator(device=cuda_device).manual_seed(2),
+                                   layers, cfg)
+    for entry in fp8.values():
+        entry["lora_up"] = (0.1 * torch.randn(entry["lora_up"].shape, generator=gen,
+                                              device=cuda_device)).to(torch.float8_e4m3fn)
+    start = {k: {n: t.float() for n, t in e.items()} for k, e in fp8.items()}
+    config = TrainConfig.default_values()
+
+    def step(adapters, peft_cfg):
+        tx = create_group_optimizer({"g": 0.05}, config.optimizer.optimizer, config.optimizer,
+                                    1.0)
+        state = create_train_state({"g": adapters}, tx)
+
+        def predict(model, batch, generator, cfg, coefficients):
+            return (linear(layers.lin, x, torch.float32).square().mean()
+                    + conv(layers.conv, img, torch.float32).square().mean()).reshape(1)
+        train_step = make_train_step(SimpleNamespace(modules=lambda: {"layers": layers}),
+                                     SDStepConfig.from_train_config(config), tx, predict,
+                                     losses=lambda batch, data: data)
+        pt_lora.attach_peft(layers, adapters, peft_cfg)
+        try:
+            out = train_step(state, {}, torch.Generator(device=cuda_device).manual_seed(0))
+        finally:
+            pt_lora.attach_peft(layers, None, None)
+        return float(out["loss"]), state.params["g"]
+
+    loss, after = step(fp8, cfg)
+    ref_loss, ref = step({k: {n: t.clone() for n, t in e.items()} for k, e in start.items()},
+                         PeftConfig(rank=16, alpha=32.0))
+    assert loss == pytest.approx(ref_loss, rel=1e-6)
+    moved = 0
+    for key, entry in after.items():
+        for name, t in entry.items():
+            assert t.dtype == torch.float8_e4m3fn
+            got = t.detach().float()
+            want = ref[key][name].detach().to(torch.float8_e4m3fn)
+            assert torch.isfinite(got).all()
+            changed = got != start[key][name]
+            # one fp8 step: adjacent codes of the same sign
+            apart = (t.detach().view(torch.uint8).int() - want.view(torch.uint8).int()).abs()
+            assert bool((apart[changed] <= 1).all()), (key, name)
+            moved += int(changed.sum())
+    assert moved > 0

@@ -17,10 +17,10 @@ batch 2: one video batch and one image batch per epoch; LoRA r4 on the
 transformer, text and latents cached, fp32) uninterrupted, and again as
 one epoch with a backup and a resume from it: the resumed adapters and
 optimizer state equal the uninterrupted run's within 1e-6 relative L2.
-Refused, each with NotImplementedError: the single file (load and save),
-FINE_TUNE that trains a part and EMBEDDING training (by the setup and by
-the train command before it loads the model), and output embeddings in
-the step. The reference's saver writes no VAE or CLIP weights (ROADMAP
+Refused, each with NotImplementedError: EMBEDDING training (by the
+setup and by the train command before it loads the model), and output
+embeddings in the step; FINE_TUNE of the transformer sets up and steps
+(tests/test_torch_port_hunyuan_ft.py holds it to the reference). The reference's saver writes no VAE or CLIP weights (ROADMAP
 F12), the port's writes every component. Torch runs one thread.
 """
 
@@ -264,22 +264,49 @@ def _write_config(config, path) -> str:
 
 @pytest.mark.parametrize("case", ["fine_tune_prior", "fine_tune_text_encoder", "embedding"])
 def test_unported_training_is_refused(hunyuan_dir, tmp_path, case):
-    """HunyuanVideo trains LoRA only: a FINE_TUNE config that trains the
-    transformer (`prior`) or Llama, and EMBEDDING training, raise in the
-    setup, and in the train command before the model loads."""
+    """EMBEDDING training raises in the setup, and in the train command
+    before the model loads. FINE_TUNE is ported (it was refused until the
+    HunyuanVideo fine-tune slice): a config that trains the transformer
+    (`prior`), or sets `text_encoder.train` beside it, builds the
+    transformer's group alone, as the reference's (Llama and CLIP-L stay
+    frozen and, with `text_encoder.train`, run in the step uncached); one
+    step moves the transformer and no other part, and the train command
+    passes its refusals and reaches the load."""
     if case == "embedding":
         config, match = _config(pt_enums.TrainingMethod.EMBEDDING), "EMBEDDING"
     else:
-        config, match = _config(), "HunyuanVideo FINE_TUNE"
-        getattr(config, case.removeprefix("fine_tune_")).train = True
+        config, match = _config(), None
+        config.prior.train = True
+        config.text_encoder.train = case == "fine_tune_text_encoder"
+        config.learning_rate_warmup_steps = 0.0
     family = get_family(HUNYUAN)
     model = family.load(hunyuan_dir["base"], _config(), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        family.create_setup(model, config, 1)
+    if match:
+        with pytest.raises(NotImplementedError, match=match):
+            family.create_setup(model, config, 1)
+    else:
+        setup = family.create_setup(model, config, 1)
+        assert set(setup.state.params) == {"transformer"}
+        assert setup.step_cfg.train_text_encoder is (case == "fine_tune_text_encoder")
+        before = {name: {k: v.clone() for k, v in m.state_dict().items()}
+                  for name, m in model.modules().items()}
+        encode_images, encode_text = family.make_encode_fns(setup)
+        images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+        batch = {k: torch.as_tensor(v) for k, v in encode_images(images).items()}
+        texts = [encode_text(p) for p in ("a cat", "a red dog")]
+        batch.update({k: torch.as_tensor(np.stack([np.asarray(t[k]) for t in texts]))
+                      for k in texts[0]})
+        batch["loss_weight"] = torch.ones(2)
+        assert ("text_encoder_1_hidden_state" in batch) is (case == "fine_tune_prior")
+        setup.train_step(setup.state, batch, torch.Generator().manual_seed(0))
+        for name, module in model.modules().items():
+            changed = any(not torch.equal(v, before[name][k])
+                          for k, v in module.state_dict().items())
+            assert changed is (name == "transformer"), name
     config.base_model_name = str(tmp_path / "absent")
     config.workspace_dir = str(tmp_path / "ws")
     path = _write_config(config, str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError if match else FileNotFoundError, match=match):
         pt_train.main(["--config-path", path, "--device", "cpu"])
 
 

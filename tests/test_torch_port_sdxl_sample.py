@@ -126,22 +126,27 @@ def test_sdxl_sample_matches_jax(monkeypatch, size, force_flash):
 
 
 def test_setup_refuses_peft_methods():
-    """LoRA is ported; EMBEDDING training and the other PEFT types
-    (LoHa, DoRA) are not, and the setup refuses them."""
+    """EMBEDDING training is not ported, and the setup refuses it; the
+    other PEFT types (LoHa, DoRA), refused until the PEFT slice, set up
+    with their adapters (tests/test_torch_port_peft.py holds them to the
+    reference)."""
     _, _, port = tiny_pair()
     config = PortTrainConfig.default_values()
     config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE
-    refused = [dict(training_method=pt_enums.TrainingMethod.EMBEDDING),
-               dict(training_method=pt_enums.TrainingMethod.LORA,
-                    peft_type=pt_enums.PeftType.LOHA),
-               dict(training_method=pt_enums.TrainingMethod.LORA,
-                    lora_decompose=True)]
-    for fields in refused:
+    case = config.clone()
+    case.training_method = pt_enums.TrainingMethod.EMBEDDING
+    with pytest.raises(NotImplementedError):
+        get_family(case.model_type).create_setup(port, case, 1)
+    for fields, leaves in ((dict(peft_type=pt_enums.PeftType.LOHA),
+                            {"hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b"}),
+                           (dict(lora_decompose=True),
+                            {"lora_down", "lora_up", "dora_scale"})):
         case = config.clone()
+        case.training_method = pt_enums.TrainingMethod.LORA
         for name, value in fields.items():
             setattr(case, name, value)
-        with pytest.raises(NotImplementedError):
-            get_family(case.model_type).create_setup(port, case, 1)
+        setup = get_family(case.model_type).create_setup(port, case, 1)
+        assert all(set(e) == leaves for e in setup.state.params["unet_lora"].values())
 
 
 @pytest.mark.parametrize("schedule", ["scaled_linear", "linear", "squaredcos_cap_v2"])

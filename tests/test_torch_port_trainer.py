@@ -225,7 +225,10 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
     beside a fine-tune, "masks" masked prior preservation, "optimizer" one
     other than AdamW and Adafactor (the EMA on the device, FINE_TUNE,
     masked training and gradient accumulation run:
-    tests/test_torch_port_trainer_finetune.py)."""
+    tests/test_torch_port_trainer_finetune.py). "lora_file", continuing
+    from a LoRA file, refused until the PEFT slice, now starts: the setup's
+    adapters are the file's tensors (bf16 there, fp32 here: exact), at the
+    file's rank and alpha."""
     config = _port(_config(runs["root"], f"refuse_{case}", runs["base"], runs["ds"]))
     if case == "validation":
         config.validation = True
@@ -257,7 +260,22 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
     elif case == "masks":
         config.masked_training = True
         config.masked_prior_preservation_weight = 0.5
-    _refuses(config)
+    if case != "lora_file":
+        _refuses(config)
+        return
+    from onetrainer_tpu_torch.peft.lora import peft_to_kohya_state_dict
+    config.lora_rank, config.lora_alpha = 2, 1.0   # the file's (r4, a8) win
+    trainer = create_trainer(config, device="cpu")
+    trainer.start()
+    setup = trainer.setup
+    assert (setup.peft_cfg.rank, setup.peft_cfg.alpha) == (4, 8.0)
+    lora = load_safetensors(config.lora_model_name)
+    got = peft_to_kohya_state_dict(setup.state.params["unet_lora"], setup.peft_cfg,
+                                   "lora_unet")
+    assert set(got) == {k for k in lora if k.startswith("lora_unet_")}
+    for key, value in got.items():
+        assert value.dtype == torch.float32, key
+        assert torch.equal(value, lora[key].float().reshape(value.shape)), key
 
 
 def test_entry_points_default_to_the_card():
