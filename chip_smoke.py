@@ -270,6 +270,27 @@ never falls back to the CPU. Phases, each of which must pass:
      block; FLUX: twice) and none while caching; the sample command on
      each output at 512x512, a non-constant uint8 image; each family's
      files deleted once checked.
+ 34. sdxl_embedding (after the SDXL fine-tune): textual inversion of SDXL
+     at its published widths, the UNet in bf16 under tx_only and both text
+     encoders frozen, the text run in the step on the batch's tokens,
+     `<emb>` of 4 tokens in CLIP-L and CLIP-G, AdamW, batch 2 at
+     1024x1024: one warm-up and two timed steps with exactly K1 140, K2,
+     K3 and the pre-pass 70 per step (CLIP-G's pooled embedding reaches
+     every self-attention through the time embedding), the UNet and text encoders bit for
+     bit unchanged, the vectors' gradients against plain attention, a
+     profiler split;
+ 35. sd15_vae_ft (after sd21_train): the SD 1.5 VAE fine-tuned in bf16
+     through FINE_TUNE_VAE with stochastic rounding, batch 4 at 512x512:
+     K5 once per step, no attention kernel, one step's K5 call held bit
+     for bit to the plain rounding;
+ 36. the EMBEDDING runs of the CLI phases: in sd15_cli, an input and an
+     output embedding through the train command with its resume (per step
+     K1 5, K2, K3 and the pre-pass 4), the embedding file read back bit
+     for bit, the sample command with --embedding-name on it, and LoRA
+     beside an additional embedding (bundled in the LoRA file) with its
+     resume; in sd3_cli, flux_cli and hunyuan_cli one EMBEDDING epoch each
+     on their cut models with their LoRA runs' launches per step (FLUX's
+     and HunyuanVideo's output embeddings over the NF4 base, K4 included).
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
@@ -292,6 +313,7 @@ import tempfile
 import sys
 import time
 import traceback
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1212,17 +1234,19 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
     return launches
 
 
-def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
+def _train_batch(torch, family, setup, batch_size: int, size: int,
+                 prompt: str = "a photograph of an astronaut riding a horse") -> dict:
     """A size x size batch through the port's caches: a seeded image
-    through the VAE encoder and a prompt through the text encoder(s),
+    through the VAE encoder and `prompt` through the text encoder(s),
     tiled; SDXL's also carries TE2's states and the crop metadata, SD3's
     the assembled context and pooled embeddings of its three encoders; a
-    step that trains a text encoder gets the prompt's tokens instead."""
+    step that trains a text encoder or embeddings gets the prompt's tokens
+    instead; a VAE fine-tune's, the image itself ("image")."""
     encode_images, encode_text = family.make_encode_fns(setup)
     gen = torch.Generator(device="cuda").manual_seed(11)
     image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
     latents = encode_images(image)
-    text = encode_text("a photograph of an astronaut riding a horse")
+    text = encode_text(prompt)
 
     def tile(t):
         return t.expand(batch_size, *t.shape[1:]).contiguous()
@@ -1236,6 +1260,8 @@ def _train_batch(torch, family, setup, batch_size: int, size: int) -> dict:
             batch[name] = tile(value[None])
         elif setup.step_cfg.train_text_encoder:   # the step runs the text encoders
             batch[name] = tile(torch.as_tensor(value, device="cuda")[None])
+    if setup.config.training_method.name == "FINE_TUNE_VAE":
+        batch["image"] = tile(image)
     if setup.config.model_type.is_stable_diffusion_xl():
         batch["original_resolution"] = torch.full((batch_size, 2), size, device="cuda")
         batch["crop_offset"] = torch.zeros((batch_size, 2), device="cuda")
@@ -1427,7 +1453,7 @@ def _grads_against_plain(torch, setup, batch, tag: str, plain_dequant: bool = Fa
     finite = bool(torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all())
     by_seq = {n: seqs.count(n) for n in sorted(set(seqs), reverse=True)}
     plain = "plain attention and the plain dequant" if plain_dequant else "plain attention"
-    print(f"[{tag}] LoRA gradients, kernels vs {plain}: rel L2 {rel:.3e} "
+    print(f"[{tag}] trained tensors' gradients, kernels vs {plain}: rel L2 {rel:.3e} "
           f"(bound {GRAD_REL_L2_BOUND:g}) over {g_kernel.numel()} values; K1 launches "
           f"of one forward by sequence length {by_seq}")
     return {"rel": rel, "finite": finite, "by_seq": by_seq}
@@ -2126,7 +2152,16 @@ def phase_sd15_cli(torch, bare_step_s, files: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     dora = _sd15_dora_cli(torch, files)
+    from onetrainer_tpu_torch.util.enums import ModelType
+    # EMBEDDING: the first self-attention's q, k and v do not depend on the text
+    embedding = _embedding_cli(
+        torch, "sd15_cli", ckpt, files["dataset"], ModelType.STABLE_DIFFUSION_15, CLI_SIZE,
+        {"K1": 5, "K2": 4, "K3": 4, "K3pre": 4, "K4": 0, "K5": 0},
+        {"emp_params", "output_emp_params"}, resume=True,
+        sample_argv=["--cfg", "7", "--scheduler", "DDIM"], sample_k1=20)
+    additional = _sd15_additional_embedding_cli(torch, files)
     return {"launches": {k: launches[k] + dora[k] for k in launches},
+            "embedding_launches": embedding, "additional_embedding_launches": additional,
             "step_s": statistics.median(step_s), "peak_gib": peak_gib}
 
 
@@ -2503,6 +2538,407 @@ def phase_sdxl_ft(torch) -> dict:
                        u_dtype=sorted(str(d) for d in u_dtypes),
                        shape=f"largest leaf of the SDXL fine-tune update, "
                              f"{k5['largest_numel']} elements")}
+
+
+# -- embeddings and the VAE fine-tune (phases sdxl_embedding, sd15_vae_ft;
+# the EMBEDDING runs of the CLI phases) --------------------------------------------------
+# the SDXL embedding: 4 tokens in CLIP-L and CLIP-G
+EMBEDDING_TOKENS = 4
+EMBEDDING_PROMPT = "a photograph of <emb> riding a horse"
+
+
+def _crc32_words(tokenizer):
+    """`tokenizer` (the port's no-file CLIP wrapper: the card has no
+    tokenizer files) with crc32 word ids in place of its fallback's Python
+    `hash`, which is salted per process: every run feeds the same ids."""
+    n = tokenizer.vocab_size - 2
+    tokenizer._tokenizer = lambda text, add_special_tokens=False: {
+        "input_ids": [zlib.crc32(w.encode()) % n + 1 for w in text.lower().split()]}
+    return tokenizer
+
+
+def _embedding_config(model_type, batch_size: int):
+    """EMBEDDING of EMBEDDING_TOKENS tokens, `<emb>`, started from "a
+    photograph": AdamW lr 1e-3, clip 1.0; the text encoders run in the
+    step."""
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+    config = TrainConfig.default_values()
+    config.model_type = model_type
+    config.training_method = TrainingMethod.EMBEDDING
+    config.batch_size = batch_size
+    config.learning_rate = 1e-3
+    config.learning_rate_warmup_steps = 0.0
+    config.clip_grad_norm = 1.0
+    config.embedding.placeholder = "<emb>"
+    config.embedding.token_count = EMBEDDING_TOKENS
+    config.embedding.initial_embedding_text = "a photograph"
+    return config
+
+
+def _timed_steps(torch, setup, batch, gen, tag: str) -> dict:
+    """One warm-up step, then TRAIN_STEPS timed ones with every launch
+    count zeroed just before them and read just after."""
+    t0 = time.perf_counter()
+    metrics = setup.train_step(setup.state, batch, gen)
+    first = [metrics["loss"].item(), metrics["grad_norm"].item()]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    step_s, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = setup.train_step(setup.state, batch, gen)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        step_s.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(step_s)
+    print(f"[{tag}] warm-up step {warm_s:.3f} s: loss {first[0]:.6f} grad_norm "
+          f"{first[1]:.6f}; {TRAIN_STEPS} timed steps: sec/step median {med:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in step_s)}), peak max_memory_allocated "
+          f"{peak_gib:.2f} GiB, losses {', '.join(f'{x:.6f}' for x in losses)}, grad_norms "
+          f"{', '.join(f'{x:.6f}' for x in norms)}, launches {launches}")
+    return dict(launches=launches, sec_per_step=med, peak_gib=peak_gib,
+                finite=_finite(first + losses + norms))
+
+
+def phase_sdxl_embedding(torch) -> dict:
+    """Textual inversion of SDXL at full width: the UNet in bf16 under
+    tx_only and both text encoders frozen, the text run in the step on the
+    batch's tokens, batch 2 at 1024x1024, `<emb>` of 4 tokens in CLIP-L
+    (768 wide) and CLIP-G (1280), AdamW: one warm-up and two timed steps
+    with exactly K1 140, K2, K3 and the pre-pass 70 per step (CLIP-G's
+    pooled embedding enters the time embedding, so every resnet, and every
+    self-attention after it, depends on the text: even the first block's
+    self-attention, before any cross-attention, takes the backward); the
+    UNet and both text encoders bit
+    for bit unchanged (copies on the host), only the 4x768 and 4x1280
+    vectors moved; one step's vector gradients with K1-K3 against plain
+    attention; a profiler split."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import ModelType
+    config = _embedding_config(ModelType.STABLE_DIFFUSION_XL_10_BASE, 2)
+    model = build_model(torch, torch.bfloat16)
+    family = get_family(config.model_type)
+    t0 = time.perf_counter()
+    from onetrainer_tpu_torch.setup.sd_setup import wrap_tokenizer
+    model.tokenizer = _crc32_words(wrap_tokenizer(model.tokenizer, model.te_config))
+    model.tokenizer_2 = _crc32_words(wrap_tokenizer(model.tokenizer_2, model.te2_config))
+    setup = family.create_setup(model, config, 100)
+    batch = _train_batch(torch, family, setup, 2, 1024, EMBEDDING_PROMPT)
+    torch.cuda.synchronize()
+    vectors = setup.state.params
+    shapes = {k: tuple(v.shape) for k, v in vectors.items()}
+    start = {k: v.detach().clone() for k, v in vectors.items()}
+    frozen = {name: [p.detach().to("cpu", copy=True) for p in m.parameters()]
+              for name, m in model.modules().items() if name != "vae"}
+    print(f"[sdxl_embedding] EMBEDDING {shapes}, UNet {next(model.unet.parameters()).dtype} "
+          f"under tx_only, text encoders fp32 and live, batch 2 at 1024x1024, tokens "
+          f"{batch['tokens'][0, :12].tolist()}, set up in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    run = _timed_steps(torch, setup, batch, gen, "sdxl_embedding")
+    t0 = time.perf_counter()
+    unchanged = {name: all(torch.equal(p.detach().cpu(), c) for p, c in
+                           zip(model.modules()[name].parameters(), copies))
+                 for name, copies in frozen.items()}
+    del frozen
+    moved = {k: not torch.equal(v, start[k]) for k, v in vectors.items()}
+    print(f"[sdxl_embedding] bit for bit unchanged {unchanged}, vectors moved {moved} "
+          f"(checked in {time.perf_counter() - t0:.2f} s)")
+    grads = _grads_against_plain(torch, setup, batch, "sdxl_embedding")
+    per_step = sum(SDXL_SELF_ATTN.values())
+    expected = {"K1": TRAIN_STEPS * 2 * sum(SDXL_SELF_ATTN.values()),
+                "K2": TRAIN_STEPS * per_step, "K3": TRAIN_STEPS * per_step,
+                "K3pre": TRAIN_STEPS * per_step, "K4": 0, "K5": 0}
+    checks = {
+        "vectors": shapes == {"embeddings": (EMBEDDING_TOKENS, 768),
+                              "embeddings_2": (EMBEDDING_TOKENS, 1280)},
+        "finite": run["finite"] and grads["finite"],
+        "launches per step": run["launches"] == expected,
+        "K1 by sequence length": grads["by_seq"] == {
+            s: 2 * c for s, c in SDXL_SELF_ATTN.items()},
+        "gradients against plain attention": grads["rel"] <= GRAD_REL_L2_BOUND,
+        "frozen parts bit for bit": all(unchanged.values()),
+        "vectors moved": all(moved.values()),
+    }
+    print(f"[sdxl_embedding] launches {run['launches']} (expected {expected}) checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sdxl_embedding failed: "
+                             f"{[k for k, ok in checks.items() if not ok]}")
+    profile_train_step(torch, setup, batch, gen, "sdxl_embedding")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"]}
+
+
+def phase_sd15_vae_ft(torch) -> dict:
+    """The SD 1.5 VAE fine-tune at full width: the VAE in bf16 through the
+    setup's FINE_TUNE_VAE (the UNet and text encoder frozen), AdamW lr
+    1e-5, clip 1.0, stochastic rounding, batch 4 at 512x512, the cached
+    latent decoded against the image: one warm-up and two timed steps with
+    exactly K5 once per step and no attention kernel (the VAE's one
+    attention is 512 wide: SDPA); one step with K5's call captured, bit for
+    bit against the plain rounding on the Philox bits of the largest, a
+    1-D, a 2-D and a 4-D leaf and a bf16 neighbour of p + u on every leaf;
+    the largest leaf's time against its bound; a profiler split."""
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import ModelType, TrainingMethod
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_DIFFUSION_15
+    config.training_method = TrainingMethod.FINE_TUNE_VAE
+    config.batch_size = 4
+    config.learning_rate = 1e-5
+    config.learning_rate_warmup_steps = 0.0
+    config.clip_grad_norm = 1.0
+    config.optimizer.stochastic_rounding = True
+    model = build_model(torch, None, config.model_type)
+    model.vae.to(torch.bfloat16)
+    family = get_family(config.model_type)
+    setup = family.create_setup(model, config, 100)
+    batch = _train_batch(torch, family, setup, 4, 512)
+    params = setup.state.params["vae"]
+    n_tensors, n_elements = len(params), sum(t.numel() for t in params.values())
+    start = [t.detach().clone() for t in params.values()]
+    print(f"[sd15_vae_ft] FINE_TUNE_VAE: {n_tensors} VAE tensors, {n_elements} elements, "
+          f"{ {t.dtype for t in params.values()} }, batch 4 at 512x512, image "
+          f"{tuple(batch['image'].shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    run = _timed_steps(torch, setup, batch, gen, "sd15_vae_ft")
+    # the decode trains the decoder; the encoder's tensors take no gradient
+    decoder = [i for i, name in enumerate(params) if not name.startswith(("encoder.",
+                                                                           "quant_conv."))]
+    values = list(params.values())
+    changed = sum(not torch.equal(start[i], values[i]) for i in decoder)
+    del start
+    with _K5Capture(torch, time_reps=10) as capture:
+        setup.train_step(setup.state, batch, gen)["loss"].item()
+    k5 = _k5_on_the_update(torch, capture)
+    u_dtypes, n_el = k5["u_dtypes"], k5["elements"]
+    set_bound = _bound_ms(0.0, (8 if torch.float32 in u_dtypes else 6) * n_el)
+    leaf = _k5_largest_leaf(torch, capture)
+    print(f"[sd15_vae_ft] K5 over the update on {gpu_line()}: {k5['leaves']} leaves, {n_el} "
+          f"elements, {k5['launches']} launch(es), u {sorted(str(d) for d in u_dtypes)}; "
+          f"bitwise {k5['bitwise']}; neighbours {k5['neighbours']}, exact {k5['exact']}; "
+          f"device {k5['device_ms']:.4f} ms, least time {set_bound[0]:.4f} ms, wrapper host "
+          f"{k5['wrapper_host_ms']:.4f} ms; largest leaf {leaf['shape']} {leaf['ms']:.4f} ms "
+          f"(with the wrapper {leaf['ms_with_wrapper']:.4f}), plain {leaf['plain_ms']:.4f}, "
+          f"bound {leaf['bound_ms']:.4f} ms")
+    del capture
+    profile_train_step(torch, setup, batch, gen, "sd15_vae_ft")
+    expected = {"K1": 0, "K2": 0, "K3": 0, "K3pre": 0, "K4": 0, "K5": TRAIN_STEPS}
+    checks = {
+        "bf16 VAE": all(t.dtype == torch.bfloat16 for t in params.values()),
+        "finite": run["finite"],
+        "decoder changed": changed > len(decoder) // 2,
+        "frozen parts": not any(p.requires_grad for name, m in model.modules().items()
+                                if name != "vae" for p in m.parameters()),
+        "launches per step": run["launches"] == expected,
+        "K5 one launch": k5["launches"] == 1 and k5["leaves"] == n_tensors,
+        "K5 bitwise on the named leaves": all(k5["bitwise"].values()),
+        "K5 neighbours on every leaf": k5["neighbours"] and k5["exact"],
+    }
+    print(f"[sd15_vae_ft] {changed} of the decoder's {len(decoder)} tensors changed; launches "
+          f"{run['launches']} (expected {expected}) checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_vae_ft failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"],
+            "k5": dict(ms=leaf["ms"], ms_with_wrapper=leaf["ms_with_wrapper"],
+                       plain_ms=leaf["plain_ms"], bound_ms=leaf["bound_ms"],
+                       bound_by=leaf["bound_by"], max_abs_err=k5["max_err"],
+                       set_ms=k5["device_ms"], set_bound_ms=set_bound[0],
+                       set_host_ms=k5["wrapper_host_ms"], leaves=k5["leaves"], elements=n_el,
+                       u_dtype=sorted(str(d) for d in u_dtypes),
+                       shape=f"largest leaf of the SD 1.5 VAE fine-tune update, "
+                             f"{k5['largest_numel']} elements")}
+
+
+# the CLI EMBEDDING runs: "astronaut", in every caption, an input embedding
+# of 2 tokens; "horse" an output embedding of 1 token
+def _embedding_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: int,
+                   per_step: dict, keys: set, configure=None, resume: bool = False,
+                   sample_argv: list | None = None, sample_k1: int = 0) -> dict:
+    """EMBEDDING through the train command on sd15_files' PNGs at size x
+    size, batch 4: "astronaut" (in every caption) an input embedding of 2
+    tokens started from "a photograph", "horse" an output embedding of one;
+    `configure(config)` sets the family's weights and checkpointing. Epoch
+    1 (with a backup when `resume`, then the resume for epoch 2): exactly
+    `per_step` launches per step and none while caching, the cache's rows
+    carry the tokens (the text runs in the step), the embedding file holds
+    `keys`, each the trained vectors bit for bit (fp32); with `sample_argv`
+    the sample command with --embedding-name on that file (`sample_k1` K1)."""
+    from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
+    from onetrainer_tpu_torch.io.png import read_png
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.scripts import sample
+    from onetrainer_tpu_torch.setup.families import embedding_file_keys
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+
+    root = os.path.join(os.path.dirname(ckpt), "embedding")
+    os.makedirs(root)
+    config = _cli_config(root, ckpt, dataset)
+    config.model_type = model_type
+    config.resolution = str(size)
+    config.training_method = TrainingMethod.EMBEDDING
+    config.learning_rate = 1e-3
+    config.embedding.placeholder = "astronaut"
+    config.embedding.token_count = 2
+    config.embedding.initial_embedding_text = "a photograph"
+    out = TrainEmbeddingConfig.default_values()
+    out.placeholder, out.token_count, out.initial_embedding_text = "horse", 1, "horse"
+    out.is_output_embedding = True
+    config.additional_embeddings = [out]
+    config.backup_before_save = resume
+    config.output_model_destination = os.path.join(root, "embedding.safetensors")
+    if configure is not None:
+        configure(config)
+    paths = [os.path.join(root, "epoch1.json")]
+    with open(paths[0], "w") as f:
+        json.dump(config.to_dict(), f)
+    if resume:
+        config.epochs = 2
+        config.continue_last_backup = True
+        paths.append(os.path.join(root, "epoch2.json"))
+        with open(paths[1], "w") as f:
+            json.dump(config.to_dict(), f)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    runs, trainer = [], None
+    t0 = time.perf_counter()
+    for path in paths:
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        events = []
+        trainer, _ = _cli_run(torch, path, events)
+        runs.append(events)
+    train_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    steps, cache_launches, _ = _cli_timeline(*runs)
+    vectors = {k: v.detach().cpu() for k, v in trainer.setup.state.params.items()}
+    written = load_safetensors(config.output_model_destination)
+    save_keys = embedding_file_keys(trainer.setup)
+    bitwise = set(written) == keys == set(save_keys.values()) and all(
+        torch.equal(written[name], vectors[group]) for group, name in save_keys.items())
+    cache_files = [os.path.join(config.cache_dir, f) for f in os.listdir(config.cache_dir)]
+    rows = [load_safetensors(f) for f in cache_files]
+    live = len(rows) == CLI_IMAGES and all(
+        not any(k.endswith(("hidden_state", "pooled_state", "context", "pooled"))
+                for k in r) for r in rows)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    none = {k: 0 for k in per_step}
+    n_steps = 2 * len(paths)
+    checks = {
+        "launches per step": len(steps) == n_steps and all(d == per_step for _, d, _ in steps),
+        "none while caching": all(c == none for c in cache_launches),
+        "embedding file": bitwise,
+        "text live": live,
+        "vectors": {k: tuple(v.shape)[0] for k, v in vectors.items()}
+        == {k: (2 if k.startswith("embeddings") else 1) for k in vectors},
+    }
+    sample_launches, sample_s = None, None
+    if sample_argv is not None:
+        before = _launch_counts()
+        image_path = os.path.join(root, "sample.png")
+        t0 = time.perf_counter()
+        result = sample.main(["--model-type", model_type.value, "--base-model-name", ckpt,
+                              "--prompt", "a photograph of <embedding> riding a horse",
+                              "--destination", image_path, "--steps", "4",
+                              "--width", str(size), "--height", str(size),
+                              "--embedding-name", config.output_model_destination]
+                             + sample_argv)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        sample_launches = _delta(_launch_counts(), before)
+        image = read_png(image_path)
+        checks["sample"] = (sample_launches == {**none, "K1": sample_k1}
+                            and image.std() > 0 and bool((image == result.image).all()))
+    print(f"[{tag}] EMBEDDING through the train command ({len(paths)} run(s), "
+          f"{train_s:.2f} s): vectors {({k: tuple(v.shape) for k, v in vectors.items()})}, "
+          f"file {sorted(written)}; steps (global step, s): "
+          f"{', '.join(f'{g}: {s:.4f}' for g, _, s in steps)}; launches {launches}"
+          + (f"; sample with --embedding-name {sample_s:.2f} s, {sample_launches}"
+             if sample_launches is not None else "") + f"; checks {checks}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} EMBEDDING failed: "
+                             f"{[k for k, ok in checks.items() if not ok]}")
+    return launches
+
+
+def _cli_weights(prior_dtype=None):
+    """`_embedding_cli`'s `configure` for the DiT CLI phases: the weights
+    of their LoRA runs (bf16, the transformer in `prior_dtype`), gradient
+    checkpointing on."""
+    def configure(config):
+        from onetrainer_tpu_torch.util.enums import DataType, GradientCheckpointingMethod
+        config.weight_dtype = DataType.BFLOAT_16
+        if prior_dtype is not None:
+            config.prior.weight_dtype = prior_dtype
+        config.gradient_checkpointing = GradientCheckpointingMethod.ON
+    return configure
+
+
+def _sd15_additional_embedding_cli(torch, files: dict) -> dict:
+    """sd15_cli's LoRA beside one additional embedding ("astronaut", 2
+    tokens) through the train command: epoch 1 with a backup, the resume
+    for epoch 2 (the adapters and the vectors from the backup), exactly
+    sd15_cli's launches per step (the adapters need every self-attention's
+    gradients), the LoRA file bundling the vectors bit for bit as
+    `bundle_emb.astronaut.emp_params`. -> the launches of both runs."""
+    from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    root = os.path.join(os.path.dirname(files["ckpt"]), "lora_embedding")
+    os.makedirs(root)
+    config = _cli_config(root, files["ckpt"], files["dataset"])
+    extra = TrainEmbeddingConfig.default_values()
+    extra.placeholder, extra.token_count, extra.initial_embedding_text = \
+        "astronaut", 2, "a photograph"
+    config.additional_embeddings = [extra]
+    paths = [os.path.join(root, "epoch1.json"), os.path.join(root, "epoch2.json")]
+    with open(paths[0], "w") as f:
+        json.dump(config.to_dict(), f)
+    config.epochs = 2
+    config.continue_last_backup = True
+    with open(paths[1], "w") as f:
+        json.dump(config.to_dict(), f)
+    _reset_launch_counts()
+    runs, trainer = [], None
+    for path in paths:
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        events = []
+        trainer, _ = _cli_run(torch, path, events)
+        runs.append(events)
+    launches = _launch_counts()
+    steps, _, _ = _cli_timeline(*runs)
+    written = load_safetensors(config.output_model_destination)
+    vectors = trainer.setup.state.params["embeddings"].detach().cpu()
+    per_step = {"K1": 5, "K2": 5, "K3": 5, "K3pre": 5, "K4": 0, "K5": 0}
+    checks = {
+        "groups": set(trainer.setup.state.params) == {"unet_lora", "embeddings"},
+        "launches per step": len(steps) == 4 and all(d == per_step for _, d, _ in steps),
+        "bundled": torch.equal(written["bundle_emb.astronaut.emp_params"], vectors),
+        "global step": trainer.train_progress.global_step == 4,
+    }
+    print(f"[sd15_cli] LoRA beside an additional embedding {tuple(vectors.shape)}: steps "
+          f"{[(g, round(s, 4)) for g, _, s in steps]}, launches {launches}, checks {checks}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_cli additional embedding failed: "
+                             f"{[k for k, ok in checks.items() if not ok]}")
+    return launches
 
 
 def update_launches(sizes: list) -> int:
@@ -3231,12 +3667,19 @@ def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
     per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS,
                 "K4": 0, "K5": 0}
     latent = SD3_CLI_SIZE // 8
-    return _dit_lora_cli(
+    result = _dit_lora_cli(
         torch, "sd3_cli", ckpt, dataset, ModelType.STABLE_DIFFUSION_3, SD3_CLI_SIZE,
         per_step, SD3_LORA_LAYERS,
         {"latent_image": (latent, latent, 16), "sd3_context": (154, 4096),
          "sd3_pooled": (2048,)}, ["--cfg", "7"], 4 * SD3_BLOCKS, "dots_nb_attn",
         "fp16 diffusers directory to bf16 on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["embedding_launches"] = _embedding_cli(
+        torch, "sd3_cli", ckpt, dataset, ModelType.STABLE_DIFFUSION_3, SD3_CLI_SIZE, per_step,
+        {"clip_l", "clip_g", "t5", "clip_l_out", "clip_g_out", "t5_out"},
+        configure=_cli_weights())
+    return result
 
 
 # FLUX.1-dev: 19 double-stream and 38 single-stream blocks, one attention
@@ -3617,12 +4060,18 @@ def phase_flux_cli(torch, ckpt: str, dataset: str) -> dict:
     per_step = {"K1": 2 * blocks, "K2": blocks, "K3": blocks, "K3pre": blocks,
                 "K4": n_quant + n_in_blocks, "K5": 0}
     latent = FLUX_CLI_SIZE // 8
-    return _dit_lora_cli(
+    result = _dit_lora_cli(
         torch, "flux_cli", ckpt, dataset, ModelType.FLUX_DEV_1, FLUX_CLI_SIZE, per_step,
         n_quant, {"latent_image": (latent, latent, 16), "t5_hidden_state": (77, 4096),
                   "clip_pooled_state": (768,)}, ["--cfg", str(FLUX_GUIDANCE)],
         4 * blocks, "full", "bf16 diffusers directory to the card, the transformer "
         "quantized to NF4", prior_dtype=DataType.NFLOAT_4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["embedding_launches"] = _embedding_cli(
+        torch, "flux_cli", ckpt, dataset, ModelType.FLUX_DEV_1, FLUX_CLI_SIZE, per_step,
+        {"clip_l", "t5", "t5_out"}, configure=_cli_weights(DataType.NFLOAT_4))
+    return result
 
 
 # HunyuanVideo: 20 double-stream and 40 single-stream blocks, one joint
@@ -3978,7 +4427,7 @@ def phase_hunyuan_cli(torch, ckpt: str, dataset: str) -> dict:
     per_step = {"K1": 2 * blocks, "K2": blocks, "K3": blocks, "K3pre": blocks,
                 "K4": n_quant + n_in_blocks, "K5": 0}
     latent = HV_CLI_SIZE // 8
-    return _dit_lora_cli(
+    result = _dit_lora_cli(
         torch, "hunyuan_cli", ckpt, dataset, ModelType.HUNYUAN_VIDEO, HV_CLI_SIZE, per_step,
         n_quant, {"latent_image": (1, latent, latent, 16),
                   "text_encoder_1_hidden_state": (HV_TEXT_TOKENS, HV_TEXT_DIM),
@@ -3987,6 +4436,12 @@ def phase_hunyuan_cli(torch, ckpt: str, dataset: str) -> dict:
         ["--cfg", str(HV_GUIDANCE)], 4 * blocks, "full",
         "bf16 diffusers directory to the card, the transformer quantized to NF4",
         prior_dtype=DataType.NFLOAT_4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["embedding_launches"] = _embedding_cli(
+        torch, "hunyuan_cli", ckpt, dataset, ModelType.HUNYUAN_VIDEO, HV_CLI_SIZE, per_step,
+        {"llama", "clip_l", "llama_out"}, configure=_cli_weights(DataType.NFLOAT_4))
+    return result
 
 
 # the files the CLI phases write hold T5-XXL cut to CUT_T5_LAYERS of its 24
@@ -4371,7 +4826,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
               k5_dit[path]["max_abs_err"], k5_dit[path]["ms"], k5_dit[path]["plain_ms"],
               k5_dit[path]["bound_ms"], k5_dit[path]["bound_by"], None, k5_dit[path]["shape"])
              for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"),
-                                 ("hunyuan_ft", "HunyuanVideo"))]
+                                 ("hunyuan_ft", "HunyuanVideo"),
+                                 ("sd15_vae_ft", "SD 1.5 VAE"))]
     rows.append(("nf4_dequant_flat (K4) under DoRA", "K4", "nf4_dequant.cu",
                  "onetrainer_tpu/ops/nf4_pallas.py:41", "sdxl_dora",
                  max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
@@ -4382,6 +4838,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
                             " at SD3's B2 S4250 H24 d64 (the fine-tune)")
     rows += _attention_rows(k1, k23, FLUX_SAMPLE_SHAPE, "flux_ft", (1, 4173, 4173, 24, 128),
                             " at FLUX's B1 S4173 H24 d128 (the fine-tune)")
+    rows += _attention_rows(k1, k23, "sdxl_b2_s4096_h10_d64", "sdxl_embedding",
+                            (2, 4096, 4096, 10, 64), " in the SDXL embedding step")
     kernels = []
     for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,
          library_ms, shape) in rows:
@@ -4466,6 +4924,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             run(*peft, torch, model)
             del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("sdxl_embedding", phase_sdxl_embedding, torch)
     import shutil
     import tempfile
     gc.collect()
@@ -4498,6 +4959,9 @@ def main() -> int:
             "sd21_train")
     del model
     results.pop("sd21_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("sd15_vae_ft", phase_sd15_vae_ft, torch)
     gc.collect()
     torch.cuda.empty_cache()
     model = run("sd3_model", build_sd3_model, torch)
@@ -4628,11 +5092,16 @@ def main() -> int:
                              "sd15_cli", "sd15_ft_cli", "sd3_train", "sd3_cli", "flux_train",
                              "flux_cli", "hunyuan_train", "hunyuan_cli", "flux_fill_train",
                              "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
-                             "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft")}}
+                             "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft",
+                             "sdxl_embedding", "sd15_vae_ft")},
+                **{f"{p.removesuffix('_cli')}_embedding_cli": results[p]["embedding_launches"]
+                   for p in ("sd15_cli", "sd3_cli", "flux_cli", "hunyuan_cli")},
+                "sd15_lora_embedding_cli": results["sd15_cli"]["additional_embedding_launches"]}
     print(json.dumps(_kernel_table(results["k1"], results["k23"], results["k4"],
                                    results["k5"], results["sdxl_ft"]["k5"], launches,
                                    {p: results[p]["k5"] for p in ("sd3_ft", "flux_ft",
-                                                                  "hunyuan_ft")})))
+                                                                  "hunyuan_ft",
+                                                                  "sd15_vae_ft")})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -286,6 +286,7 @@ class Text2ImageDataLoader:
             conditioning_image: bool = False,
             fill_mask_channels: bool = False,
             video_mode: bool = False,
+            cache_pixels: bool = False,
     ):
         model_type = config.model_type
         if model_type.has_depth_input():
@@ -298,6 +299,9 @@ class Text2ImageDataLoader:
         # video families: config.frames consecutive frames per video file
         self.video_mode = video_mode
         self.frames = max(int(float(config.frames or 1)), 1) if video_mode else 1
+        # the VAE fine-tune: the original pixels ("image", NHWC in [-1, 1])
+        # cached beside the latents as the decode's target
+        self.cache_pixels = cache_pixels
         self.config = config
         self.encode_images = encode_images
         self.encode_text = encode_text
@@ -483,6 +487,7 @@ class Text2ImageDataLoader:
                           "text_encoder_3_layer_skip",
                           "text_encoder_4_layer_skip")],
             **self._conditioning_key(e),
+            **({"pixels": True} if self.cache_pixels else {}),
         }
 
     def _conditioning_key(self, e: SampleEntry) -> dict:
@@ -569,8 +574,10 @@ class Text2ImageDataLoader:
                     encoded_cond = self._safe_encode(np.stack([
                         self._conditioning_pixels(s, *pixels)
                         for s, pixels in zip(chunk, loaded)]))["latent_image"]
-                for j, (s, (_, mask, info)) in enumerate(zip(chunk, loaded)):
+                for j, (s, (img, mask, info)) in enumerate(zip(chunk, loaded)):
                     tensors = {k: _host(v[j]) for k, v in encoded.items()}
+                    if self.cache_pixels:
+                        tensors["image"] = _host(np.asarray(img, np.float32))
                     tensors["latent_mask"] = self._latent_mask(mask)
                     tensors.update(self._crop_metadata(s, info))
                     if encoded_cond is not None:
@@ -639,6 +646,8 @@ class Text2ImageDataLoader:
         else:
             img, mask, info = self._load_pixels(sample)
             row = {k: _host(v[0]) for k, v in self.encode_images(img[None]).items()}
+            if self.cache_pixels:
+                row["image"] = _host(np.asarray(img, np.float32))
             row["latent_mask"] = _host(self._latent_mask(mask))
             row.update({k: _host(v) for k, v in self._crop_metadata(sample, info).items()})
             cond = self._conditioning_pixels(sample, img, mask, info)

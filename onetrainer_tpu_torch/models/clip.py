@@ -126,6 +126,21 @@ class _TextTransformer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
 
+def embed_tokens(ids: torch.Tensor, table: torch.Tensor,
+                 extra: torch.Tensor | None = None) -> torch.Tensor:
+    """The embeddings of token `ids` in `table` [V, d]; ids >= V index the
+    trained rows `extra` [N, d] (textual inversion), cast to the table's
+    dtype. Equal to a lookup in the concatenated table, but the rows are
+    gathered apart, so a backward forms no table-sized gradient."""
+    ids = ids.long()
+    if extra is None:
+        return F.embedding(ids, table)
+    vocab = table.shape[0]
+    rows = F.embedding((ids - vocab).clamp(min=0), extra.to(table.dtype))
+    return torch.where((ids >= vocab)[..., None], rows,
+                       F.embedding(ids.clamp(max=vocab - 1), table))
+
+
 class CLIPTextModel(nn.Module):
     """Returns all hidden states so callers can layer-skip.
 
@@ -147,10 +162,7 @@ class CLIPTextModel(nn.Module):
         c = self.cfg
         tm = self.text_model
         b, s = input_ids.shape
-        table = tm.embeddings.token_embedding.weight
-        if extra_embeddings is not None:
-            table = torch.cat([table, extra_embeddings.to(table.dtype)], dim=0)
-        x = F.embedding(input_ids.long(), table)
+        x = embed_tokens(input_ids, tm.embeddings.token_embedding.weight, extra_embeddings)
         x = (x + tm.embeddings.position_embedding.weight[None, :s]).to(c.dtype)
 
         # causal mask (CLIP text is causal), combined with padding

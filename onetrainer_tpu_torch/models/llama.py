@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onetrainer_tpu_torch.models.clip import embed_tokens
 from onetrainer_tpu_torch.models.layers import linear
 
 
@@ -141,10 +142,7 @@ class LlamaEncoder(nn.Module):
         "last_hidden_state": that output}, in the compute dtype.
         `extra_embeddings` [N, hidden] are trained vectors appended past the
         vocabulary (ids >= vocab_size index them)."""
-        table = self.embed_tokens.weight
-        if extra_embeddings is not None:
-            table = torch.cat([table, extra_embeddings.to(table.dtype)], dim=0)
-        x = F.embedding(input_ids.long(), table).to(self.cfg.dtype)
+        x = embed_tokens(input_ids, self.embed_tokens.weight, extra_embeddings).to(self.cfg.dtype)
         s = input_ids.shape[1]
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, None]
         if attention_mask is not None:

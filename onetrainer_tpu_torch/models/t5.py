@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onetrainer_tpu_torch.models.clip import embed_tokens
 from onetrainer_tpu_torch.models.layers import linear
 
 
@@ -176,10 +177,7 @@ class T5Encoder(nn.Module):
         """[B, S] token ids -> [B, S, d_model] in the compute dtype.
         `extra_embeddings` [N, d_model] are trained vectors appended past
         the vocabulary (ids >= vocab_size index them)."""
-        table = self.shared.weight
-        if extra_embeddings is not None:
-            table = torch.cat([table, extra_embeddings.to(table.dtype)], dim=0)
-        x = F.embedding(input_ids.long(), table).to(self.cfg.dtype)
+        x = embed_tokens(input_ids, self.shared.weight, extra_embeddings).to(self.cfg.dtype)
         position_bias = None
         run_blocks = max(self.cfg.num_layers - max(int(layer_skip), 0), 1)
         for block in self.encoder.block[:run_blocks]:

@@ -254,9 +254,10 @@ class RankDropout:
 
     def draw(self, params: dict, generator: torch.Generator) -> dict:
         """One step's masks {group: {module_key: mask}} for the adapter
-        groups `params`, in their order (`draw_rank_keep`)."""
+        groups of `params`, in their order (`draw_rank_keep`); other groups
+        (embedding vectors) draw none."""
         return {group: draw_rank_keep(tree, self.p, generator)
-                for group, tree in params.items()}
+                for group, tree in params.items() if group in self.adapters}
 
     @contextmanager
     def masked(self, keep: dict):

@@ -48,15 +48,18 @@ def sample_hunyuan_video(
     if generator is None:
         generator = sample_rng_for(sample_config, device)
 
+    # trained embedding rows: (Llama's, CLIP-L's), or Llama's alone
+    extra_1, extra_2 = extra_embeddings if isinstance(extra_embeddings, tuple) \
+        else (extra_embeddings, None)
     tokens = tokenize(sample_config.prompt)
     t1 = torch.as_tensor(tokens, dtype=torch.int32, device=device)[None]
     mask = torch.as_tensor(tokenize.mask(tokens), dtype=torch.int32, device=device)[None]
-    states = encode_llama_text(text_encoder(t1, mask, extra_embeddings), 0,
+    states = encode_llama_text(text_encoder(t1, mask, extra_1), 0,
                                default_layer=-3, crop_start=PROMPT_TEMPLATE_CROP_START)
     mask = mask[:, PROMPT_TEMPLATE_CROP_START:]
     t2 = torch.as_tensor(tokenize_2(sample_config.prompt), dtype=torch.int32,
                          device=device)[None]
-    pooled = text_encoder_2(t2)["pooled_output"]
+    pooled = text_encoder_2(t2, None, extra_2)["pooled_output"]
 
     vc = model.vae_config
     scale = vc.spatial_scale

@@ -4,7 +4,7 @@
         --base-model-name <dir-or-file> --prompt "a cat" \
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
         [--sample-inpainting --base-image-path base.png --mask-image-path mask.png] \
-        [--device cuda]
+        [--embedding-name embedding.safetensors] [--device cuda]
 
 The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and
 HunyuanVideo text-to-image run (SD3, FLUX and HunyuanVideo from a
@@ -17,8 +17,12 @@ image), and so do the inpainting models: SD 1.5 and SD 2.0 inpainting,
 SDXL inpainting and FLUX.1-fill, which with `--sample-inpainting` fill the
 white region of `--mask-image-path` in `--base-image-path` (both resized to
 the sample's size; PNGs need no Pillow) and without it start from a black
-image and a full mask, as the reference does. Other model types,
-embeddings and Würstchen decoders raise NotImplementedError. Sampling runs
+image and a full mask, as the reference does. `--embedding-name` loads a
+trained embedding file (the train command's EMBEDDING output, or the
+reference's) into each text encoder's rows past its vocabulary, under the
+file's placeholder: the config's `embedding.placeholder`, `<embedding>` by
+default, which the prompt names (the reference's scripts/sample.py:69-74).
+Other model types and Würstchen decoders raise NotImplementedError. Sampling runs
 on the card unless `--device` names another device. A PNG destination is
 written by the port's own PNG codec; other formats need Pillow.
 """
@@ -47,7 +51,7 @@ def parse_args(argv: list[str] | None = None):
     p.add_argument("--decoder-model-name", default="",
                    help="Würstchen/Cascade stage-B decoder repo dir (not ported)")
     p.add_argument("--embedding-name", default="",
-                   help="a trained embedding safetensors to apply (not ported)")
+                   help="a trained embedding safetensors to apply")
     p.add_argument("--text-encoder-layer-skip", type=int, default=0)
     p.add_argument("--sample-inpainting", action="store_true", default=False)
     p.add_argument("--base-image-path", default="",
@@ -82,11 +86,8 @@ def main(argv: list[str] | None = None):
         DataType, ModelType, NoiseScheduler, TrainingMethod,
     )
 
-    unported = {"--decoder-model-name": args.decoder_model_name,
-                "--embedding-name": args.embedding_name}
-    asked = [flag for flag, value in unported.items() if value]
-    if asked:
-        raise NotImplementedError(f"not ported to the torch sampler yet: {', '.join(asked)}")
+    if args.decoder_model_name:
+        raise NotImplementedError("not ported to the torch sampler yet: --decoder-model-name")
     config = TrainConfig.default_values()
     config.model_type = ModelType[args.model_type]
     if not (config.model_type.is_stable_diffusion()
@@ -102,6 +103,10 @@ def main(argv: list[str] | None = None):
     config.prior.train = False
     config.text_encoder.train = False
     config.text_encoder_2.train = False
+    if args.embedding_name:
+        # the embedding's vectors become the text encoders' extra rows
+        config.training_method = TrainingMethod.EMBEDDING
+        config.embedding.model_name = args.embedding_name
     if args.weight_dtype:
         config.weight_dtype = DataType[args.weight_dtype]
 

@@ -482,7 +482,8 @@ def cast_float_tensor(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tenso
 def save_lora_output(setup, destination: str, lora_prefixes: dict,
                      save_dtype: torch.dtype | None = None) -> str:
     """kohya-format LoRA safetensors across all adapter groups (the EMA's
-    when the train state holds one), every float tensor cast to
+    when the train state holds one), with trained additional embeddings
+    bundled as `bundle_emb.<placeholder>.emp_params`, every float tensor cast to
     `save_dtype` (the configured output_dtype), with modelspec metadata
     (reference: StableDiffusionLoRASaver.py:33-41, LoRASaverMixin.save).
     -> the path written."""
@@ -492,6 +493,15 @@ def save_lora_output(setup, destination: str, lora_prefixes: dict,
     for key, prefix in lora_prefixes.items():
         if key in params:
             tensors.update(peft_to_kohya_state_dict(params[key], setup.peft_cfg, prefix))
+    if "embeddings" in params and setup.config.bundle_additional_embeddings:
+        # trained additional embeddings bundled beside the adapters (the
+        # first text encoder's vectors, as the reference's families.py:1194-1203)
+        for e in setup.config.all_embedding_configs():
+            span = setup.embedding_ids.get(e.uuid)
+            if span is not None:
+                start, count = span
+                tensors[f"bundle_emb.{e.placeholder}.emp_params"] = \
+                    params["embeddings"][start:start + count]
     tensors = {k: cast_float_tensor(v, save_dtype).detach().cpu() for k, v in tensors.items()}
     if not destination.endswith(".safetensors"):
         destination += ".safetensors"
@@ -501,4 +511,43 @@ def save_lora_output(setup, destination: str, lora_prefixes: dict,
         resolution=setup.config.resolution, train_config=setup.config,
         tensors=tensors)
     save_safetensors(destination, tensors, metadata={"format": "pt", **meta})
+    return destination
+
+
+# trained embedding group -> its file key in a family of several text
+# encoders without keys of its own (SDXL, SD3; the reference's
+# trainer/generic_trainer.py:396-405)
+MULTI_ENCODER_EMBEDDING_KEYS = {
+    "embeddings": "clip_l", "embeddings_2": "clip_g", "embeddings_3": "t5",
+    "output_embeddings": "clip_l_out", "output_embeddings_2": "clip_g_out",
+    "output_embeddings_3": "t5_out"}
+
+
+def embedding_file_keys(setup) -> dict:
+    """{trained embedding group: its key in the EMBEDDING output file}: the
+    family's keys (`setup.embedding_save_keys`: FLUX's clip_l/t5/t5_out,
+    HunyuanVideo's llama/clip_l/llama_out), `MULTI_ENCODER_EMBEDDING_KEYS`
+    for SDXL and SD3, else `emp_params` and `output_emp_params` (the
+    reference's trainer/generic_trainer.py:389-420)."""
+    params = setup.state.params
+    keys = getattr(setup, "embedding_save_keys", None)
+    if keys is None and any(k.endswith(("_2", "_3")) for k in params):
+        keys = MULTI_ENCODER_EMBEDDING_KEYS
+    if keys is None:
+        keys = {"embeddings": "emp_params", "output_embeddings": "output_emp_params"}
+    return {group: name for group, name in keys.items() if group in params}
+
+
+def save_embedding_output(setup, destination: str,
+                          save_dtype: torch.dtype | None = None) -> str:
+    """The EMBEDDING output under `embedding_file_keys` (the EMA's vectors
+    when the train state holds one), every tensor cast to `save_dtype`.
+    -> the path written."""
+    state = setup.state
+    params = state.params if state.ema is None else state.ema.params
+    tensors = {name: cast_float_tensor(params[group], save_dtype).detach().cpu()
+               for group, name in embedding_file_keys(setup).items()}
+    if not destination.endswith(".safetensors"):
+        destination += ".safetensors"
+    save_safetensors(destination, tensors, metadata={"format": "pt"})
     return destination

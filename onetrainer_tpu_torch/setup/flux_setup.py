@@ -15,8 +15,9 @@ trains the transformer (as `prior`) and CLIP-L, each when its part
 trains, as parameter groups with their own schedules
 (setup/sd_setup.py:setup_fine_tune; the reference's flux_setup.py:
 170-184); a FINE_TUNE config that trains no part builds no trainer (it
-serves sampling). EMBEDDING training and output embeddings raise
-(setup/sd_setup.py: refuse_unported).
+serves sampling). EMBEDDING trains input vectors of CLIP-L and T5 and
+output vectors patched into T5's output (setup/sd_setup.py:
+setup_embeddings), as additional embeddings do beside LoRA and FINE_TUNE.
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ from onetrainer_tpu_torch.io.torch_flax import clip_torch_key_map
 from onetrainer_tpu_torch.models.flux_model import FluxModel
 from onetrainer_tpu_torch.peft.lora import PeftConfig
 from onetrainer_tpu_torch.setup.sd_setup import (
-    image_encoder, refuse_unported, setup_fine_tune, setup_lora, wrap_tokenizer,
+    EmbeddingEncoder, embedding_step_fields, image_encoder, inference_extra,
+    refuse_unported, setup_embeddings, setup_training, trained_embeddings, wrap_tokenizer,
 )
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer, T5TokenizerWrapper
 from onetrainer_tpu_torch.train.flux_train_step import make_flux_train_step
-from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig
+from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, TrainedEmbeddings
 from onetrainer_tpu_torch.train.train_state import create_train_state
-from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
+from onetrainer_tpu_torch.util.enums import EMAMode
 
 # FLUX layer-filter presets (reference: FluxLoRASetup.PRESETS:12-16)
 FLUX_LORA_PRESETS = {
@@ -43,6 +45,9 @@ FLUX_LORA_PRESETS = {
     "attn-only": ("attn",),
     "full": (),
 }
+# trained embedding group -> its key in the embedding file
+FLUX_EMBEDDING_KEYS = {"embeddings": "clip_l", "embeddings_2": "t5",
+                       "output_embeddings_2": "t5_out"}
 # frozen part -> its ModelWeightDtypes attribute
 _QUANTIZABLE = {"transformer": "prior", "text_encoder": "text_encoder",
                 "text_encoder_2": "text_encoder_2"}
@@ -72,13 +77,19 @@ class FluxSetup:
     train_step: object = None
     state: object = None
     group_schedules: dict = field(default_factory=dict)
+    embeddings: TrainedEmbeddings | None = None
+    embedding_ids: dict = field(default_factory=dict)   # uuid -> (start, count)
+    # the embedding file's keys (reference: FluxEmbeddingSaver.py:29-35)
+    embedding_save_keys: dict = field(default_factory=lambda: dict(FLUX_EMBEDDING_KEYS))
 
     def merged_inference_params(self):
         """(transformer, text_encoder, text_encoder_2, (extra_1, extra_2))
-        modules for sampling: the model's own modules, whose layers carry
-        any trained LoRA adapters."""
-        m = self.model
-        return m.transformer, m.text_encoder, m.text_encoder_2, (None, None)
+        for sampling: the model's own modules, whose layers carry any
+        trained LoRA adapters, and each text encoder's trained embedding
+        rows."""
+        m, e = self.model, self.embeddings
+        return (m.transformer, m.text_encoder, m.text_encoder_2,
+                (inference_extra(e, 0), inference_extra(e, 1)))
 
 
 def flux_peft_config(config) -> PeftConfig:
@@ -96,37 +107,40 @@ def create_flux_setup(model: FluxModel, config, total_steps: int = 10_000,
     (setup/sd_setup.py:setup_lora, the transformer's config part being
     `prior`) or the FINE_TUNE groups (the transformer and CLIP-L, each when
     its part trains: setup/sd_setup.py:setup_fine_tune; CLIP-L training
-    runs the text encoders in the step), the clipped optimizer, the train
-    step and the train state. A FINE_TUNE config that trains nothing
-    freezes and quantizes the base for sampling and builds no trainer."""
+    runs the text encoders in the step) or the EMBEDDING vectors of CLIP-L
+    and T5, output embeddings patching T5's output alone (the reference's
+    flux_setup.py:132-169; additional embeddings train beside LoRA and
+    FINE_TUNE too), the clipped optimizer, the train step and the train
+    state. A FINE_TUNE config that trains nothing freezes and quantizes the
+    base for sampling and builds no trainer."""
     refuse_unported(config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     if not isinstance(model.tokenizer_2, T5TokenizerWrapper):
         model.tokenizer_2 = T5TokenizerWrapper(model.tokenizer_2,
                                                vocab_size=model.te2_config.vocab_size)
+    groups = setup_embeddings(
+        config, [EmbeddingEncoder("", model.text_encoder, model.tokenizer, patch_output=False),
+                 EmbeddingEncoder("_2", model.text_encoder_2, model.tokenizer_2)],
+        total_steps, steps_per_epoch)
     step_cfg = replace(
         SDStepConfig.from_train_config(config, "flow", 0),
         vae_scaling_factor=model.vae_config.scaling_factor,
         vae_shift_factor=model.vae_config.shift_factor,
-        train_text_encoder=config.train_text_encoder_or_embedding())
+        **embedding_step_fields(groups, config.train_text_encoder_or_embedding()))
     setup = FluxSetup(model=model, config=config, tokenizer=model.tokenizer,
-                      tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
-    rank_dropout = None
-    if config.training_method == TrainingMethod.LORA:
-        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
-         rank_dropout) = setup_lora(
-            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
-            total_steps, steps_per_epoch, parts=_PARTS,
-            peft_cfg=flux_peft_config(config))
-    else:
-        setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS)
-        if not setup.trainable:
-            return setup
+                      tokenizer_2=model.tokenizer_2, step_cfg=step_cfg,
+                      embedding_ids=groups.ids if groups else {})
+    trains, rank_dropout = setup_training(
+        setup, groups, _LORA_GROUPS, LORA_PREFIXES, _FINE_TUNE_GROUPS, _QUANTIZABLE,
+        total_steps, steps_per_epoch, parts=_PARTS,
+        peft_cfg=flux_peft_config(config))
+    if not trains:
+        return setup
+    setup.embeddings = trained_embeddings(groups, setup.trainable, ("", "_2"), step_cfg)
     setup.train_step = make_flux_train_step(model, step_cfg, setup.tx,
                                             guidance_scale=config.prior.guidance_scale,
-                                            rank_dropout=rank_dropout)
+                                            rank_dropout=rank_dropout,
+                                            embeddings=setup.embeddings)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

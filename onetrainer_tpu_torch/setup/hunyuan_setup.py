@@ -15,8 +15,10 @@ parameter group with its own schedule (setup/sd_setup.py:setup_fine_tune;
 the reference's hunyuan_setup.py:164-171); Llama and CLIP-L stay frozen,
 and with `text_encoder.train` set the text is not cached and both run in
 the step (the reference's :197-200). A FINE_TUNE config that trains no
-part builds no trainer (it serves sampling). EMBEDDING training and
-output embeddings raise (setup/sd_setup.py: refuse_unported).
+part builds no trainer (it serves sampling). EMBEDDING trains input
+vectors of Llama and CLIP-L and output vectors patched into Llama's
+cropped states (setup/sd_setup.py:setup_embeddings), as additional
+embeddings do beside LoRA and FINE_TUNE.
 """
 
 from __future__ import annotations
@@ -30,14 +32,19 @@ from onetrainer_tpu_torch.models.hunyuan_video_model import HunyuanVideoModel
 from onetrainer_tpu_torch.models.llama import encode_llama_text
 from onetrainer_tpu_torch.peft.lora import PeftConfig
 from onetrainer_tpu_torch.setup.sd_setup import (
-    refuse_unported, setup_fine_tune, setup_lora, wrap_tokenizer,
+    EmbeddingEncoder, embedding_step_fields, inference_extra, refuse_unported,
+    setup_embeddings, setup_training, trained_embeddings, wrap_tokenizer,
 )
 from onetrainer_tpu_torch.setup.tokenizer import LlamaTokenizerWrapper, SDTokenizer
 from onetrainer_tpu_torch.train.hunyuan_train_step import make_hunyuan_train_step
-from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig
+from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, TrainedEmbeddings
 from onetrainer_tpu_torch.train.train_state import create_train_state
-from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
+from onetrainer_tpu_torch.util.enums import EMAMode
 
+# trained embedding group -> its key in the embedding file
+# (reference: HunyuanVideoEmbeddingSaver.py:27-35)
+HUNYUAN_EMBEDDING_KEYS = {"embeddings": "llama", "embeddings_2": "clip_l",
+                          "output_embeddings": "llama_out"}
 # frozen part -> its ModelWeightDtypes attribute
 _QUANTIZABLE = {"transformer": "prior", "text_encoder": "text_encoder",
                 "text_encoder_2": "text_encoder_2"}
@@ -67,13 +74,18 @@ class HunyuanSetup:
     train_step: object = None
     state: object = None
     group_schedules: dict = field(default_factory=dict)
+    embeddings: TrainedEmbeddings | None = None
+    embedding_ids: dict = field(default_factory=dict)   # uuid -> (start, count)
+    embedding_save_keys: dict = field(default_factory=lambda: dict(HUNYUAN_EMBEDDING_KEYS))
 
     def merged_inference_params(self):
-        """(transformer, text_encoder, text_encoder_2, extra_embeddings)
-        modules for sampling: the model's own modules, whose layers carry
-        any trained LoRA adapters."""
-        m = self.model
-        return m.transformer, m.text_encoder, m.text_encoder_2, None
+        """(transformer, text_encoder, text_encoder_2, (extra_1, extra_2))
+        for sampling: the model's own modules, whose layers carry any
+        trained LoRA adapters, and each text encoder's trained embedding
+        rows (Llama's, CLIP-L's)."""
+        m, e = self.model, self.embeddings
+        return (m.transformer, m.text_encoder, m.text_encoder_2,
+                (inference_extra(e, 0), inference_extra(e, 1)))
 
 
 def create_hunyuan_setup(model: HunyuanVideoModel, config, total_steps: int = 10_000,
@@ -81,7 +93,10 @@ def create_hunyuan_setup(model: HunyuanVideoModel, config, total_steps: int = 10
     """Bind `model` and `config`: the tokenizers, the LoRA groups
     (setup/sd_setup.py:setup_lora) or the FINE_TUNE group
     (setup/sd_setup.py:setup_fine_tune), the transformer's config part
-    being `prior`, the clipped optimizer, the train step and the train
+    being `prior`, or the EMBEDDING vectors of Llama and CLIP-L, output
+    embeddings patching Llama's cropped states alone (the reference's
+    hunyuan_setup.py:119-159; additional embeddings train beside LoRA and
+    FINE_TUNE too), the clipped optimizer, the train step and the train
     state. A FINE_TUNE config that does not train the transformer builds
     no trainer: its setup freezes and quantizes the base for sampling."""
     refuse_unported(config)
@@ -89,26 +104,33 @@ def create_hunyuan_setup(model: HunyuanVideoModel, config, total_steps: int = 10
         model.tokenizer = LlamaTokenizerWrapper(model.tokenizer,
                                                 vocab_size=model.te_config.vocab_size)
     model.tokenizer_2 = wrap_tokenizer(model.tokenizer_2, model.te2_config)
+
+    def llama_context(tokens):
+        return encode_llama_text(model.text_encoder(tokens), 0, default_layer=-3,
+                                 crop_start=PROMPT_TEMPLATE_CROP_START)
+
+    groups = setup_embeddings(
+        config, [EmbeddingEncoder("", model.text_encoder, model.tokenizer,
+                                  encode_fn=llama_context, start=0),
+                 EmbeddingEncoder("_2", model.text_encoder_2, model.tokenizer_2,
+                                  patch_output=False)],
+        total_steps, steps_per_epoch)
     step_cfg = replace(
         SDStepConfig.from_train_config(config, "flow", config.text_encoder_layer_skip or 0),
-        vae_scaling_factor=model.vae_config.scaling_factor)
+        vae_scaling_factor=model.vae_config.scaling_factor,
+        **embedding_step_fields(groups, config.text_encoder.train))
     setup = HunyuanSetup(model=model, config=config, tokenizer=model.tokenizer,
-                         tokenizer_2=model.tokenizer_2, step_cfg=step_cfg)
-    rank_dropout = None
-    if config.training_method == TrainingMethod.LORA:
-        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
-         rank_dropout) = setup_lora(
-            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
-            total_steps, steps_per_epoch, parts=_PARTS)
-    else:
-        setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS)
-        if not setup.trainable:
-            return setup
+                         tokenizer_2=model.tokenizer_2, step_cfg=step_cfg,
+                         embedding_ids=groups.ids if groups else {})
+    trains, rank_dropout = setup_training(
+        setup, groups, _LORA_GROUPS, LORA_PREFIXES, _FINE_TUNE_GROUPS, _QUANTIZABLE,
+        total_steps, steps_per_epoch, parts=_PARTS)
+    if not trains:
+        return setup
+    setup.embeddings = trained_embeddings(groups, setup.trainable, ("", "_2"), step_cfg)
     setup.train_step = make_hunyuan_train_step(
         model, step_cfg, setup.tx, guidance_scale=config.prior.guidance_scale or 1.0,
-        rank_dropout=rank_dropout)
+        rank_dropout=rank_dropout, embeddings=setup.embeddings)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

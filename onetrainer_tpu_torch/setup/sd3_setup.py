@@ -13,8 +13,9 @@ text-embedding caching. FINE_TUNE trains the transformer (as `prior`)
 and CLIP-L, each when its part trains, as parameter groups with their own
 schedules (setup/sd_setup.py:setup_fine_tune; the reference's
 sd3_setup.py:137-151); a FINE_TUNE config that trains no part builds no
-trainer (it serves sampling). EMBEDDING training raises
-(setup/sd_setup.py: refuse_unported).
+trainer (it serves sampling). EMBEDDING trains input and output
+embedding vectors of CLIP-L, CLIP-G and T5 (setup/sd_setup.py:
+setup_embeddings), as additional embeddings do beside LoRA and FINE_TUNE.
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ from onetrainer_tpu_torch.models.sd3 import sd3_text_context
 from onetrainer_tpu_torch.models.sd3_model import StableDiffusion3Model
 from onetrainer_tpu_torch.peft.lora import PeftConfig
 from onetrainer_tpu_torch.setup.sd_setup import (
-    image_encoder, refuse_unported, setup_fine_tune, setup_lora, wrap_tokenizer,
+    EmbeddingEncoder, embedding_step_fields, image_encoder, inference_extra,
+    refuse_unported, setup_embeddings, setup_training, trained_embeddings, wrap_tokenizer,
 )
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer, T5TokenizerWrapper
 from onetrainer_tpu_torch.train.sd3_train_step import make_sd3_train_step
-from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig
+from onetrainer_tpu_torch.train.sd_train_step import SDStepConfig, TrainedEmbeddings
 from onetrainer_tpu_torch.train.train_state import create_train_state
-from onetrainer_tpu_torch.util.enums import EMAMode, TrainingMethod
+from onetrainer_tpu_torch.util.enums import EMAMode
 
 # frozen part -> its ModelWeightDtypes attribute
 _QUANTIZABLE = {"transformer": "prior", "text_encoder": "text_encoder",
@@ -69,14 +71,17 @@ class SD3Setup:
     train_step: object = None
     state: object = None
     group_schedules: dict = field(default_factory=dict)
+    embeddings: TrainedEmbeddings | None = None
+    embedding_ids: dict = field(default_factory=dict)   # uuid -> (start, count)
 
     def merged_inference_params(self):
         """(transformer, text_encoder, text_encoder_2, text_encoder_3,
-        (extra_1, extra_2, extra_3)) modules for sampling: the model's own
-        modules, whose layers carry any trained LoRA adapters."""
-        m = self.model
+        (extra_1, extra_2, extra_3)) for sampling: the model's own modules,
+        whose layers carry any trained LoRA adapters, and each text
+        encoder's trained embedding rows."""
+        m, e = self.model, self.embeddings
         return (m.transformer, m.text_encoder, m.text_encoder_2, m.text_encoder_3,
-                (None, None, None))
+                tuple(inference_extra(e, i) for i in range(3)))
 
 
 def create_sd3_setup(model: StableDiffusion3Model, config, total_steps: int = 10_000,
@@ -88,36 +93,39 @@ def create_sd3_setup(model: StableDiffusion3Model, config, total_steps: int = 10
     and the train state. FINE_TUNE trains the transformer and CLIP-L, each
     when its part trains (setup/sd_setup.py:setup_fine_tune); the text
     encoders then run in the step whenever CLIP-L or CLIP-G trains, as the
-    reference's. One that trains nothing freezes and quantizes the base
-    for sampling and builds no trainer."""
+    reference's. EMBEDDING trains a vector table per text encoder (CLIP-L,
+    CLIP-G and T5; input and output embeddings, the reference's
+    sd3_setup.py:158-190), as additional embeddings do beside LoRA and
+    FINE_TUNE. One that trains nothing freezes and quantizes the base for
+    sampling and builds no trainer."""
     refuse_unported(config)
     model.tokenizer = wrap_tokenizer(model.tokenizer, model.te_config)
     model.tokenizer_2 = wrap_tokenizer(model.tokenizer_2, model.te2_config)
     if not isinstance(model.tokenizer_3, T5TokenizerWrapper):
         model.tokenizer_3 = T5TokenizerWrapper(model.tokenizer_3,
                                                vocab_size=model.te3_config.vocab_size)
+    groups = setup_embeddings(
+        config, [EmbeddingEncoder("", model.text_encoder, model.tokenizer),
+                 EmbeddingEncoder("_2", model.text_encoder_2, model.tokenizer_2),
+                 EmbeddingEncoder("_3", model.text_encoder_3, model.tokenizer_3)],
+        total_steps, steps_per_epoch)
     step_cfg = replace(
         SDStepConfig.from_train_config(config, "flow", 0),
         vae_scaling_factor=model.vae_config.scaling_factor,
         vae_shift_factor=model.vae_config.shift_factor,
-        train_text_encoder=(config.train_text_encoder_or_embedding()
-                            or config.train_text_encoder_2_or_embedding()))
+        **embedding_step_fields(groups, config.train_text_encoder_or_embedding()
+                                or config.train_text_encoder_2_or_embedding()))
     setup = SD3Setup(model=model, config=config, tokenizer=model.tokenizer,
                      tokenizer_2=model.tokenizer_2, tokenizer_3=model.tokenizer_3,
-                     step_cfg=step_cfg)
-    rank_dropout = None
-    if config.training_method == TrainingMethod.LORA:
-        (setup.peft_cfg, setup.trainable, setup.group_schedules, setup.tx,
-         rank_dropout) = setup_lora(
-            model, config, _LORA_GROUPS, LORA_PREFIXES, _QUANTIZABLE,
-            total_steps, steps_per_epoch, parts=_PARTS)
-    else:
-        setup.trainable, setup.group_schedules, setup.tx = setup_fine_tune(
-            model, config, _FINE_TUNE_GROUPS, _QUANTIZABLE, total_steps, steps_per_epoch,
-            parts=_PARTS)
-        if not setup.trainable:
-            return setup
-    setup.train_step = make_sd3_train_step(model, step_cfg, setup.tx, rank_dropout)
+                     step_cfg=step_cfg, embedding_ids=groups.ids if groups else {})
+    trains, rank_dropout = setup_training(
+        setup, groups, _LORA_GROUPS, LORA_PREFIXES, _FINE_TUNE_GROUPS, _QUANTIZABLE,
+        total_steps, steps_per_epoch, parts=_PARTS)
+    if not trains:
+        return setup
+    setup.embeddings = trained_embeddings(groups, setup.trainable, ("", "_2", "_3"), step_cfg)
+    setup.train_step = make_sd3_train_step(model, step_cfg, setup.tx, rank_dropout,
+                                           setup.embeddings)
     setup.state = create_train_state(setup.trainable, setup.tx,
                                      ema_enabled=config.ema != EMAMode.OFF)
     return setup

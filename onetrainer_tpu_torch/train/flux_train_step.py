@@ -9,12 +9,12 @@ sampled, shifted and scaled; t in (0, 1] from 10000 buckets, µ-shifted by
 the latent size when dynamic shifting is on; x_t = t * noise + (1 - t) *
 x_0 in fp32; per-encoder conditioning dropout; packing, image ids, the
 guidance `config.prior.guidance_scale`; the target noise - x_0) and
-`make_flux_train_step` (LoRA or FINE_TUNE). A FLUX.1-fill batch (`latent_conditioning_image`
+`make_flux_train_step` (LoRA, FINE_TUNE or EMBEDDING; output embeddings
+patch T5's states only, as the reference's). A FLUX.1-fill batch (`latent_conditioning_image`
 and the 64-channel `latent_mask`) packs the transformer's input as [noisy
 (64) | (conditioning - shift) * scale (64) | 8x8-shuffled mask (256)]. The
 loss, backward, clip, update and EMA are the SD family's shared step
 (train/sd_train_step.py:make_train_step) with the flow-matching losses.
-Output embeddings raise.
 """
 
 from __future__ import annotations
@@ -30,21 +30,26 @@ from onetrainer_tpu_torch.models.flux import (
     pack_latents, prepare_latent_image_ids, unpack_latents,
 )
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, dropout_masks, keep_samples, make_train_step,
+    SDStepConfig, dropout_masks, extra_rows, keep_samples, make_train_step,
+    output_embedding_scatter,
 )
 
 
 def flux_text_conditioning(model, batch: dict, cfg: SDStepConfig | None = None):
     """-> (T5 sequence states [B, S, 4096], CLIP pooled [B, 768]): the
     cached states when the batch carries both, else CLIP-L (with any LoRA
-    adapters attached) and T5 at its layer skip on the batch's tokens."""
-    if batch.get("output_embeddings_2") is not None:
-        raise NotImplementedError("FLUX output embeddings are not ported yet")
+    adapters attached) and T5 at its layer skip on the batch's tokens, each
+    with its trained embedding rows, T5's output embeddings patched in (the
+    reference's flux_train_step.py:30-55)."""
     if "t5_hidden_state" in batch and "clip_pooled_state" in batch:
         return batch["t5_hidden_state"], batch["clip_pooled_state"]
-    pooled = model.text_encoder(batch["tokens"])["pooled_output"]
+    pooled = model.text_encoder(batch["tokens"], None, extra_rows(batch, 0))["pooled_output"]
     t5_states = model.text_encoder_2(
-        batch["tokens_2"], layer_skip=cfg.te2_layer_skip if cfg is not None else 0)
+        batch["tokens_2"], extra_rows(batch, 1),
+        layer_skip=cfg.te2_layer_skip if cfg is not None else 0)
+    if cfg is not None:
+        t5_states = output_embedding_scatter(t5_states, batch, "tokens_2", "_2",
+                                             cfg.output_embedding_base_id_2)
     return t5_states, pooled
 
 
@@ -107,8 +112,8 @@ def flux_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConf
 
 
 def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0,
-                         rank_dropout=None):
-    """The FLUX LoRA or FINE_TUNE step (train/sd_train_step.py:
+                         rank_dropout=None, embeddings=None):
+    """The FLUX LoRA, FINE_TUNE or EMBEDDING step (train/sd_train_step.py:
     make_train_step with the flow-matching losses and the guidance
     `guidance_scale`): LoRA adapters, or the transformer's and CLIP-L's own
     parameters, CLIP-L and T5 then running in the step on the batch's
@@ -119,4 +124,4 @@ def make_flux_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1
 
     return make_train_step(model, cfg, tx, predict,
                            losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss),
-                           rank_dropout=rank_dropout)
+                           rank_dropout=rank_dropout, embeddings=embeddings)

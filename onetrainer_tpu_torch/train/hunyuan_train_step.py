@@ -13,7 +13,7 @@ in fp32; per-encoder conditioning dropout that leaves the mask alone; the
 guidance `config.prior.guidance_scale` x 1000; the target noise - x_0) and
 `make_hunyuan_train_step`. The loss, backward, clip, update and EMA are the
 SD family's shared step (train/sd_train_step.py:make_train_step) with the
-flow-matching losses. Output embeddings raise.
+flow-matching losses; output embeddings patch the cropped Llama states.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from onetrainer_tpu_torch.math.timesteps import sample_timesteps_discrete
 from onetrainer_tpu_torch.models.hunyuan_video import PROMPT_TEMPLATE_CROP_START
 from onetrainer_tpu_torch.models.llama import encode_llama_text
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, dropout_masks, keep_samples, make_train_step,
+    SDStepConfig, dropout_masks, extra_rows, keep_samples, make_train_step,
+    output_embedding_scatter,
 )
 
 
@@ -34,19 +35,22 @@ def hunyuan_text_conditioning(model, batch: dict, cfg: SDStepConfig):
     """-> (Llama states [B, 77, 4096] past the template, their keep mask
     [B, 77] or None, CLIP pooled [B, 768]): the cached ones when the batch
     carries them, else Llama at layer -3 minus the layer skip and CLIP-L on
-    the batch's tokens."""
-    if batch.get("output_embeddings") is not None:
-        raise NotImplementedError("HunyuanVideo output embeddings are not ported yet")
+    the batch's tokens, each with its trained embedding rows, Llama's
+    output embeddings patched into its cropped states (the reference's
+    hunyuan_train_step.py:29-67)."""
     if "text_encoder_1_hidden_state" in batch:
         return (batch["text_encoder_1_hidden_state"], batch.get("tokens_mask_1"),
                 batch["text_encoder_2_pooled_state"])
     mask = batch.get("tokens_mask_1")
-    out = model.text_encoder(batch["tokens_1"], mask)
+    out = model.text_encoder(batch["tokens_1"], mask, extra_rows(batch, 0))
     states = encode_llama_text(out, cfg.text_encoder_layer_skip, default_layer=-3,
                                crop_start=PROMPT_TEMPLATE_CROP_START)
+    states = output_embedding_scatter(states, batch, "tokens_1", "",
+                                      cfg.output_embedding_base_id,
+                                      crop=PROMPT_TEMPLATE_CROP_START)
     if mask is not None:
         mask = mask[:, PROMPT_TEMPLATE_CROP_START:]
-    pooled = model.text_encoder_2(batch["tokens_2"])["pooled_output"]
+    pooled = model.text_encoder_2(batch["tokens_2"], None, extra_rows(batch, 1))["pooled_output"]
     return states, mask, pooled
 
 
@@ -102,8 +106,8 @@ def hunyuan_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepC
 
 
 def make_hunyuan_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float = 1.0,
-                            rank_dropout=None):
-    """The HunyuanVideo LoRA or FINE_TUNE step (train/sd_train_step.py:
+                            rank_dropout=None, embeddings=None):
+    """The HunyuanVideo LoRA, FINE_TUNE or EMBEDDING step (train/sd_train_step.py:
     make_train_step with the flow-matching losses and the guidance
     `guidance_scale`): LoRA adapters, or the transformer's own parameters,
     updated in chunks of at most UPDATE_CHUNK_ELEMENTS elements (K5 once
@@ -116,4 +120,4 @@ def make_hunyuan_train_step(model, cfg: SDStepConfig, tx, guidance_scale: float 
         model, cfg, tx, predict,
         losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss,
                                                         cfg.num_train_timesteps),
-        rank_dropout=rank_dropout)
+        rank_dropout=rank_dropout, embeddings=embeddings)

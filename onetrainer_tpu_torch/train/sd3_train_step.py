@@ -22,7 +22,8 @@ from onetrainer_tpu_torch.math.timesteps import sample_timesteps_discrete
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.models.sd3 import sd3_text_context
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, dropout_masks, keep_samples, make_train_step,
+    SDStepConfig, dropout_masks, extra_rows, keep_samples, make_train_step,
+    output_embedding_scatter,
 )
 
 
@@ -30,8 +31,9 @@ def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | No
                      generator: torch.Generator | None = None, dropout_keep=None):
     """-> (context [B, S, 4096], pooled [B, 2048]): the cached embeddings
     when the batch carries both, else the three text encoders (with any
-    LoRA adapters attached) on its tokens; then the dropout masks
-    (`dropout_keep` replaces the generator's draws)."""
+    LoRA adapters attached, and each encoder's trained embedding rows) on
+    its tokens, each one's output embeddings patched in; then the dropout
+    masks (`dropout_keep` replaces the generator's draws)."""
     def masks(b):
         # CLIP-L sequence and pooled, CLIP-G sequence and pooled, T5 sequence
         # (reference: StableDiffusion3Model.py:397-415)
@@ -56,13 +58,19 @@ def sd3_conditioning(model, batch: dict, layer_skip: int, cfg: SDStepConfig | No
         h_g, p_g = keep_samples(h_g, m2), keep_samples(p_g, m2)
         context = torch.cat([torch.cat([h_l, h_g, pad], dim=-1), keep_samples(t5, m3)], dim=1)
         return context, torch.cat([p_l, p_g], dim=-1)
-    out_l = model.text_encoder(batch["tokens"])
-    out_g = model.text_encoder_2(batch["tokens_2"])
+    out_l = model.text_encoder(batch["tokens"], None, extra_rows(batch, 0))
+    out_g = model.text_encoder_2(batch["tokens_2"], None, extra_rows(batch, 1))
     # per-encoder layer skips (reference: StableDiffusion3Model.py:245-247)
-    t5 = model.text_encoder_3(batch["tokens_3"],
+    t5 = model.text_encoder_3(batch["tokens_3"], extra_rows(batch, 2),
                               layer_skip=cfg.te3_layer_skip if cfg is not None else 0)
     h_l = encode_clip_text(out_l, layer_skip)
     h_g = encode_clip_text(out_g, cfg.te2_layer_skip if cfg is not None else layer_skip)
+    if cfg is not None:
+        h_l = output_embedding_scatter(h_l, batch, "tokens", "", cfg.output_embedding_base_id)
+        h_g = output_embedding_scatter(h_g, batch, "tokens_2", "_2",
+                                       cfg.output_embedding_base_id_2)
+        t5 = output_embedding_scatter(t5, batch, "tokens_3", "_3",
+                                      cfg.output_embedding_base_id_3)
     p_l, p_g = out_l["pooled_output"], out_g["pooled_output"]
     m1, m2, m3 = masks(h_l.shape[0])
     return sd3_text_context(keep_samples(h_l, m1), keep_samples(h_g, m2), keep_samples(t5, m3),
@@ -112,11 +120,12 @@ def sd3_predict(model, batch: dict, generator: torch.Generator, cfg: SDStepConfi
     }
 
 
-def make_sd3_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
-    """The SD3 LoRA or FINE_TUNE step (train/sd_train_step.py:make_train_step
-    with the flow-matching losses): LoRA adapters, or the transformer's and
-    CLIP-L's own parameters, the three text encoders then running in the
+def make_sd3_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None, embeddings=None):
+    """The SD3 LoRA, FINE_TUNE or EMBEDDING step
+    (train/sd_train_step.py:make_train_step with the flow-matching losses):
+    LoRA adapters, the transformer's and CLIP-L's own parameters, or
+    embedding vectors of the three text encoders, which then run in the
     step on the batch's tokens."""
     return make_train_step(model, cfg, tx, sd3_predict,
                            losses=lambda batch, data: flow_matching_losses(batch, data, cfg.loss),
-                           rank_dropout=rank_dropout)
+                           rank_dropout=rank_dropout, embeddings=embeddings)

@@ -10,8 +10,11 @@ and `make_sd_train_step`.
 Where the reference's step is a pure jitted function of an immutable
 state, the port's steps update the trainable tensors, the optimizer state
 and the EMA in place, draw their randomness from an explicit
-`torch.Generator`, and run eagerly on the device the model lives on. LoRA
-and FINE_TUNE are the ported methods. `make_train_step` is the loss,
+`torch.Generator`, and run eagerly on the device the model lives on. LoRA,
+FINE_TUNE and EMBEDDING (textual inversion: input and output embeddings,
+`scatter_output_embeddings`, `preserve_input_embedding_norms`,
+`normalize_output_embeddings`) are the ported methods; the VAE fine-tune
+is train/vae_train_step.py. `make_train_step` is the loss,
 backward, clip, update and EMA that the SD and SDXL steps share; each
 family brings its own predict.
 
@@ -74,6 +77,22 @@ class SDStepConfig:
     ema_decay: float = 0.0              # 0 = EMA off
     ema_update_interval: int = 1
     accum: int = 1                      # gradient accumulation micro-steps
+    # output embeddings: trained vectors patched into a text encoder's
+    # output at its placeholder positions, whose token ids (>= that
+    # encoder's base id) index them; the spans are (start, count) per
+    # embedding, the stds each one's initial per-row std, per encoder
+    # (reference: BaseModel._apply_output_embeddings:119-143)
+    output_embedding_base_id: int = 0
+    output_embedding_base_id_2: int = 0
+    output_embedding_base_id_3: int = 0
+    output_embedding_spans: tuple = ()
+    output_embedding_stds: tuple = ()
+    output_embedding_stds_2: tuple = ()
+    output_embedding_stds_3: tuple = ()
+    # after each optimizer step, input embeddings renormalized to their
+    # encoder table's median row norm, output embeddings to their initial
+    # std (reference: after_optimizer_step, StableDiffusionEmbeddingSetup.py:90-92)
+    preserve_embedding_norm: bool = False
 
     @staticmethod
     def from_train_config(config, prediction_type: str = "epsilon",
@@ -104,6 +123,7 @@ class SDStepConfig:
             ema_decay=config.ema_decay if config.ema != EMAMode.OFF else 0.0,
             ema_update_interval=config.ema_update_step_interval,
             accum=max(config.gradient_accumulation_steps, 1),
+            preserve_embedding_norm=bool(config.preserve_embedding_norm),
         )
 
 
@@ -132,6 +152,130 @@ def keep_samples(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     if mask is None:
         return x
     return x * mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(device=x.device, dtype=x.dtype)
+
+
+# the text encoders' suffixes in group and batch keys: embeddings, embeddings_2, ...
+ENCODER_SUFFIXES = ("", "_2", "_3")
+
+
+def scatter_output_embeddings(hidden: torch.Tensor, tokens: torch.Tensor,
+                              vectors: torch.Tensor, base_id: int) -> torch.Tensor:
+    """Patch trained vectors into a text encoder's output [B, S, d] at the
+    placeholder positions of `tokens` [B, S]: ids >= `base_id` take row
+    id - base_id of `vectors` (reference: BaseModel._apply_output_embeddings:119-143)."""
+    ids = tokens.long() - base_id
+    gathered = vectors[ids.clamp(0, vectors.shape[0] - 1)]
+    return torch.where((ids >= 0)[..., None], gathered.to(hidden.dtype), hidden)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """The median of a 1-D tensor, the mean of the two middle values for an
+    even count (as jnp.median; torch.median takes the lower one)."""
+    s = x.sort().values
+    n = s.shape[0]
+    return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
+
+
+@torch.no_grad()
+def preserve_input_embedding_norms(params: dict, tables: dict, cfg: SDStepConfig) -> None:
+    """preserve_embedding_norm for input embeddings, in place: each row of
+    every `embeddings<suffix>` group L2-renormalized to the median row norm
+    of that text encoder's token table `tables[suffix]` (reference:
+    AdditionalEmbeddingWrapper.normalize_embeddings:69-75)."""
+    if not cfg.preserve_embedding_norm:
+        return
+    for key, vec in params.items():
+        table = tables.get(key[len("embeddings"):]) if key.startswith("embeddings") else None
+        if table is None:
+            continue
+        median = _median(torch.linalg.vector_norm(table.float(), dim=-1))
+        v = vec.float()
+        norms = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        vec.copy_((v / norms.clamp(min=1e-12) * median).to(vec.dtype))
+
+
+def normalize_output_embeddings(vectors: torch.Tensor, spans: tuple,
+                                stds: tuple) -> torch.Tensor:
+    """Each output embedding (a span of rows) rescaled back to its initial
+    per-row std, fp32 (reference:
+    ModelSetupEmbeddingMixin._normalize_output_embeddings:105-110)."""
+    oe = vectors.float()
+    segments = []
+    for (start, count), orig in zip(spans, stds):
+        seg = oe[start:start + count]
+        std = seg.std(dim=1, correction=0).mean()
+        segments.append(seg * (orig / (std + 1e-8)))
+    return torch.cat(segments, 0)
+
+
+@dataclass
+class TrainedEmbeddings:
+    """A setup's trained embedding vectors as its step reads them: `params`
+    is the train state's groups (`embeddings<suffix>` input vectors and
+    `output_embeddings<suffix>` output vectors, suffixes as in
+    `ENCODER_SUFFIXES`), `suffixes` the model's text encoders in order,
+    `inputs` {suffix: the frozen input rows of the output-embedding
+    placeholders}, `tables` {suffix: a function giving that encoder's token
+    table as it is now} (for `preserve_input_embedding_norms`)."""
+    params: dict
+    suffixes: tuple
+    inputs: dict
+    tables: dict
+    cfg: SDStepConfig
+
+    def extra(self, suffix: str) -> torch.Tensor | None:
+        """The rows past the vocabulary of one text encoder: its trained
+        input vectors, then the output placeholders' frozen rows."""
+        rows = [t for t in (self.params.get(f"embeddings{suffix}"), self.inputs.get(suffix))
+                if t is not None]
+        if not rows:
+            return None
+        return torch.cat(rows, 0) if len(rows) > 1 else rows[0]
+
+    def batch_entries(self) -> dict:
+        """{"extra_embeddings": one row table (or None) per text encoder,
+        "output_embeddings<suffix>": the output vectors} for a predict."""
+        out = {"extra_embeddings": tuple(self.extra(s) for s in self.suffixes)}
+        out.update({f"output_embeddings{s}": self.params[f"output_embeddings{s}"]
+                    for s in self.suffixes if f"output_embeddings{s}" in self.params})
+        return out
+
+    @torch.no_grad()
+    def after_update(self) -> None:
+        """Under preserve_embedding_norm, after an optimizer step: each
+        output embedding back to its initial std, each input embedding to
+        its table's median norm, in place (the reference's
+        onetrainer_tpu/train/sd_train_step.py:387-392)."""
+        cfg = self.cfg
+        if cfg.preserve_embedding_norm and cfg.output_embedding_spans:
+            for suffix, stds in zip(ENCODER_SUFFIXES, (
+                    cfg.output_embedding_stds, cfg.output_embedding_stds_2,
+                    cfg.output_embedding_stds_3)):
+                vec = self.params.get(f"output_embeddings{suffix}")
+                if vec is not None and stds:
+                    vec.copy_(normalize_output_embeddings(
+                        vec, cfg.output_embedding_spans, stds).to(vec.dtype))
+        if cfg.preserve_embedding_norm:
+            preserve_input_embedding_norms(
+                self.params, {s: table() for s, table in self.tables.items()}, cfg)
+
+
+def output_embedding_scatter(hidden: torch.Tensor, batch: dict, tokens_key: str,
+                             suffix: str, base_id: int, crop: int = 0) -> torch.Tensor:
+    """`hidden` with the batch's output vectors of encoder `suffix` patched
+    in at the placeholders of `batch[tokens_key]` (from position `crop`),
+    or as it is when that encoder has none."""
+    vectors = batch.get(f"output_embeddings{suffix}")
+    if vectors is None:
+        return hidden
+    return scatter_output_embeddings(hidden, batch[tokens_key][:, crop:], vectors, base_id)
+
+
+def extra_rows(batch: dict, index: int) -> torch.Tensor | None:
+    """Text encoder `index`'s trained rows past its vocabulary in the batch
+    (TrainedEmbeddings.batch_entries), or None."""
+    extra = batch.get("extra_embeddings")
+    return extra[index] if extra is not None and index < len(extra) else None
 
 
 def _on_device(batch: dict, device: torch.device) -> dict:
@@ -219,13 +363,16 @@ def sd_text_context(model, batch: dict, cfg: SDStepConfig,
                     generator: torch.Generator | None = None) -> torch.Tensor:
     """-> context [B, 77, hidden]: the cached TE hidden state when the batch
     carries it and the text encoder is frozen, else the text encoder (with
-    any LoRA adapters attached) on the batch's tokens at the model's layer
-    skip; then the per-sample conditioning dropout."""
+    any LoRA adapters attached, and the batch's trained embedding rows) on
+    the batch's tokens at the model's layer skip, its output embeddings
+    patched in; then the per-sample conditioning dropout."""
     if "text_encoder_hidden_state" in batch and not cfg.train_text_encoder:
         context = batch["text_encoder_hidden_state"]
     else:
-        out = model.text_encoder(batch["tokens"])
+        out = model.text_encoder(batch["tokens"], None, extra_rows(batch, 0))
         context = encode_clip_text(out, cfg.text_encoder_layer_skip)
+        context = output_embedding_scatter(context, batch, "tokens", "",
+                                           cfg.output_embedding_base_id)
     if cfg.te_dropout > 0 and generator is not None:
         keep = conditioning_dropout_mask(generator, context.shape[0], cfg.te_dropout)
         context = context * keep[:, None, None].to(context.dtype)
@@ -253,7 +400,8 @@ UPDATE_CHUNK_ELEMENTS = 1 << 32
 
 
 def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
-                    rank_dropout: RankDropout | None = None):
+                    rank_dropout: RankDropout | None = None,
+                    embeddings: TrainedEmbeddings | None = None):
     """The LoRA or FINE_TUNE step of `model` around its family's `predict`
     (`sd_predict`, `sdxl_predict`, `sd3_predict`) and per-sample `losses`
     (batch, data) -> [B] (default: `diffusion_losses` on the model's
@@ -288,7 +436,12 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
     updates are what the update holds at its peak. `train_step.loss(batch,
     generator, **draws)` is the step's loss alone, for a caller that wants
     its gradients without the update (and without rank dropout);
-    `train_step.rank_dropout` is `rank_dropout`."""
+    `train_step.rank_dropout` is `rank_dropout`. With trained
+    `embeddings` (EMBEDDING, or additional embeddings beside LoRA and
+    FINE_TUNE) the loss hands the predict their rows and output vectors
+    (`TrainedEmbeddings.batch_entries`: only the vectors take gradients,
+    the frozen text encoders do not), and each step ends, before the EMA,
+    with their norm preservation (`TrainedEmbeddings.after_update`)."""
     denoiser = next(iter(model.modules().values()))
     device = next(denoiser.parameters()).device
     chunk_elements = UPDATE_CHUNK_ELEMENTS
@@ -301,6 +454,8 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
 
     def loss(batch: dict, generator: torch.Generator, **draws) -> torch.Tensor:
         batch = _on_device(batch, device)
+        if embeddings is not None:
+            batch = dict(batch, **embeddings.batch_entries())
         data = predict(model, batch, generator, cfg, coefficients, **draws)
         return losses(batch, data).mean()
 
@@ -328,6 +483,8 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
         del grads
         apply_update(state, flat, tx.leaf_updates(groups, grouped, state.opt_state, norm),
                      grouped, generator, round_bits)
+        if embeddings is not None:
+            embeddings.after_update()
         if state.ema is not None and cfg.ema_decay > 0:
             maybe_update_ema(state.ema, state.params, cfg.ema_decay, state.step,
                              cfg.ema_update_interval, cfg.accum)
@@ -372,6 +529,7 @@ def make_train_step(model, cfg: SDStepConfig, tx, predict, losses=None,
     return train_step
 
 
-def make_sd_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
-    """The SD 1.5/2.x LoRA or FINE_TUNE step (see `make_train_step`)."""
-    return make_train_step(model, cfg, tx, sd_predict, rank_dropout=rank_dropout)
+def make_sd_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None, embeddings=None):
+    """The SD 1.5/2.x LoRA, FINE_TUNE or EMBEDDING step (see `make_train_step`)."""
+    return make_train_step(model, cfg, tx, sd_predict, rank_dropout=rank_dropout,
+                           embeddings=embeddings)

@@ -16,8 +16,8 @@ import torch
 from onetrainer_tpu_torch.math.schedules import DiffusionScheduleCoefficients
 from onetrainer_tpu_torch.models.clip import encode_clip_text
 from onetrainer_tpu_torch.train.sd_train_step import (
-    SDStepConfig, conditioning_dropout_mask, make_train_step, noise_latents,
-    prediction_data, unet_input,
+    SDStepConfig, conditioning_dropout_mask, extra_rows, make_train_step, noise_latents,
+    output_embedding_scatter, prediction_data, unet_input,
 )
 
 
@@ -26,7 +26,8 @@ def sdxl_text_conditioning(model, batch: dict, layer_skip: int,
                            generator: torch.Generator | None = None):
     """-> (context [B, S, 2048], pooled [B, 1280]): the cached hidden states
     when the batch carries both, else both text encoders on its tokens
-    (with any LoRA adapters attached to them)."""
+    (with any LoRA adapters attached to them, and each encoder's trained
+    embedding rows), each one's output embeddings patched in."""
     def _te_dropout(h1, h2, pooled):
         # TE1 sequence, TE2 sequence + pooled share one mask each
         # (reference: StableDiffusionXLModel.py:273-284)
@@ -48,10 +49,14 @@ def sdxl_text_conditioning(model, batch: dict, layer_skip: int,
             batch["text_encoder_2_hidden_state"],
             batch["text_encoder_2_pooled_state"])
         return torch.cat([h1, h2], dim=-1), pooled
-    out1 = model.text_encoder(batch["tokens"])
-    out2 = model.text_encoder_2(batch["tokens_2"])
+    out1 = model.text_encoder(batch["tokens"], None, extra_rows(batch, 0))
+    out2 = model.text_encoder_2(batch["tokens_2"], None, extra_rows(batch, 1))
     h1 = encode_clip_text(out1, layer_skip)
     h2 = encode_clip_text(out2, cfg.te2_layer_skip if cfg is not None else layer_skip)
+    if cfg is not None:
+        h1 = output_embedding_scatter(h1, batch, "tokens", "", cfg.output_embedding_base_id)
+        h2 = output_embedding_scatter(h2, batch, "tokens_2", "_2",
+                                      cfg.output_embedding_base_id_2)
     h1, h2, pooled = _te_dropout(h1, h2, out2["pooled_output"])
     return torch.cat([h1, h2], dim=-1), pooled
 
@@ -76,6 +81,8 @@ def sdxl_predict(model, batch: dict, generator: torch.Generator,
     return prediction_data(predicted, noised, cfg, coefficients)
 
 
-def make_sdxl_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None):
-    """The SDXL LoRA or FINE_TUNE step (train/sd_train_step.py:make_train_step)."""
-    return make_train_step(model, cfg, tx, sdxl_predict, rank_dropout=rank_dropout)
+def make_sdxl_train_step(model, cfg: SDStepConfig, tx, rank_dropout=None, embeddings=None):
+    """The SDXL LoRA, FINE_TUNE or EMBEDDING step
+    (train/sd_train_step.py:make_train_step)."""
+    return make_train_step(model, cfg, tx, sdxl_predict, rank_dropout=rank_dropout,
+                           embeddings=embeddings)

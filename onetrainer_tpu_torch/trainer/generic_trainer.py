@@ -5,27 +5,31 @@ Counterpart of onetrainer_tpu/trainer/generic_trainer.py (reference:
 modules/trainer/GenericTrainer.py): the same status sequence, cadence
 (TimedAction-scheduled backup and save, TrainCommands polling, rolling
 backups, backup_before_save), TensorBoard scalars (`loss/train_step`,
-`smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA and
-FINE_TUNE training of the models the port runs (SD 1.5/2.x, SDXL, SD3 and
-FLUX: both; HunyuanVideo: LoRA, over video clips), with EMA and gradient
-accumulation.
+`smooth_loss/train_step`, per-group `lr/*`) and file layout, for LoRA,
+FINE_TUNE and EMBEDDING training of the models the port runs (SD 1.5/2.x,
+SDXL, SD3, FLUX and HunyuanVideo, the last over video clips too), with
+additional embeddings, EMA and gradient accumulation, and the VAE
+fine-tune (FINE_TUNE_VAE) of SD 1.5/2.x.
 
 Where the port departs from the reference:
 - Features it has not ported raise at `start()` instead of being
-  skipped: training methods other than LoRA and FINE_TUNE, validation,
-  sampling during training (a non-empty `samples`), EMA held on the CPU,
-  prior preservation, additional embeddings, the debug dump, a device
-  mesh, circular padding and host offload.
+  skipped: validation, sampling during training (a non-empty `samples`),
+  EMA held on the CPU, prior preservation, the debug dump, a device mesh,
+  circular padding and host offload.
 - A backup holds the optimizer state (`optimizer.safetensors`, with the
   adapters for LoRA), the EMA (`ema.safetensors`) when on, `meta.json`
-  and `onetrainer_config/args.json`. For FINE_TUNE it holds the trained
-  model too, in fp32 as the reference writes it: a
+  and `onetrainer_config/args.json`; embedding vectors are kept in
+  `optimizer.safetensors` under params/<group>. For FINE_TUNE and
+  FINE_TUNE_VAE it holds the trained model too, in fp32 as the reference
+  writes it: a
   diffusers directory `model/` when the base is one, else a single file
   `model.safetensors` in the base's layout (LDM, SAI, BFL or
   HunyuanVideo's; a diffusers directory written from a single-file base
   would carry no configs), and a resume loads the trained weights from
-  it. The FINE_TUNE output is a diffusers directory or, with a
-  single-file `output_model_format`, the family's single file. A LoRA backup holds no model: a resume loads the base from
+  it. The FINE_TUNE and FINE_TUNE_VAE output is a diffusers directory or,
+  with a single-file `output_model_format`, the family's single file; the
+  EMBEDDING output is the embedding file (setup/families.py:
+  save_embedding_output). A LoRA or EMBEDDING backup holds no model: a resume loads the base from
   `config.base_model_name` and the adapters from the backup, as
   OneTrainer does. (The reference's LoRA backup holds the merged base +
   LoRA as `model/` and its resume loads that as the base and applies the
@@ -53,7 +57,9 @@ import torch
 from onetrainer_tpu_torch.config.train_config import TrainConfig
 from onetrainer_tpu_torch.data.loader import Text2ImageDataLoader
 from onetrainer_tpu_torch.io.safetensors_io import SafetensorsFile, save_safetensors
-from onetrainer_tpu_torch.setup.families import get_family, save_lora_output
+from onetrainer_tpu_torch.setup.families import (
+    get_family, save_embedding_output, save_lora_output,
+)
 from onetrainer_tpu_torch.setup.sd_setup import refuse_unported
 from onetrainer_tpu_torch.train.optimizers import opt_state_tensors, set_opt_state_counts
 from onetrainer_tpu_torch.trainer.base_trainer import BaseTrainer
@@ -64,6 +70,8 @@ from onetrainer_tpu_torch.util.path_util import get_string_timestamp
 from onetrainer_tpu_torch.util.train_progress import TrainProgress
 
 STEP_SEED = 42
+# the methods whose backup holds the trained model
+_MODEL_BACKUP = (TrainingMethod.FINE_TUNE, TrainingMethod.FINE_TUNE_VAE)
 _MESH_KNOBS = ("OT_MESH_DP", "OT_MESH_FSDP", "OT_MESH_SP")
 
 
@@ -89,14 +97,17 @@ def unported_features(config: TrainConfig) -> list[str]:
 
 def state_tensors(state) -> tuple[dict, dict]:
     """(tensors, metadata) of a train state for `optimizer.safetensors`:
-    LoRA adapters under params/<group>/<adapter key>/<name> (a fine-tuned
-    module's parameters are the backup's model, not here), the optimizer's
-    state tensors under opt_state/<...> (train/optimizers.py:
-    opt_state_tensors), its step counts in the metadata."""
+    LoRA adapters under params/<group>/<adapter key>/<name>, embedding
+    vectors under params/<group> (a fine-tuned module's parameters are the
+    backup's model, not here), the optimizer's state tensors under
+    opt_state/<...> (train/optimizers.py: opt_state_tensors), its step
+    counts in the metadata."""
     tensors = {f"params/{group}/{key}/{name}": t.detach()
-               for group, tree in state.params.items()
+               for group, tree in state.params.items() if isinstance(tree, dict)
                for key, entry in tree.items() if isinstance(entry, dict)
                for name, t in entry.items()}
+    tensors.update({f"params/{group}": t.detach() for group, t in state.params.items()
+                    if isinstance(t, torch.Tensor)})
     opt, counts = opt_state_tensors(state.opt_state)
     tensors.update({f"opt_state/{k}": t for k, t in opt.items()})
     return tensors, {k: str(v) for k, v in counts.items()}
@@ -147,7 +158,7 @@ class GenericTrainer(BaseTrainer):
 
         self.family = get_family(config.model_type)
         self._source_dir = config.base_model_name
-        if last_backup and config.training_method == TrainingMethod.FINE_TUNE:
+        if last_backup and config.training_method in _MODEL_BACKUP:
             # the trained weights, from the backup's model
             self._source_dir = next(
                 (p for p in (os.path.join(last_backup, name)
@@ -165,14 +176,15 @@ class GenericTrainer(BaseTrainer):
             conditioning_image=(config.model_type.has_conditioning_image_input()
                                 or config.custom_conditioning_image),
             fill_mask_channels=config.model_type == ModelType.FLUX_FILL_DEV_1,
-            video_mode=self.family.video)
+            video_mode=self.family.video,
+            cache_pixels=config.training_method == TrainingMethod.FINE_TUNE_VAE)
         steps_per_epoch = max(len(self.data_loader), 1)
         total = config.epochs * steps_per_epoch // max(
             config.gradient_accumulation_steps, 1)
         self.setup = self.family.create_setup(
             self.model, config, max(total, 1), steps_per_epoch)
         if self.setup.train_step is None:
-            raise ValueError("the FINE_TUNE config trains no part (unet, text encoders)")
+            raise ValueError("the config trains no part (unet, text encoders, embeddings)")
         self.data_loader.encode_images, self.data_loader.encode_text = \
             self.family.make_encode_fns(self.setup)
 
@@ -188,10 +200,10 @@ class GenericTrainer(BaseTrainer):
 
     @torch.no_grad()
     def _restore_internal_state(self, backup_dir: str):
-        """Copy the backup's optimizer state, LoRA adapters and EMA into the
-        setup's tensors in place (the layers hold the adapters by
-        reference); a backup that does not match the configured training
-        raises."""
+        """Copy the backup's optimizer state, LoRA adapters, embedding
+        vectors and EMA into the setup's tensors in place (the layers hold
+        the adapters, the step the vectors, by reference); a backup that
+        does not match the configured training raises."""
         state = self.setup.state
         for file, (want, _) in (("optimizer.safetensors", state_tensors(state)),
                                 ("ema.safetensors", ema_tensors(state)
@@ -234,7 +246,7 @@ class GenericTrainer(BaseTrainer):
     def _save_internal(self, backup_dir: str, progress: TrainProgress):
         os.makedirs(backup_dir, exist_ok=True)
         state = self.setup.state
-        if self.config.training_method == TrainingMethod.FINE_TUNE:
+        if self.config.training_method in _MODEL_BACKUP:
             # the trained weights (not the EMA), fp32, in the base's layout
             if os.path.isfile(self._source_dir):
                 self.family.save_single_file(
@@ -280,10 +292,10 @@ class GenericTrainer(BaseTrainer):
             traceback.print_exc()
 
     def _save_output(self, destination: str):
-        """The LoRA file, or the fine-tuned model as a single file or a
-        diffusers directory (output_model_format), with the EMA in place of
-        the trained tensors when on (the reference's _export_params and
-        _save_output, generic_trainer.py:334-431). Every exported tensor is
+        """The LoRA file, the embedding file, or the fine-tuned model as a
+        single file or a diffusers directory (output_model_format), with
+        the EMA in place of the trained tensors when on (the reference's
+        _export_params and _save_output, generic_trainer.py:334-431). Every exported tensor is
         cast to output_dtype (reference: GenericTrainer.py:479; backups keep
         the train dtype)."""
         config = self.config
@@ -291,6 +303,8 @@ class GenericTrainer(BaseTrainer):
         if config.training_method == TrainingMethod.LORA:
             save_lora_output(self.setup, destination, self.family.lora_prefixes,
                              save_dtype=save_dtype)
+        elif config.training_method == TrainingMethod.EMBEDDING:
+            save_embedding_output(self.setup, destination, save_dtype=save_dtype)
         elif config.output_model_format.is_single_file():
             if not destination.endswith((".safetensors", ".ckpt")):
                 destination += config.output_model_format.file_extension()

@@ -716,3 +716,110 @@ def test_fp8_lora_weights_train_on_card(cuda_device):
             assert bool((apart[changed] <= 1).all()), (key, name)
             moved += int(changed.sum())
     assert moved > 0
+
+
+def _sd15_on_card(cuda_device):
+    """A seeded SD 1.5 at its published widths on the card (bf16 compute,
+    fp32 weights), as chip_smoke.py builds it."""
+    from onetrainer_tpu_torch.io.weights import init_sd_weights
+    from onetrainer_tpu_torch.models.sd import create_sd_model
+    from onetrainer_tpu_torch.util.enums import ModelType
+    model = create_sd_model(ModelType.STABLE_DIFFUSION_15, dtype=torch.bfloat16, device="meta")
+    init_sd_weights(model, seed=0, device=str(cuda_device))
+    return model
+
+
+def _sd15_setup(model, device, method, size: int, stochastic_rounding: bool = False):
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.setup.families import get_family
+    config = TrainConfig.default_values()
+    config.model_type = model.model_type
+    config.training_method = method
+    config.batch_size = 1
+    config.learning_rate_warmup_steps = 0.0
+    config.optimizer.stochastic_rounding = stochastic_rounding
+    family = get_family(config.model_type)
+    setup = family.create_setup(model, config, 10)
+    encode_images, encode_text = family.make_encode_fns(setup)
+    gen = torch.Generator(device=device).manual_seed(11)
+    image = torch.rand((1, size, size, 3), generator=gen, device=device) * 2 - 1
+    batch = dict(encode_images(image))
+    batch.update({k: torch.as_tensor(v, device=device)[None]
+                  for k, v in encode_text("a photograph of <embedding> riding a horse").items()})
+    batch["image"] = image
+    batch["loss_weight"] = torch.ones((1,), device=device)
+    return setup, batch
+
+
+@pytest.mark.cuda
+def test_embedding_step_takes_k1_to_k3_on_card(cuda_device, monkeypatch):
+    """Textual inversion of SD 1.5 at its published widths on the card
+    (512x512, the text encoder run in the step, the UNet and the text
+    encoder frozen): one loss's backward to the vectors launches K1 once
+    for each of the 5 self-attentions over 4096 tokens, and K2, K3 and the
+    pre-pass once for each of the 4 whose q, k and v depend on the text
+    (the first comes before any cross-attention); the vectors' gradient
+    matches the one through scaled_dot_product_attention within 1e-2
+    relative L2 (chip_smoke.py's GRAD_REL_L2_BOUND) and no frozen
+    parameter takes a gradient."""
+    from onetrainer_tpu_torch.ops import attention as pt_attn
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+    model = _sd15_on_card(cuda_device)
+    setup, batch = _sd15_setup(model, cuda_device, TrainingMethod.EMBEDDING, 512)
+    vectors = setup.state.params["embeddings"].requires_grad_()
+    draws = dict(timestep=torch.tensor([500], dtype=torch.int32, device=cuda_device),
+                 noise=torch.randn((1, 64, 64, 4), device=cuda_device),
+                 latent_noise=torch.zeros((1, 64, 64, 4), device=cuda_device))
+
+    def grad():
+        loss = setup.train_step.loss(batch, None, **draws)
+        return torch.autograd.grad(loss, [vectors])[0]
+    pt_ff.reset_launch_counts()
+    kernels = grad()
+    torch.cuda.synchronize()
+    assert (pt_ff.flash_attention_folded_fwd.launches,
+            pt_ff.flash_attention_folded_dq.launches,
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (5, 4, 4, 4)
+    assert not any(p.grad is not None or p.requires_grad
+                   for m in model.modules().values() for p in m.parameters())
+    monkeypatch.setattr(pt_attn, "_use_folded", lambda *a, **k: False)
+    plain = grad()
+    assert torch.isfinite(kernels).all() and kernels.abs().max() > 0
+    assert ((kernels - plain).norm() / plain.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_vae_ft_update_takes_k5_on_card(cuda_device, monkeypatch):
+    """The SD 1.5 VAE fine-tune on the card (the VAE in bf16, stochastic
+    rounding, 256x256): one step rounds every VAE tensor in one K5 launch,
+    each output equal bit for bit to the plain rounding of p + u on the
+    same Philox bits, and moves no attention kernel."""
+    from onetrainer_tpu_torch.ops import sr_update
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+    model = _sd15_on_card(cuda_device)
+    model.vae.to(torch.bfloat16)
+    setup, batch = _sd15_setup(model, cuda_device, TrainingMethod.FINE_TUNE_VAE, 256,
+                               stochastic_rounding=True)
+    calls = []
+    real = sr_update.sr_update_leaves
+
+    def captured(ps, us, seeds, *, seed_index=None, outs=None):
+        calls.append(([p.clone() for p in ps], [u.clone() for u in us], seeds.clone(),
+                      list(seed_index)))
+        return real(ps, us, seeds, seed_index=seed_index, outs=outs)
+    # the wrapper counts its launches under its module name, here `captured`
+    captured.launches = 0
+    monkeypatch.setattr(sr_update, "sr_update_leaves", captured)
+    pt_ff.reset_launch_counts()
+    params = list(setup.state.params["vae"].values())
+    setup.train_step(setup.state, batch, torch.Generator(device=cuda_device).manual_seed(5))
+    torch.cuda.synchronize()
+    assert captured.launches == 1 and len(calls) == 1
+    assert pt_ff.flash_attention_folded_fwd.launches == 0
+    ps, us, seeds, index = calls[0]
+    assert len(ps) == len(params) and all(p.dtype == torch.bfloat16 for p in params)
+    for before, u, i, after in zip(ps, us, index, params):
+        bits = philox_bits(seeds[i:i + 1], before.numel(), before.device).view(before.shape)
+        want = stochastic_round_to_bf16(before.float() + u.float(), bits)
+        assert torch.equal(after.view(torch.int16), want.view(torch.int16))

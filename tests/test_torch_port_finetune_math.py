@@ -41,6 +41,16 @@ from onetrainer_tpu_torch.train import ema as pt_ema
 from onetrainer_tpu_torch.train import optimizers as pt_opt
 from onetrainer_tpu_torch.util import enums as pt_enums
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 UPDATE_REL = 1e-5
 EMA_REL = 1e-6
 LOSS_REL = 1e-5

@@ -22,6 +22,16 @@ from onetrainer_tpu.ops import flash_folded as jax_ff
 from onetrainer_tpu_torch.ops import attention as pt_attn
 from onetrainer_tpu_torch.ops import flash_folded as pt_ff
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 DISPATCH_ATOL = 1e-4
 

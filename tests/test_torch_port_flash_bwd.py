@@ -28,6 +28,15 @@ from onetrainer_tpu_torch.ops import flash_folded as pt_ff
 ATOL = 1e-4
 FN_ATOL = 1e-5
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _inputs(seed, b, sq, skv, inner):
     rng = np.random.default_rng(seed)

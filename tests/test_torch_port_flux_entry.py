@@ -18,8 +18,9 @@ the resumed adapters and optimizer state equal the uninterrupted run's
 within 1e-6 relative L2 (the same computation on the same draws; the
 generator is re-seeded per step). Refused, each with NotImplementedError:
 the BFL single file (load and save, FLUX.1-dev's and FLUX.1-fill's),
-FINE_TUNE that trains a part and EMBEDDING training (by the setup and by
-the train command before it loads the model). FLUX.1-fill itself runs
+once; FINE_TUNE that trains a part and EMBEDDING training now set up and
+step (tests/test_torch_port_dit_finetune.py and
+tests/test_torch_port_embedding.py hold them to the reference). FLUX.1-fill itself runs
 (tests/test_torch_port_flux_fill.py). Torch runs one thread.
 """
 
@@ -219,16 +220,18 @@ def _write_config(config, path) -> str:
 
 @pytest.mark.parametrize("case", ["fine_tune_prior", "fine_tune_text_encoder", "embedding"])
 def test_unported_training_is_refused(flux_dir, tmp_path, case):
-    """EMBEDDING training raises in the setup, and in the train command
-    before the model loads. FINE_TUNE is ported (it was refused until the
-    DiT fine-tune slice): a config that trains the transformer (`prior`)
-    or CLIP-L builds that group alone, one step moves it and no other
-    part, and the train command passes its refusals and reaches the
-    load."""
+    """FINE_TUNE (refused until the DiT fine-tune slice) and EMBEDDING
+    (refused until the embedding slice) are ported: a config that trains
+    the transformer (`prior`) or CLIP-L builds that group alone, one step
+    moves it and no other part; an EMBEDDING config builds the CLIP-L and
+    T5 vectors, and one step moves no part of the model; the train command
+    passes its refusals and reaches the load."""
+    match = None
     if case == "embedding":
-        config, match = _config(pt_enums.TrainingMethod.EMBEDDING), "EMBEDDING"
+        config = _config(pt_enums.TrainingMethod.EMBEDDING)
+        config.learning_rate_warmup_steps = 0.0
     else:
-        config, match = _config(), None
+        config = _config()
         getattr(config, case.removeprefix("fine_tune_")).train = True
         config.learning_rate_warmup_steps = 0.0
     family = get_family(FLUX)
@@ -238,14 +241,15 @@ def test_unported_training_is_refused(flux_dir, tmp_path, case):
             family.create_setup(model, config, 1)
     else:
         setup = family.create_setup(model, config, 1)
-        group = "transformer" if case == "fine_tune_prior" else "text_encoder"
-        assert set(setup.state.params) == {group}
+        group = {"fine_tune_prior": "transformer",
+                 "fine_tune_text_encoder": "text_encoder"}.get(case)
+        assert set(setup.state.params) == ({group} if group else {"embeddings", "embeddings_2"})
         before = {name: {k: v.clone() for k, v in m.state_dict().items()}
                   for name, m in model.modules().items()}
         encode_images, encode_text = family.make_encode_fns(setup)
         images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
         batch = {k: torch.as_tensor(v) for k, v in encode_images(images).items()}
-        texts = [encode_text(p) for p in ("a cat", "a red dog")]
+        texts = [encode_text(p) for p in ("a <embedding> cat", "a red dog")]
         batch.update({k: torch.as_tensor(np.stack([np.asarray(t[k]) for t in texts]))
                       for k in texts[0]})
         batch["loss_weight"] = torch.ones(2)

@@ -17,9 +17,9 @@ batch 2: one video batch and one image batch per epoch; LoRA r4 on the
 transformer, text and latents cached, fp32) uninterrupted, and again as
 one epoch with a backup and a resume from it: the resumed adapters and
 optimizer state equal the uninterrupted run's within 1e-6 relative L2.
-Refused, each with NotImplementedError: EMBEDDING training (by the
-setup and by the train command before it loads the model), and output
-embeddings in the step; FINE_TUNE of the transformer sets up and steps
+EMBEDDING training (refused until the embedding slice) sets up and steps,
+output embeddings patch Llama's cropped states (tests/test_torch_port_embedding.py
+holds both to the reference); FINE_TUNE of the transformer sets up and steps
 (tests/test_torch_port_hunyuan_ft.py holds it to the reference). The reference's saver writes no VAE or CLIP weights (ROADMAP
 F12), the port's writes every component. Torch runs one thread.
 """
@@ -237,8 +237,10 @@ def test_family_entry():
 def test_single_file_and_output_embeddings_are_refused(hunyuan_dir, tmp_path):
     """The HunyuanVideo single file is ported (it was refused until the DiT
     fine-tune slice): the transformer under `model.model.` with the VAE,
-    Llama and CLIP-L bundled round-trips bit for bit. Output embeddings
-    are still refused."""
+    Llama and CLIP-L bundled round-trips bit for bit. Output embeddings,
+    refused until the embedding slice, patch Llama's states past the
+    template at the placeholder positions and leave the others as they
+    are."""
     from onetrainer_tpu_torch.train.hunyuan_train_step import hunyuan_text_conditioning
     family = get_family(HUNYUAN)
     model = family.load(hunyuan_dir["base"], _config(), device="cpu")
@@ -251,9 +253,26 @@ def test_single_file_and_output_embeddings_are_refused(hunyuan_dir, tmp_path):
     for name, module in model.modules().items():
         for key, value in module.state_dict().items():
             assert torch.equal(again.modules()[name].state_dict()[key], value), key
-    with pytest.raises(NotImplementedError, match="output embeddings"):
-        hunyuan_text_conditioning(model, {"output_embeddings": torch.zeros(1, 24)},
-                                  setup.step_cfg)
+    from dataclasses import replace
+    from onetrainer_tpu_torch.models.hunyuan_video import PROMPT_TEMPLATE_CROP_START
+    tokens = setup.tokenizer("a cat")
+    batch = {"tokens_1": torch.as_tensor(tokens[None]),
+             "tokens_mask_1": torch.as_tensor(setup.tokenizer.mask(tokens)[None]),
+             "tokens_2": torch.as_tensor(setup.tokenizer_2("a cat")[None])}
+    base = model.te_config.vocab_size
+    patched = dict(batch, tokens_1=batch["tokens_1"].clone(),
+                   extra_embeddings=(torch.zeros(1, model.te_config.hidden_size),))
+    patched["tokens_1"][0, PROMPT_TEMPLATE_CROP_START + 1] = base
+    vector = torch.randn(1, model.te_config.hidden_size)
+    cfg = replace(setup.step_cfg, train_text_encoder=True, output_embedding_base_id=base)
+    with torch.no_grad():
+        plain = hunyuan_text_conditioning(model, dict(patched), cfg)[0]
+        states = hunyuan_text_conditioning(
+            model, dict(patched, output_embeddings=vector), cfg)[0]
+    assert torch.equal(states[0, 1], vector[0].to(states.dtype))
+    keep = torch.ones(states.shape[1], dtype=torch.bool)
+    keep[1] = False
+    assert torch.equal(states[0, keep], plain[0, keep])
 
 
 def _write_config(config, path) -> str:
@@ -264,18 +283,21 @@ def _write_config(config, path) -> str:
 
 @pytest.mark.parametrize("case", ["fine_tune_prior", "fine_tune_text_encoder", "embedding"])
 def test_unported_training_is_refused(hunyuan_dir, tmp_path, case):
-    """EMBEDDING training raises in the setup, and in the train command
-    before the model loads. FINE_TUNE is ported (it was refused until the
+    """EMBEDDING (refused until the embedding slice) builds the Llama and
+    CLIP-L vectors, and one step moves no part of the model. FINE_TUNE is
+    ported (it was refused until the
     HunyuanVideo fine-tune slice): a config that trains the transformer
     (`prior`), or sets `text_encoder.train` beside it, builds the
     transformer's group alone, as the reference's (Llama and CLIP-L stay
     frozen and, with `text_encoder.train`, run in the step uncached); one
     step moves the transformer and no other part, and the train command
     passes its refusals and reaches the load."""
+    match = None
     if case == "embedding":
-        config, match = _config(pt_enums.TrainingMethod.EMBEDDING), "EMBEDDING"
+        config = _config(pt_enums.TrainingMethod.EMBEDDING)
+        config.learning_rate_warmup_steps = 0.0
     else:
-        config, match = _config(), None
+        config = _config()
         config.prior.train = True
         config.text_encoder.train = case == "fine_tune_text_encoder"
         config.learning_rate_warmup_steps = 0.0
@@ -286,14 +308,15 @@ def test_unported_training_is_refused(hunyuan_dir, tmp_path, case):
             family.create_setup(model, config, 1)
     else:
         setup = family.create_setup(model, config, 1)
-        assert set(setup.state.params) == {"transformer"}
-        assert setup.step_cfg.train_text_encoder is (case == "fine_tune_text_encoder")
+        assert set(setup.state.params) == ({"embeddings", "embeddings_2"} if case == "embedding"
+                                           else {"transformer"})
+        assert setup.step_cfg.train_text_encoder is (case != "fine_tune_prior")
         before = {name: {k: v.clone() for k, v in m.state_dict().items()}
                   for name, m in model.modules().items()}
         encode_images, encode_text = family.make_encode_fns(setup)
         images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
         batch = {k: torch.as_tensor(v) for k, v in encode_images(images).items()}
-        texts = [encode_text(p) for p in ("a cat", "a red dog")]
+        texts = [encode_text(p) for p in ("a <embedding> cat", "a red dog")]
         batch.update({k: torch.as_tensor(np.stack([np.asarray(t[k]) for t in texts]))
                       for k in texts[0]})
         batch["loss_weight"] = torch.ones(2)
@@ -302,7 +325,7 @@ def test_unported_training_is_refused(hunyuan_dir, tmp_path, case):
         for name, module in model.modules().items():
             changed = any(not torch.equal(v, before[name][k])
                           for k, v in module.state_dict().items())
-            assert changed is (name == "transformer"), name
+            assert changed is (name == "transformer" and case != "embedding"), name
     config.base_model_name = str(tmp_path / "absent")
     config.workspace_dir = str(tmp_path / "ws")
     path = _write_config(config, str(tmp_path / "config.json"))

@@ -18,6 +18,7 @@ of fp32 flows summed in another order), every uint8 frame within 2 levels
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from onetrainer_tpu.config.sample_config import SampleConfig
@@ -33,6 +34,16 @@ from tests.test_torch_port_hunyuan import (  # noqa: F401  (fixtures)
     one_torch_thread, shared_timestep_table, tiny_hunyuan_pair,
 )
 from tests.test_torch_port_sd3_sample import _DecodeRecorder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 LATENT_ATOL = 1e-4
 IMAGE_LEVELS = 2

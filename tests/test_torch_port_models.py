@@ -29,6 +29,16 @@ from onetrainer_tpu_torch.models.sdxl import StableDiffusionXLModel
 from onetrainer_tpu_torch.util.enums import ModelType
 from tests.test_sdxl import tiny_sdxl_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = RTOL = 1e-4
 
 

@@ -40,6 +40,16 @@ from onetrainer_tpu_torch.util.model_names import ModelWeightDtypes as PortWeigh
 from tests.test_sdxl import tiny_sdxl_model
 from tests.test_torch_port_models import port_model_like, random_flax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [(16, 256), (3, 3, 40, 64), (1000, 7)]
 # the reference's NF4 functions compiled whole, once per shape (op by op
 # they compile each primitive per shape, which is slower on the CPU). The

@@ -49,6 +49,15 @@ from tests.test_torch_port_models import tiny_pair
 LATENT_ATOL = 1e-3
 IMAGE_LEVELS = 2
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _record_steps(monkeypatch, module):
     """Wrap `module.step` to keep every latent it returns."""
@@ -126,17 +135,21 @@ def test_sdxl_sample_matches_jax(monkeypatch, size, force_flash):
 
 
 def test_setup_refuses_peft_methods():
-    """EMBEDDING training is not ported, and the setup refuses it; the
-    other PEFT types (LoHa, DoRA), refused until the PEFT slice, set up
-    with their adapters (tests/test_torch_port_peft.py holds them to the
-    reference)."""
+    """EMBEDDING training, refused until the embedding slice, sets up a
+    vector table per text encoder (tests/test_torch_port_embedding.py holds
+    it to the reference); the other PEFT types (LoHa, DoRA), refused until
+    the PEFT slice, set up with their adapters (tests/test_torch_port_peft.py
+    holds them to the reference)."""
     _, _, port = tiny_pair()
     config = PortTrainConfig.default_values()
     config.model_type = pt_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE
     case = config.clone()
     case.training_method = pt_enums.TrainingMethod.EMBEDDING
-    with pytest.raises(NotImplementedError):
-        get_family(case.model_type).create_setup(port, case, 1)
+    setup = get_family(case.model_type).create_setup(port, case, 1)
+    assert {k: tuple(v.shape) for k, v in setup.state.params.items()} == {
+        "embeddings": (1, port.te_config.hidden_size),
+        "embeddings_2": (1, port.te2_config.hidden_size)}
+    _, _, port = tiny_pair()
     for fields, leaves in ((dict(peft_type=pt_enums.PeftType.LOHA),
                             {"hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b"}),
                            (dict(lora_decompose=True),

@@ -48,6 +48,16 @@ from tests import test_torch_port_train_sdxl as train_sdxl
 from tests.test_torch_port_train_sdxl import one_torch_thread  # noqa: F401  (autouse)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _bf16_bits(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.float().numpy().view(np.uint32)

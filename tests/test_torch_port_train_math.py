@@ -48,6 +48,16 @@ from onetrainer_tpu_torch.train import sd_train_step as pt_step
 from onetrainer_tpu_torch.train.train_state import create_train_state, param_groups
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread: the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _port_config(config: TrainConfig) -> PortTrainConfig:
     return PortTrainConfig.default_values().from_dict(config.to_dict())
 
@@ -389,14 +399,17 @@ def test_step_and_peft_configs_match_jax():
 @pytest.mark.parametrize("setting,value,message", [
     ("ema", E.EMAMode.CPU, "EMA on the CPU"),
     ("masked_prior_preservation_weight", 0.5, "prior preservation"),
-    ("training_method", E.TrainingMethod.EMBEDDING, "EMBEDDING training"),
+    ("training_method", E.TrainingMethod.FINE_TUNE_VAE, "FINE_TUNE_VAE training"),
 ])
 def test_step_config_refuses_unported_settings(setting, value, message):
     """The step settings the port does not run raise, each named, in the
     setups' one config check (setup/sd_setup.py:refuse_unported), which
     the trainer calls before it loads the model; the EMA on the device and
-    gradient accumulation are ported and pass it."""
+    gradient accumulation are ported and pass it. The config is SDXL's,
+    whose VAE fine-tune the reference does not have (EMBEDDING, refused
+    here until the embedding slice, passes now)."""
     config = TrainConfig.default_values()
+    config.model_type = E.ModelType.STABLE_DIFFUSION_XL_10_BASE
     config.training_method = E.TrainingMethod.LORA
     config.ema, config.gradient_accumulation_steps = E.EMAMode.GPU, 2
     pt_sd_setup.refuse_unported(_port_config(config))

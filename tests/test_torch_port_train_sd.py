@@ -274,25 +274,37 @@ def test_nf4_unet_config_quantizes_like_the_reference(shape):
 
 
 def test_setup_refuses_unported_methods():
-    """EMBEDDING and FINE_TUNE_VAE training and additional embeddings
-    alongside FINE_TUNE raise; FINE_TUNE builds a trainer
-    (tests/test_torch_port_train_finetune.py holds it to the reference),
-    and a FINE_TUNE config that trains no part a sampling-only setup."""
-    _, _, port = tiny_sd_pair("sd15")
+    """EMBEDDING, FINE_TUNE_VAE and additional embeddings alongside
+    FINE_TUNE, once refused, build trainers of the vectors, of the VAE and
+    of the UNet beside the vectors (tests/test_torch_port_embedding.py and
+    tests/test_torch_port_vae_ft.py hold them to the reference); FINE_TUNE_VAE
+    of another family than SD 1.5/2.x still raises, as the reference has
+    none; FINE_TUNE builds a trainer (tests/test_torch_port_train_finetune.py
+    holds it to the reference), and a FINE_TUNE config that trains no part
+    a sampling-only setup."""
+    from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
+    from onetrainer_tpu_torch.setup.sd_setup import refuse_unported
     _, config = _configs("sd15")
     family = get_family(config.model_type)
-    embedding = pt_enums.TrainingMethod.EMBEDDING
-    from onetrainer_tpu_torch.config.train_config import TrainEmbeddingConfig
-    refused = [dict(training_method=embedding),
-               dict(training_method=pt_enums.TrainingMethod.FINE_TUNE_VAE),
-               dict(training_method=pt_enums.TrainingMethod.FINE_TUNE,
-                    additional_embeddings=[TrainEmbeddingConfig.default_values()])]
-    for fields in refused:
+    method = pt_enums.TrainingMethod
+    built = [(dict(training_method=method.EMBEDDING), {"embeddings"}),
+             (dict(training_method=method.FINE_TUNE_VAE), {"vae"}),
+             (dict(training_method=method.FINE_TUNE,
+                   additional_embeddings=[TrainEmbeddingConfig.default_values()]),
+              {"unet", "embeddings"})]
+    for fields, groups in built:
+        _, _, port = tiny_sd_pair("sd15")
         case = config.clone()
         for name, value in fields.items():
             setattr(case, name, value)
-        with pytest.raises(NotImplementedError):
-            family.create_setup(port, case, 1)
+        setup = family.create_setup(port, case, 1)
+        assert set(setup.state.params) == groups and setup.train_step is not None
+    case = config.clone()
+    case.training_method = method.FINE_TUNE_VAE
+    case.model_type = pt_enums.ModelType.STABLE_DIFFUSION_XL_10_BASE
+    with pytest.raises(NotImplementedError):
+        refuse_unported(case)
+    _, _, port = tiny_sd_pair("sd15")
     case = config.clone()
     case.training_method = pt_enums.TrainingMethod.FINE_TUNE
     case.unet.train = case.text_encoder.train = False

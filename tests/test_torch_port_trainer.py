@@ -221,14 +221,16 @@ def _refuses(config):
     "circular", "offload", "cloud", "optimizer", "lora_file", "masks"])
 def test_unported_configs_refuse(runs, monkeypatch, case):
     """Each feature the port's trainer does not run refuses at start():
-    "ema" is the EMA held on the CPU, "fine_tune" additional embeddings
-    beside a fine-tune, "masks" masked prior preservation, "optimizer" one
+    "ema" is the EMA held on the CPU, "masks" masked prior preservation, "optimizer" one
     other than AdamW and Adafactor (the EMA on the device, FINE_TUNE,
     masked training and gradient accumulation run:
     tests/test_torch_port_trainer_finetune.py). "lora_file", continuing
     from a LoRA file, refused until the PEFT slice, now starts: the setup's
     adapters are the file's tensors (bf16 there, fp32 here: exact), at the
-    file's rank and alpha."""
+    file's rank and alpha. "fine_tune" (additional embeddings beside a
+    fine-tune) and "embedding" (EMBEDDING training), refused until the
+    embedding slice, now start: their setups train the vectors
+    (tests/test_torch_port_embedding.py holds them to the reference)."""
     config = _port(_config(runs["root"], f"refuse_{case}", runs["base"], runs["ds"]))
     if case == "validation":
         config.validation = True
@@ -260,6 +262,12 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
     elif case == "masks":
         config.masked_training = True
         config.masked_prior_preservation_weight = 0.5
+    if case in ("fine_tune", "embedding"):
+        trainer = create_trainer(config, device="cpu")
+        trainer.start()
+        assert "embeddings" in trainer.setup.state.params
+        assert trainer.setup.step_cfg.train_text_encoder
+        return
     if case != "lora_file":
         _refuses(config)
         return
