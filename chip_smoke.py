@@ -59,12 +59,12 @@ never falls back to the CPU. Phases, each of which must pass:
      the wrapper's host time per call;
   9. QLoRA: the training step of phase 6 on a UNet loaded in bf16 and
      quantized to NF4, with bf16 adapters and stochastic rounding: one
-     warm-up and two timed steps with exact K1-K5 (and pre-pass)
+     warm-up and TRAIN_STEPS timed steps with exact K1-K5 (and pre-pass)
      launch counts per step (K5 once), its adapters of the shapes phase 8
      rounds, the LoRA gradients with K4 against the plain dequant, and a
      torch.profiler split of one more step;
  10. the same step on an fp8 (e4m3) base with fp32 adapters at batch 4
-     (the reference's bench.py headline stage): two timed steps, finite;
+     (the reference's bench.py headline stage): TRAIN_STEPS timed steps, finite;
  11. SD 1.5 at its published widths (seeded weights, fp32 base, bf16
      compute) through get_family -> create_sd_model -> init_sd_weights ->
      create_setup: text-to-image at 512x512 (DDIM, 4 steps, CFG 7), K1
@@ -97,7 +97,7 @@ never falls back to the CPU. Phases, each of which must pass:
      2,567,463,684 elements), text encoders frozen and cached, batch 2 at
      1024x1024, tx_only checkpointing, Adafactor with the reference's
      defaults, lr 1e-5, clip 1.0, stochastic rounding, no EMA: one warm-up
-     step (after which the UNet must have changed), two timed steps with
+     step (after which the UNet must have changed), TRAIN_STEPS timed steps with
      exact launches per step (K1 140, K2 70, K3 70, pre-pass 70, K5 once:
      one launch per update dtype over every UNet tensor), then one step
      whose K5 call is captured: K5 bit for bit against the plain rounding
@@ -138,14 +138,16 @@ never falls back to the CPU. Phases, each of which must pass:
      attention stays outside the recomputed halves of each block, so K1
      runs once), the LoRA gradients against plain attention, a profiler
      split;
- 19. sd3_cli: a seeded full-width SD3-medium, T5-XXL cut to CUT_T5_LAYERS
-     of its 24 layers (the script's disk writes), written as a 6.5 GiB
-     fp16 diffusers directory in a temporary directory (removed after the
-     phase), sd15_files' PNGs at 512x512: the train command (LoRA r16,
+ 19. sd3_cli: a seeded SD3-medium at full width cut to SD3_CLI_BLOCKS of
+     its 24 joint blocks (the script's time limit) and T5-XXL to
+     CUT_T5_LAYERS of its 24 layers (the script's disk writes), written as
+     an fp16 diffusers directory in a temporary directory (removed after
+     the phase), sd15_files' PNGs at 512x512: the train command (LoRA r16,
      batch 4, weights in bf16) for epoch 1 with a backup and the resume
-     for epoch 2 (24 each of K1-K3 and the pre-pass per step at 1178
-     tokens, none while caching), the LoRA file read back bitwise, the
-     sample command (4 flow Euler steps, 96 K1), a non-constant image;
+     for epoch 2 (one each of K1-K3 and the pre-pass per block and step
+     at 1178 tokens, none while caching), the LoRA file read back
+     bitwise, the sample command (4 flow Euler steps, 4 K1 per block), a
+     non-constant image;
  20. flux_model: FLUX.1-dev at its published widths with seeded weights (19
      double and 38 single blocks of 24 d=128 heads, hidden 3072, RoPE axes
      (16, 56, 56), the guidance embedding; CLIP-L; T5-XXL; the 16-channel
@@ -159,7 +161,7 @@ never falls back to the CPU. Phases, each of which must pass:
  22. flux_train: LoRA r16 a16 on all 504 NF4 transformer layers, fp32
      adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the
      port's caches (the text encoders freed after), "full" checkpointing:
-     one warm-up and two timed steps with exactly K1 114, K2, K3 and the
+     one warm-up and TRAIN_STEPS timed steps with exactly K1 114, K2, K3 and the
      pre-pass 57 each and K4 998 per step, the LoRA gradients against plain
      attention and the plain dequant, a profiler split;
  23. flux_cli: a seeded FLUX.1-dev at full width with its transformer cut to
@@ -190,7 +192,7 @@ never falls back to the CPU. Phases, each of which must pass:
      adapters, AdamW 1e-4, clip 1.0, batch 1 at 512x512 with 9 latent
      frames from the cache's rows (seeded latents, Llama states with the
      keep mask, CLIP pooled; the encoders freed), "full" checkpointing: one
-     warm-up and two timed steps with exactly K1 120, K2, K3 and the
+     warm-up and TRAIN_STEPS timed steps with exactly K1 120, K2, K3 and the
      pre-pass 60 each and K4 1068 per step, the LoRA gradients against plain
      attention and the plain dequant, a profiler split;
  27. hunyuan_cli: a seeded HunyuanVideo at full width with its transformer
@@ -248,7 +250,7 @@ never falls back to the CPU. Phases, each of which must pass:
      transformer fine-tuned with Adafactor and stochastic rounding, lr
      1e-5, clip 1.0, batch 1 at 1024x1024, "full" checkpointing, text
      cached, T5 and the VAE freed: the memory reckoning printed beside the
-     peak; two timed steps with exactly K1 114, K2, K3 and the pre-pass
+     peak; TRAIN_STEPS timed steps with exactly K1 114, K2, K3 and the pre-pass
      57 and K5 3 per step (the update made and rounded in chunks of at
      most 2^32 elements); K5 against the plain rounding on the largest, a
      1-D and a 2-D leaf (FLUX has no conv), every output a bf16 neighbour,
@@ -274,7 +276,7 @@ never falls back to the CPU. Phases, each of which must pass:
      at its published widths, the UNet in bf16 under tx_only and both text
      encoders frozen, the text run in the step on the batch's tokens,
      `<emb>` of 4 tokens in CLIP-L and CLIP-G, AdamW, batch 2 at
-     1024x1024: one warm-up and two timed steps with exactly K1 140, K2,
+     1024x1024: one warm-up and TRAIN_STEPS timed steps with exactly K1 140, K2,
      K3 and the pre-pass 70 per step (CLIP-G's pooled embedding reaches
      every self-attention through the time embedding), the UNet and text encoders bit for
      bit unchanged, the vectors' gradients against plain attention, a
@@ -291,11 +293,30 @@ never falls back to the CPU. Phases, each of which must pass:
      resume; in sd3_cli, flux_cli and hunyuan_cli one EMBEDDING epoch each
      on their cut models with their LoRA runs' launches per step (FLUX's
      and HunyuanVideo's output embeddings over the NF4 base, K4 included).
+ 37. PixArt-Σ and Sana 1600M at their published widths (after hunyuan_ft):
+     each built with seeded weights, the transformer in NF4 (287 and 227
+     layers), the text encoder (T5-XXL, Gemma-2-2B) at 300 tokens;
+     pixart_sample and sana_sample at 1024x1024 (DDIM and flow Euler, 4
+     steps, CFG 4.5: K4 once per NF4 layer per pass, no K1-K3: PixArt's
+     d=72 and Sana's cross-attention d=112 run SDPA, Sana's self-attention
+     is linear); pixart_train and sana_train: LoRA r16 over the NF4
+     transformer with bf16 adapters and stochastic rounding, batch 2 at
+     1024x1024, text cached, "full" checkpointing, PixArt's VB loss at
+     strength 1: exact K4 and K5 launches per step, K4 on every layer's
+     codes and K5 over the adapter set bit for bit against their plain
+     versions, the gradients against the plain dequant, a profiler split;
+     pixart_sana_cli (before sd15_ft_cli): both families cut to 2 blocks
+     (T5-XXL and Gemma-2-2B to 2 layers) written as bf16 diffusers
+     directories by the port's savers, through the train command (LoRA on
+     the NF4 transformer, epoch 1, backup, resume, the file read back bit
+     for bit) and the sample command on sd15_files' PNGs at 512x512.
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
 it, named), and k4 FLUX's 3072x18432 norm1.linear (HunyuanVideo's too),
-15360x3072 proj_out and FLUX.1-fill's 384x3072 x_embedder. The CLI phases
+15360x3072 proj_out and FLUX.1-fill's 384x3072 x_embedder, PixArt-Σ's
+1152x6912 AdaLN and 4096x1152 caption projections and Sana's GLUMBConv
+kernels (1x1 2240 -> 11200, 5600 -> 2240, the depthwise 3x3 x 11200). The CLI phases
 read sd15_files' PNGs at 600x560, which the loader resizes to their bucket.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
@@ -350,7 +371,9 @@ GRAD_REL_L2_BOUND = 1e-2
 # bitwise equal to it (phase k4), so only the step's own run-to-run noise
 # remains (cuDNN and cuBLAS pick their algorithms per call)
 QLORA_GRAD_REL_L2_BOUND = 1e-3
-TRAIN_STEPS = 2                # timed steps after one warm-up step
+# timed steps after one warm-up step: one, so that every phase fits the
+# script's time limit
+TRAIN_STEPS = 1
 # the self-attentions K1 takes per UNet pass, {sequence length: count}:
 # SDXL at a 128x128 latent; SD 1.5 at a 64x64 latent, the d=40 level (d=80
 # at 1024 and d=160 at 256 tokens stay on SDPA); SD 2.1 at a 96x96 latent,
@@ -369,11 +392,18 @@ K4_CASES = [
     ("flux_norm1_3072x18432", (3072, 18432)),    # FLUX's largest kernel (56.6M)
     ("flux_proj_out_15360x3072", (15360, 3072)),  # a single block's proj_out
     ("flux_fill_x_embedder_384x3072", (384, 3072)),  # FLUX.1-fill's 384-wide input
+    ("pixart_adaln_1152x6912", (1152, 6912)),    # PixArt-Σ's AdaLN-single projection
+    ("pixart_caption_4096x1152", (4096, 1152)),  # its caption projection from T5
+    ("sana_conv_inverted_1x1x2240x11200", (1, 1, 2240, 11200)),  # Sana's GLUMBConv 1x1
+    ("sana_conv_point_1x1x5600x2240", (1, 1, 5600, 2240)),
+    ("sana_conv_depth_3x3x1x11200", (3, 3, 1, 11200)),  # its depthwise 3x3
 ]
-# the UNet's shapes and FLUX's
+# the UNet's shapes, FLUX's, PixArt-Σ's and Sana's
 K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280", "flux_norm1_3072x18432",
-            "flux_proj_out_15360x3072", "flux_fill_x_embedder_384x3072")
+            "flux_proj_out_15360x3072", "flux_fill_x_embedder_384x3072",
+            "pixart_adaln_1152x6912", "sana_conv_inverted_1x1x2240x11200")
 FLUX_K4, FLUX_FILL_K4 = "flux_norm1_3072x18432", "flux_fill_x_embedder_384x3072"
+PIXART_K4, SANA_K4 = "pixart_adaln_1152x6912", "sana_conv_inverted_1x1x2240x11200"
 K5_SIZES = ((1 << 20) + 3, 1_000_003)
 # the step's largest bf16 adapter tensor: lora_down of a 2560->1280 3x3 conv
 K5_LARGEST_ADAPTER_SHAPE = (16, 2560, 3, 3)
@@ -1217,7 +1247,8 @@ def phase_sample(torch, model, size: int, self_attn: dict, tag: str, cfg_scale: 
         video = (f", video {clip.shape} {clip.dtype} mean {clip.mean():.2f} std "
                  f"{clip.std():.2f}, decoded finite {decoded}, VAE decode {decode_ms:.1f} ms")
     sampler = "DDIM" if model.model_type.is_stable_diffusion() \
-        or model.model_type.is_stable_diffusion_xl() else "flow Euler"
+        or model.model_type.is_stable_diffusion_xl() or model.model_type.is_pixart() \
+        else "flow Euler"
     fill = (f", inpainting {os.path.basename(sc.base_image_path)} under "
             f"{os.path.basename(sc.mask_image_path)}" if inpaint is not None else "")
     print(f"[{tag}] {model.model_type.value} {size}x{size} {sampler} {sc.diffusion_steps} steps "
@@ -1314,8 +1345,8 @@ def _lora_grads(torch, setup, batch, timestep, noise, latent_noise):
     the update (the step's own forward and backward)."""
     from onetrainer_tpu_torch.train.train_state import param_groups
     flat = [t for g in param_groups(setup.state.params).values() for t in g]
-    loss = setup.train_step.loss(batch, None, timestep=timestep, noise=noise,
-                                 latent_noise=latent_noise)
+    draws = {} if latent_noise is None else {"latent_noise": latent_noise}
+    loss = setup.train_step.loss(batch, None, timestep=timestep, noise=noise, **draws)
     return torch.cat([g.flatten() for g in torch.autograd.grad(loss, flat)])
 
 
@@ -1429,6 +1460,8 @@ def _grads_against_plain(torch, setup, batch, tag: str, plain_dequant: bool = Fa
     from onetrainer_tpu_torch.ops import quant
     from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_reference
     draws = _fixed_draws(torch, batch, setup.config.model_type.is_flux())
+    if "latent_logvar" not in batch:   # deterministic latents (Sana's DC-AE)
+        draws = draws[:2] + (None,)
     seqs = []
     kernel_fn = ff.flash_attention_folded
 
@@ -1773,7 +1806,7 @@ def phase_sdxl_loha(torch, model) -> dict:
 def phase_sdxl_inpaint(torch, root: str) -> dict:
     """The SDXL inpainting UNet (9 input channels) at its published widths,
     fp32 with bf16 compute: the LoRA step of phase 6 on a batch with the
-    conditioning latent and the mask beside the latents (two timed steps,
+    conditioning latent and the mask beside the latents (TRAIN_STEPS timed steps,
     the same launches per step as phase 6), then inpainting at 1024x1024
     (4 DDIM steps, CFG 7) from a seeded base image and mask at 896x1152:
     K1 70 per step, the UNet's input 9 channels wide."""
@@ -2609,7 +2642,7 @@ def phase_sdxl_embedding(torch) -> dict:
     """Textual inversion of SDXL at full width: the UNet in bf16 under
     tx_only and both text encoders frozen, the text run in the step on the
     batch's tokens, batch 2 at 1024x1024, `<emb>` of 4 tokens in CLIP-L
-    (768 wide) and CLIP-G (1280), AdamW: one warm-up and two timed steps
+    (768 wide) and CLIP-G (1280), AdamW: one warm-up and TRAIN_STEPS timed steps
     with exactly K1 140, K2, K3 and the pre-pass 70 per step (CLIP-G's
     pooled embedding enters the time embedding, so every resnet, and every
     self-attention after it, depends on the text: even the first block's
@@ -2677,7 +2710,7 @@ def phase_sd15_vae_ft(torch) -> dict:
     """The SD 1.5 VAE fine-tune at full width: the VAE in bf16 through the
     setup's FINE_TUNE_VAE (the UNet and text encoder frozen), AdamW lr
     1e-5, clip 1.0, stochastic rounding, batch 4 at 512x512, the cached
-    latent decoded against the image: one warm-up and two timed steps with
+    latent decoded against the image: one warm-up and TRAIN_STEPS timed steps with
     exactly K5 once per step and no attention kernel (the VAE's one
     attention is 512 wide: SDPA); one step with K5's call captured, bit for
     bit against the plain rounding on the Philox bits of the largest, a
@@ -3265,11 +3298,18 @@ def phase_sd15_ft_cli(torch, files: dict) -> dict:
 # attentions whose outputs differ by bf16 roundings, carried through a bf16
 # network of random weights (the UNet's bound)
 SD3_REL_L2_BOUND = 5e-2
-# SD3-medium's adapted layers: 14 dense layers in each of the first 23
-# blocks, 11 in the context-pre-only last one, and the patch conv, the four
-# time/text embedder layers, the context embedder, norm_out and proj_out
-SD3_LORA_LAYERS = 341
 SD3_CLI_SIZE = 512          # sd15_files' PNGs: 154 + 1024 joint tokens
+# the sd3_cli phase's directory: SD3-medium cut to 6 of its 24 joint blocks
+# (the script's time limit)
+SD3_CLI_BLOCKS = 6
+
+
+def sd3_lora_layers(blocks: int) -> int:
+    """SD3-medium's adapted layers at `blocks` joint blocks: 14 dense layers
+    in each block but the context-pre-only last one, 10 in that one, and 9
+    outside them (the patch conv, the four time/text embedder layers, the
+    context embedder, norm_out and proj_out): 341 at its 24 blocks."""
+    return 14 * blocks + 5
 
 
 def build_sd3_model(torch):
@@ -3356,7 +3396,7 @@ def phase_sd3_train(torch, model) -> dict:
     ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
           and run["launches"] == expected and grads["by_seq"] == {4250: SD3_BLOCKS}
           and grads["rel"] <= GRAD_REL_L2_BOUND and fp8 > 0
-          and len(setup.state.params["transformer_lora"]) == SD3_LORA_LAYERS
+          and len(setup.state.params["transformer_lora"]) == sd3_lora_layers(SD3_BLOCKS)
           and setup.model.prediction_type == "flow")
     print(f"[sd3_train] {fp8} transformer layers hold e4m3 weights; checkpoint policy "
           f"{model.transformer_config.remat_policy} (the attention outside the recomputed "
@@ -3451,12 +3491,14 @@ def sd3_config_jsons(model) -> dict:
 
 
 def sd3_files(torch, root: str) -> str:
-    """A seeded full-width SD3-medium, T5-XXL cut to CUT_T5_LAYERS layers,
-    written as an fp16 diffusers directory in `root` -> its path."""
+    """A seeded SD3-medium at full width, cut to SD3_CLI_BLOCKS joint blocks
+    and T5-XXL to CUT_T5_LAYERS layers, written as an fp16 diffusers
+    directory in `root` -> its path."""
     from onetrainer_tpu_torch.io.sd3_checkpoints import save_sd3_diffusers
     from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
     from onetrainer_tpu_torch.util.enums import ModelType
-    model = build_cut_dit(torch, ModelType.STABLE_DIFFUSION_3, (SD3_BLOCKS,), CUT_T5_LAYERS)
+    model = build_cut_dit(torch, ModelType.STABLE_DIFFUSION_3, (SD3_CLI_BLOCKS,),
+                          CUT_T5_LAYERS)
     ckpt = os.path.join(root, "sd3-medium")
     t0 = time.perf_counter()
     m = model.modules()
@@ -3471,8 +3513,8 @@ def sd3_files(torch, root: str) -> str:
     gc.collect()
     torch.cuda.empty_cache()
     size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
-    print(f"[sd3_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, fp16, diffusers layout, T5 "
-          f"{CUT_T5_LAYERS} layers) in {write_s:.2f} s")
+    print(f"[sd3_files] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, fp16, diffusers layout, "
+          f"{SD3_CLI_BLOCKS} joint blocks, T5 {CUT_T5_LAYERS} layers) in {write_s:.2f} s")
     return ckpt
 
 
@@ -3527,12 +3569,15 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
     gc.collect()
     torch.cuda.empty_cache()
     resumed, prof = _cli_run(torch, resume_path, events2, profiled_step=4)
-    loaded_policy = getattr(resumed.model, f"{denoiser}_config").remat_policy
+    # PixArt's and Sana's blocks run one policy, "full" (models/remat.py)
+    loaded_policy = getattr(getattr(resumed.model, f"{denoiser}_config"), "remat_policy",
+                            "full")
     train_launches = _launch_counts()
     image_path = os.path.join(root, "sample.png")
     lora = load_safetensors(config.output_model_destination)
     adapters = resumed.setup.state.params[f"{denoiser}_lora"]
-    keys = peft_module_keys(getattr(resumed.model, denoiser), resumed.setup.peft_cfg)
+    keys = peft_module_keys(getattr(resumed.model, denoiser), resumed.setup.peft_cfg,
+                            getattr(resumed.setup, "lora_key_maps", {}).get(f"{denoiser}_lora"))
     read, alpha = kohya_state_dict_to_peft(lora, f"lora_{denoiser}", keys)
     bitwise = (set(read) == set(adapters) and alpha == resumed.setup.peft_cfg.alpha
                and all(torch.equal(read[k][n], t.detach().cpu())
@@ -3601,7 +3646,7 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
           f"{statistics.median(step_s):.4f} s over the unprofiled steps (the first includes "
           f"the warm-up); step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
           f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
-    sampler = "DDIM" if denoiser == "unet" else "flow Euler"
+    sampler = "DDIM" if denoiser == "unet" or model_type.is_pixart() else "flow Euler"
     print(f"[{tag}] on {card}: sample (load + 4 {sampler} steps + decode + PNG) "
           f"{sample_s:.2f} s; peak max_memory_allocated {peak_gib:.2f} GiB; launches "
           f"{launches} (sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
@@ -3662,16 +3707,17 @@ def phase_sd3_cli(torch, ckpt: str, dataset: str) -> dict:
     """SD3 from a diffusers directory through the train and sample commands
     (`_dit_lora_cli`) at 512x512; the sample at CFG 7. Exactly K1-K3 and the
     pre-pass once per block and step (the joint attention at 154 + 1024
-    tokens: dots_nb_attn keeps it out of the recompute)."""
+    tokens: dots_nb_attn keeps it out of the recompute), SD3_CLI_BLOCKS
+    blocks."""
     from onetrainer_tpu_torch.util.enums import ModelType
-    per_step = {"K1": SD3_BLOCKS, "K2": SD3_BLOCKS, "K3": SD3_BLOCKS, "K3pre": SD3_BLOCKS,
-                "K4": 0, "K5": 0}
+    blocks = SD3_CLI_BLOCKS
+    per_step = {"K1": blocks, "K2": blocks, "K3": blocks, "K3pre": blocks, "K4": 0, "K5": 0}
     latent = SD3_CLI_SIZE // 8
     result = _dit_lora_cli(
         torch, "sd3_cli", ckpt, dataset, ModelType.STABLE_DIFFUSION_3, SD3_CLI_SIZE,
-        per_step, SD3_LORA_LAYERS,
+        per_step, sd3_lora_layers(blocks),
         {"latent_image": (latent, latent, 16), "sd3_context": (154, 4096),
-         "sd3_pooled": (2048,)}, ["--cfg", "7"], 4 * SD3_BLOCKS, "dots_nb_attn",
+         "sd3_pooled": (2048,)}, ["--cfg", "7"], 4 * blocks, "dots_nb_attn",
         "fp16 diffusers directory to bf16 on the card")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3833,7 +3879,7 @@ def phase_flux_train(torch, model) -> dict:
     adapters, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024 through the port's
     caches (one seeded image and prompt through the VAE, CLIP-L and T5,
     which are then freed), "full" checkpointing, guidance 1 (the config's
-    default): one warm-up and two timed steps with exact launches per
+    default): one warm-up and TRAIN_STEPS timed steps with exact launches per
     step (K1 twice per block, K2, K3 and the pre-pass once, K4 once per NF4
     layer and again per layer inside the recomputed blocks), the LoRA
     gradients against plain attention and the plain dequant, a profiler
@@ -4736,6 +4782,420 @@ def phase_dit_single_file(torch, hunyuan_ckpt: str, dataset: str) -> dict:
     return {"launches": launches}
 
 
+# -- PixArt-Σ and Sana 1600M ------------------------------------------------------------
+
+# PixArt-Σ at its published widths (PixArt-alpha/PixArt-Sigma-XL-2-1024-MS,
+# transformer/config.json: 28 blocks of 16 d=72 heads, caption 4096, 8
+# output channels, sample size 128, no micro-conditions), T5-XXL at 300
+# tokens, the SDXL-shaped VAE; at 1024x1024 its 128x128 latent is 4096
+# tokens of 2x2 patches. Sana 1600M (Efficient-Large-Model/
+# Sana_1600M_1024px_diffusers: 20 blocks, 70 linear heads x 32, 20 cross
+# heads x 112, caption 2304, mlp ratio 2.5, patch 1), Gemma-2-2B at 300
+# tokens, DC-AE f32c32: at 1024x1024 a 32x32 latent of 32 channels, 1024
+# tokens. Neither runs K1-K3: PixArt's d=72 and Sana's cross-attention
+# d=112 sit off the kernel's slots (SDPA), Sana's self-attention is linear.
+PIXART_BLOCKS, SANA_BLOCKS = 28, 20
+PIXART_SANA_SIZE = 1024
+PIXART_TEXT_TOKENS = SANA_TEXT_TOKENS = 300
+PIXART_CFG = SANA_CFG = 4.5
+# the CLI phase's diffusers directories: both transformers cut to 2 blocks,
+# T5-XXL to CUT_T5_LAYERS layers and Gemma-2-2B to 2; 512x512
+CUT_DIT_BLOCKS, CUT_GEMMA_LAYERS = 2, 2
+PIXART_SANA_CLI_SIZE = 512
+
+
+def pixart_nf4_layers(blocks: int) -> tuple[int, int]:
+    """(NF4 layers of a PixArt-Σ transformer, those inside its blocks):
+    every dense and conv layer (the smallest, the patch projection, has 4 x
+    1152 x 2 x 2 = 18,432 >= 4096 elements): 10 per block (attn1's and
+    attn2's q, k, v, out and the feed-forward's two), and 7 outside them
+    (pos_embed.proj, the timestep embedder's two, adaln_single.linear, the
+    caption projection's two, proj_out)."""
+    return 10 * blocks + 7, 10 * blocks
+
+
+def sana_nf4_layers(blocks: int) -> tuple[int, int]:
+    """(NF4 layers of a Sana transformer, those inside its blocks): 11 per
+    block (attn1's and attn2's q, k, v, out and GLUMBConv's three convs, the
+    depthwise 3x3's [11200, 1, 3, 3] = 100,800 elements among them), and 7
+    outside them (patch_embed.proj, the timestep embedder's two,
+    time_embed.linear, the caption projection's two, proj_out). LoRA adapts
+    all but the depthwise convs."""
+    return 11 * blocks + 7, 11 * blocks
+
+
+def _quantize_prior(torch, module, tag: str, expected: int) -> None:
+    """The transformer to NF4 through the setup's policy (the prior's
+    weight dtype NFLOAT_4), checked against the expected layer count."""
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+    from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
+    from onetrainer_tpu_torch.util.enums import DataType
+    t0 = time.perf_counter()
+    config = TrainConfig.default_values()
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    quantize_frozen_parts({"transformer": module}, config.weight_dtypes(),
+                          {"transformer": "prior"})
+    torch.cuda.synchronize()
+    layers = [m for m in module.modules() if is_quantized(getattr(m, "weight", None))]
+    nf4_gib = sum(m.weight.q.numel() + 4 * m.weight.scales.numel() for m in layers) / 2 ** 30
+    print(f"[{tag}] transformer quantized to NF4 in {time.perf_counter() - t0:.2f} s: "
+          f"{len(layers)} NF4 layers (expected {expected}), {nf4_gib:.3f} GiB of codes and "
+          f"scales; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if len(layers) != expected:
+        raise AssertionError(f"{len(layers)} NF4 layers, expected {expected}")
+
+
+def _seeded(torch, model, init, tag: str, quantize: bool) -> None:
+    """`init` the model's seeded weights on the card: the transformer in
+    bf16 (the rest fp32; everything bf16 without `quantize`, the CLI's
+    files), the parameter counts printed."""
+    counts = {name: sum(p.numel() for p in m.parameters())
+              for name, m in model.modules().items()}
+    for name, module in model.modules().items():
+        if name == "transformer" or not quantize:
+            module.to(torch.bfloat16)    # on "meta": no memory yet
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{tag}] parameters {counts} (total {sum(counts.values())}), seeded on the card "
+          f"in {time.perf_counter() - t0:.2f} s ({'transformer bf16, the rest fp32' if quantize else 'all bf16'}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+
+def build_pixart_model(torch, blocks: int = PIXART_BLOCKS, t5_layers: int | None = None,
+                       quantize: bool = True):
+    """PixArt-Σ at its published widths with seeded weights on the card
+    (`blocks` of its 28 blocks; T5-XXL, `t5_layers` of its 24 when given,
+    its tokenizer wrapped at 300 tokens; the SDXL-shaped VAE), bf16
+    compute, "full" checkpointing; with `quantize` the transformer NF4."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.io.weights import init_pixart_weights
+    from onetrainer_tpu_torch.models.pixart import PixArtTransformer2D
+    from onetrainer_tpu_torch.models.pixart_model import create_pixart_model
+    from onetrainer_tpu_torch.models.t5 import T5Encoder
+    from onetrainer_tpu_torch.models.vae import AutoencoderKL, sdxl_vae_config
+    from onetrainer_tpu_torch.setup.tokenizer import T5TokenizerWrapper
+    from onetrainer_tpu_torch.util.enums import ModelType
+    model = create_pixart_model(ModelType.PIXART_SIGMA, dtype=torch.bfloat16,
+                                gradient_checkpointing=True, device="meta")
+    model.transformer_config = replace(model.transformer_config, sample_size=128,
+                                       use_additional_conditions=False, num_layers=blocks)
+    model.vae_config = sdxl_vae_config(dtype=torch.bfloat16)
+    if t5_layers is not None:
+        model.te_config = replace(model.te_config, num_layers=t5_layers)
+    with torch.device("meta"):
+        model.transformer = PixArtTransformer2D(model.transformer_config)
+        model.vae = AutoencoderKL(model.vae_config)
+        model.text_encoder = T5Encoder(model.te_config)
+    model.tokenizer = T5TokenizerWrapper(None, max_length=PIXART_TEXT_TOKENS,
+                                         vocab_size=model.te_config.vocab_size)
+    tag = "pixart_model"
+    print(f"[{tag}] PixArt-Σ {blocks} blocks of 16 d=72 heads (hidden 1152), T5-XXL "
+          f"{model.te_config.num_layers} layers at {PIXART_TEXT_TOKENS} tokens, SDXL VAE "
+          f"(scaling {model.vae_config.scaling_factor})")
+    _seeded(torch, model, init_pixart_weights, tag, quantize)
+    if quantize:
+        _quantize_prior(torch, model.transformer, tag, pixart_nf4_layers(blocks)[0])
+    return model
+
+
+def build_sana_model(torch, blocks: int = SANA_BLOCKS, gemma_layers: int | None = None,
+                     quantize: bool = True):
+    """Sana 1600M at its published widths with seeded weights on the card
+    (`blocks` of its 20 blocks; Gemma-2-2B, `gemma_layers` of its 26 when
+    given, at 300 tokens; DC-AE f32c32), bf16 compute, "full"
+    checkpointing; with `quantize` the transformer NF4."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.io.weights import init_sana_weights
+    from onetrainer_tpu_torch.models.dcae import AutoencoderDC
+    from onetrainer_tpu_torch.models.gemma import Gemma2Encoder
+    from onetrainer_tpu_torch.models.sana import SanaTransformer2D
+    from onetrainer_tpu_torch.models.sana_model import create_sana_model
+    from onetrainer_tpu_torch.util.enums import ModelType
+    model = create_sana_model(ModelType.SANA, dtype=torch.bfloat16,
+                              gradient_checkpointing=True, device="meta")
+    model.transformer_config = replace(model.transformer_config, num_layers=blocks)
+    if gemma_layers is not None:
+        model.te_config = replace(model.te_config, num_layers=gemma_layers)
+    with torch.device("meta"):
+        model.transformer = SanaTransformer2D(model.transformer_config)
+        model.vae = AutoencoderDC(model.vae_config)
+        model.text_encoder = Gemma2Encoder(model.te_config)
+    tag = "sana_model"
+    print(f"[{tag}] Sana {blocks} blocks (hidden 2240: 70 linear heads x 32, 20 cross heads "
+          f"x 112), Gemma-2-2B {model.te_config.num_layers} layers at {SANA_TEXT_TOKENS} "
+          f"tokens, DC-AE f32c32")
+    _seeded(torch, model, init_sana_weights, tag, quantize)
+    if quantize:
+        _quantize_prior(torch, model.transformer, tag, sana_nf4_layers(blocks)[0])
+    return model
+
+
+def _sana_batch(torch, setup, batch_size: int, size: int) -> dict:
+    """Sana's cache rows at size x size, tiled: the DC-AE latent of a
+    seeded image (deterministic: no logvar), the Gemma states of the prompt
+    and their keep mask."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    encode_images, encode_text = get_family(setup.config.model_type).make_encode_fns(setup)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    text = encode_text("a photograph of an astronaut riding a horse")
+
+    def tile(t):
+        return t.expand(batch_size, *t.shape[1:]).contiguous()
+    return {"latent_image": tile(encode_images(image)["latent_image"]),
+            "text_encoder_hidden_state": tile(text["text_encoder_hidden_state"][None]),
+            "tokens_mask": tile(torch.as_tensor(text["tokens_mask"], device="cuda")[None]),
+            "loss_weight": torch.ones((batch_size,), device="cuda")}
+
+
+def _k4_over_the_layers(torch, module, tag: str) -> None:
+    """K4 on every NF4 layer's codes of `module` against the plain dequant,
+    bit for bit, to bf16 (what the layers compute with) and fp32 (what the
+    export decodes); the distinct kernel shapes listed. These launches come
+    outside any counted window."""
+    from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_flat, nf4_dequant_reference
+    from onetrainer_tpu_torch.ops.quant import is_quantized
+    shapes, same, n = set(), True, 0
+    for layer in module.modules():
+        w = getattr(layer, "weight", None)
+        if not is_quantized(w):
+            continue
+        n += 1
+        shapes.add(tuple(w.shape))
+        for dtype, view in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+            out = nf4_dequant_flat(w.q, w.scales, dtype)
+            ref = nf4_dequant_reference(w.q, w.scales, dtype)
+            same = same and bool(torch.equal(out.view(view), ref.view(view)))
+    torch.cuda.synchronize()
+    print(f"[{tag}] K4 on all {n} NF4 layers' codes, to bf16 and fp32: bitwise equal to the "
+          f"plain dequant {same}; kernel shapes {sorted(shapes)}")
+    if not same:
+        raise AssertionError(f"{tag}: K4 differs from the plain dequant")
+
+
+def _k5_set_plain_ms(torch, setup) -> float:
+    """The plain rounding's time over a copy of the step's adapter set (bf16
+    p, seeded bf16 u, a seed per leaf), tensor by tensor."""
+    from onetrainer_tpu_torch.ops.stochastic import philox_bits, stochastic_round_to_bf16
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    ps = [t.detach().clone() for g in setup.state.params.values() for e in g.values()
+          for t in e.values()]
+    us = [(torch.randn(p.shape, generator=gen, device="cuda") * 1e-4).to(torch.bfloat16)
+          for p in ps]
+    seeds = torch.empty(len(ps), dtype=torch.int64, device="cuda")
+    seeds.random_(generator=gen)
+
+    def plain():
+        for i, (p, u) in enumerate(zip(ps, us)):
+            bits = philox_bits(seeds[i:i + 1], p.numel(), p.device).view(p.shape)
+            p.copy_(stochastic_round_to_bf16(p.float() + u.float(), bits))
+    return _once_ms(torch, plain)
+
+
+def _dit_qlora_train(torch, model, tag: str, n_layers: tuple, adapted: int,
+                     make_batch=None) -> dict:
+    """LoRA r16 a16 over the NF4 transformer with bf16 adapters and
+    stochastic rounding, AdamW 1e-4, clip 1.0, batch 2 at 1024x1024
+    (PIXART_SANA_SIZE) from
+    the port's caches (`make_batch(setup)` when given), the text encoder and
+    the VAE freed once cached, "full" checkpointing: one warm-up and
+    TRAIN_STEPS timed steps with exactly, per step, K4 once per NF4 layer
+    and again per layer in the recomputed blocks, K5 once, no K1-K3; K4 on
+    every layer's codes bit for bit; one step's gradients with K4 against
+    the plain dequant (GRAD_REL_L2_BOUND: K4 is bitwise, but SDPA's flash
+    backward, PixArt's attention, sums with atomics in no fixed order, and
+    differed by 1.1e-3 between two runs); one step's K5 call bit for bit against the plain
+    rounding (`_k5_over_the_adapters`); the plain rounding's time over the
+    set; a profiler split."""
+    from onetrainer_tpu_torch.util.enums import DataType
+    config = _lora_config(2, model.model_type)
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    config.optimizer.stochastic_rounding = True
+
+    def free_encoders(setup):
+        model.text_encoder = model.vae = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run = _setup_and_steps(torch, model, config, tag, PIXART_SANA_SIZE,
+                           after_batch=free_encoders, make_batch=make_batch)
+    setup, batch = run["setup"], run["batch"]
+    n_quant, n_in_blocks = n_layers
+    expected = {"K1": 0, "K2": 0, "K3": 0, "K3pre": 0,
+                "K4": TRAIN_STEPS * (n_quant + n_in_blocks), "K5": TRAIN_STEPS}
+    _k4_over_the_layers(torch, model.transformer, tag)
+    grads = _grads_against_plain(torch, setup, batch, tag, plain_dequant=True)
+    k5 = _k5_over_the_adapters(torch, setup, batch, run["gen"], tag)
+    k5["plain_ms"] = _k5_set_plain_ms(torch, setup)
+    adapters = setup.state.params["transformer_lora"]
+    ok = (run["finite"] and grads["finite"] and run["up_max"] > 0
+          and run["launches"] == expected and grads["by_seq"] == {}
+          and grads["rel"] <= GRAD_REL_L2_BOUND and len(adapters) == adapted
+          and set(setup.state.params) == {"transformer_lora"})
+    print(f"[{tag}] {n_quant} NF4 layers ({n_in_blocks} in the blocks), {len(adapters)} adapted "
+          f"(expected {adapted}); K5 over the {k5['leaves']} adapter tensors: "
+          f"{k5['ms']:.4f} ms, plain {k5['plain_ms']:.2f} ms, least time {k5['bound_ms']:.4f} ms "
+          f"({k5['bound_by']}); launches {run['launches']} (expected {expected}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} failed its checks")
+    profile_train_step(torch, setup, batch, run["gen"], tag)
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"], "k5": k5}
+
+
+def phase_pixart_train(torch, model) -> dict:
+    """PixArt-Σ QLoRA (`_dit_qlora_train`) with the VB loss at strength 1:
+    epsilon and the learned variance, T5 states cached at 300 tokens."""
+    return _dit_qlora_train(torch, model, "pixart_train", pixart_nf4_layers(PIXART_BLOCKS),
+                            pixart_nf4_layers(PIXART_BLOCKS)[0])
+
+
+def phase_sana_train(torch, model) -> dict:
+    """Sana 1600M QLoRA (`_dit_qlora_train`), flow matching, Gemma states
+    cached at 300 tokens with their keep mask."""
+    n_quant, n_in_blocks = sana_nf4_layers(SANA_BLOCKS)
+    return _dit_qlora_train(torch, model, "sana_train", (n_quant, n_in_blocks),
+                            n_quant - SANA_BLOCKS,
+                            make_batch=lambda setup: _sana_batch(torch, setup, 2,
+                                                                 PIXART_SANA_SIZE))
+
+
+def _config_jsons(model) -> dict:
+    """Each component's config.json for a diffusers directory of the port's
+    PixArt or Sana `model`."""
+    t, v, te = model.transformer_config, model.vae_config, model.te_config
+    if model.model_type.is_pixart():
+        return {
+            "transformer": {"sample_size": t.sample_size, "patch_size": t.patch_size,
+                            "in_channels": t.in_channels, "out_channels": t.out_channels,
+                            "num_layers": t.num_layers, "num_attention_heads": t.num_heads,
+                            "attention_head_dim": t.head_dim,
+                            "cross_attention_dim": t.cross_attention_dim,
+                            "caption_channels": t.caption_channels,
+                            "use_additional_conditions": t.use_additional_conditions},
+            "vae": {"in_channels": v.in_channels, "out_channels": v.out_channels,
+                    "latent_channels": v.latent_channels,
+                    "block_out_channels": list(v.block_out_channels),
+                    "layers_per_block": v.layers_per_block,
+                    "scaling_factor": v.scaling_factor},
+            "text_encoder": {"vocab_size": te.vocab_size, "d_model": te.d_model,
+                             "d_kv": te.d_kv, "d_ff": te.d_ff, "num_layers": te.num_layers,
+                             "num_heads": te.num_heads}}
+    return {
+        "transformer": {"in_channels": t.in_channels, "out_channels": t.out_channels,
+                        "num_layers": t.num_layers, "num_attention_heads": t.num_attention_heads,
+                        "attention_head_dim": t.attention_head_dim,
+                        "num_cross_attention_heads": t.num_cross_attention_heads,
+                        "cross_attention_head_dim": t.cross_attention_head_dim,
+                        "caption_channels": t.caption_channels, "mlp_ratio": t.mlp_ratio,
+                        "patch_size": t.patch_size},
+        "vae": {"in_channels": v.in_channels, "latent_channels": v.latent_channels,
+                "encoder_block_out_channels": list(v.encoder_block_out_channels),
+                "decoder_block_out_channels": list(v.decoder_block_out_channels),
+                "encoder_layers_per_block": list(v.encoder_layers_per_block),
+                "decoder_layers_per_block": list(v.decoder_layers_per_block),
+                "encoder_block_types": ["EfficientViTBlock" if vit else "ResBlock"
+                                        for vit in v.vit_stages],
+                "attention_head_dim": v.attention_head_dim, "scaling_factor": v.scaling_factor},
+        "text_encoder": {"vocab_size": te.vocab_size, "hidden_size": te.hidden_size,
+                         "intermediate_size": te.intermediate_size,
+                         "num_hidden_layers": te.num_layers, "num_attention_heads": te.num_heads,
+                         "num_key_value_heads": te.num_kv_heads, "head_dim": te.head_dim,
+                         "query_pre_attn_scalar": te.query_pre_attn_scalar}}
+
+
+def _write_dir(torch, model, root: str, name: str, tag: str) -> str:
+    """`model` (bf16) written by the port's own saver as a diffusers
+    directory `root`/`name`, with its config jsons -> its path."""
+    from onetrainer_tpu_torch.io.pixart_checkpoints import save_pixart_diffusers
+    from onetrainer_tpu_torch.io.sana_checkpoints import save_sana_diffusers
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    ckpt = os.path.join(root, name)
+    t0 = time.perf_counter()
+    sd = {part: state_dict_of(m) for part, m in model.modules().items()}
+    save = save_pixart_diffusers if model.model_type.is_pixart() else save_sana_diffusers
+    save(ckpt, model, sd["transformer"], sd["vae"], sd["text_encoder"], save_dtype=None)
+    for component, config in _config_jsons(model).items():
+        with open(os.path.join(ckpt, component, "config.json"), "w") as f:
+            json.dump(config, f)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    print(f"[{tag}] wrote {ckpt} ({size / 2 ** 30:.3f} GiB, bf16, diffusers layout, "
+          f"{ {part: len(t) for part, t in sd.items()} } tensors) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return ckpt
+
+
+def phase_pixart_sana_cli(torch, dataset: str) -> dict:
+    """PixArt-Σ and Sana from diffusers directories through the train and
+    sample commands (`_dit_lora_cli`: LoRA r16 a16 over sd15_files' PNGs at
+    512x512, batch 4, the transformer NF4, gradient checkpointing on, epoch
+    1 with a backup, the resume for epoch 2, the LoRA file read back bit
+    for bit, the sample command in bf16 at CFG 4.5). Both at full width,
+    cut to CUT_DIT_BLOCKS blocks, T5-XXL to CUT_T5_LAYERS and Gemma-2-2B to
+    CUT_GEMMA_LAYERS layers, written in bf16 by the families' own savers.
+    Per step exactly K4 once per NF4 layer and again per layer in the
+    blocks, nothing else (fp32 adapters: no K5); no launch over the bf16
+    sample."""
+    import shutil
+
+    from onetrainer_tpu_torch.setup.pixart_setup import PIXART_TOKENS
+    from onetrainer_tpu_torch.setup.sana_setup import SANA_TOKENS
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    root = tempfile.mkdtemp(prefix="pixart_sana_files_")
+    results = {}
+    try:
+        for model_type, build, layers, n_layers in (
+                (ModelType.PIXART_SIGMA, lambda: build_pixart_model(
+                    torch, CUT_DIT_BLOCKS, CUT_T5_LAYERS, quantize=False),
+                 pixart_nf4_layers(CUT_DIT_BLOCKS)[0], pixart_nf4_layers(CUT_DIT_BLOCKS)),
+                (ModelType.SANA, lambda: build_sana_model(
+                    torch, CUT_DIT_BLOCKS, CUT_GEMMA_LAYERS, quantize=False),
+                 sana_nf4_layers(CUT_DIT_BLOCKS)[0] - CUT_DIT_BLOCKS,
+                 sana_nf4_layers(CUT_DIT_BLOCKS))):
+            tag = f"{model_type.value.lower()}_cli"
+            model = build()
+            # the cache's rows: the latent, and the text states at the setup's
+            # length (the reference's: T5 120 tokens, Gemma 300 with its mask)
+            latent = PIXART_SANA_CLI_SIZE // model.vae_config.spatial_scale
+            latent_shape = (latent, latent, model.vae_config.latent_channels)
+            cache_shapes = {"latent_image": latent_shape, "t5_hidden_state": (
+                PIXART_TOKENS, model.te_config.d_model)} if model_type.is_pixart() else {
+                "latent_image": latent_shape,
+                "text_encoder_hidden_state": (SANA_TOKENS, model.te_config.hidden_size),
+                "tokens_mask": (SANA_TOKENS,)}
+            family_root = os.path.join(root, tag)
+            os.makedirs(family_root)
+            ckpt = _write_dir(torch, model, family_root, model_type.value.lower(), tag)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            n_quant, n_in_blocks = n_layers
+            per_step = {"K1": 0, "K2": 0, "K3": 0, "K3pre": 0, "K4": n_quant + n_in_blocks,
+                        "K5": 0}
+            results[tag] = _dit_lora_cli(
+                torch, tag, ckpt, dataset, model_type, PIXART_SANA_CLI_SIZE, per_step, layers,
+                cache_shapes, ["--cfg", str(PIXART_CFG)], 0, "full",
+                "bf16 diffusers directory to the card, the transformer quantized to NF4",
+                prior_dtype=DataType.NFLOAT_4)
+            shutil.rmtree(family_root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {k: results["pixart_sigma_cli"]["launches"][k]
+                         + results["sana_cli"]["launches"][k]
+                         for k in results["sana_cli"]["launches"]},
+            **results}
+
+
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
                     err=None) -> list:
     """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
@@ -4828,6 +5288,20 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
              for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"),
                                  ("hunyuan_ft", "HunyuanVideo"),
                                  ("sd15_vae_ft", "SD 1.5 VAE"))]
+    rows += [(f"nf4_dequant_flat (K4) at {label}", "K4", "nf4_dequant.cu",
+              "onetrainer_tpu/ops/nf4_pallas.py:41", path, k4[case]["max_abs_err"],
+              k4[case]["ms"], k4[case]["plain_ms"], k4[case]["bound_ms"],
+              k4[case]["bound_by"], None, case)
+             for path, label, case in (
+                 ("pixart_train", "PixArt-Σ's adaln_single.linear", PIXART_K4),
+                 ("sana_train", "Sana's GLUMBConv conv_inverted", SANA_K4))]
+    rows += [(f"sr_update_leaves (K5) over {label}'s adapter set", "K5", "sr_update.cu",
+              "onetrainer_tpu/ops/pallas_sr.py:26", path, k5_dit[path]["max_abs_err"],
+              k5_dit[path]["ms"], k5_dit[path]["plain_ms"], k5_dit[path]["bound_ms"],
+              k5_dit[path]["bound_by"], None,
+              f"{k5_dit[path]['leaves']} bf16 adapter tensors, {k5_dit[path]['elements']} "
+              f"elements")
+             for path, label in (("pixart_train", "PixArt-Σ"), ("sana_train", "Sana"))]
     rows.append(("nf4_dequant_flat (K4) under DoRA", "K4", "nf4_dequant.cu",
                  "onetrainer_tpu/ops/nf4_pallas.py:41", "sdxl_dora",
                  max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
@@ -4853,7 +5327,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
             "launches_by_path": {p: counts[tag] for p, counts in launches.items()},
         })
     # the fine-tunes' K5 rows: the whole update's time, bound and host time
-    updates = {"sdxl_ft": k5_ft, **k5_dit}
+    updates = {"sdxl_ft": k5_ft, **{p: k5_dit[p] for p in k5_dit
+                                   if p not in ("pixart_train", "sana_train")}}
     extras = ("set_ms", "set_bound_ms", "set_host_ms", "leaves", "elements", "u_dtype")
     for row in kernels:
         k5_row = updates.get(row["path"])
@@ -5032,6 +5507,24 @@ def main() -> int:
     results.pop("hunyuan_ft_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    model = run("pixart_model", build_pixart_model, torch)
+    if model is not None:
+        run("pixart_sample", phase_sample, torch, model, PIXART_SANA_SIZE, {}, "pixart_sample",
+            PIXART_CFG, pixart_nf4_layers(PIXART_BLOCKS)[0])
+        run("pixart_train", phase_pixart_train, torch, model)
+    del model
+    results.pop("pixart_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = run("sana_model", build_sana_model, torch)
+    if model is not None:
+        run("sana_sample", phase_sample, torch, model, PIXART_SANA_SIZE, {}, "sana_sample",
+            SANA_CFG, sana_nf4_layers(SANA_BLOCKS)[0])
+        run("sana_train", phase_sana_train, torch, model)
+    del model
+    results.pop("sana_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
@@ -5075,6 +5568,9 @@ def main() -> int:
                 shutil.rmtree(hunyuan_root, ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()
+            run("pixart_sana_cli", phase_pixart_sana_cli, torch, files["dataset"])
+            gc.collect()
+            torch.cuda.empty_cache()
             run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5086,6 +5582,8 @@ def main() -> int:
                 "sd3_sample": results["sd3_sample"], "flux_sample": results["flux_sample"],
                 "hunyuan_sample": results["hunyuan_sample"],
                 "flux_fill_sample": results["flux_fill_sample"],
+                "pixart_sample": results["pixart_sample"],
+                "sana_sample": results["sana_sample"],
                 "sdxl_inpaint_sample": results["sdxl_inpaint"]["sample_launches"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
@@ -5093,7 +5591,8 @@ def main() -> int:
                              "flux_cli", "hunyuan_train", "hunyuan_cli", "flux_fill_train",
                              "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
                              "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft",
-                             "sdxl_embedding", "sd15_vae_ft")},
+                             "sdxl_embedding", "sd15_vae_ft", "pixart_train", "sana_train",
+                             "pixart_sana_cli")},
                 **{f"{p.removesuffix('_cli')}_embedding_cli": results[p]["embedding_launches"]
                    for p in ("sd15_cli", "sd3_cli", "flux_cli", "hunyuan_cli")},
                 "sd15_lora_embedding_cli": results["sd15_cli"]["additional_embedding_launches"]}
@@ -5101,7 +5600,9 @@ def main() -> int:
                                    results["k5"], results["sdxl_ft"]["k5"], launches,
                                    {p: results[p]["k5"] for p in ("sd3_ft", "flux_ft",
                                                                   "hunyuan_ft",
-                                                                  "sd15_vae_ft")})))
+                                                                  "sd15_vae_ft",
+                                                                  "pixart_train",
+                                                                  "sana_train")})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,7 +37,7 @@ from onetrainer_tpu_torch.io.torch_flax import clip_torch_key_map
 from onetrainer_tpu_torch.models.clip import CLIPTextConfig
 from onetrainer_tpu_torch.models.unet import UNetConfig
 from onetrainer_tpu_torch.models.vae import VAEConfig
-from onetrainer_tpu_torch.ops.quant import module_is_quantized
+from onetrainer_tpu_torch.ops.quant import dequantized_weight, is_quantized, module_is_quantized
 
 
 def _read_json(path: str) -> dict:
@@ -286,12 +286,22 @@ def load_sdxl_single_file(path: str, model_type, weight_dtype=torch.float32,
 
 # -- saving ----------------------------------------------------------------------
 
-def state_dict_of(module: nn.Module) -> dict[str, torch.Tensor]:
-    """The module's state dict (detached); a quantized module raises:
-    exporting a quantized base is not ported."""
-    if module_is_quantized(module):
-        raise NotImplementedError("saving a quantized part is not ported yet")
-    return {k: v.detach() for k, v in module.state_dict().items()}
+def state_dict_of(module: nn.Module, save_dtype=None) -> dict[str, torch.Tensor]:
+    """The module's state dict (detached), each quantized layer's weight
+    (setup/quantize.py: a frozen part's fp8, int8 or NF4 codes) dequantized
+    into it in the torch layout: to fp32 when a save dtype is given (the
+    saver casts it), else to bf16, as the reference's _to_numpy_tree
+    exports a quantized part. NF4 decodes through K4 on the card
+    (ops/quant.py:dequantized_weight)."""
+    sd = {k: v.detach() for k, v in module.state_dict().items()}
+    if not module_is_quantized(module):
+        return sd
+    dtype = torch.float32 if save_dtype is not None else torch.bfloat16
+    for name, layer in module.named_modules():
+        weight = getattr(layer, "weight", None)
+        if is_quantized(weight):
+            sd[f"{name}.weight"] = dequantized_weight(weight, dtype).contiguous()
+    return sd
 
 
 def _cast(sd: dict, dtype) -> dict:

@@ -1,5 +1,6 @@
-"""Single-file checkpoints of SD3 (the SAI layout), FLUX (the BFL layout)
-and HunyuanVideo (the original repository's layout): load and save.
+"""Single-file checkpoints of SD3 (the SAI layout), FLUX (the BFL layout),
+HunyuanVideo and PixArt (the original repositories' layouts): load and
+save.
 
 Counterpart of onetrainer_tpu/io/single_file.py (reference:
 modules/util/convert/convert_sd3_diffusers_to_ckpt.py,
@@ -543,6 +544,79 @@ def hunyuan_ckpt_to_transformer(sd: dict, prefix: str = "model.model") -> dict:
     return out
 
 
+# -- PixArt (the original repository's single-file layout) ---------------------------
+
+def pixart_transformer_to_ckpt(sd: dict) -> dict:
+    """diffusers PixArtTransformer2DModel -> the original PixArt repository's
+    keys (reference: convert_pixart_diffusers_to_ckpt.py:10-110; the
+    y_embedding and pos_embed buffers are generated downstream)."""
+    out: dict = {}
+    _map_wb(out, sd, "y_embedder.y_proj.fc1", "caption_projection.linear_1")
+    _map_wb(out, sd, "y_embedder.y_proj.fc2", "caption_projection.linear_2")
+    _map_wb(out, sd, "x_embedder.proj", "pos_embed.proj")
+    _map_wb(out, sd, "t_embedder.mlp.0", "adaln_single.emb.timestep_embedder.linear_1")
+    _map_wb(out, sd, "t_embedder.mlp.2", "adaln_single.emb.timestep_embedder.linear_2")
+    _map_wb(out, sd, "t_block.1", "adaln_single.linear")
+    # α-1024's micro-condition embedders, where the model has them
+    if "adaln_single.emb.aspect_ratio_embedder.linear_1.weight" in sd:
+        _map_wb(out, sd, "ar_embedder.mlp.0", "adaln_single.emb.aspect_ratio_embedder.linear_1")
+        _map_wb(out, sd, "ar_embedder.mlp.2", "adaln_single.emb.aspect_ratio_embedder.linear_2")
+        _map_wb(out, sd, "csize_embedder.mlp.0", "adaln_single.emb.resolution_embedder.linear_1")
+        _map_wb(out, sd, "csize_embedder.mlp.2", "adaln_single.emb.resolution_embedder.linear_2")
+    i = 0
+    while f"transformer_blocks.{i}.attn1.to_q.weight" in sd:
+        ip, op = f"transformer_blocks.{i}", f"blocks.{i}"
+        for wb in ("weight", "bias"):
+            out[f"{op}.attn.qkv.{wb}"] = _cat(sd, [
+                f"{ip}.attn1.to_q.{wb}", f"{ip}.attn1.to_k.{wb}", f"{ip}.attn1.to_v.{wb}"])
+            out[f"{op}.cross_attn.kv_linear.{wb}"] = _cat(sd, [
+                f"{ip}.attn2.to_k.{wb}", f"{ip}.attn2.to_v.{wb}"])
+        _map_wb(out, sd, f"{op}.attn.proj", f"{ip}.attn1.to_out.0")
+        _map_wb(out, sd, f"{op}.cross_attn.q_linear", f"{ip}.attn2.to_q")
+        _map_wb(out, sd, f"{op}.cross_attn.proj", f"{ip}.attn2.to_out.0")
+        _map_wb(out, sd, f"{op}.mlp.fc1", f"{ip}.ff.net.0.proj")
+        _map_wb(out, sd, f"{op}.mlp.fc2", f"{ip}.ff.net.2")
+        out[f"{op}.scale_shift_table"] = sd[f"{ip}.scale_shift_table"]
+        i += 1
+    _map_wb(out, sd, "final_layer.linear", "proj_out")
+    out["final_layer.scale_shift_table"] = sd["scale_shift_table"]
+    return out
+
+
+def pixart_ckpt_to_transformer(sd: dict) -> dict:
+    """Inverse of pixart_transformer_to_ckpt (generated buffers dropped)."""
+    out: dict = {}
+    _map_wb(out, sd, "caption_projection.linear_1", "y_embedder.y_proj.fc1")
+    _map_wb(out, sd, "caption_projection.linear_2", "y_embedder.y_proj.fc2")
+    _map_wb(out, sd, "pos_embed.proj", "x_embedder.proj")
+    _map_wb(out, sd, "adaln_single.emb.timestep_embedder.linear_1", "t_embedder.mlp.0")
+    _map_wb(out, sd, "adaln_single.emb.timestep_embedder.linear_2", "t_embedder.mlp.2")
+    _map_wb(out, sd, "adaln_single.linear", "t_block.1")
+    if "ar_embedder.mlp.0.weight" in sd:
+        _map_wb(out, sd, "adaln_single.emb.aspect_ratio_embedder.linear_1", "ar_embedder.mlp.0")
+        _map_wb(out, sd, "adaln_single.emb.aspect_ratio_embedder.linear_2", "ar_embedder.mlp.2")
+        _map_wb(out, sd, "adaln_single.emb.resolution_embedder.linear_1", "csize_embedder.mlp.0")
+        _map_wb(out, sd, "adaln_single.emb.resolution_embedder.linear_2", "csize_embedder.mlp.2")
+    i = 0
+    while f"blocks.{i}.attn.qkv.weight" in sd:
+        ip, op = f"blocks.{i}", f"transformer_blocks.{i}"
+        for wb in ("weight", "bias"):
+            _split3(out, sd, f"{ip}.attn.qkv.{wb}",
+                    [f"{op}.attn1.to_q.{wb}", f"{op}.attn1.to_k.{wb}", f"{op}.attn1.to_v.{wb}"])
+            _split3(out, sd, f"{ip}.cross_attn.kv_linear.{wb}",
+                    [f"{op}.attn2.to_k.{wb}", f"{op}.attn2.to_v.{wb}"])
+        _map_wb(out, sd, f"{op}.attn1.to_out.0", f"{ip}.attn.proj")
+        _map_wb(out, sd, f"{op}.attn2.to_q", f"{ip}.cross_attn.q_linear")
+        _map_wb(out, sd, f"{op}.attn2.to_out.0", f"{ip}.cross_attn.proj")
+        _map_wb(out, sd, f"{op}.ff.net.0.proj", f"{ip}.mlp.fc1")
+        _map_wb(out, sd, f"{op}.ff.net.2", f"{ip}.mlp.fc2")
+        out[f"{op}.scale_shift_table"] = sd[f"{ip}.scale_shift_table"]
+        i += 1
+    _map_wb(out, sd, "proj_out", "final_layer.linear")
+    out["scale_shift_table"] = sd["final_layer.scale_shift_table"]
+    return out
+
+
 def _strip_prefix(sd: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
@@ -857,6 +931,40 @@ def load_hunyuan_single_file(path: str, weight_dtype=torch.float32,
     }
 
 
+def load_pixart_single_file(path: str, weight_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16, gradient_checkpointing=False,
+                            device: torch.device | str = "cuda") -> dict:
+    """The original PixArt repository's single file (the transformer alone;
+    reference: PixArtAlphaModelLoader's ckpt path) -> the dict
+    load_pixart_diffusers returns, the VAE and T5 None. The config is the
+    reference's reading of the shapes: 16 heads, the micro-conditions when
+    the file has their embedders."""
+    from onetrainer_tpu_torch.io.pixart_checkpoints import pixart_config_from_diffusers
+    from onetrainer_tpu_torch.io.sd3_checkpoints import t5_config_from_transformers
+    from onetrainer_tpu_torch.models.vae import sd15_vae_config
+    sd = pixart_ckpt_to_transformer(_read_single_file(path, device, weight_dtype))
+    hidden = int(sd["transformer_blocks.0.attn1.to_q.weight"].shape[0])
+    tcfg = pixart_config_from_diffusers({
+        "num_layers": _count(sd, "transformer_blocks."),
+        "in_channels": int(sd["pos_embed.proj.weight"].shape[1]),
+        "out_channels": int(sd["proj_out.weight"].shape[0]) // 4,
+        "num_attention_heads": 16, "attention_head_dim": hidden // 16,
+        "use_additional_conditions":
+            "adaln_single.emb.aspect_ratio_embedder.linear_1.weight" in sd,
+    }, compute_dtype, gradient_checkpointing)
+    _missing({"vae": False, "text encoder (t5)": False})
+    return {
+        "transformer_config": tcfg,
+        "vae_config": sd15_vae_config(dtype=compute_dtype),
+        "te_config": t5_config_from_transformers({}, compute_dtype),
+        "transformer": sd,
+        "vae": None,
+        "text_encoder": None,
+        "tokenizer_dir": None,
+        "prediction_type": "epsilon",
+    }
+
+
 # -- savers ----------------------------------------------------------------------------
 
 def _prefixed(prefix: str, sd: dict | None) -> dict:
@@ -914,3 +1022,11 @@ def save_hunyuan_single_file(path: str, transformer: dict, vae: dict | None,
         if part is not None:
             sd.update(_prefixed(f"text_encoders.{name}.transformer.", _cast(part, save_dtype)))
     save_safetensors(path, sd, _meta(metadata))
+
+
+def save_pixart_single_file(path: str, transformer: dict, save_dtype=torch.float32,
+                            metadata: dict | None = None) -> None:
+    """The original repository's transformer keys, the transformer alone
+    (reference: setup/families.py:_pixart_save_single_file)."""
+    save_safetensors(path, pixart_transformer_to_ckpt(_cast(transformer, save_dtype)),
+                     _meta(metadata))

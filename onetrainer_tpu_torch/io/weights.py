@@ -15,11 +15,16 @@
   diffusers' `weight`, as the generic key map carries every rank-1 leaf);
   `hunyuan_params_from_flax` for HunyuanVideo's transformer (its patchify
   kernel as the port's dense weight), Llama (`llama_params_from_flax`),
-  CLIP-L and the causal VAE (`video_vae_params_from_flax`).
+  CLIP-L and the causal VAE (`video_vae_params_from_flax`);
+  `pixart_params_from_flax` for PixArt's transformer, T5 and VAE;
+  `sana_params_from_flax` for Sana's transformer (`sana_flax_to_state_dict`),
+  Gemma-2 (`gemma_params_from_flax`) and DC-AE (`dcae_params_from_flax`).
 - `init_sd_weights` materialises full-width weights of either family on a
   device from a seeded `torch.Generator`, for runs without a checkpoint;
   `init_sd3_weights` those of an SD3 model, `init_flux_weights` those of a
-  FLUX model, `init_hunyuan_weights` those of a HunyuanVideo model.
+  FLUX model, `init_hunyuan_weights` those of a HunyuanVideo model,
+  `init_pixart_weights` those of a PixArt model and `init_sana_weights`
+  those of a Sana model.
 """
 
 from __future__ import annotations
@@ -121,6 +126,36 @@ def hunyuan_params_from_flax(model, transformer: dict, te: dict, te2: dict,
     llama_params_from_flax(model.text_encoder, te)
     _load(model.text_encoder_2, clip_flax_to_state_dict(te2))
     video_vae_params_from_flax(model.vae, vae)
+
+
+def pixart_params_from_flax(model, transformer: dict, te: dict, vae: dict) -> None:
+    """Load flax param trees into a PixArt `model`'s transformer, T5 and vae."""
+    _load(model.transformer, unet_flax_to_state_dict(transformer))
+    _load(model.text_encoder, t5_flax_to_state_dict(te))
+    _load(model.vae, vae_flax_to_state_dict(vae))
+
+
+def gemma_params_from_flax(module: nn.Module, params: dict) -> None:
+    """Load the reference's Gemma-2 flax tree into a `Gemma2Encoder`."""
+    from onetrainer_tpu_torch.io.sana_checkpoints import gemma_flax_to_state_dict
+    _load(module, gemma_flax_to_state_dict(params))
+
+
+def dcae_params_from_flax(module: nn.Module, params: dict) -> None:
+    """Load the reference's DC-AE flax tree into an `AutoencoderDC`."""
+    from onetrainer_tpu_torch.io.sana_checkpoints import dcae_flax_to_state_dict
+    _load(module, dcae_flax_to_state_dict(params))
+
+
+def sana_params_from_flax(model, transformer: dict, te: dict, vae: dict) -> None:
+    """Load flax param trees into a Sana `model`'s transformer, Gemma-2 and
+    DC-AE."""
+    from onetrainer_tpu_torch.io.sana_checkpoints import (
+        sana_flax_to_state_dict, sana_transformer_state_dict,
+    )
+    _load(model.transformer, sana_transformer_state_dict(sana_flax_to_state_dict(transformer)))
+    gemma_params_from_flax(model.text_encoder, te)
+    dcae_params_from_flax(model.vae, vae)
 
 
 # the adapter leaves of LoRA, DoRA and LoHa (peft/lora.py), in both packages
@@ -264,6 +299,37 @@ def init_sd3_weights(model, seed: int, device: torch.device | str) -> None:
             elif isinstance(sub, PatchEmbed):
                 sub.pos_embed.normal_(0.0, 0.02, generator=gen)
     model.device = device
+
+
+@torch.no_grad()
+def init_pixart_weights(model, seed: int, device: torch.device | str) -> None:
+    """Seeded random weights for every module of a PixArt or Sana `model`,
+    on `device`, each parameter in the dtype it has on "meta": dense, conv,
+    embedding and norm weights as `init_sd3_weights` draws them, the
+    AdaLN-single tables ~ N(0, 0.02) (the reference's init), Gemma's norm
+    weights 0 (it scales by 1 + weight), the RMS norms' weights 1 and
+    DC-AE's norm biases 0."""
+    from onetrainer_tpu_torch.models.dcae import RMSNorm2d
+    from onetrainer_tpu_torch.models.gemma import GemmaRMSNorm
+    from onetrainer_tpu_torch.models.sana import SanaRMSNorm
+    from onetrainer_tpu_torch.models.t5 import T5LayerNorm
+    init_sd3_weights(model, seed, device)
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed + 1)
+    for module in model.modules().values():
+        for sub in module.modules():
+            if isinstance(sub, (SanaRMSNorm, T5LayerNorm)):
+                sub.weight.fill_(1.0)
+            elif isinstance(sub, GemmaRMSNorm):
+                sub.weight.zero_()
+            elif isinstance(sub, RMSNorm2d):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+            table = getattr(sub, "scale_shift_table", None)
+            if isinstance(table, nn.Parameter):
+                table.normal_(0.0, 0.02, generator=gen)
+
+
+init_sana_weights = init_pixart_weights
 
 
 # FLUX's parts (its DiT, CLIP-L, T5, VAE) and HunyuanVideo's (its DiT,

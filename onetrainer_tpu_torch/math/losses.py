@@ -5,9 +5,11 @@ modules/modelSetup/mixin/ModelSetupDiffusionLossMixin.py): MSE + MAE +
 log-cosh per-sample losses, masked training (reference:
 modules/util/loss/masked_loss.py), batch/accumulation loss scaling,
 per-sample loss weights, and the timestep weightings (min-SNR-gamma,
-debiased estimation, P2), and the flow-matching losses of the rectified-flow
-models (the SIGMA weighting). Prior preservation and the learned-variance VB
-term are not ported and raise. Everything is fp32.
+debiased estimation, P2), the learned-variance VB term of PixArt
+(`vb_losses`, the IDDPM variational bound; reference:
+modules/util/loss/vb_loss.py), and the flow-matching losses of the
+rectified-flow models (the SIGMA weighting). Prior preservation is not
+ported and raises. Everything is fp32.
 """
 
 from __future__ import annotations
@@ -84,6 +86,68 @@ def masked_losses(losses: torch.Tensor, mask: torch.Tensor, unmasked_weight: flo
     return losses
 
 
+# -- variational bound (IDDPM learned variance) -------------------------------
+
+def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    res = table.to(t.device)[t.long()]
+    return res.reshape(res.shape + (1,) * (ndim - res.dim()))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1
+        + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, means, log_scales):
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def vb_losses(coefficients: DiffusionScheduleCoefficients, x_0: torch.Tensor,
+              x_t: torch.Tensor, t: torch.Tensor, predicted_eps: torch.Tensor,
+              predicted_var_values: torch.Tensor) -> torch.Tensor:
+    """IDDPM variational bound for learned variance, elementwise, in bits:
+    the KL between the true posterior q(x_{t-1} | x_t, x_0) and the
+    predicted p(x_{t-1} | x_t), whose log variance interpolates between the
+    posterior's and log beta_t by (v + 1) / 2, or at t = 0 the decoder's
+    discretized Gaussian NLL. The eps prediction is detached, so the term
+    trains the variance head alone."""
+    ndim = x_t.dim()
+    frozen_eps = predicted_eps.detach()
+    c1 = _extract(coefficients.posterior_mean_coef1, t, ndim)
+    c2 = _extract(coefficients.posterior_mean_coef2, t, ndim)
+    true_mean = c1 * x_0 + c2 * x_t
+    true_log_var = _extract(coefficients.posterior_log_variance_clipped, t, ndim)
+
+    max_log = _extract(torch.log(coefficients.betas), t, ndim)
+    frac = (predicted_var_values + 1.0) / 2.0
+    predicted_log_var = frac * max_log + (1.0 - frac) * true_log_var
+
+    predicted_x0 = (_extract(coefficients.sqrt_recip_alphas_cumprod, t, ndim) * x_t
+                    - _extract(coefficients.sqrt_recipm1_alphas_cumprod, t, ndim) * frozen_eps)
+    predicted_mean = c1 * predicted_x0 + c2 * x_t
+
+    kl = normal_kl(true_mean, true_log_var, predicted_mean, predicted_log_var) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_0, predicted_mean, 0.5 * predicted_log_var) / math.log(2.0)
+    t_b = t.reshape(t.shape + (1,) * (ndim - t.dim())).to(kl.device)
+    return torch.where(t_b == 0, decoder_nll, kl)
+
+
 def min_snr_weight(snr: torch.Tensor, gamma: float, v_prediction: bool) -> torch.Tensor:
     denom = snr + 1.0 if v_prediction else snr
     return torch.clamp(snr, max=gamma) / denom
@@ -108,11 +172,13 @@ def _scale(cfg: LossConfig) -> float:
     return float(batch_scale * accum_scale)
 
 
-def _weighted_stack(batch: dict, data: dict, cfg: LossConfig) -> torch.Tensor:
+def _weighted_stack(batch: dict, data: dict, cfg: LossConfig,
+                    coefficients: DiffusionScheduleCoefficients | None = None) -> torch.Tensor:
     """Per-sample [B] sum of the enabled elementwise losses (each masked
-    when `masked_training`), the mask-input models' area normalization,
-    the batch/accumulation scale and the per-sample loss weights: what the
-    diffusion and flow-matching losses share."""
+    when `masked_training`), with `coefficients` the VB term of a
+    prediction that carries `predicted_var_values`, the mask-input models'
+    area normalization, the batch/accumulation scale and the per-sample
+    loss weights: what the diffusion and flow-matching losses share."""
     mask = None
     if cfg.masked_training and "latent_mask" in batch:
         mask = batch["latent_mask"].float()
@@ -133,6 +199,12 @@ def _weighted_stack(batch: dict, data: dict, cfg: LossConfig) -> torch.Tensor:
         losses = losses + accumulate((predicted - target).abs(), cfg.mae_strength)
     if cfg.log_cosh_strength != 0:
         losses = losses + accumulate(log_cosh_loss(predicted, target), cfg.log_cosh_strength)
+    if cfg.vb_loss_strength != 0 and "predicted_var_values" in data \
+            and coefficients is not None:
+        vb = vb_losses(coefficients, data["scaled_latent_image"].float(),
+                       data["noisy_latent_image"].float(), data["timestep"], predicted,
+                       data["predicted_var_values"].float())
+        losses = losses + accumulate(vb, cfg.vb_loss_strength)
     if mask is None and cfg.raw_masked_training and cfg.normalize_masked_area_loss \
             and "latent_mask" in batch:
         # the mask-input models' unmasked loss, normalized by the mask's area
@@ -152,13 +224,12 @@ def diffusion_losses(
     """Per-sample loss vector [B] for epsilon/v-prediction models; with
     `masked_training`, each elementwise loss weighted by the batch's latent
     mask (`masked_losses`). The SNR weightings apply; SIGMA leaves the loss
-    unweighted."""
+    unweighted. A prediction with `predicted_var_values` (PixArt's learned
+    variance) adds the VB term at `vb_loss_strength`, masked as the others."""
     if "prior_target" in data:
         raise NotImplementedError("prior preservation is not ported yet")
-    if cfg.vb_loss_strength != 0 and "predicted_var_values" in data:
-        raise NotImplementedError("the learned-variance VB loss is not ported yet")
 
-    losses = _weighted_stack(batch, data, cfg)
+    losses = _weighted_stack(batch, data, cfg, coefficients)
 
     if "timestep" in data and coefficients is not None:
         snr = coefficients.snr(data["timestep"].long())

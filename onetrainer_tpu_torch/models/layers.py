@@ -64,7 +64,7 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     xp = x.to(dtype)
     y = F.conv2d(xp, weight_in(layer, dtype), _cast(layer.bias, dtype), layer.stride,
-                 layer.padding)
+                 layer.padding, groups=layer.groups)
     adapter = adapter_of(layer)
     if not _additive(adapter):
         return y

@@ -6,10 +6,11 @@
         [--sample-inpainting --base-image-path base.png --mask-image-path mask.png] \
         [--embedding-name embedding.safetensors] [--device cuda]
 
-The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev and
-HunyuanVideo text-to-image run (SD3, FLUX and HunyuanVideo from a
-diffusers directory or their single file: SAI's, BFL's and HunyuanVideo's,
-with the VAE and text encoders bundled; FLUX and HunyuanVideo take `--cfg`
+The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev,
+HunyuanVideo, PixArt-α/Σ and Sana text-to-image run (SD3, FLUX and
+HunyuanVideo from a diffusers directory or their single file: SAI's,
+BFL's and HunyuanVideo's, with the VAE and text encoders bundled; PixArt
+and Sana from a diffusers directory; FLUX and HunyuanVideo take `--cfg`
 as their guidance
 embedding and ignore the negative prompt and the scheduler; HunyuanVideo
 samples one frame, the sample config's default, and writes it as the
@@ -93,10 +94,11 @@ def main(argv: list[str] | None = None):
     if not (config.model_type.is_stable_diffusion()
             or config.model_type.is_stable_diffusion_xl()
             or config.model_type.is_stable_diffusion_3()
-            or config.model_type.is_flux() or config.model_type.is_hunyuan_video()):
+            or config.model_type.is_flux() or config.model_type.is_hunyuan_video()
+            or config.model_type.is_pixart() or config.model_type.is_sana()):
         raise NotImplementedError(f"{config.model_type} sampling is not ported "
-                                  "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev, FLUX.1-fill and "
-                                  "HunyuanVideo only)")
+                                  "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev, FLUX.1-fill, "
+                                  "HunyuanVideo, PixArt-α/Σ and Sana only)")
     config.base_model_name = args.base_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False

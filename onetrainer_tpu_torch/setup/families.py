@@ -3,8 +3,9 @@ encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
 text-to-image and inpainting, SDXL and its inpainting UNet, SD3,
-FLUX.1-dev, FLUX.1-fill and HunyuanVideo (diffusers directories and
-single files: LDM, SAI, BFL and HunyuanVideo's; SD 2.0 depth is not
+FLUX.1-dev, FLUX.1-fill, HunyuanVideo, PixArt-α/Σ and Sana (diffusers
+directories and single files: LDM, SAI, BFL, HunyuanVideo's and PixArt's;
+Sana's single-file export raises, as the reference's; SD 2.0 depth is not
 ported yet) so far. The calls mirror the reference's trainer and
 scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
@@ -77,13 +78,18 @@ def _assign(model, loaded: dict, device, optional=()) -> None:
     model.device = torch.device(device)
 
 
-def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
+def merged_state_dicts(setup, ema: bool = False, save_dtype=None) -> dict[str, dict]:
     """{module attribute: state dict} of the setup's model, each LoRA-trained
     part with its adapters merged into the weights (peft/lora.py:
-    apply_peft; over a quantized base, bf16 results), for export. With
-    `ema` and an EMA in the train state, the EMA's fp32 tensors stand in
-    for the trained ones (adapters, or a fine-tuned module's parameters). A
-    part left on "meta" (a single file without it) maps to None."""
+    apply_peft; over a quantized base, bf16 results), for export; a frozen
+    part quantized by its weight dtype comes dequantized, to fp32 when the
+    caller passes the `save_dtype` its saver casts to, else to bf16
+    (io/sd_checkpoints.py:state_dict_of). With `ema` and an EMA in the
+    train state, the EMA's fp32 tensors stand in for the trained ones
+    (adapters, or a fine-tuned module's parameters). A setup's
+    `lora_key_maps` {group: key map} replaces `_LORA_PARTS`' key maps (Sana's
+    adapters take the reference's flax module paths). A part left on
+    "meta" (a single file without it) maps to None."""
     from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
     state = setup.state
     params = state.params if state is not None else {}
@@ -95,10 +101,11 @@ def merged_state_dicts(setup, ema: bool = False) -> dict[str, dict]:
             out[name] = None
             continue
         group, key_map = _LORA_PARTS.get(name, (None, None))
+        key_map = getattr(setup, "lora_key_maps", {}).get(group, key_map)
         if group in params:
             out[name] = apply_peft(module, params[group], setup.peft_cfg, key_map)
         else:
-            out[name] = state_dict_of(module)
+            out[name] = state_dict_of(module, save_dtype)
             if name in params:   # a FINE_TUNE group: {parameter name: tensor}
                 out[name].update({k: t.detach() for k, t in params[name].items()})
     return out
@@ -169,14 +176,14 @@ def _sd_sample(setup, sample_config, on_progress):
 
 def _sd_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_diffusers
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sd_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                       save_dtype=save_dtype or torch.float32, source_dir=source_dir)
 
 
 def _sd_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sd_single_file
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sd_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                         metadata=_modelspec(setup), save_dtype=save_dtype or torch.float32)
 
@@ -229,7 +236,7 @@ def _sdxl_sample(setup, sample_config, on_progress):
 
 def _sdxl_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_diffusers
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sdxl_diffusers(out_dir, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                         sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
                         source_dir=source_dir)
@@ -237,7 +244,7 @@ def _sdxl_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 def _sdxl_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd_checkpoints import save_sdxl_single_file
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sdxl_single_file(path, setup.model, sd["unet"], sd["vae"], sd["text_encoder"],
                           sd["text_encoder_2"], metadata=_modelspec(setup),
                           save_dtype=save_dtype or torch.float32)
@@ -288,7 +295,7 @@ def _sd3_sample(setup, sample_config, on_progress):
 
 def _sd3_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.sd3_checkpoints import save_sd3_diffusers
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sd3_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
                        sd["text_encoder"], sd["text_encoder_2"], sd["text_encoder_3"],
                        save_dtype=save_dtype or torch.float32, source_dir=source_dir)
@@ -296,7 +303,7 @@ def _sd3_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 def _sd3_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.single_file import save_sd3_single_file
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_sd3_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
                          sd["text_encoder_2"], sd["text_encoder_3"],
                          save_dtype=save_dtype or torch.float32,
@@ -346,7 +353,7 @@ def _flux_sample(setup, sample_config, on_progress):
 
 def _flux_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.flux_checkpoints import save_flux_diffusers
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
     save_flux_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
                         sd["text_encoder"], sd["text_encoder_2"],
                         save_dtype=save_dtype or torch.float32, source_dir=source_dir)
@@ -354,7 +361,7 @@ def _flux_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 def _flux_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.single_file import save_flux_single_file
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype)
     save_flux_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
                           sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
                           metadata=_modelspec(setup, prediction_type=False))
@@ -403,7 +410,7 @@ def _hunyuan_sample(setup, sample_config, on_progress):
 
 def _hunyuan_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.hunyuan_checkpoints import save_hunyuan_diffusers
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype)
     save_hunyuan_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
                            sd["text_encoder"], sd["text_encoder_2"],
                            save_dtype=save_dtype or torch.float32, source_dir=source_dir)
@@ -411,10 +418,115 @@ def _hunyuan_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
 
 def _hunyuan_save_single_file(setup, path, save_dtype=None, ema=True):
     from onetrainer_tpu_torch.io.single_file import save_hunyuan_single_file
-    sd = merged_state_dicts(setup, ema)
+    sd = merged_state_dicts(setup, ema, save_dtype)
     save_hunyuan_single_file(path, sd["transformer"], sd["vae"], sd["text_encoder"],
                              sd["text_encoder_2"], save_dtype=save_dtype or torch.float32,
                              metadata=_modelspec(setup, prediction_type=False))
+
+
+# -- PixArt ---------------------------------------------------------------------------
+
+def _pixart_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.pixart_checkpoints import load_pixart_diffusers
+    from onetrainer_tpu_torch.io.single_file import load_pixart_single_file
+    from onetrainer_tpu_torch.models.pixart_model import PixArtAlphaModel
+    loaded, optional = _load_dit(base_dir, config, device, load_pixart_single_file,
+                                 load_pixart_diffusers)
+    model = PixArtAlphaModel(
+        model_type=config.model_type,
+        transformer_config=loaded["transformer_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        device="meta",
+        tokenizer=loaded["tokenizer_dir"],
+    )
+    _assign(model, loaded, device, optional)
+    return model
+
+
+def _pixart_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.pixart_setup import create_pixart_setup
+    return create_pixart_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _pixart_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.pixart_setup import make_pixart_encode_fns
+    return make_pixart_encode_fns(setup)
+
+
+def _pixart_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.pixart_sampler import sample_pixart
+    transformer, te, extra = setup.merged_inference_params()
+    return sample_pixart(setup.model, transformer, te, setup.model.vae, setup.tokenizer,
+                         sample_config, extra_embeddings=extra,
+                         on_update_progress=on_progress)
+
+
+def _pixart_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    from onetrainer_tpu_torch.io.pixart_checkpoints import save_pixart_diffusers
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
+    save_pixart_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
+                          sd["text_encoder"], save_dtype=save_dtype or torch.float32,
+                          source_dir=source_dir)
+
+
+def _pixart_save_single_file(setup, path, save_dtype=None, ema=True):
+    """The original PixArt repository's layout, the transformer alone
+    (reference: modules/util/convert/convert_pixart_diffusers_to_ckpt.py)."""
+    from onetrainer_tpu_torch.io.single_file import save_pixart_single_file
+    sd = merged_state_dicts(setup, ema, save_dtype)
+    save_pixart_single_file(path, sd["transformer"], save_dtype=save_dtype or torch.float32,
+                            metadata=_modelspec(setup, prediction_type=False))
+
+
+# -- Sana ------------------------------------------------------------------------------
+
+def _sana_load(base_dir, config, device: torch.device | str = "cuda"):
+    from onetrainer_tpu_torch.io.sana_checkpoints import load_sana_diffusers
+    from onetrainer_tpu_torch.models.sana_model import SanaModel
+    loaded = load_sana_diffusers(base_dir, **_load_kwargs(config, device, "prior"))
+    model = SanaModel(
+        model_type=config.model_type,
+        transformer_config=loaded["transformer_config"],
+        vae_config=loaded["vae_config"],
+        te_config=loaded["te_config"],
+        device="meta",
+        tokenizer=loaded["tokenizer_dir"],
+    )
+    _assign(model, loaded, device)
+    return model
+
+
+def _sana_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.sana_setup import create_sana_setup
+    return create_sana_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _sana_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.sana_setup import make_sana_encode_fns
+    return make_sana_encode_fns(setup)
+
+
+def _sana_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.sana_sampler import sample_sana
+    transformer, te, extra = setup.merged_inference_params()
+    return sample_sana(setup.model, transformer, te, setup.model.vae, setup.tokenizer,
+                       sample_config, extra_embeddings=extra, on_update_progress=on_progress)
+
+
+def _sana_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    """The transformer, DC-AE and Gemma-2 (the reference's writes no DC-AE
+    weights: ROADMAP F22)."""
+    from onetrainer_tpu_torch.io.sana_checkpoints import save_sana_diffusers
+    sd = merged_state_dicts(setup, ema, save_dtype)
+    save_sana_diffusers(out_dir, setup.model, sd["transformer"], sd["vae"],
+                        sd["text_encoder"], save_dtype=save_dtype or torch.float32,
+                        source_dir=source_dir)
+
+
+def _sana_save_single_file(setup, path, save_dtype=None, ema=True):
+    raise NotImplementedError(
+        "Sana single-file export not implemented; use DIFFUSERS format")
 
 
 def get_family(model_type: ModelType) -> ModelFamily:
@@ -465,6 +577,24 @@ def get_family(model_type: ModelType) -> ModelFamily:
             save_model=_hunyuan_save_model, save_single_file=_hunyuan_save_single_file,
             lora_prefixes=hunyuan_prefixes,
             video=True,
+        )
+    if model_type.is_pixart():
+        from onetrainer_tpu_torch.setup.pixart_setup import LORA_PREFIXES as pixart_prefixes
+        return ModelFamily(
+            name="pixart", quantization=8,
+            load=_pixart_load, create_setup=_pixart_create_setup,
+            make_encode_fns=_pixart_encode_fns, sample=_pixart_sample,
+            save_model=_pixart_save_model, save_single_file=_pixart_save_single_file,
+            lora_prefixes=pixart_prefixes,
+        )
+    if model_type.is_sana():
+        from onetrainer_tpu_torch.setup.sana_setup import LORA_PREFIXES as sana_prefixes
+        return ModelFamily(
+            name="sana", quantization=32,
+            load=_sana_load, create_setup=_sana_create_setup,
+            make_encode_fns=_sana_encode_fns, sample=_sana_sample,
+            save_model=_sana_save_model, save_single_file=_sana_save_single_file,
+            lora_prefixes=sana_prefixes,
         )
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")

@@ -5,8 +5,9 @@ placeholder -> N unique tokens added to the tokenizer; here placeholders
 splice ids >= vocab_size which index the extra_embeddings table in
 models.clip.CLIPTextModel.)
 
-The port's copies of `SDTokenizer` (CLIP), `T5TokenizerWrapper` (SD3's
-T5) and `LlamaTokenizerWrapper` (HunyuanVideo's Llama) from
+The port's copies of `SDTokenizer` (CLIP), `T5TokenizerWrapper` (SD3's,
+FLUX's and PixArt's T5), `GemmaTokenizerWrapper` (Sana's Gemma-2) and
+`LlamaTokenizerWrapper` (HunyuanVideo's Llama) from
 onetrainer_tpu/setup/tokenizer.py; transformers is imported only when a
 tokenizer directory is given.
 """
@@ -148,6 +149,42 @@ class T5TokenizerWrapper:
         ids = pieces[: self.max_length - 1] + [self.eos]
         ids = ids + [self.pad] * (self.max_length - len(ids))
         return np.asarray(ids, np.int32)
+
+
+class GemmaTokenizerWrapper(T5TokenizerWrapper):
+    """Gemma tokenization for Sana (BOS=2, EOS=1, PAD=0; BOS prepended, no
+    EOS, padded to max_length: transformers GemmaTokenizer's defaults, as
+    Sana uses it) and the keep mask the Sana DiT's cross-attention takes."""
+
+    def __init__(self, tokenizer_dir: str | None = None, max_length: int = 300,
+                 vocab_size: int = 256000):
+        self.max_length = max_length
+        self.vocab_size = vocab_size
+        self.embedding_base = vocab_size
+        self.bos = 2
+        self.eos = 1
+        self.pad = 0
+        self._tokenizer = None
+        if tokenizer_dir:
+            try:
+                from transformers import AutoTokenizer
+                self._tokenizer = AutoTokenizer.from_pretrained(tokenizer_dir)
+                self.vocab_size = self._tokenizer.vocab_size
+                self.bos = self._tokenizer.bos_token_id or 2
+                self.pad = self._tokenizer.pad_token_id or 0
+            except Exception as e:
+                print(f"gemma tokenizer load failed ({e}); using hash fallback")
+        self.placeholders: dict[str, list[int]] = {}
+        self._next_extra = 0
+
+    def __call__(self, text: str) -> np.ndarray:
+        pieces = _splice_pieces(text, self.placeholders, self._encode_words)
+        ids = [self.bos] + pieces[: self.max_length - 1]
+        ids = ids + [self.pad] * (self.max_length - len(ids))
+        return np.asarray(ids, np.int32)
+
+    def mask(self, tokens: np.ndarray) -> np.ndarray:
+        return (tokens != self.pad).astype(np.int32)
 
 
 class LlamaTokenizerWrapper(T5TokenizerWrapper):

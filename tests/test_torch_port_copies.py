@@ -1,8 +1,9 @@
 """The port's own copies of the reference's framework-free modules agree
 with the originals: configs (onetrainer_tpu/config), enums
 (onetrainer_tpu/util/enums.py), model names (util/model_names.py), the CLIP
-tokenizer wrapper (setup/tokenizer.py), the torch<->flax key maps
-(io/torch_flax.py), and the copies the train and sample entry points
+and Gemma tokenizer wrappers (setup/tokenizer.py), the torch<->flax key maps
+(io/torch_flax.py; Sana's, Gemma's and DC-AE's in io/sana_checkpoints.py),
+and the copies the train and sample entry points
 brought: the LDM key maps (io/ldm.py), modelspec metadata
 (util/model_spec.py), bucketing, concepts and augmentations (data/), the
 trainer's base class, progress, timed actions, callbacks, commands and
@@ -479,9 +480,10 @@ def test_inpainting_copies_equal_their_originals():
             inspect.signature(RefLoader).parameters[flag].default is False
 
 
-@pytest.mark.parametrize("family", ["sd3", "sd3_qk_norm", "flux", "flux_fill", "hunyuan"])
+@pytest.mark.parametrize("family", ["sd3", "sd3_qk_norm", "flux", "flux_fill", "hunyuan",
+                                    "pixart"])
 def test_single_file_key_maps_give_the_originals_both_ways(family):
-    """io/single_file.py's key maps (the SAI, BFL and HunyuanVideo layouts)
+    """io/single_file.py's key maps (the SAI, BFL, HunyuanVideo and PixArt layouts)
     are the reference's on torch tensors: on the same seeded transformer's
     tensors (numpy to the reference's, torch to the port's) they give the
     same keys in the same order and the same values, exactly, both ways.
@@ -500,6 +502,10 @@ def test_single_file_key_maps_give_the_originals_both_ways(family):
         from tests.test_torch_port_flux_fill import tiny_fill_pair
         model = (tiny_fill_pair if family == "flux_fill" else tiny_flux_pair)()[2]
         maps = ("flux_transformer_to_bfl", "flux_bfl_to_transformer")
+    elif family == "pixart":
+        from tests.test_torch_port_pixart import tiny_pixart_pair
+        model = tiny_pixart_pair(num_heads=3, use_additional_conditions=True)[2]
+        maps = ("pixart_transformer_to_ckpt", "pixart_ckpt_to_transformer")
     else:
         from tests.test_torch_port_hunyuan import tiny_hunyuan_pair
         model = tiny_hunyuan_pair()[2]
@@ -516,3 +522,53 @@ def test_single_file_key_maps_give_the_originals_both_ways(family):
             np.testing.assert_array_equal(got[key].numpy(), np.asarray(value),
                                           err_msg=f"{name} {key}")
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("stub", [False, True], ids=["hash_fallback", "stub"])
+def test_gemma_tokenizer_gives_equal_ids(stub):
+    """Sana's Gemma wrapper (BOS 2 first, no EOS, pad 0), with and without
+    a transformers-like tokenizer, placeholders spliced alike, and its keep
+    mask."""
+    from onetrainer_tpu.setup.tokenizer import GemmaTokenizerWrapper
+    from onetrainer_tpu_torch.setup.tokenizer import GemmaTokenizerWrapper as PortGemma
+    ref = GemmaTokenizerWrapper(None, max_length=12, vocab_size=120)
+    port = PortGemma(None, max_length=12, vocab_size=120)
+    for tok in (ref, port):
+        if stub:
+            tok._tokenizer = _StubTokenizer()
+        assert tok.register_placeholder("<emb>", 2) == [120, 121]
+    assert (port.bos, port.eos, port.pad) == (ref.bos, ref.eos, ref.pad)
+    for text in ("a photo of <emb> on a table", "<emb> and <emb>", "",
+                 "a much longer prompt that runs past the twelve tokens of the window"):
+        want = ref(text)
+        np.testing.assert_array_equal(port(text), want, err_msg=text)
+        np.testing.assert_array_equal(port.mask(want), ref.mask(want))
+
+
+def test_sana_key_maps_give_equal_trees():
+    """The port's copies of the reference's Sana, Gemma and DC-AE key maps
+    carry the tiny Sana's trees exactly as the reference's do, both ways;
+    PixArt's and the T5's go through the generic maps held above."""
+    from onetrainer_tpu.io import sana_checkpoints as ref
+    from onetrainer_tpu_torch.io import sana_checkpoints as port
+    from tests.test_torch_port_sana import tiny_sana_pair
+    _, trees, _ = tiny_sana_pair()
+    for tree, (to_sd, to_flax) in zip(trees, (
+            ("sana_flax_to_state_dict", "sana_state_dict_to_flax"),
+            ("gemma_flax_to_state_dict", "gemma_state_dict_to_flax"),
+            ("dcae_flax_to_state_dict", "dcae_state_dict_to_flax"))):
+        sd = getattr(ref, to_sd)(tree)
+        got = getattr(port, to_sd)(tree)
+        assert list(got) == list(sd)
+        for key, value in sd.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        back_ref = jax_tf._flatten(getattr(ref, to_flax)(sd))
+        back_port = pt_tf._flatten(getattr(port, to_flax)(sd))
+        assert set(back_port) == set(back_ref)
+        for path, value in back_ref.items():
+            np.testing.assert_array_equal(back_port[path], value, err_msg=str(path))
+    for key in ("model.layers.0.self_attn.q_proj.weight", "embed_tokens.weight"):
+        assert port.gemma_torch_key_map(key) == ref.gemma_torch_key_map(key)
+    for key in ("patch_embed.proj.weight", "caption_projection.linear_1.bias", "proj_out.weight"):
+        assert port.sana_torch_key_map(key) == ref.sana_torch_key_map(key)
+        assert port.sana_flax_key_map(port.sana_torch_key_map(key)) == key

@@ -9,7 +9,10 @@ HunyuanVideo slice ("full" checkpointing) samples a 5-frame clip and takes
 two LoRA steps on an NF4 transformer, 5-frame clips and cached text, the
 FLUX.1-fill slice inpaints from PNGs at another size than the sample's and
 takes two LoRA steps on an NF4 transformer with the conditioning latent
-and the 64-channel mask, and the train and sample CLIs run a tiny SD 1.5
+and the 64-channel mask, the PixArt-Σ and Sana slices ("full"
+checkpointing) each sample and take two LoRA steps on an NF4 transformer
+with bf16 adapters, stochastic rounding and cached text, and the train and
+sample CLIs run a tiny SD 1.5
 checkpoint end to end (load, cache, train, back up, save the LoRA file,
 sample) and a tiny SD 1.5 inpainting checkpoint over PNGs that are not at
 their bucket's size (resized without Pillow), with masks and a
@@ -339,6 +342,73 @@ _SCRIPT = textwrap.dedent(f"""
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     assert any(e["lora_up"].abs().max() > 0
                for e in setup.state.params["transformer_lora"].values())
+    from onetrainer_tpu_torch.io.weights import init_pixart_weights, init_sana_weights
+    from onetrainer_tpu_torch.models.dcae import DCAEConfig
+    from onetrainer_tpu_torch.models.gemma import Gemma2Config
+    from onetrainer_tpu_torch.models.pixart import PixArtConfig
+    from onetrainer_tpu_torch.models.pixart_model import PixArtAlphaModel
+    from onetrainer_tpu_torch.models.sana import SanaConfig
+    from onetrainer_tpu_torch.models.sana_model import SanaModel
+    pixart = PixArtAlphaModel(
+        model_type=ModelType.PIXART_SIGMA,
+        transformer_config=PixArtConfig(
+            sample_size=8, num_layers=1, num_heads=2, head_dim=16, cross_attention_dim=24,
+            caption_channels=24, gradient_checkpointing=True),
+        vae_config=VAEConfig(block_out_channels=(32, 32), layers_per_block=1, latent_channels=4),
+        te_config=T5Config(vocab_size=110, d_model=24, d_kv=6, d_ff=48, num_layers=2,
+                           num_heads=4),
+        device="meta")
+    sana = SanaModel(
+        model_type=ModelType.SANA,
+        transformer_config=SanaConfig(
+            in_channels=8, out_channels=8, num_layers=1, num_attention_heads=4,
+            attention_head_dim=8, num_cross_attention_heads=2, cross_attention_head_dim=16,
+            caption_channels=24, gradient_checkpointing=True),
+        vae_config=DCAEConfig(latent_channels=8, encoder_block_out_channels=(8, 16, 16),
+                              decoder_block_out_channels=(8, 16, 16),
+                              encoder_layers_per_block=(1, 1, 1),
+                              decoder_layers_per_block=(1, 1, 1),
+                              vit_stages=(False, False, True), attention_head_dim=8),
+        te_config=Gemma2Config(vocab_size=120, hidden_size=24, intermediate_size=48,
+                               num_layers=2, num_heads=2, num_kv_heads=1, head_dim=12,
+                               query_pre_attn_scalar=12.0),
+        device="meta")
+    sc.sample_inpainting = False
+    sc.height = sc.width = 32
+    sc.cfg_scale = 4.5
+    for model, init, cached in ((pixart, init_pixart_weights, ("t5_hidden_state",)),
+                                (sana, init_sana_weights,
+                                 ("text_encoder_hidden_state", "tokens_mask"))):
+        init(model, seed=9, device="cpu")
+        config = TrainConfig.default_values()
+        config.model_type = model.model_type
+        config.training_method = TrainingMethod.FINE_TUNE
+        config.prior.train = config.text_encoder.train = False
+        family = get_family(config.model_type)
+        image = family.sample(family.create_setup(model, config, 1), sc, None).image
+        assert image.shape == (32, 32, 3) and image.std() > 0
+        config.training_method = TrainingMethod.LORA
+        config.prior.train = True
+        config.prior.weight_dtype = DataType.NFLOAT_4
+        config.lora_weight_dtype = DataType.BFLOAT_16
+        config.optimizer.stochastic_rounding = True
+        config.batch_size, config.learning_rate_warmup_steps = 2, 0.0
+        model.transformer = model.transformer.__class__(model.transformer_config)
+        init(model, seed=10, device="cpu")
+        setup = family.create_setup(model, config, 10)
+        assert sum(is_quantized(getattr(m, "weight", None))
+                   for m in model.transformer.modules()) >= 2
+        encode_images, encode_text = family.make_encode_fns(setup)
+        text = encode_text("a cat")
+        batch = dict(encode_images(torch.rand((2, 32, 32, 3)) * 2 - 1),
+                     loss_weight=torch.ones(2),
+                     **{{k: torch.as_tensor(text[k]).expand(2, *torch.as_tensor(text[k]).shape)
+                        for k in cached}})
+        for _ in range(2):
+            metrics = setup.train_step(setup.state, batch, gen)
+            assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+        assert any(e["lora_up"].abs().max() > 0
+                   for e in setup.state.params["transformer_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked

@@ -263,16 +263,21 @@ def test_diffusion_losses_match_jax_for_every_loss_weight(weight_fn):
 
 
 def test_unported_loss_settings_raise():
-    """Masked training is ported (tests/test_torch_port_finetune_math.py);
-    prior preservation and the learned-variance VB term raise."""
+    """Masked training is ported (tests/test_torch_port_finetune_math.py),
+    and the learned-variance VB term (tests/test_torch_port_pixart.py; as
+    the reference's, it needs the schedule's coefficients, and without them
+    the loss is the other terms'); prior preservation raises."""
     cfg = pt_losses.LossConfig(masked_training=True)
     batch = {"latent_mask": torch.ones(1, 2), "loss_weight": torch.ones(1)}
     data = {"predicted": torch.zeros(1, 2), "target": torch.zeros(1, 2)}
-    assert pt_losses.diffusion_losses(batch, data, cfg, None).shape == (1,)
-    for extra in ({"prior_target": torch.zeros(1, 2)},
-                  {"predicted_var_values": torch.zeros(1, 2)}):
-        with pytest.raises(NotImplementedError):
-            pt_losses.diffusion_losses(batch, {**data, **extra}, cfg, None)
+    plain = pt_losses.diffusion_losses(batch, data, cfg, None)
+    assert plain.shape == (1,)
+    with_var = pt_losses.diffusion_losses(
+        batch, {**data, "predicted_var_values": torch.zeros(1, 2)}, cfg, None)
+    assert torch.equal(with_var, plain)
+    with pytest.raises(NotImplementedError):
+        pt_losses.diffusion_losses(batch, {**data, "prior_target": torch.zeros(1, 2)},
+                                   cfg, None)
 
 
 # ------------------------------------------------------- noise, timesteps
