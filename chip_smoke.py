@@ -310,6 +310,25 @@ never falls back to the CPU. Phases, each of which must pass:
      directories by the port's savers, through the train command (LoRA on
      the NF4 transformer, epoch 1, backup, resume, the file read back bit
      for bit) and the sample command on sd15_files' PNGs at 512x512.
+ 38. sdxl_optimizers (after train, on its UNet): the train phase's LoRA
+     step under ADAMW_8BIT, PRODIGY, DADAPT_ADAM (both at lr 1.0),
+     SCHEDULE_FREE_ADAMW, CAME and LION: one warm-up and TRAIN_STEPS
+     timed steps each with train's exact launches, the optimizer state's
+     GiB, its int8 tensors, Prodigy's and D-Adapt's d; the warm-up's
+     optimizer call watched (its gradients, norm and state copied): the
+     updates of 16 named adapters against the same optimizer run on the
+     host from them, over the whole group where it reduces over it (rel L2
+     <= OPT_UPDATE_REL; schedule-free per element within 4 ulps of the
+     tensor's largest |y|), the int8 codes of theirs equal on
+     INT8_CODES_EQUAL of the elements and never more than one apart; under
+     SCHEDULE_FREE_ADAMW the LoRA output written as the trainer writes it
+     equals x bit for bit, differs from y, and y is put back;
+ 39. sd15_ft_8bit (after sd15_train, on its UNet): FINE_TUNE of the SD 1.5
+     UNet's 0.86B fp32 parameters at batch 4 at 512x512 under ADAMW and
+     ADAMW_8BIT, one warm-up and TRAIN_STEPS timed steps each (K1-K3 as
+     sd15_train), both peaks, the int8-eligible tensors' moments at most
+     INT8_STATE_RATIO of AdamW's bytes, 16 named tensors' updates (and
+     codes) against the host's as in 38.
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
@@ -1516,7 +1535,7 @@ def phase_train(torch, model, config, size: int, self_attn: dict, tag: str) -> d
         raise AssertionError(f"{tag} training run failed its checks")
     profile_train_step(torch, setup, batch, run["gen"], tag)
     return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
-            "peak_gib": run["peak_gib"]}
+            "peak_gib": run["peak_gib"], "batch": batch}
 
 
 def _quantized_layers(torch, unet) -> tuple[int, int]:
@@ -1897,10 +1916,12 @@ def _kernel_times(prof) -> tuple[dict, dict, list]:
 def profile_train_step(torch, setup, batch, gen, tag: str):
     """torch.profiler over one training step (after the timed ones): the
     device time per kernel class and the device's busy share of the step's
-    host time."""
+    host time. It records the device's activity only: the host's op events
+    add nothing the split reads, and on an SDXL step (29,198 kernels)
+    gathering them took 28.9 s against 7.4 s."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         setup.train_step(setup.state, batch, gen)["loss"].item()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1967,8 +1988,7 @@ def _cli_run(torch, config_path: str, events: list, profiled_step=None):
 
     from onetrainer_tpu_torch.scripts import train
     from onetrainer_tpu_torch.util.callbacks import TrainCallbacks
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-        if profiled_step is not None else None
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled_step is not None else None
 
     def on_status(status):
         events.append(("status", status, _launch_counts(), time.perf_counter()))
@@ -2571,6 +2591,370 @@ def phase_sdxl_ft(torch) -> dict:
                        u_dtype=sorted(str(d) for d in u_dtypes),
                        shape=f"largest leaf of the SDXL fine-tune update, "
                              f"{k5['largest_numel']} elements")}
+
+
+# -- the optimizers (phases sdxl_optimizers, sd15_ft_8bit) ------------------------------
+# one warm-up and TRAIN_STEPS timed steps each, on the `train` phase's SDXL UNet
+SDXL_OPTIMIZERS = ("ADAMW_8BIT", "PRODIGY", "DADAPT_ADAM", "SCHEDULE_FREE_ADAMW", "CAME", "LION")
+# the update of this many named tensors against the same optimizer on the CPU
+OPT_CHECK_LEAVES = 16
+OPT_UPDATE_REL = 1e-5
+# int8 codes: the share equal to the CPU's, and never more than one code apart
+INT8_CODES_EQUAL = 0.9999
+# ADAMW_8BIT's moments of the int8-eligible tensors against ADAMW's, in bytes
+INT8_STATE_RATIO = 0.26
+
+
+def _opt_state_bytes(opt_state) -> int:
+    from onetrainer_tpu_torch.train.optimizers import opt_state_tensors
+    return sum(t.numel() * t.element_size() for t in opt_state_tensors(opt_state)[0].values())
+
+
+def _q8s(state) -> list:
+    """Every int8 state tensor of an optimizer state, by (name, index)."""
+    from onetrainer_tpu_torch.ops.quant_opt import Q8
+    leaves = getattr(state, "leaves", {})
+    return [((name, i), t) for name, values in leaves.items() for i, t in enumerate(values)
+            if isinstance(t, Q8)]
+
+
+def _checked_indices(tensors: list, n: int) -> list[int]:
+    """n indices spread over `tensors`, half among those the int8 state
+    takes (at least 16384 elements), half among the rest."""
+    from onetrainer_tpu_torch.ops.quant_opt import MIN_SIZE
+    big = [i for i, t in enumerate(tensors) if t.numel() >= MIN_SIZE]
+    small = [i for i, t in enumerate(tensors) if t.numel() < MIN_SIZE]
+    pick = []
+    for pool, k in ((big, n // 2), (small, n - n // 2)):
+        k = min(k, len(pool))
+        pick += [pool[round(j * (len(pool) - 1) / max(k - 1, 1))] for j in range(k)]
+    return sorted(set(pick))
+
+
+def _watch_next_update(torch, setup, group: str, indices: list) -> dict:
+    """Watch the optimizer call of the setup's next step (the warm-up
+    step, untimed): the state and parameters just before it (the whole
+    group for an optimizer that reduces over it, else the `indices`
+    tensors), the pre-clip gradients and the global norm, the updates of
+    `indices`, and their int8 codes after it, all copied to the host into
+    the dict returned, which the step fills. Later steps run unwatched."""
+    from onetrainer_tpu_torch.train.optimizers import LeafLocal, opt_state_tensors
+    from onetrainer_tpu_torch.train.train_state import param_groups
+    tx, state = setup.tx, setup.state
+    params = param_groups(state.params)[group]
+    opt = state.opt_state[group]
+    whole = not isinstance(tx.groups[group], LeafLocal)
+    keep = range(len(params)) if whole else indices
+    seen = {"whole": whole, "updates": {},
+            "params": {i: params[i].detach().cpu().clone() for i in keep}}
+    if whole:
+        tensors, counts = opt_state_tensors(state.opt_state)
+        seen["state"] = ({k: t.detach().cpu().clone() for k, t in tensors.items()}, counts)
+    else:
+        seen["state"] = {(name, i): _host_copy(values[i]) for name, values in opt.leaves.items()
+                         for i in indices}
+        seen["count"] = opt.count
+    inner = tx.leaf_updates
+
+    def watched(groups, grads, opt_state, norm=None):
+        del tx.leaf_updates   # one step only
+        seen["grads"] = {i: grads[group][i].detach().cpu().clone() for i in keep}
+        seen["norm"] = norm.detach().cpu().clone()
+        for i, u in enumerate(inner(groups, grads, opt_state, norm)):
+            if i in indices:
+                seen["updates"][i] = u.detach().cpu().clone()
+            yield u
+        seen["codes_after"] = {key: q.codes.cpu().clone() for key, q in _q8s(opt)
+                               if key[1] in indices}
+    tx.leaf_updates = watched
+    return seen
+
+
+def _host_copy(t):
+    from onetrainer_tpu_torch.ops.quant_opt import Q8
+    if isinstance(t, Q8):
+        return Q8(t.codes.cpu().clone(), t.scales.cpu().clone(), t.shape)
+    return None if t is None else t.detach().cpu().clone()
+
+
+def _against_the_cpu(torch, setup, seen: dict, group: str, indices: list, names: list) -> dict:
+    """The same optimizer on the host from the watched state, parameters,
+    gradients and norm: over the whole group for an optimizer that reduces
+    over it, else over the `indices` tensors alone, behind the same clip. -> the worst rel L2 of the updates of `indices`, the int8
+    codes of theirs: the share equal and the largest difference."""
+    from onetrainer_tpu_torch.ops.quant_opt import Q8
+    from onetrainer_tpu_torch.train.optimizers import (
+        clip_by_global_norm_, create_group_optimizer, create_optimizer, opt_state_tensors,
+        set_opt_state_counts,
+    )
+    cfg, tx = setup.config.optimizer, setup.tx
+    schedule = tx.groups[group].schedule
+    if seen["whole"]:
+        twin = create_group_optimizer({group: schedule}, cfg.optimizer, cfg, tx.clip_grad_norm)
+        params = {group: [seen["params"][i] for i in range(len(seen["params"]))]}
+        state = twin.init(params)
+        tensors, counts = seen["state"]
+        for key, t in opt_state_tensors(state)[0].items():
+            t.copy_(tensors[key])
+        set_opt_state_counts(state, counts)
+        grads = {group: [seen["grads"][i] for i in range(len(seen["grads"]))]}
+        ups = twin.updates(params, grads, state, seen["norm"])[group]
+        cpu_state = state[group]
+        got = {i: ups[i] for i in indices}
+        cpu_codes = {key: q.codes for key, q in _q8s(cpu_state) if key[1] in indices}
+    else:
+        opt = create_optimizer(cfg.optimizer, cfg, schedule)
+        params = [seen["params"][i] for i in indices]
+        state = opt.init(params)
+        for (name, i), t in seen["state"].items():
+            j = indices.index(i)
+            if isinstance(t, Q8):
+                state.leaves[name][j].codes.copy_(t.codes)
+                state.leaves[name][j].scales.copy_(t.scales)
+            elif t is not None:
+                state.leaves[name][j].copy_(t)
+        state.count = seen["count"]
+        grads = [seen["grads"][i] for i in indices]
+        if tx.clip_grad_norm:
+            clip_by_global_norm_(grads, tx.clip_grad_norm, seen["norm"])
+        ups = opt.updates(params, grads, state)
+        got = {i: u for i, u in zip(indices, ups)}
+        cpu_codes = {(name, indices[j]): q.codes for (name, j), q in _q8s(state)}
+    rel = {names[i]: 0.0 if torch.equal(seen["updates"][i], got[i])
+           else _rel_l2(seen["updates"][i], got[i]) for i in indices}
+    # schedule-free's update is y' - y, far smaller than y: one rounding of
+    # y' (ulp(y)) is up to ulp(y) / |u| of it, so it is held per element to
+    # 4 ulps of the tensor's largest |y| plus OPT_UPDATE_REL of its largest |u|
+    ulps = {}
+    for i in indices:
+        y = seen["params"][i].float().abs().max()
+        ulp = (torch.nextafter(y, torch.tensor(float("inf"))) - y).item()
+        err = (seen["updates"][i] - got[i]).abs().max().item()
+        ulps[names[i]] = max(0.0, err - OPT_UPDATE_REL * got[i].abs().max().item()) / ulp
+    equal, apart, n_codes = 0, 0, 0
+    for key, codes in seen["codes_after"].items():
+        diff = (codes.int() - cpu_codes[key].int()).abs()
+        equal += int((diff == 0).sum())
+        apart = max(apart, int(diff.max()))
+        n_codes += diff.numel()
+    return {"rel": rel, "worst": max(rel.values()), "worst_ulps": max(ulps.values()),
+            "subset": not seen["whole"],
+            "codes": n_codes,
+            "codes_equal": equal / n_codes if n_codes else 1.0, "codes_apart": apart}
+
+
+def _write_eval_lora(torch, setup, family, root: str) -> dict:
+    """Schedule-free: the LoRA output written as the trainer writes it (x
+    swapped in, fp32), read back, against x and y per tensor."""
+    from onetrainer_tpu_torch.io.safetensors_io import load_safetensors
+    from onetrainer_tpu_torch.peft.lora import peft_to_kohya_state_dict
+    from onetrainer_tpu_torch.setup.families import save_lora_output
+    from onetrainer_tpu_torch.train.optimizers import (
+        schedule_free_eval, schedule_free_eval_params,
+    )
+    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    state = setup.state
+    y = {g: [t.detach().clone() for t in ts] for g, ts in param_groups(state.params).items()}
+    x = schedule_free_eval_params(state.opt_state, param_groups(state.params))
+    with schedule_free_eval(state.opt_state, param_groups(state.params)):
+        path = save_lora_output(setup, os.path.join(root, "sf_lora"), family.lora_prefixes,
+                                save_dtype=torch.float32)
+    restored = all(torch.equal(a, b) for g, ts in param_groups(state.params).items()
+                   for a, b in zip(ts, y[g]))
+    out = load_safetensors(path)
+    os.remove(path)
+    names = param_names(state.params)
+    equal, differs, n = 0, 0, 0
+    for group, prefix in family.lora_prefixes.items():
+        if group not in x:
+            continue
+        for values, counts in ((x, "x"), (y, "y")):
+            tree = {}
+            for name, t in zip(names[group], values[group]):
+                key, leaf = name.rsplit("/", 1)
+                tree.setdefault(key, {})[leaf] = t
+            kohya = peft_to_kohya_state_dict(tree, setup.peft_cfg, prefix)
+            for k, t in kohya.items():
+                if k.endswith(".alpha"):
+                    continue
+                same = torch.equal(out[k], t.cpu())
+                if counts == "x":
+                    n += 1
+                    equal += same
+                else:
+                    differs += not same
+    return {"tensors": n, "equal_x": equal, "differ_from_y": differs, "y_restored": restored}
+
+
+def phase_sdxl_optimizers(torch, model, batch=None) -> dict:
+    """Phase 38 (see the module docstring); `batch`, the train phase's."""
+    from onetrainer_tpu_torch.ops.quant_opt import MIN_SIZE
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    from onetrainer_tpu_torch.util.enums import ModelType, Optimizer
+    recompute = 2 if model.unet_config.gradient_checkpointing else 1
+    n = TRAIN_STEPS * sum(SDXL_SELF_ATTN.values())
+    expected = {"K1": recompute * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
+    family = get_family(ModelType.STABLE_DIFFUSION_XL_10_BASE)
+    results, launches = {}, {k: 0 for k in expected}
+    root = tempfile.mkdtemp(prefix="sdxl_optimizers_")
+    card = gpu_line()
+    try:
+        for name in SDXL_OPTIMIZERS:
+            t0 = time.perf_counter()
+            config = _lora_config(2)
+            config.optimizer.optimizer = Optimizer[name]
+            if config.optimizer.optimizer.is_adaptive():
+                config.learning_rate = 1.0   # d-adaptive: the lr scales the estimate
+            tag = f"sdxl_optimizers/{name}"
+            watch = {}
+
+            def watch_warmup(setup, watch=watch):
+                groups = param_groups(setup.state.params)["unet_lora"]
+                watch["indices"] = _checked_indices(groups, OPT_CHECK_LEAVES)
+                watch["seen"] = _watch_next_update(torch, setup, "unet_lora", watch["indices"])
+            run = _setup_and_steps(torch, model, config, tag, 1024, after_batch=watch_warmup,
+                                   make_batch=None if batch is None else (lambda s: batch))
+            batch, setup = run["batch"], run["setup"]
+            for k, v in run["launches"].items():
+                launches[k] += v
+            opt_state = setup.state.opt_state
+            state_gib = _opt_state_bytes(opt_state) / 2 ** 30
+            group_state = opt_state["unet_lora"]
+            int8 = len(_q8s(group_state))
+            params = param_groups(setup.state.params)["unet_lora"]
+            names = param_names(setup.state.params)["unet_lora"]
+            indices = watch["indices"]
+            cpu = _against_the_cpu(torch, setup, watch.pop("seen"), "unet_lora", indices, names)
+            # Prodigy's and D-Adapt's step size after the warm-up and timed steps
+            d = float(group_state.estim_lr) if name in ("PRODIGY", "DADAPT_ADAM") else None
+            written = _write_eval_lora(torch, setup, family, root) \
+                if name == "SCHEDULE_FREE_ADAMW" else None
+            eligible = sum(t.numel() >= MIN_SIZE for t in params)
+            schedule_free = config.optimizer.optimizer.is_schedule_free()
+            checks = {
+                "finite": run["finite"],
+                "launches per step": run["launches"] == expected,
+                "updates against the CPU": cpu["worst_ulps"] <= 4 if schedule_free
+                else cpu["worst"] <= OPT_UPDATE_REL,
+                "int8 codes against the CPU": cpu["codes_equal"] >= INT8_CODES_EQUAL
+                and cpu["codes_apart"] <= 1,
+                "int8 state": (int8 > 0) == name.endswith("_8BIT")
+                and (not name.endswith("_8BIT") or int8 == 2 * eligible),
+            }
+            if d is not None:
+                checks["d finite, at least d0"] = torch.tensor(1e-6).item() <= d < float("inf")
+            if written is not None:
+                checks["output holds x"] = written["equal_x"] == written["tensors"] > 0 \
+                    and written["differ_from_y"] > 0 and written["y_restored"]
+            print(f"[{tag}] on {card}: sec/step {run['sec_per_step']:.4f}, optimizer state "
+                  f"{state_gib:.4f} GiB ({int8} int8 tensors of {len(params)} adapters, "
+                  f"{eligible} of them >= {MIN_SIZE} elements), peak {run['peak_gib']:.2f} "
+                  f"GiB" + (f", d after {TRAIN_STEPS + 1} steps {d:.6e}" if d else "")
+                  + f"; the warm-up's update of {len(indices)} named adapters against the "
+                  f"host's{' (whole group)' if not cpu['subset'] else ''}: worst rel L2 "
+                  f"{cpu['worst']:.3e} (bound {OPT_UPDATE_REL:g}"
+                  + (f"; schedule-free: per element within {cpu['worst_ulps']:.2f} ulps of "
+                     f"the tensor's largest |y| past {OPT_UPDATE_REL:g} of its largest "
+                     f"update, bound 4" if schedule_free else "") + "; "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in list(cpu['rel'].items())[:4])}, ...)"
+                  + (f", int8 codes {cpu['codes']} equal {100 * cpu['codes_equal']:.4f}%, "
+                     f"at most {cpu['codes_apart']} apart" if cpu["codes"] else "")
+                  + (f"; LoRA output {written}" if written else "")
+                  + f"; phase part {time.perf_counter() - t0:.1f} s; checks {checks}")
+            results[name] = dict(sec_per_step=run["sec_per_step"], state_gib=state_gib,
+                                 int8=int8, d=d, peak_gib=run["peak_gib"],
+                                 worst_rel=cpu["worst"], codes_equal=cpu["codes_equal"])
+            if not all(checks.values()):
+                raise AssertionError(f"{tag} failed: "
+                                     f"{[k for k, ok in checks.items() if not ok]}")
+            del run, setup, opt_state, group_state, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "optimizers": results}
+
+
+def phase_sd15_ft_8bit(torch, model, batch=None) -> dict:
+    """Phase 39 (see the module docstring); `batch`, sd15_train's."""
+    from onetrainer_tpu_torch.ops.quant_opt import MIN_SIZE
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    from onetrainer_tpu_torch.util.enums import ModelType, Optimizer
+    recompute = 2 if model.unet_config.gradient_checkpointing else 1
+    n = TRAIN_STEPS * sum(SD15_SELF_ATTN.values())
+    expected = {"K1": recompute * n, "K2": n, "K3": n, "K3pre": n, "K4": 0, "K5": 0}
+    family = get_family(ModelType.STABLE_DIFFUSION_15)
+    card = gpu_line()
+    out, launches = {}, {k: 0 for k in expected}
+    for name in ("ADAMW", "ADAMW_8BIT"):
+        t0 = time.perf_counter()
+        tag = f"sd15_ft_8bit/{name}"
+        config = _fine_tune_config(ModelType.STABLE_DIFFUSION_15, 4)
+        config.optimizer.optimizer = Optimizer[name]
+        setup = family.create_setup(model, config, 100)
+        if batch is None:
+            batch = _train_batch(torch, family, setup, config.batch_size, 512)
+        params = param_groups(setup.state.params)["unet"]
+        names = param_names(setup.state.params)["unet"]
+        n_el = sum(t.numel() for t in params)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        indices = _checked_indices(params, OPT_CHECK_LEAVES)
+        seen = _watch_next_update(torch, setup, "unet", indices)
+        timed = _timed_steps(torch, setup, batch, gen, tag)
+        for k, v in timed["launches"].items():
+            launches[k] += v
+        opt = setup.state.opt_state["unet"]
+        eligible = [i for i, t in enumerate(params) if t.numel() >= MIN_SIZE
+                    and t.dtype == torch.float32]
+        if name == "ADAMW":
+            state_bytes = sum(opt.leaves[k][i].numel() * 4 for k in ("mu", "nu")
+                              for i in eligible)
+        else:
+            state_bytes = sum(opt.leaves[k][i].nbytes() for k in ("mu", "nu")
+                              for i in eligible)
+        total_gib = _opt_state_bytes(setup.state.opt_state) / 2 ** 30
+        cpu = _against_the_cpu(torch, setup, seen, "unet", indices, names)
+        del seen
+        out[name] = dict(sec_per_step=timed["sec_per_step"], peak_gib=timed["peak_gib"],
+                         state_gib=total_gib, eligible_state_gib=state_bytes / 2 ** 30,
+                         int8=len(_q8s(opt)), worst_rel=cpu["worst"],
+                         codes_equal=cpu["codes_equal"], codes_apart=cpu["codes_apart"],
+                         finite=timed["finite"],
+                         launches_ok=timed["launches"] == expected)
+        print(f"[{tag}] on {card}: FINE_TUNE of the SD 1.5 UNet ({len(params)} tensors, "
+              f"{n_el} fp32 elements), batch 4 at 512x512, {name}: sec/step "
+              f"{timed['sec_per_step']:.4f}, peak {timed['peak_gib']:.2f} GiB, optimizer state "
+              f"{total_gib:.4f} GiB ({len(eligible)} int8-eligible tensors' moments "
+              f"{state_bytes / 2 ** 30:.4f} GiB, {out[name]['int8']} int8 tensors); "
+              f"the warm-up's update of {len(indices)} named tensors against the host's: "
+              f"worst rel L2 "
+              f"{cpu['worst']:.3e}" + (f", int8 codes {cpu['codes']} equal "
+                                       f"{100 * cpu['codes_equal']:.4f}%, at most "
+                                       f"{cpu['codes_apart']} apart" if cpu["codes"] else "")
+              + f"; launches {timed['launches']} (expected {expected}); phase part "
+              f"{time.perf_counter() - t0:.1f} s")
+        del setup, opt, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    adamw, q8 = out["ADAMW"], out["ADAMW_8BIT"]
+    ratio = q8["eligible_state_gib"] / adamw["eligible_state_gib"]
+    checks = {
+        "finite": adamw["finite"] and q8["finite"],
+        "launches per step": adamw["launches_ok"] and q8["launches_ok"],
+        "updates against the CPU": max(adamw["worst_rel"], q8["worst_rel"]) <= OPT_UPDATE_REL,
+        "int8 codes against the CPU": q8["codes_equal"] >= INT8_CODES_EQUAL
+        and q8["codes_apart"] <= 1 and adamw["int8"] == 0 and q8["int8"] > 0,
+        f"int8 state at most {INT8_STATE_RATIO}x": ratio <= INT8_STATE_RATIO,
+    }
+    print(f"[sd15_ft_8bit] ADAMW_8BIT's eligible moments {q8['eligible_state_gib']:.4f} GiB "
+          f"against ADAMW's {adamw['eligible_state_gib']:.4f} GiB ({ratio:.4f}x); peaks "
+          f"ADAMW {adamw['peak_gib']:.2f} GiB, ADAMW_8BIT {q8['peak_gib']:.2f} GiB; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"sd15_ft_8bit failed: {[k for k, ok in checks.items() if not ok]}")
+    return {"launches": launches, "optimizers": out, "ratio": ratio}
 
 
 # -- embeddings and the VAE fine-tune (phases sdxl_embedding, sd15_vae_ft;
@@ -5314,6 +5698,10 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
                             " at FLUX's B1 S4173 H24 d128 (the fine-tune)")
     rows += _attention_rows(k1, k23, "sdxl_b2_s4096_h10_d64", "sdxl_embedding",
                             (2, 4096, 4096, 10, 64), " in the SDXL embedding step")
+    rows += _attention_rows(k1, k23, "sdxl_b2_s4096_h10_d64", "sdxl_optimizers",
+                            (2, 4096, 4096, 10, 64), " in the SDXL optimizer steps")
+    rows += _attention_rows(k1, k23, SD15_SHAPE, "sd15_ft_8bit", (4, 4096, 4096, 8, 40),
+                            " in the SD 1.5 fine-tune under AdamW and AdamW 8-bit")
     kernels = []
     for (name, tag, source, replaces, path, err, ms, plain_ms, bound_ms, bound_by,
          library_ms, shape) in rows:
@@ -5383,6 +5771,8 @@ def main() -> int:
         run("sample", phase_sample, torch, model, 1024, SDXL_SELF_ATTN, "sample")
         run("train", phase_train, torch, model, _lora_config(2), 1024, SDXL_SELF_ATTN,
             "train")
+        run("sdxl_optimizers", phase_sdxl_optimizers, torch, model,
+            (results.get("train") or {}).pop("batch", None))
     # the fp32 model must not stay alive into the later phases' peak memory
     del model
     results.pop("model", None)
@@ -5422,6 +5812,10 @@ def main() -> int:
         run("sd15_train", phase_train, torch, model,
             _lora_config(4, ModelType.STABLE_DIFFUSION_15), 512, SD15_SELF_ATTN,
             "sd15_train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("sd15_ft_8bit", phase_sd15_ft_8bit, torch, model,
+            (results.get("sd15_train") or {}).pop("batch", None))
     del model
     results.pop("sd15_model", None)
     gc.collect()
@@ -5592,7 +5986,7 @@ def main() -> int:
                              "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
                              "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft",
                              "sdxl_embedding", "sd15_vae_ft", "pixart_train", "sana_train",
-                             "pixart_sana_cli")},
+                             "pixart_sana_cli", "sdxl_optimizers", "sd15_ft_8bit")},
                 **{f"{p.removesuffix('_cli')}_embedding_cli": results[p]["embedding_launches"]
                    for p in ("sd15_cli", "sd3_cli", "flux_cli", "hunyuan_cli")},
                 "sd15_lora_embedding_cli": results["sd15_cli"]["additional_embedding_launches"]}

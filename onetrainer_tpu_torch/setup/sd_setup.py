@@ -21,8 +21,8 @@ parts whose weight dtype is FLOAT_8, INT_8 or NFLOAT_4 are quantized after
 the adapters and vectors exist (setup/quantize.py). A FINE_TUNE config
 that trains no part builds no trainer (it serves sampling).
 `refuse_unported` raises for FINE_TUNE_VAE outside SD 1.5/2.x, EMA held
-on the CPU and prior preservation; CUSTOM schedulers and schedule-free
-optimizers raise where they are built. `setup_lora` continues from a LoRA
+on the CPU and prior preservation. A schedule-free optimizer takes a
+CONSTANT schedule without warmup, as the reference's. `setup_lora` continues from a LoRA
 file (`lora_model_name`). `prepare_model`, `wrap_tokenizer`,
 `setup_embeddings`, `setup_training`, `setup_lora`, `setup_fine_tune` and
 `image_encoder` serve the SDXL, SD3, FLUX and HunyuanVideo setups too.
@@ -41,7 +41,9 @@ from onetrainer_tpu_torch.peft.lora import (
 )
 from onetrainer_tpu_torch.setup.quantize import quantize_frozen_parts
 from onetrainer_tpu_torch.setup.tokenizer import SDTokenizer
-from onetrainer_tpu_torch.train.lr_schedules import make_schedule, resolve_warmup_steps
+from onetrainer_tpu_torch.train.lr_schedules import (
+    make_schedule, resolve_warmup_steps, tabulate_custom_schedule,
+)
 from onetrainer_tpu_torch.train.optimizers import create_group_optimizer
 from onetrainer_tpu_torch.train.sd_train_step import (
     SDStepConfig, TrainedEmbeddings, make_sd_train_step,
@@ -96,15 +98,21 @@ def _group_schedule(config, group_lr: float | None, total_steps: int,
     base_lr = (group_lr if group_lr is not None else config.learning_rate)
     base_lr *= _lr_scale(config)
     scheduler = config.learning_rate_scheduler
+    # schedule-free optimizers carry their own schedule: the reference forces
+    # CONSTANT and no warmup for them (modules/util/create.py:1139-1141,1227-1228)
     if config.optimizer.optimizer.is_schedule_free():
-        raise NotImplementedError("schedule-free optimizers are not ported yet")
+        scheduler, warmup = LearningRateScheduler.CONSTANT, 0
+    else:
+        warmup = resolve_warmup_steps(config.learning_rate_warmup_steps, total_steps,
+                                      config.gradient_accumulation_steps)
     if scheduler == LearningRateScheduler.CUSTOM:
-        raise NotImplementedError("CUSTOM learning-rate schedulers are not ported yet")
-    warmup = resolve_warmup_steps(config.learning_rate_warmup_steps, total_steps,
-                                  config.gradient_accumulation_steps)
-    schedule = make_schedule(scheduler, total_steps, warmup,
-                             config.learning_rate_cycles,
-                             config.learning_rate_min_factor, base_lr)
+        schedule = tabulate_custom_schedule(
+            config.custom_learning_rate_scheduler, config.scheduler_params, base_lr,
+            config.learning_rate, total_steps, warmup, config.epochs, steps_per_epoch)
+    else:
+        schedule = make_schedule(scheduler, total_steps, warmup,
+                                 config.learning_rate_cycles,
+                                 config.learning_rate_min_factor, base_lr)
     stop = _stop_step(part, steps_per_epoch) if part is not None else None
     if stop is None:
         return schedule

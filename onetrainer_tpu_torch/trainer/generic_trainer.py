@@ -50,6 +50,7 @@ import os
 import shutil
 import time
 import traceback
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -61,7 +62,10 @@ from onetrainer_tpu_torch.setup.families import (
     get_family, save_embedding_output, save_lora_output,
 )
 from onetrainer_tpu_torch.setup.sd_setup import refuse_unported
-from onetrainer_tpu_torch.train.optimizers import opt_state_tensors, set_opt_state_counts
+from onetrainer_tpu_torch.train.optimizers import (
+    opt_state_tensors, schedule_free_eval, set_opt_state_counts,
+)
+from onetrainer_tpu_torch.train.train_state import param_groups
 from onetrainer_tpu_torch.trainer.base_trainer import BaseTrainer
 from onetrainer_tpu_torch.util.callbacks import TrainCallbacks
 from onetrainer_tpu_torch.util.commands import TrainCommands
@@ -117,7 +121,7 @@ def ema_tensors(state) -> tuple[dict, dict]:
     """(tensors, metadata) of a train state's EMA for `ema.safetensors`:
     params/<group>/<name> (train/train_state.py:param_names), the update
     count in the metadata."""
-    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    from onetrainer_tpu_torch.train.train_state import param_names
     names, tensors = param_names(state.ema.params), param_groups(state.ema.params)
     return ({f"params/{group}/{name}": t for group in names
              for name, t in zip(names[group], tensors[group])},
@@ -215,7 +219,7 @@ class GenericTrainer(BaseTrainer):
                     raise ValueError(f"backup {backup_dir} does not match the configured "
                                      f"training ({file})")
                 for key, t in want.items():
-                    t.copy_(f.tensor(key))
+                    t.copy_(f.tensor(key).reshape(t.shape))   # a 0-dim scalar is stored as [1]
                 if file == "optimizer.safetensors":
                     set_opt_state_counts(state.opt_state, f.metadata)
                 else:
@@ -294,10 +298,19 @@ class GenericTrainer(BaseTrainer):
     def _save_output(self, destination: str):
         """The LoRA file, the embedding file, or the fine-tuned model as a
         single file or a diffusers directory (output_model_format), with
-        the EMA in place of the trained tensors when on (the reference's
-        _export_params and _save_output, generic_trainer.py:334-431). Every exported tensor is
-        cast to output_dtype (reference: GenericTrainer.py:479; backups keep
-        the train dtype)."""
+        the EMA in place of the trained tensors when on, else, under a
+        schedule-free optimizer, its eval params x, with the trained y put
+        back afterwards (the reference's _export_params and _save_output,
+        generic_trainer.py:334-431; OneTrainer's optimizer.eval() before a
+        save). Every exported tensor is cast to output_dtype (reference:
+        GenericTrainer.py:479; backups keep the train dtype and y)."""
+        state = self.setup.state
+        swap = nullcontext() if state is None or state.ema is not None else \
+            schedule_free_eval(state.opt_state, param_groups(state.params))
+        with swap:
+            self._write_output(destination)
+
+    def _write_output(self, destination: str):
         config = self.config
         save_dtype = config.output_dtype.to_save_dtype()
         if config.training_method == TrainingMethod.LORA:

@@ -44,6 +44,8 @@ _SCRIPT = textwrap.dedent(f"""
     for m in mods:
         importlib.import_module(m)
     assert "onetrainer_tpu_torch.train.ema" in mods
+    assert {{"onetrainer_tpu_torch.ops.quant_opt", "onetrainer_tpu_torch.train.dadapt",
+             "onetrainer_tpu_torch.util.optimizer_util"}} <= set(mods)
     import chip_smoke
 
     from onetrainer_tpu_torch.config.sample_config import SampleConfig

@@ -160,12 +160,16 @@ def test_train_state_orders_tensors_and_refuses_ema():
 
 
 def test_unported_optimizers_raise():
+    """Every optimizer is ported (tests/test_torch_port_optimizers.py); the
+    one refusal left is the reference's own: SCHEDULE_FREE_SGD at momentum
+    0, whose eval params would divide by 0."""
     cfg = _port_config(TrainConfig.default_values()).optimizer
-    with pytest.raises(NotImplementedError):
-        pt_opt.create_optimizer(type(cfg.optimizer).LION, cfg, 1e-3)
+    assert isinstance(pt_opt.create_optimizer(type(cfg.optimizer).LION, cfg, 1e-3), pt_opt.Lion)
     cfg.amsgrad = True
-    with pytest.raises(NotImplementedError):
-        pt_opt.create_optimizer(cfg.optimizer, cfg, 1e-3)
+    assert pt_opt.create_optimizer(cfg.optimizer, cfg, 1e-3).amsgrad
+    cfg.momentum = 0.0
+    with pytest.raises(ValueError):
+        pt_opt.create_optimizer(type(cfg.optimizer).SCHEDULE_FREE_SGD, cfg, 1e-3)
 
 
 # -------------------------------------------------------------- schedules

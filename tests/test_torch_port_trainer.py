@@ -221,10 +221,12 @@ def _refuses(config):
     "circular", "offload", "cloud", "optimizer", "lora_file", "masks"])
 def test_unported_configs_refuse(runs, monkeypatch, case):
     """Each feature the port's trainer does not run refuses at start():
-    "ema" is the EMA held on the CPU, "masks" masked prior preservation, "optimizer" one
-    other than AdamW and Adafactor (the EMA on the device, FINE_TUNE,
-    masked training and gradient accumulation run:
-    tests/test_torch_port_trainer_finetune.py). "lora_file", continuing
+    "ema" is the EMA held on the CPU, "masks" masked prior preservation (the EMA
+    on the device, FINE_TUNE, masked training and gradient accumulation run:
+    tests/test_torch_port_trainer_finetune.py). "optimizer", one other than
+    AdamW and Adafactor, refused until the optimizer slice, now starts
+    (tests/test_torch_port_optimizers.py holds them to the reference).
+    "lora_file", continuing
     from a LoRA file, refused until the PEFT slice, now starts: the setup's
     adapters are the file's tensors (bf16 there, fp32 here: exact), at the
     file's rank and alpha. "fine_tune" (additional embeddings beside a
@@ -267,6 +269,12 @@ def test_unported_configs_refuse(runs, monkeypatch, case):
         trainer.start()
         assert "embeddings" in trainer.setup.state.params
         assert trainer.setup.step_cfg.train_text_encoder
+        return
+    if case == "optimizer":
+        from onetrainer_tpu_torch.train.optimizers import Lion
+        trainer = create_trainer(config, device="cpu")
+        trainer.start()
+        assert all(isinstance(opt, Lion) for opt in trainer.setup.tx.groups.values())
         return
     if case != "lora_file":
         _refuses(config)
