@@ -329,13 +329,43 @@ never falls back to the CPU. Phases, each of which must pass:
      sd15_train), both peaks, the int8-eligible tensors' moments at most
      INT8_STATE_RATIO of AdamW's bytes, 16 named tensors' updates (and
      codes) against the host's as in 38.
+ 40. Würstchen v2 and Stable Cascade (after sana_train; seeded, nothing
+     downloaded; the priors' eps heads at a tenth, so b stays near 0):
+     cascade_model, Stable Cascade's stage C at CascadePriorConfig's
+     defaults (3.6e9 parameters, 32 d=64 heads, blocks (8, 24)) with its
+     prior quantized to NF4 (711 layers), CLIP-G and EfficientNetV2-S;
+     cascade_sample: 4 prior steps at 1024x1024 with CFG 4 and the pooled
+     text, the stand-in decode, K1 64 and K4 711 per pass; cascade_train:
+     LoRA r16 a16 on 647 layers with bf16 adapters, stochastic rounding,
+     AdamW, batch 4 on cached 24x24x16 latents and CLIP-G's 77 states and
+     pooled projection: per step K1, K2, K3 and the pre-pass 64 each, K4
+     711, K5 1; the warm-up's update of 16 named adapters against the same
+     AdamW on the host, K4 on every layer's codes, the gradients against
+     plain attention and the plain dequant, K5 bit for bit, a profiler
+     split; cascade_ft: the prior built again in bf16 and fine-tuned under
+     Adafactor at batch 4 (K5 over its 3.6e9 elements in one launch per
+     step); wuerstchen_sample: the v2 prior (c 1536, 32 triples of 24
+     heads, c_cond 1280 from warp-ai/wuerstchen-prior's config), DiffNeXt
+     and the Paella VQGAN at their defaults, 4 prior and 10 decoder steps
+     at 1024x1024 (K1 32 per prior pass, 44 per DiffNeXt pass);
+     wuerstchen_cli (after pixart_sana_cli): the v2 prior cut to 4 triples
+     (CLIP-G, and the decoder's CLIP-H, to 2 layers; DiffNeXt to one block
+     per level) written by the port's savers, through the train command
+     (LoRA on the prior over sd15_files' PNGs at 1024x1024, the effnet's
+     latent cache, backup, resume, the file read back) and the sample
+     command with `--decoder-model-name`; then Stable Cascade's stage_c
+     file cut to blocks (1, 2) written and read back bit for bit.
 The k1/k23 phases also run FLUX's B2 and B1 S4173 H24 d128 and
 HunyuanVideo's B1 S9293 H24 d128 with its keep mask (the plain versions on
 chunks of heads; SDPA with the boolean mask on the first backend that takes
 it, named), and k4 FLUX's 3072x18432 norm1.linear (HunyuanVideo's too),
 15360x3072 proj_out and FLUX.1-fill's 384x3072 x_embedder, PixArt-Σ's
 1152x6912 AdaLN and 4096x1152 caption projections and Sana's GLUMBConv
-kernels (1x1 2240 -> 11200, 5600 -> 2240, the depthwise 3x3 x 11200). The CLI phases
+kernels (1x1 2240 -> 11200, 5600 -> 2240, the depthwise 3x3 x 11200) and
+Stable Cascade's 2048 x 8192 MLP projection; k1 and k23 Stable Cascade's
+B4 Sq576 Skv658 H32 d64 and Würstchen v2's B4 Sq576 Skv653 H24 d64 (no
+mask, more keys than queries), k1 also their sampling pairs at B2 and
+DiffNeXt's three levels (Sq 4096, 1024 and 256 over 77 more keys). The CLI phases
 read sd15_files' PNGs at 600x560, which the loader resizes to their bucket.
 Each model is freed before the next phase; every phase prints its peak
 device memory. The last stdout line is one JSON object, {"ok": true, "device": {...}};
@@ -416,13 +446,16 @@ K4_CASES = [
     ("sana_conv_inverted_1x1x2240x11200", (1, 1, 2240, 11200)),  # Sana's GLUMBConv 1x1
     ("sana_conv_point_1x1x5600x2240", (1, 1, 5600, 2240)),
     ("sana_conv_depth_3x3x1x11200", (3, 3, 1, 11200)),  # its depthwise 3x3
+    ("cascade_channelwise_2048x8192", (2048, 8192)),  # Stable Cascade's MLP up
 ]
 # the UNet's shapes, FLUX's, PixArt-Σ's and Sana's
 K4_TIMED = ("ff_1280x10240", "conv_3x3x2560x1280", "flux_norm1_3072x18432",
             "flux_proj_out_15360x3072", "flux_fill_x_embedder_384x3072",
-            "pixart_adaln_1152x6912", "sana_conv_inverted_1x1x2240x11200")
+            "pixart_adaln_1152x6912", "sana_conv_inverted_1x1x2240x11200",
+            "cascade_channelwise_2048x8192")
 FLUX_K4, FLUX_FILL_K4 = "flux_norm1_3072x18432", "flux_fill_x_embedder_384x3072"
 PIXART_K4, SANA_K4 = "pixart_adaln_1152x6912", "sana_conv_inverted_1x1x2240x11200"
+CASCADE_K4 = "cascade_channelwise_2048x8192"
 K5_SIZES = ((1 << 20) + 3, 1_000_003)
 # the step's largest bf16 adapter tensor: lora_down of a 2560->1280 3x3 conv
 K5_LARGEST_ADAPTER_SHAPE = (16, 2560, 3, 3)
@@ -447,6 +480,13 @@ K1_CASES = [
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False, None),
     ("ragged_keep_b2_sq1000_skv777_h4_d64", 2, 1000, 777, 4, 64, True, None),
     ("zero_q_rows_b2_s300_h4_d64", 2, 300, 300, 4, 64, False, 250),
+    ("cascade_b4_sq576_skv658_h32_d64", 4, 576, 658, 32, 64, False, None),
+    ("cascade_b2_sq576_skv658_h32_d64", 2, 576, 658, 32, 64, False, None),
+    ("wuerstchen_b4_sq576_skv653_h24_d64", 4, 576, 653, 24, 64, False, None),
+    ("wuerstchen_b2_sq576_skv653_h24_d64", 2, 576, 653, 24, 64, False, None),
+    ("diffnext_b1_sq4096_skv4173_h10_d64", 1, 4096, 4173, 10, 64, False, None),
+    ("diffnext_b1_sq1024_skv1101_h20_d64", 1, 1024, 1101, 20, 64, False, None),
+    ("diffnext_b1_sq256_skv333_h20_d64", 1, 256, 333, 20, 64, False, None),
 ]
 # name, batch, sq, skv, heads, head dim, keep mask
 K23_CASES = [
@@ -463,6 +503,8 @@ K23_CASES = [
     ("d128_b1_s2048_h8", 1, 2048, 2048, 8, 128, False),
     ("ragged_keep_b2_sq1000_skv777_h4_d64", 2, 1000, 777, 4, 64, True),
     ("stream_b1_s8192_h8_d128", 1, 8192, 8192, 8, 128, False),
+    ("cascade_b4_sq576_skv658_h32_d64", 4, 576, 658, 32, 64, False),
+    ("wuerstchen_b4_sq576_skv653_h24_d64", 4, 576, 653, 24, 64, False),
 ]
 SDXL_SHAPES = ("sdxl_b2_s4096_h10_d64", "sdxl_b2_s1024_h20_d64")
 SD15_SHAPE, SD21_SHAPE = "sd15_b4_s4096_h8_d40", "sd21_b2_s9216_h5_d64"
@@ -481,8 +523,22 @@ HV_SHAPE = "hunyuan_b1_s9293_h24_d128_keep"
 HV_IMAGE_TOKENS, HV_TEXT_TOKENS, HV_REAL_TEXT = 9216, 77, 29
 # cases timed against SDPA: the model shapes, and for K2/K3 the streaming
 # domain of the TPU's K3b
+# Würstchen v2's and Stable Cascade's priors at 1024x1024: the 24x24 effnet
+# latent's 576 rows attend over themselves and the conditioning tokens,
+# Cascade's 4 pooled + 77 text + 1 image (658 keys, 32 heads), v2's 77 text
+# (653 keys, 24 heads): batch 4 in training, the CFG pair in sampling; no
+# mask, more keys than queries, both ragged in the last tile. DiffNeXt's
+# three attention levels at 1024x1024 (4096, 1024 and 256 query rows over
+# 77 more keys), batch 1
+CASCADE_SHAPE, CASCADE_SAMPLE_SHAPE = ("cascade_b4_sq576_skv658_h32_d64",
+                                       "cascade_b2_sq576_skv658_h32_d64")
+V2_SHAPE, V2_SAMPLE_SHAPE = ("wuerstchen_b4_sq576_skv653_h24_d64",
+                             "wuerstchen_b2_sq576_skv653_h24_d64")
+DIFFNEXT_SHAPES = ("diffnext_b1_sq4096_skv4173_h10_d64", "diffnext_b1_sq1024_skv1101_h20_d64",
+                   "diffnext_b1_sq256_skv333_h20_d64")
 MODEL_SHAPES = SDXL_SHAPES + (SD15_SHAPE, SD21_SHAPE, SD3_SHAPE, FLUX_SHAPE,
-                              FLUX_SAMPLE_SHAPE, HV_SHAPE)
+                              FLUX_SAMPLE_SHAPE, HV_SHAPE, CASCADE_SHAPE, CASCADE_SAMPLE_SHAPE,
+                              V2_SHAPE, V2_SAMPLE_SHAPE) + DIFFNEXT_SHAPES
 SDPA_BWD_CASES = MODEL_SHAPES + ("stream_b1_s8192_h8_d128",)
 
 
@@ -1408,7 +1464,7 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
     if after_batch is not None:
         after_batch(setup)
     torch.cuda.synchronize()
-    group = "transformer_lora" if "transformer_lora" in setup.state.params else "unet_lora"
+    group = next(g for g in setup.state.params if g.endswith("_lora"))
     adapters = setup.state.params[group]
     n_lora = sum(t.numel() for e in adapters.values() for t in e.values())
     dtype = next(iter(next(iter(adapters.values())).values())).dtype
@@ -1453,9 +1509,15 @@ def _setup_and_steps(torch, model, config, tag: str, size: int = 1024,
                 peak_gib=peak_gib, finite=_finite(first + losses + norms), up_max=up_max)
 
 
+def _continuous(model_type) -> bool:
+    """Whether the model's step draws continuous timesteps in [0, 1]."""
+    return model_type.is_flux() or model_type.is_wuerstchen()
+
+
 def _fixed_draws(torch, batch, continuous: bool = False):
-    """Timesteps 250 and 750 (as t = 0.25 and 0.75 for FLUX's continuous
-    timesteps), noise and latent-sampling noise from a fixed seed."""
+    """Timesteps 250 and 750 (as t = 0.25 and 0.75 for FLUX's and
+    Würstchen's continuous timesteps), noise and latent-sampling noise from
+    a fixed seed."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     b = batch["latent_image"].shape[0]
     timestep = torch.tensor(([250, 750] * b)[:b], dtype=torch.int32, device="cuda")
@@ -1478,8 +1540,8 @@ def _grads_against_plain(torch, setup, batch, tag: str, plain_dequant: bool = Fa
     from onetrainer_tpu_torch.ops import flash_folded as ff
     from onetrainer_tpu_torch.ops import quant
     from onetrainer_tpu_torch.ops.nf4 import nf4_dequant_reference
-    draws = _fixed_draws(torch, batch, setup.config.model_type.is_flux())
-    if "latent_logvar" not in batch:   # deterministic latents (Sana's DC-AE)
+    draws = _fixed_draws(torch, batch, _continuous(setup.config.model_type))
+    if "latent_logvar" not in batch:   # deterministic latents (Sana's DC-AE, effnet)
         draws = draws[:2] + (None,)
     seqs = []
     kernel_fn = ff.flash_attention_folded
@@ -3374,14 +3436,15 @@ def _ft_grads_against_plain(torch, setup, batch, tag: str, params: dict) -> dict
     tensor (no copy of the whole set); the K1 launches of one forward by
     sequence length."""
     from onetrainer_tpu_torch.ops import flash_folded as ff
-    draws = _fixed_draws(torch, batch, setup.config.model_type.is_flux())
+    draws = _fixed_draws(torch, batch, _continuous(setup.config.model_type))
+    latent_draw = {"latent_noise": draws[2]} if "latent_logvar" in batch else {}
     names, tensors = list(params), list(params.values())
     seqs = []
     kernel_fn = ff.flash_attention_folded
 
     def grads():
         loss = setup.train_step.loss(batch, None, timestep=draws[0], noise=draws[1],
-                                     latent_noise=draws[2])
+                                     **latent_draw)
         return torch.autograd.grad(loss, tensors)
 
     def recorded(q, *args, **kwargs):
@@ -4030,7 +4093,8 @@ def _dit_lora_cli(torch, tag: str, ckpt: str, dataset: str, model_type, size: in
           f"{statistics.median(step_s):.4f} s over the unprofiled steps (the first includes "
           f"the warm-up); step 4 under torch.profiler: host {profiled_ms:.3f} ms, device "
           f"{device_ms:.3f} ms ({100 * device_ms / profiled_ms:.1f}% busy)")
-    sampler = "DDIM" if denoiser == "unet" or model_type.is_pixart() else "flow Euler"
+    sampler = "DDIM" if denoiser == "unet" or model_type.is_pixart() else \
+        "DDPM-Würstchen" if model_type.is_wuerstchen() else "flow Euler"
     print(f"[{tag}] on {card}: sample (load + 4 {sampler} steps + decode + PNG) "
           f"{sample_s:.2f} s; peak max_memory_allocated {peak_gib:.2f} GiB; launches "
           f"{launches} (sample {sample_launches}); LoRA file {len(lora)} keys, reload loss "
@@ -5580,6 +5644,524 @@ def phase_pixart_sana_cli(torch, dataset: str) -> dict:
             **results}
 
 
+# -- Würstchen v2 and Stable Cascade (phase 40) ---------------------------------------
+
+WUERSTCHEN_SIZE = 1024
+CASCADE_BATCH = 4
+WUERSTCHEN_CFG = 4.0
+WUERSTCHEN_PROMPT = "a photograph of an astronaut riding a horse"
+# warp-ai/wuerstchen-prior's prior/config.json, as prior_config_from_diffusers reads it
+V2_PRIOR_JSON = {"c_in": 16, "c": 1536, "c_cond": 1280, "c_r": 64, "depth": 32, "nhead": 24}
+# wuerstchen_cli's files: the v2 prior cut to V2_CLI_DEPTH of its 32 triples,
+# CLIP-G and the decoder's CLIP-H to CUT_CLIP_LAYERS layers, DiffNeXt to one
+# block per level (full width); Stable Cascade's stage_c file cut to
+# CUT_CASCADE_BLOCKS, CLIP-G beside it to CUT_CLIP_LAYERS
+V2_CLI_DEPTH, CUT_CLIP_LAYERS = 4, 2
+CUT_DIFFNEXT_BLOCKS = (1, 1, 1, 1)
+CUT_CASCADE_BLOCKS = (1, 2)
+
+
+def cascade_nf4_layers(blocks: tuple) -> tuple[int, int]:
+    """(NF4 layers of a Stable Cascade prior, those LoRA adapts): 11 per
+    triple (the depthwise 3x3, 2048 x 9 = 18,432 >= 4096 elements; the
+    channelwise MLP's two; the timestep block's mapper, mapper_sca and
+    mapper_crp; the kv mapper, q, k, v and out) in 2 x sum(blocks) triples,
+    and 7 outside them (the three CLIP mappers, the embedding and head
+    convs, the two level transitions' 1x1 convs); LoRA adapts all but the
+    depthwise convs."""
+    triples = 2 * sum(blocks)
+    return 11 * triples + 7, 10 * triples + 7
+
+
+def v2_lora_layers(depth: int) -> int:
+    """Layers LoRA adapts in a Würstchen v2 prior of `depth` triples: 8 per
+    triple (the channelwise MLP's two, the timestep mapper, the kv mapper,
+    q, k, v, out; not the depthwise conv) and 4 outside (the projection,
+    the two cond mappers, the head)."""
+    return 8 * depth + 4
+
+
+def diffnext_attention(cfg) -> int:
+    """Attention blocks of one DiffNeXt pass: each level's "A"s, down and up."""
+    return 2 * sum(b * lc.count("A") for b, lc in zip(cfg.blocks, cfg.level_config))
+
+
+def _wuerstchen_seeded(torch, model, tag: str, parts: tuple) -> None:
+    """Seeded weights for `parts` of `model` on the card (each in the dtype
+    it has on "meta"); the eps head's weights scaled to a tenth and its bias
+    zeroed, so b of (x_in - a) / (|1 - b| + 1e-5) stays near 0 as in a
+    trained prior (a random head puts some b near 1, where eps is ~1e5)."""
+    from onetrainer_tpu_torch.io.weights import init_wuerstchen_weights
+    counts = {name: sum(p.numel() for p in getattr(model, name).parameters()) for name in parts}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_wuerstchen_weights(model, seed=0, device="cuda", parts=parts)
+    head = model.prior.clf[1] if model.model_type.is_stable_cascade() else model.prior.out[1]
+    with torch.no_grad():
+        head.weight.mul_(0.1)
+        head.bias.zero_()
+    torch.cuda.synchronize()
+    dtypes = {name: str(next(getattr(model, name).parameters()).dtype) for name in parts}
+    print(f"[{tag}] parameters {counts} (total {sum(counts.values())}), seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s ({dtypes}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB allocated")
+
+
+def build_cascade_model(torch, quantize: bool = True, blocks: tuple | None = None,
+                        te_layers: int | None = None):
+    """Stable Cascade's stage C at CascadePriorConfig's defaults (the released
+    prior: c_hidden (2048, 2048), 32 d=64 heads, blocks (8, 24); `blocks`
+    when given) with seeded weights on the card, the prior in bf16 (NF4 with
+    `quantize`), CLIP-G with its projection (`te_layers` of its 32 layers
+    when given) and EfficientNetV2-S in fp32, bf16 compute."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.models.cascade import CascadePriorConfig
+    from onetrainer_tpu_torch.models.clip import open_clip_vit_bigg_config
+    from onetrainer_tpu_torch.models.wuerstchen import EffnetConfig
+    from onetrainer_tpu_torch.models.wuerstchen_model import WuerstchenModel
+    from onetrainer_tpu_torch.util.enums import ModelType
+    prior = CascadePriorConfig(dtype=torch.bfloat16)
+    if blocks is not None:
+        prior = replace(prior, blocks=blocks)
+    te = open_clip_vit_bigg_config(dtype=torch.bfloat16)
+    if te_layers is not None:
+        te = replace(te, num_layers=te_layers)
+    model = WuerstchenModel(model_type=ModelType.STABLE_CASCADE_1, prior_config=prior,
+                            effnet_config=EffnetConfig(dtype=torch.bfloat16), te_config=te,
+                            device="meta")
+    model.prior.to(torch.bfloat16)
+    tag = "cascade_model"
+    print(f"[{tag}] Stable Cascade stage C: c_hidden {prior.c_hidden}, heads {prior.nhead} "
+          f"of d=64, blocks {prior.blocks}, c_cond {prior.c_cond}; CLIP-G {te.num_layers} "
+          f"layers (projection {te.projection_dim}); EfficientNetV2-S")
+    _wuerstchen_seeded(torch, model, tag, ("prior", "text_encoder", "effnet"))
+    if quantize:
+        _quantize_prior(torch, model.prior, tag, cascade_nf4_layers(prior.blocks)[0])
+    return model
+
+
+def build_wuerstchen_model(torch, depth: int = 32, te_layers: int | None = None,
+                           diffnext_blocks: tuple | None = None,
+                           clip_h_layers: int | None = None, effnet: bool = False):
+    """Würstchen v2 at its published widths with seeded weights on the card:
+    the prior from warp-ai/wuerstchen-prior's config (c 1536, 24 heads, c_cond
+    1280 read by prior_config_from_diffusers; `depth` of its 32 triples) in
+    bf16, CLIP-G without the projection (`te_layers` of 32), DiffNeXt at
+    DiffNeXtConfig's defaults in bf16 (`diffnext_blocks` per level when
+    given), the Paella VQGAN in fp32 and the decoder's CLIP-H (`clip_h_layers`
+    of 24); EfficientNetV2-S only with `effnet`."""
+    from dataclasses import replace
+
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import prior_config_from_diffusers
+    from onetrainer_tpu_torch.models.clip import CLIPTextModel, open_clip_vit_bigg_config
+    from onetrainer_tpu_torch.models.diffnext import DiffNeXtConfig, WuerstchenDiffNeXt
+    from onetrainer_tpu_torch.models.paella_vq import PaellaVQConfig, PaellaVQDecoder
+    from onetrainer_tpu_torch.models.wuerstchen import EffnetConfig
+    from onetrainer_tpu_torch.models.wuerstchen_model import WuerstchenModel, clip_h_text_config
+    from onetrainer_tpu_torch.util.enums import ModelType
+    bf16 = torch.bfloat16
+    te = replace(open_clip_vit_bigg_config(dtype=bf16), projection_dim=None)
+    if te_layers is not None:
+        te = replace(te, num_layers=te_layers)
+    model = WuerstchenModel(
+        model_type=ModelType.WUERSTCHEN_2,
+        prior_config=prior_config_from_diffusers(dict(V2_PRIOR_JSON, depth=depth), bf16),
+        effnet_config=EffnetConfig(dtype=bf16), te_config=te, device="meta")
+    model.decoder_config = DiffNeXtConfig(dtype=bf16)
+    if diffnext_blocks is not None:
+        model.decoder_config = replace(model.decoder_config, blocks=diffnext_blocks)
+    model.vqgan_config = PaellaVQConfig()
+    model.decoder_te_config = clip_h_text_config(dtype=bf16)
+    if clip_h_layers is not None:
+        model.decoder_te_config = replace(model.decoder_te_config, num_layers=clip_h_layers)
+    with torch.device("meta"):
+        model.decoder = WuerstchenDiffNeXt(model.decoder_config).to(bf16)
+        model.vqgan = PaellaVQDecoder(model.vqgan_config)
+        model.decoder_text_encoder = CLIPTextModel(model.decoder_te_config)
+    model.prior.to(bf16)
+    tag = "wuerstchen_model"
+    pc, dc = model.prior_config, model.decoder_config
+    print(f"[{tag}] Würstchen v2: prior c {pc.c}, {pc.depth} triples of {pc.nhead} d=64 heads, "
+          f"c_cond {pc.c_cond}; CLIP-G {te.num_layers} layers; DiffNeXt c_hidden "
+          f"{dc.c_hidden}, blocks {dc.blocks}, heads {dc.nhead}; Paella VQGAN embed "
+          f"{model.vqgan_config.embed_dim}; decoder CLIP-H {model.decoder_te_config.num_layers} "
+          f"layers")
+    parts = ("prior", "text_encoder", "decoder", "vqgan", "decoder_text_encoder")
+    _wuerstchen_seeded(torch, model, tag, parts + (("effnet",) if effnet else ()))
+    return model
+
+
+def _wuerstchen_batch(torch, setup, batch_size: int, size: int) -> dict:
+    """The family's cache rows at size x size, tiled: the effnet latent of a
+    seeded image (the x0.75 resize, ImageNet normalization, EfficientNetV2-S)
+    and the prompt's CLIP states (Cascade's raw states and pooled
+    projection)."""
+    from onetrainer_tpu_torch.setup.families import get_family
+    encode_images, encode_text = get_family(setup.config.model_type).make_encode_fns(setup)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    image = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    text = encode_text(WUERSTCHEN_PROMPT)
+
+    def tile(t):
+        return t.expand(batch_size, *t.shape[1:]).contiguous()
+    batch = {"latent_image": tile(encode_images(image)["latent_image"]),
+             "loss_weight": torch.ones((batch_size,), device="cuda")}
+    batch.update({name: tile(value[None]) for name, value in text.items()
+                  if isinstance(value, torch.Tensor)})
+    return batch
+
+
+def _wuerstchen_sample(torch, model, tag: str, prior_attn: int, k4_per_pass: int) -> dict:
+    """Text-to-image through the family registry at 1024x1024: the prior's 4
+    steps with CFG WUERSTCHEN_CFG, then (v2 with its decoder stage) DiffNeXt's
+    10 and the Paella VQGAN, else the linear stand-in. Exactly K1 once per
+    attention block per pass (the prior's `prior_attn`, DiffNeXt's), K4
+    `k4_per_pass` per prior pass, nothing else; every denoiser output finite;
+    a uint8 1024x1024x3 image that is not constant. -> launches, image
+    latency, per-step milliseconds."""
+    from onetrainer_tpu_torch.config.sample_config import SampleConfig
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.sampling.wuerstchen_sampler import DECODER_STEPS
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import TrainingMethod
+    config = TrainConfig.default_values()
+    config.model_type = model.model_type
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    setup = family.create_setup(model, config, 1)
+    sc = SampleConfig.default_values()
+    sc.prompt, sc.negative_prompt = WUERSTCHEN_PROMPT, ""
+    sc.height = sc.width = WUERSTCHEN_SIZE
+    sc.diffusion_steps = 4
+    sc.cfg_scale = WUERSTCHEN_CFG
+    sc.seed = 42
+    decoded = model.model_type.is_wuerstchen_v2() and model.decoder is not None
+    decoder_attn = diffnext_attention(model.decoder_config) if decoded else 0
+    finite = []
+    hooks = [m.register_forward_hook(lambda m, i, o: finite.append(bool(torch.isfinite(o).all())))
+             for m in ((model.prior, model.decoder) if decoded else (model.prior,))]
+    stamps = []
+
+    def on_progress(step, total):
+        torch.cuda.synchronize()
+        stamps.append((total, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        image = family.sample(setup, sc, on_progress).image
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prior_t = [t for total, t in stamps if total == sc.diffusion_steps]
+    dec_t = [t for total, t in stamps if total == DECODER_STEPS] if decoded else []
+    prior_ms = [(b - a) * 1e3 for a, b in zip(prior_t, prior_t[1:])]
+    dec_ms = [(b - a) * 1e3 for a, b in zip(dec_t, dec_t[1:])]
+    expected = {"K1": prior_attn * sc.diffusion_steps + decoder_attn * DECODER_STEPS,
+                "K2": 0, "K3": 0, "K3pre": 0, "K4": k4_per_pass * sc.diffusion_steps, "K5": 0}
+    passes = sc.diffusion_steps + (DECODER_STEPS if decoded else 0)
+    ok = (launches == expected and len(finite) == passes and all(finite)
+          and image.dtype.name == "uint8"
+          and image.shape == (WUERSTCHEN_SIZE, WUERSTCHEN_SIZE, 3) and image.std() > 0)
+    decoder = (f"DiffNeXt {DECODER_STEPS} steps, step median {statistics.median(dec_ms):.2f} ms "
+               f"(steps 2..{DECODER_STEPS}), then the Paella VQGAN" if decoded
+               else "the linear stand-in decode")
+    print(f"[{tag}] {model.model_type.value} {WUERSTCHEN_SIZE}x{WUERSTCHEN_SIZE} on {gpu_line()}: "
+          f"image latency {total_s:.3f} s; prior {sc.diffusion_steps} steps CFG "
+          f"{sc.cfg_scale:g}, denoiser step median {statistics.median(prior_ms):.2f} ms "
+          f"(steps 2..{sc.diffusion_steps}: {', '.join(f'{t:.2f}' for t in prior_ms)}); "
+          f"{decoder}; peak max_memory_allocated {peak_gib:.2f} GiB; launches {launches} "
+          f"(expected {expected}); {len(finite)} denoiser passes all finite {all(finite)}; "
+          f"image {image.shape} {image.dtype} mean {image.mean():.2f} std {image.std():.2f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} failed its checks")
+    return {"launches": launches, "total_s": total_s,
+            "prior_step_ms": statistics.median(prior_ms),
+            "decoder_step_ms": statistics.median(dec_ms) if dec_ms else None,
+            "peak_gib": peak_gib}
+
+
+def phase_cascade_sample(torch, model) -> dict:
+    """cascade_sample: the NF4 stage C with the pooled text and CFG, decoded
+    by the stand-in (the reference has no stage B for Stable Cascade)."""
+    blocks = model.prior_config.blocks
+    return _wuerstchen_sample(torch, model, "cascade_sample", 2 * sum(blocks),
+                              cascade_nf4_layers(blocks)[0])
+
+
+def phase_wuerstchen_sample(torch, model) -> dict:
+    """wuerstchen_sample: the v2 prior, DiffNeXt and the Paella VQGAN."""
+    return _wuerstchen_sample(torch, model, "wuerstchen_sample", model.prior_config.depth, 0)
+
+
+def phase_cascade_train(torch, model) -> dict:
+    """cascade_train: LoRA r16 a16 over the NF4 stage C with bf16 adapters and
+    stochastic rounding, AdamW 1e-4, clip 1.0, batch 4 at 1024x1024 on cached
+    24x24x16 effnet latents and CLIP-G's 77 states and pooled projection
+    (CLIP-G and the effnet freed once cached), no checkpointing: one warm-up
+    step whose optimizer call is watched (16 named adapters' updates
+    against the same AdamW on the host from its gradients, norm and state),
+    TRAIN_STEPS timed steps with exactly, per step, K1-K3 and the pre-pass
+    once per attention block (64), K4 once per NF4 layer, K5 once; K4 on
+    every layer's codes bit for bit; one step's gradients with K1-K4 against
+    plain attention and the plain dequant; one step's K5 call bit for bit;
+    the plain rounding's time over the set; a profiler split."""
+    from onetrainer_tpu_torch.train.train_state import param_groups, param_names
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType
+    tag = "cascade_train"
+    blocks = model.prior_config.blocks
+    attn = 2 * sum(blocks)
+    n_quant, adapted = cascade_nf4_layers(blocks)
+    config = _lora_config(CASCADE_BATCH, ModelType.STABLE_CASCADE_1)
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    config.optimizer.stochastic_rounding = True
+    watch = {}
+
+    def after_batch(setup):
+        model.text_encoder = model.effnet = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        groups = param_groups(setup.state.params)["prior_lora"]
+        watch["indices"] = _checked_indices(groups, OPT_CHECK_LEAVES)
+        watch["seen"] = _watch_next_update(torch, setup, "prior_lora", watch["indices"])
+
+    run = _setup_and_steps(torch, model, config, tag, WUERSTCHEN_SIZE, after_batch=after_batch,
+                           make_batch=lambda setup: _wuerstchen_batch(
+                               torch, setup, CASCADE_BATCH, WUERSTCHEN_SIZE))
+    setup, batch = run["setup"], run["batch"]
+    names = param_names(setup.state.params)["prior_lora"]
+    cpu = _against_the_cpu(torch, setup, watch.pop("seen"), "prior_lora", watch["indices"],
+                           names)
+    expected = {"K1": TRAIN_STEPS * attn, "K2": TRAIN_STEPS * attn, "K3": TRAIN_STEPS * attn,
+                "K3pre": TRAIN_STEPS * attn, "K4": TRAIN_STEPS * n_quant, "K5": TRAIN_STEPS}
+    _k4_over_the_layers(torch, model.prior, tag)
+    grads = _grads_against_plain(torch, setup, batch, tag, plain_dequant=True)
+    k5 = _k5_over_the_adapters(torch, setup, batch, run["gen"], tag)
+    k5["plain_ms"] = _k5_set_plain_ms(torch, setup)
+    adapters = setup.state.params["prior_lora"]
+    checks = {
+        "finite": run["finite"] and grads["finite"],
+        "lora_up moved": run["up_max"] > 0,
+        "launches per step": run["launches"] == expected,
+        "K1 per forward": grads["by_seq"] == {576: attn},
+        "gradients against plain attention and dequant": grads["rel"] <= GRAD_REL_L2_BOUND,
+        "warm-up update against the host": cpu["worst"] <= OPT_UPDATE_REL,
+        "adapted layers": len(adapters) == adapted and set(setup.state.params) == {"prior_lora"},
+        "cached rows": tuple(batch["latent_image"].shape) == (CASCADE_BATCH, 24, 24, 16)
+        and tuple(batch["text_encoder_hidden_state"].shape) == (CASCADE_BATCH, 77, 1280)
+        and tuple(batch["pooled_text_encoder_output"].shape) == (CASCADE_BATCH, 1280),
+    }
+    print(f"[{tag}] on {gpu_line()}: {n_quant} NF4 layers, {len(adapters)} adapted (expected "
+          f"{adapted}); the warm-up's update of {len(watch['indices'])} named adapters against "
+          f"the host's AdamW: worst rel L2 {cpu['worst']:.3e} (bound {OPT_UPDATE_REL:g}; "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in list(cpu['rel'].items())[:4])}, ...); K5 over "
+          f"the {k5['leaves']} adapter tensors {k5['ms']:.4f} ms, plain {k5['plain_ms']:.2f} ms, "
+          f"least time {k5['bound_ms']:.4f} ms ({k5['bound_by']}); launches {run['launches']} "
+          f"(expected {expected}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} failed: {[k for k, ok in checks.items() if not ok]}")
+    profile_train_step(torch, setup, batch, run["gen"], tag)
+    return {"launches": run["launches"], "sec_per_step": run["sec_per_step"],
+            "peak_gib": run["peak_gib"], "k5": k5}
+
+
+def phase_cascade_ft(torch, model) -> dict:
+    """cascade_ft: the bf16 stage C fine-tuned in full under Adafactor with
+    stochastic rounding (`_dit_fine_tune`: K5 over the whole prior, 3.6e9
+    elements, one launch per step), batch 4 at 1024x1024 on the cached rows,
+    CLIP-G and the effnet freed once cached; the gradients against plain
+    attention taken for the embedding, the first triple and the head (every
+    attention of the network lies on their backward path)."""
+    from onetrainer_tpu_torch.train.sd_train_step import UPDATE_CHUNK_ELEMENTS
+    from onetrainer_tpu_torch.util.enums import ModelType
+    attn = 2 * sum(model.prior_config.blocks)
+    config = _dit_ft_config(ModelType.STABLE_CASCADE_1, CASCADE_BATCH, train_te=False)
+    n = sum(p.numel() for p in model.prior.parameters())
+    chunk = min(n, UPDATE_CHUNK_ELEMENTS)
+    reckoning = (f"the reckoning: weights {_gib(n):.2f} + gradients {_gib(n):.2f} + one chunk "
+                 f"of updates {_gib(chunk):.2f} GiB of "
+                 f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} GiB; ")
+
+    def free_encoders(setup):
+        model.text_encoder = model.effnet = None
+
+    def watched(setup):
+        return {name: t for name, t in setup.state.params["prior"].items()
+                if name.startswith(("embedding.1.", "down_blocks.0.0.", "down_blocks.0.1.",
+                                    "down_blocks.0.2.", "clf.1."))}
+
+    per_step = {"K1": attn, "K2": attn, "K3": attn, "K3pre": attn}
+    return _dit_fine_tune(torch, model, config, "cascade_ft", WUERSTCHEN_SIZE, per_step,
+                          {576: attn}, watched, after_batch=free_encoders,
+                          make_batch=lambda setup: _wuerstchen_batch(
+                              torch, setup, CASCADE_BATCH, WUERSTCHEN_SIZE),
+                          reckoning=reckoning)
+
+
+def _v2_config_jsons(model) -> dict:
+    """config.json of the prior and of each CLIP (transformers' keys) for a
+    v2 prior directory, and of DiffNeXt, the VQGAN and the decoder's CLIP
+    for a decoder directory."""
+    def clip(c):
+        return {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                "intermediate_size": c.intermediate_size, "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads,
+                "max_position_embeddings": c.max_position_embeddings,
+                "hidden_act": c.hidden_act, "eos_token_id": c.eos_token_id}
+    p, d, v = model.prior_config, model.decoder_config, model.vqgan_config
+    return {
+        "prior": {"c_in": p.c_in, "c": p.c, "c_cond": p.c_cond, "c_r": p.c_r, "depth": p.depth,
+                  "nhead": p.nhead},
+        "text_encoder": clip(model.te_config),
+        "decoder": {"c_in": d.c_in, "c_out": d.c_out, "c_r": d.c_r, "patch_size": d.patch_size,
+                    "c_cond": d.c_cond, "c_hidden": list(d.c_hidden), "nhead": list(d.nhead),
+                    "blocks": list(d.blocks), "level_config": list(d.level_config),
+                    "inject_effnet": list(d.inject_effnet), "effnet_embd": d.effnet_embd,
+                    "clip_embd": d.clip_embd, "kernel_size": d.kernel_size},
+        "vqgan": {"embed_dim": v.embed_dim, "bottleneck_blocks": v.bottleneck_blocks,
+                  "latent_channels": v.latent_channels, "scale_factor": v.scale_factor},
+        "decoder_text_encoder": clip(model.decoder_te_config),
+    }
+
+
+def wuerstchen_files(torch, root: str) -> dict:
+    """A seeded v2 at its published widths, the prior cut to V2_CLI_DEPTH
+    triples and CLIP-G to CUT_CLIP_LAYERS layers, written in bf16 by the
+    port's own savers: the prior directory (prior/, text_encoder/), the
+    effnet file, and the decoder directory (DiffNeXt cut to
+    CUT_DIFFNEXT_BLOCKS, the VQGAN, CLIP-H cut to CUT_CLIP_LAYERS) -> their
+    paths."""
+    from onetrainer_tpu_torch.io.safetensors_io import save_safetensors
+    from onetrainer_tpu_torch.io.sd_checkpoints import state_dict_of
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import (
+        save_wuerstchen_decoder, save_wuerstchen_diffusers,
+    )
+    model = build_wuerstchen_model(torch, V2_CLI_DEPTH, CUT_CLIP_LAYERS, CUT_DIFFNEXT_BLOCKS,
+                                   CUT_CLIP_LAYERS, effnet=True)
+    t0 = time.perf_counter()
+    configs = _v2_config_jsons(model)
+    ckpt = os.path.join(root, "wuerstchen_v2")
+    save_wuerstchen_diffusers(ckpt, model, state_dict_of(model.prior),
+                              state_dict_of(model.text_encoder), save_dtype=torch.bfloat16)
+    for component in ("prior", "text_encoder"):
+        with open(os.path.join(ckpt, component, "config.json"), "w") as f:
+            json.dump(configs[component], f)
+    effnet = os.path.join(root, "effnet_encoder.safetensors")
+    save_safetensors(effnet, {k: v.detach().cpu() for k, v in model.effnet.state_dict().items()})
+    decoder = os.path.join(root, "wuerstchen_decoder")
+    save_wuerstchen_decoder(decoder, state_dict_of(model.decoder), state_dict_of(model.vqgan),
+                            state_dict_of(model.decoder_text_encoder),
+                            {"decoder": configs["decoder"], "vqgan": configs["vqgan"],
+                             "text_encoder": configs["decoder_text_encoder"]},
+                            save_dtype=torch.bfloat16)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"[wuerstchen_files] wrote {ckpt}, {effnet} and {decoder} ({size / 2 ** 30:.3f} GiB) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    files = {"ckpt": ckpt, "effnet": effnet, "decoder": decoder,
+             "decoder_attn": diffnext_attention(model.decoder_config)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return files
+
+
+def _cascade_single_file(torch, root: str) -> dict:
+    """Stable Cascade's stage_c file at cut depth (CUT_CASCADE_BLOCKS, CLIP-G
+    CUT_CLIP_LAYERS layers), written by the family's single-file export in
+    bf16 and loaded back through the registry: every tensor bit for bit,
+    the config read from the shapes."""
+    from onetrainer_tpu_torch.config.train_config import TrainConfig
+    from onetrainer_tpu_torch.setup.families import get_family
+    from onetrainer_tpu_torch.util.enums import DataType, ModelType, TrainingMethod
+    model = build_cascade_model(torch, False, CUT_CASCADE_BLOCKS, CUT_CLIP_LAYERS)
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_CASCADE_1
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    config.weight_dtype = DataType.BFLOAT_16
+    family = get_family(config.model_type)
+    setup = family.create_setup(model, config, 1)
+    path = os.path.join(root, "stage_c.safetensors")
+    t0 = time.perf_counter()
+    family.save_single_file(setup, path, save_dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = family.load(path, config, device="cuda")
+    read_s = time.perf_counter() - t0
+    same = {}
+    for name in ("prior", "text_encoder"):
+        a, b = getattr(model, name).state_dict(), getattr(loaded, name).state_dict()
+        same[name] = set(a) == set(b) and all(
+            torch.equal(a[k].to(torch.bfloat16), b[k]) for k in a)
+    ok = all(same.values()) and loaded.prior_config.blocks == CUT_CASCADE_BLOCKS \
+        and loaded.prior_config.nhead == (32, 32) and loaded.prior_config.c_in == 16
+    size = os.path.getsize(path) + os.path.getsize(os.path.join(root, "text_encoder.safetensors"))
+    print(f"[wuerstchen_cli] Stable Cascade stage_c at blocks {CUT_CASCADE_BLOCKS} and CLIP-G "
+          f"{CUT_CLIP_LAYERS} layers: written in {write_s:.2f} s ({size / 2 ** 30:.3f} GiB, "
+          f"bf16), read back in {read_s:.2f} s, config {loaded.prior_config.c_hidden} heads "
+          f"{loaded.prior_config.nhead} blocks {loaded.prior_config.blocks} c_in "
+          f"{loaded.prior_config.c_in}; bit for bit {same} {'ok' if ok else 'FAIL'}")
+    del model, loaded, setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ok": ok}
+
+
+def phase_wuerstchen_cli(torch, dataset: str) -> dict:
+    """wuerstchen_cli: the cut v2 (`wuerstchen_files`) through the train
+    command (`_dit_lora_cli`: LoRA r16 a16 on the bf16 prior over sd15_files'
+    PNGs at 1024x1024, batch 4, the effnet caching 24x24x16 latents,
+    gradient checkpointing on, epoch 1 with a backup, the resume for epoch
+    2, the LoRA file read back bit for bit) and the sample command with
+    `--decoder-model-name` (the prior's 4 steps, DiffNeXt's 10, the VQGAN);
+    then Stable Cascade's stage_c file at cut depth (`_cascade_single_file`).
+    Per step exactly K1 twice and K2, K3 and the pre-pass once per prior
+    triple, nothing else; none while caching."""
+    import shutil
+
+    from onetrainer_tpu_torch.util.enums import ModelType
+    root = tempfile.mkdtemp(prefix="wuerstchen_files_")
+    try:
+        files = wuerstchen_files(torch, root)
+        d = V2_CLI_DEPTH
+        per_step = {"K1": 2 * d, "K2": d, "K3": d, "K3pre": d, "K4": 0, "K5": 0}
+        latent = int(round(WUERSTCHEN_SIZE * 0.75)) // 32
+        result = _dit_lora_cli(
+            torch, "wuerstchen_cli", files["ckpt"], dataset, ModelType.WUERSTCHEN_2,
+            WUERSTCHEN_SIZE, per_step, v2_lora_layers(d),
+            {"latent_image": (latent, latent, 16), "text_encoder_hidden_state": (77, 1280)},
+            ["--cfg", str(WUERSTCHEN_CFG), "--decoder-model-name", files["decoder"]],
+            4 * d + 10 * files["decoder_attn"], "full",
+            "bf16 prior directory and effnet file to the card", denoiser="prior",
+            configure=lambda config: setattr(config.effnet_encoder, "model_name",
+                                             files["effnet"]))
+        single = _cascade_single_file(torch, root)
+        if not single["ok"]:
+            raise AssertionError("wuerstchen_cli: the stage_c file did not read back bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def _k1_row(k1, shape: str, path: str, dims: tuple, suffix: str, err=None) -> tuple:
+    """K1 at one case of phase k1, with the launches of `path`."""
+    err = err or (lambda tag, case: case)
+    return (f"flash_attention_folded_fwd (K1){suffix}", "K1", "flash_fwd.cu",
+            "onetrainer_tpu/ops/flash_folded.py:93", path,
+            err("K1", k1[shape]["err_o"]), k1[shape]["ms"], k1[shape]["plain_ms"],
+            *_attn_bounds(*dims)["K1"], k1[shape]["library_ms"], shape)
+
+
 def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
                     err=None) -> list:
     """K1, K2, K3 and the pre-pass at one case of phases k1/k23, with the
@@ -5588,10 +6170,7 @@ def _attention_rows(k1, k23, shape: str, path: str, dims: tuple, suffix: str,
     bounds = _attn_bounds(*dims)
     err = err or (lambda tag, case: case)
     return [
-        (f"flash_attention_folded_fwd (K1){suffix}", "K1", "flash_fwd.cu",
-         "onetrainer_tpu/ops/flash_folded.py:93", path,
-         err("K1", k1[shape]["err_o"]), k1[shape]["ms"], k1[shape]["plain_ms"],
-         *bounds["K1"], k1[shape]["library_ms"], shape),
+        _k1_row(k1, shape, path, dims, suffix, err),
         (f"flash_attention_folded_dq (K2, delta given){suffix}", "K2", "flash_bwd.cu",
          "onetrainer_tpu/ops/flash_folded.py:196", path,
          err("K2", k23[shape]["errs"]["dq"]), k23[shape]["k2_ms"],
@@ -5671,7 +6250,8 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
               k5_dit[path]["bound_ms"], k5_dit[path]["bound_by"], None, k5_dit[path]["shape"])
              for path, label in (("sd3_ft", "SD3"), ("flux_ft", "FLUX"),
                                  ("hunyuan_ft", "HunyuanVideo"),
-                                 ("sd15_vae_ft", "SD 1.5 VAE"))]
+                                 ("sd15_vae_ft", "SD 1.5 VAE"),
+                                 ("cascade_ft", "Stable Cascade prior"))]
     rows += [(f"nf4_dequant_flat (K4) at {label}", "K4", "nf4_dequant.cu",
               "onetrainer_tpu/ops/nf4_pallas.py:41", path, k4[case]["max_abs_err"],
               k4[case]["ms"], k4[case]["plain_ms"], k4[case]["bound_ms"],
@@ -5685,7 +6265,31 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
               k5_dit[path]["bound_by"], None,
               f"{k5_dit[path]['leaves']} bf16 adapter tensors, {k5_dit[path]['elements']} "
               f"elements")
-             for path, label in (("pixart_train", "PixArt-Σ"), ("sana_train", "Sana"))]
+             for path, label in (("pixart_train", "PixArt-Σ"), ("sana_train", "Sana"),
+                                 ("cascade_train", "Stable Cascade"))]
+    cascade = (4, 576, 658, 32, 64)
+    rows += _attention_rows(k1, k23, CASCADE_SHAPE, "cascade_train", cascade,
+                            " at Stable Cascade's B4 Sq576 Skv658 H32 d64")
+    rows += _attention_rows(k1, k23, CASCADE_SHAPE, "cascade_ft", cascade,
+                            " at Stable Cascade's B4 Sq576 Skv658 H32 d64 (the fine-tune)")
+    rows += _attention_rows(k1, k23, V2_SHAPE, "wuerstchen_cli", (4, 576, 653, 24, 64),
+                            " at Würstchen v2's B4 Sq576 Skv653 H24 d64 (the train command)")
+    rows += [_k1_row(k1, shape, path, dims, label)
+             for shape, path, dims, label in (
+                 (CASCADE_SAMPLE_SHAPE, "cascade_sample", (2, 576, 658, 32, 64),
+                  " at Stable Cascade's sampling B2 Sq576 Skv658 H32 d64"),
+                 (V2_SAMPLE_SHAPE, "wuerstchen_sample", (2, 576, 653, 24, 64),
+                  " at Würstchen v2's sampling B2 Sq576 Skv653 H24 d64"),
+                 (DIFFNEXT_SHAPES[0], "wuerstchen_sample", (1, 4096, 4173, 10, 64),
+                  " at DiffNeXt's B1 Sq4096 Skv4173 H10 d64"),
+                 (DIFFNEXT_SHAPES[1], "wuerstchen_sample", (1, 1024, 1101, 20, 64),
+                  " at DiffNeXt's B1 Sq1024 Skv1101 H20 d64"),
+                 (DIFFNEXT_SHAPES[2], "wuerstchen_sample", (1, 256, 333, 20, 64),
+                  " at DiffNeXt's B1 Sq256 Skv333 H20 d64"))]
+    rows.append(("nf4_dequant_flat (K4) at Stable Cascade's channelwise MLP", "K4",
+                 "nf4_dequant.cu", "onetrainer_tpu/ops/nf4_pallas.py:41", "cascade_train",
+                 k4[CASCADE_K4]["max_abs_err"], k4[CASCADE_K4]["ms"], k4[CASCADE_K4]["plain_ms"],
+                 k4[CASCADE_K4]["bound_ms"], k4[CASCADE_K4]["bound_by"], None, CASCADE_K4))
     rows.append(("nf4_dequant_flat (K4) under DoRA", "K4", "nf4_dequant.cu",
                  "onetrainer_tpu/ops/nf4_pallas.py:41", "sdxl_dora",
                  max(c["max_abs_err"] for c in k4.values()), k4[ff]["ms"],
@@ -5716,7 +6320,7 @@ def _kernel_table(k1, k23, k4, k5, k5_ft, launches: dict, k5_dit: dict) -> dict:
         })
     # the fine-tunes' K5 rows: the whole update's time, bound and host time
     updates = {"sdxl_ft": k5_ft, **{p: k5_dit[p] for p in k5_dit
-                                   if p not in ("pixart_train", "sana_train")}}
+                                   if p not in ("pixart_train", "sana_train", "cascade_train")}}
     extras = ("set_ms", "set_bound_ms", "set_host_ms", "leaves", "elements", "u_dtype")
     for row in kernels:
         k5_row = updates.get(row["path"])
@@ -5919,6 +6523,29 @@ def main() -> int:
     results.pop("sana_model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    model = run("cascade_model", build_cascade_model, torch)
+    if model is not None:
+        run("cascade_sample", phase_cascade_sample, torch, model)
+        run("cascade_train", phase_cascade_train, torch, model)
+    del model
+    results.pop("cascade_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 stage C of the full fine-tune, after the NF4 one is freed
+    model = run("cascade_ft_model", build_cascade_model, torch, False)
+    if model is not None:
+        run("cascade_ft", phase_cascade_ft, torch, model)
+    del model
+    results.pop("cascade_ft_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = run("wuerstchen_model", build_wuerstchen_model, torch)
+    if model is not None:
+        run("wuerstchen_sample", phase_wuerstchen_sample, torch, model)
+    del model
+    results.pop("wuerstchen_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="sd15_files_")
     try:
         files = run("sd15_files", sd15_files, torch, root)
@@ -5965,6 +6592,9 @@ def main() -> int:
             run("pixart_sana_cli", phase_pixart_sana_cli, torch, files["dataset"])
             gc.collect()
             torch.cuda.empty_cache()
+            run("wuerstchen_cli", phase_wuerstchen_cli, torch, files["dataset"])
+            gc.collect()
+            torch.cuda.empty_cache()
             run("sd15_ft_cli", phase_sd15_ft_cli, torch, files)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5978,6 +6608,8 @@ def main() -> int:
                 "flux_fill_sample": results["flux_fill_sample"],
                 "pixart_sample": results["pixart_sample"],
                 "sana_sample": results["sana_sample"],
+                "cascade_sample": results["cascade_sample"]["launches"],
+                "wuerstchen_sample": results["wuerstchen_sample"]["launches"],
                 "sdxl_inpaint_sample": results["sdxl_inpaint"]["sample_launches"],
                 **{p: results[p]["launches"]
                    for p in ("train", "qlora", "fp8", "sdxl_ft", "sd15_train", "sd21_train",
@@ -5986,7 +6618,8 @@ def main() -> int:
                              "sdxl_inpaint", "sd15_inpaint_cli", "sd3_ft", "flux_ft",
                              "dit_single_file", "sdxl_dora", "sdxl_loha", "hunyuan_ft",
                              "sdxl_embedding", "sd15_vae_ft", "pixart_train", "sana_train",
-                             "pixart_sana_cli", "sdxl_optimizers", "sd15_ft_8bit")},
+                             "pixart_sana_cli", "sdxl_optimizers", "sd15_ft_8bit",
+                             "cascade_train", "cascade_ft", "wuerstchen_cli")},
                 **{f"{p.removesuffix('_cli')}_embedding_cli": results[p]["embedding_launches"]
                    for p in ("sd15_cli", "sd3_cli", "flux_cli", "hunyuan_cli")},
                 "sd15_lora_embedding_cli": results["sd15_cli"]["additional_embedding_launches"]}
@@ -5996,7 +6629,9 @@ def main() -> int:
                                                                   "hunyuan_ft",
                                                                   "sd15_vae_ft",
                                                                   "pixart_train",
-                                                                  "sana_train")})))
+                                                                  "sana_train",
+                                                                  "cascade_train",
+                                                                  "cascade_ft")})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

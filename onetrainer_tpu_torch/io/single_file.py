@@ -1,6 +1,7 @@
 """Single-file checkpoints of SD3 (the SAI layout), FLUX (the BFL layout),
-HunyuanVideo and PixArt (the original repositories' layouts): load and
-save.
+HunyuanVideo, PixArt and Stable Cascade (the original repositories'
+layouts; Stable Cascade's stage_c with the fused in_proj attention keys and
+a text_encoder.safetensors beside it): load and save.
 
 Counterpart of onetrainer_tpu/io/single_file.py (reference:
 modules/util/convert/convert_sd3_diffusers_to_ckpt.py,
@@ -42,6 +43,7 @@ both.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -1030,3 +1032,121 @@ def save_pixart_single_file(path: str, transformer: dict, save_dtype=torch.float
     (reference: setup/families.py:_pixart_save_single_file)."""
     save_safetensors(path, pixart_transformer_to_ckpt(_cast(transformer, save_dtype)),
                      _meta(metadata))
+
+
+# -- Stable Cascade (the stage_c single-file layout) ----------------------------------
+
+def cascade_prior_to_ckpt(sd: dict) -> dict:
+    """diffusers StableCascadeUNet keys -> stage_c.safetensors keys: to_q,
+    to_k and to_v fused into attention.attn.in_proj_*, to_out.0 renamed
+    attn.out_proj; every other key as it is (reference:
+    convert_stable_cascade_diffusers_to_ckpt.py:32-50)."""
+    out: dict = {}
+    for key, value in sd.items():
+        if ".attention.to_out.0." in key:
+            out[key.replace(".attention.to_out.0.", ".attention.attn.out_proj.")] = value
+        elif ".attention.to_q." in key:
+            base, wb = key.rsplit(".", 1)
+            stem = base[: -len(".attention.to_q")]
+            suffix = "in_proj_weight" if wb == "weight" else "in_proj_bias"
+            out[f"{stem}.attention.attn.{suffix}"] = _cat(sd, [
+                f"{stem}.attention.to_q.{wb}", f"{stem}.attention.to_k.{wb}",
+                f"{stem}.attention.to_v.{wb}"])
+        elif ".attention.to_k." in key or ".attention.to_v." in key:
+            continue
+        else:
+            out[key] = value
+    return out
+
+
+def cascade_ckpt_to_prior(sd: dict) -> dict:
+    """Inverse of cascade_prior_to_ckpt (stage_c -> diffusers)."""
+    out: dict = {}
+    for key, value in sd.items():
+        if ".attention.attn.out_proj." in key:
+            out[key.replace(".attention.attn.out_proj.", ".attention.to_out.0.")] = value
+        elif key.endswith((".attention.attn.in_proj_weight", ".attention.attn.in_proj_bias")):
+            stem = key[: key.index(".attention.attn.in_proj_")]
+            wb = "weight" if key.endswith("weight") else "bias"
+            _split3(out, sd, key, [f"{stem}.attention.to_q.{wb}", f"{stem}.attention.to_k.{wb}",
+                                   f"{stem}.attention.to_v.{wb}"])
+        else:
+            out[key] = value
+    return out
+
+
+def _cascade_text_encoder_path(path: str) -> str:
+    return os.path.join(os.path.dirname(path) or ".", "text_encoder.safetensors")
+
+
+def load_cascade_single_file(path: str, weight_dtype=torch.float32,
+                             compute_dtype=torch.bfloat16, gradient_checkpointing=False,
+                             device: torch.device | str = "cuda",
+                             effnet_path: str | None = None) -> dict:
+    """Stable Cascade's stage_c.safetensors (fused in_proj attention keys;
+    reference: WuerstchenModelLoader's single-file branch) -> the dict
+    io/wuerstchen_checkpoints.py:load_wuerstchen_diffusers returns. The
+    config is the reference's reading of the shapes (64-wide heads, the
+    block counts, the CLIP widths), but for the latent channels: the
+    head's rows are (a, b), twice the latent's channels, where the
+    reference takes a quarter of them (8 for stage C's 16; ROADMAP F28). A
+    sibling text_encoder.safetensors
+    loads when present (else the text encoder is None), its config read
+    from its shapes, where the reference reads its width alone and keeps
+    CLIP-L's depth (ROADMAP F29); the effnet from `effnet_path`."""
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import (
+        load_effnet, prior_config_from_diffusers,
+    )
+    from onetrainer_tpu_torch.models.wuerstchen import EffnetConfig
+    sd = cascade_ckpt_to_prior(_read_single_file(path, device, weight_dtype))
+    hidden0 = int(sd["embedding.1.weight"].shape[0])
+    down = sd.get("down_downscalers.1.1.blocks.0.weight")
+    hidden1 = int(down.shape[0]) if down is not None else hidden0
+    pcfg = prior_config_from_diffusers({
+        "_class_name": "StableCascadeUNet",
+        "in_channels": int(sd["clf.1.weight"].shape[0]) // 2,   # (a, b): ROADMAP F28
+        "block_out_channels": (hidden0, hidden1),
+        "num_attention_heads": (hidden0 // 64, hidden1 // 64),
+        "down_num_layers_per_block": (_count(sd, "down_blocks.0.") // 3,
+                                      _count(sd, "down_blocks.1.") // 3),
+        "clip_text_in_channels": int(sd["clip_txt_mapper.weight"].shape[1]),
+        "clip_text_pooled_in_channels": int(sd["clip_txt_pooled_mapper.weight"].shape[1]),
+        "clip_image_in_channels": int(sd["clip_img_mapper.weight"].shape[1]),
+    }, compute_dtype, gradient_checkpointing)
+    te_path = _cascade_text_encoder_path(path)
+    te = None
+    if os.path.isfile(te_path):
+        te = _read_single_file(te_path, device, weight_dtype)
+    else:
+        print("text_encoder.safetensors not found next to stage_c, "
+              "continuing without the text encoder")
+    return {
+        "prior_config": pcfg,
+        "effnet_config": EffnetConfig(dtype=compute_dtype),
+        "te_config": _infer_clip_config(te, compute_dtype) if te is not None
+        else clip_config_from_transformers({}, compute_dtype),
+        "prior": sd,
+        "effnet": load_effnet(effnet_path, device, weight_dtype),
+        "text_encoder": te,
+        "tokenizer_dir": None,
+        "prediction_type": "epsilon",
+    }
+
+
+def save_cascade_single_file(path: str, prior: dict, te: dict | None,
+                             save_dtype=torch.float32, metadata: dict | None = None) -> None:
+    """Stable Cascade's single-file export (reference:
+    setup/families.py:_wuerstchen_save_single_file): the prior as
+    stage_c.safetensors with fused attention keys and the text encoder
+    beside it as text_encoder.safetensors. A `*.safetensors` path is the
+    stage_c file, anything else a directory for both."""
+    if path.endswith(".safetensors"):
+        stage_c = path
+    else:
+        os.makedirs(path, exist_ok=True)
+        stage_c = os.path.join(path, "stage_c.safetensors")
+    save_safetensors(stage_c, cascade_prior_to_ckpt(_cast(prior, save_dtype)),
+                     metadata or {})
+    if te is not None:
+        save_safetensors(_cascade_text_encoder_path(stage_c), _cast(te, save_dtype),
+                         metadata or {})

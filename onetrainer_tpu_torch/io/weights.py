@@ -18,13 +18,18 @@
   CLIP-L and the causal VAE (`video_vae_params_from_flax`);
   `pixart_params_from_flax` for PixArt's transformer, T5 and VAE;
   `sana_params_from_flax` for Sana's transformer (`sana_flax_to_state_dict`),
-  Gemma-2 (`gemma_params_from_flax`) and DC-AE (`dcae_params_from_flax`).
+  Gemma-2 (`gemma_params_from_flax`) and DC-AE (`dcae_params_from_flax`);
+  `wuerstchen_params_from_flax` for a Würstchen v2 or Stable Cascade
+  prior, its CLIP and the EfficientNet encoder, and
+  `wuerstchen_decoder_params_from_flax` for DiffNeXt, the Paella VQGAN and
+  the decoder's CLIP.
 - `init_sd_weights` materialises full-width weights of either family on a
   device from a seeded `torch.Generator`, for runs without a checkpoint;
   `init_sd3_weights` those of an SD3 model, `init_flux_weights` those of a
   FLUX model, `init_hunyuan_weights` those of a HunyuanVideo model,
-  `init_pixart_weights` those of a PixArt model and `init_sana_weights`
-  those of a Sana model.
+  `init_pixart_weights` those of a PixArt model, `init_sana_weights`
+  those of a Sana model and `init_wuerstchen_weights` those of a Würstchen
+  v2 or Stable Cascade model and its decoder stage.
 """
 
 from __future__ import annotations
@@ -156,6 +161,32 @@ def sana_params_from_flax(model, transformer: dict, te: dict, vae: dict) -> None
     _load(model.transformer, sana_transformer_state_dict(sana_flax_to_state_dict(transformer)))
     gemma_params_from_flax(model.text_encoder, te)
     dcae_params_from_flax(model.vae, vae)
+
+
+def wuerstchen_params_from_flax(model, prior: dict, te: dict | None = None,
+                                effnet: dict | None = None) -> None:
+    """Load the reference's flax trees into a Würstchen v2 or Stable Cascade
+    `model`: the prior (diffusers' keys through the generic map), the CLIP
+    text encoder and the EfficientNet encoder (torchvision's keys through
+    the port's copy of the reference's effnet map), each when given."""
+    from onetrainer_tpu_torch.io.torch_flax import flax_params_to_torch
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import effnet_flax_key_map
+    _load(model.prior, flax_params_to_torch(prior))
+    if te is not None:
+        _load(model.text_encoder, clip_flax_to_state_dict(te))
+    if effnet is not None:
+        _load(model.effnet, flax_params_to_torch(effnet, key_map=effnet_flax_key_map))
+
+
+def wuerstchen_decoder_params_from_flax(model, decoder: dict, vqgan: dict,
+                                        te: dict | None = None) -> None:
+    """Load the reference's DiffNeXt and Paella VQGAN flax trees (and the
+    decoder's CLIP, when given) into `model`'s decoder stage."""
+    from onetrainer_tpu_torch.io.torch_flax import flax_params_to_torch
+    _load(model.decoder, flax_params_to_torch(decoder))
+    _load(model.vqgan, flax_params_to_torch(vqgan))
+    if te is not None:
+        _load(model.decoder_text_encoder, clip_flax_to_state_dict(te))
 
 
 # the adapter leaves of LoRA, DoRA and LoHa (peft/lora.py), in both packages
@@ -335,3 +366,39 @@ init_sana_weights = init_pixart_weights
 # FLUX's parts (its DiT, CLIP-L, T5, VAE) and HunyuanVideo's (its DiT,
 # Llama, CLIP-L, the causal VAE's conv3d weights) draw as SD3's do
 init_flux_weights = init_hunyuan_weights = init_sd3_weights
+
+
+@torch.no_grad()
+def init_wuerstchen_weights(model, seed: int, device: torch.device | str,
+                            parts: tuple[str, ...] | None = None) -> None:
+    """Seeded random weights for a Würstchen v2 or Stable Cascade `model`'s
+    parts (`parts`, default: the prior, the text encoder, the effnet and,
+    when set, the decoder stage), on `device`, each parameter in the dtype
+    it has on "meta": dense, conv and embedding weights as `init_sd_weights`
+    draws them (transposed convs' too), GRN's gamma and beta and the VQGAN
+    blocks' gammas 0 (diffusers' init), BatchNorm's statistics 0 and 1."""
+    from onetrainer_tpu_torch.models.paella_vq import MixingResidualBlock
+    from onetrainer_tpu_torch.models.wuerstchen import FrozenBatchNorm, GlobalResponseNorm
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    parts = parts or tuple(name for name in ("prior", "text_encoder", "effnet", "decoder",
+                                             "vqgan", "decoder_text_encoder")
+                           if getattr(model, name, None) is not None)
+    for name in parts:
+        module = getattr(model, name)
+        _init_module(module, gen, device)
+        for sub in module.modules():
+            if isinstance(sub, nn.ConvTranspose2d):
+                sub.weight.normal_(0.0, sub.weight[0].numel() ** -0.5, generator=gen)
+                sub.bias.zero_()
+            elif isinstance(sub, GlobalResponseNorm):
+                sub.gamma.zero_()
+                sub.beta.zero_()
+            elif isinstance(sub, FrozenBatchNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+                sub.running_mean.zero_()
+                sub.running_var.fill_(1.0)
+            elif isinstance(sub, MixingResidualBlock):
+                sub.gammas.zero_()
+    model.device = device

@@ -225,14 +225,17 @@ def diffusion_losses(
     `masked_training`, each elementwise loss weighted by the batch's latent
     mask (`masked_losses`). The SNR weightings apply; SIGMA leaves the loss
     unweighted. A prediction with `predicted_var_values` (PixArt's learned
-    variance) adds the VB term at `vb_loss_strength`, masked as the others."""
+    variance) adds the VB term at `vb_loss_strength`, masked as the others.
+    A float timestep (Würstchen's continuous time) reaches
+    `coefficients.snr` as it is, an integer one as an index."""
     if "prior_target" in data:
         raise NotImplementedError("prior preservation is not ported yet")
 
     losses = _weighted_stack(batch, data, cfg, coefficients)
 
     if "timestep" in data and coefficients is not None:
-        snr = coefficients.snr(data["timestep"].long())
+        t = data["timestep"]
+        snr = coefficients.snr(t if t.is_floating_point() else t.long())
         if cfg.loss_weight_fn == LossWeight.MIN_SNR_GAMMA:
             losses = losses * min_snr_weight(snr, cfg.loss_weight_strength, cfg.v_prediction)
         elif cfg.loss_weight_fn == LossWeight.DEBIASED_ESTIMATION:

@@ -4,13 +4,18 @@
         --base-model-name <dir-or-file> --prompt "a cat" \
         --destination out.png [--steps 20 --cfg 7 --width 512 --height 512] \
         [--sample-inpainting --base-image-path base.png --mask-image-path mask.png] \
-        [--embedding-name embedding.safetensors] [--device cuda]
+        [--embedding-name embedding.safetensors] [--decoder-model-name <dir>] \
+        [--device cuda]
 
 The arguments are the reference's. SD 1.5/2.x, SDXL, SD3, FLUX.1-dev,
-HunyuanVideo, PixArt-α/Σ and Sana text-to-image run (SD3, FLUX and
-HunyuanVideo from a diffusers directory or their single file: SAI's,
-BFL's and HunyuanVideo's, with the VAE and text encoders bundled; PixArt
-and Sana from a diffusers directory; FLUX and HunyuanVideo take `--cfg`
+HunyuanVideo, PixArt-α/Σ, Sana, Würstchen v2 and Stable Cascade
+text-to-image run (SD3, FLUX and HunyuanVideo from a diffusers directory
+or their single file: SAI's, BFL's and HunyuanVideo's, with the VAE and
+text encoders bundled; PixArt and Sana from a diffusers directory;
+Würstchen v2 from a prior directory, decoded through DiffNeXt and the
+Paella VQGAN of `--decoder-model-name`'s decoder directory, else through
+the reference's linear stand-in, as Stable Cascade always is, from a
+prior directory or its stage_c file; FLUX and HunyuanVideo take `--cfg`
 as their guidance
 embedding and ignore the negative prompt and the scheduler; HunyuanVideo
 samples one frame, the sample config's default, and writes it as the
@@ -23,7 +28,7 @@ trained embedding file (the train command's EMBEDDING output, or the
 reference's) into each text encoder's rows past its vocabulary, under the
 file's placeholder: the config's `embedding.placeholder`, `<embedding>` by
 default, which the prompt names (the reference's scripts/sample.py:69-74).
-Other model types and Würstchen decoders raise NotImplementedError. Sampling runs
+Other model types raise NotImplementedError. Sampling runs
 on the card unless `--device` names another device. A PNG destination is
 written by the port's own PNG codec; other formats need Pillow.
 """
@@ -50,7 +55,8 @@ def parse_args(argv: list[str] | None = None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--scheduler", default="DDIM")
     p.add_argument("--decoder-model-name", default="",
-                   help="Würstchen/Cascade stage-B decoder repo dir (not ported)")
+                   help="Würstchen/Cascade stage-B decoder repo dir "
+                        "(reference: ModelNames.decoder_model)")
     p.add_argument("--embedding-name", default="",
                    help="a trained embedding safetensors to apply")
     p.add_argument("--text-encoder-layer-skip", type=int, default=0)
@@ -87,19 +93,21 @@ def main(argv: list[str] | None = None):
         DataType, ModelType, NoiseScheduler, TrainingMethod,
     )
 
-    if args.decoder_model_name:
-        raise NotImplementedError("not ported to the torch sampler yet: --decoder-model-name")
     config = TrainConfig.default_values()
     config.model_type = ModelType[args.model_type]
     if not (config.model_type.is_stable_diffusion()
             or config.model_type.is_stable_diffusion_xl()
             or config.model_type.is_stable_diffusion_3()
             or config.model_type.is_flux() or config.model_type.is_hunyuan_video()
-            or config.model_type.is_pixart() or config.model_type.is_sana()):
+            or config.model_type.is_pixart() or config.model_type.is_sana()
+            or config.model_type.is_wuerstchen()):
         raise NotImplementedError(f"{config.model_type} sampling is not ported "
                                   "(SD 1.5/2.x, SDXL, SD3, FLUX.1-dev, FLUX.1-fill, "
-                                  "HunyuanVideo, PixArt-α/Σ and Sana only)")
+                                  "HunyuanVideo, PixArt-α/Σ, Sana, Würstchen v2 and "
+                                  "Stable Cascade only)")
     config.base_model_name = args.base_model_name
+    if args.decoder_model_name:
+        config.decoder.model_name = args.decoder_model_name
     config.training_method = TrainingMethod.FINE_TUNE
     config.unet.train = False
     config.prior.train = False

@@ -3,10 +3,11 @@ encode functions, sampler and save paths.
 
 Counterpart of onetrainer_tpu/setup/families.py, for SD 1.5/2.x
 text-to-image and inpainting, SDXL and its inpainting UNet, SD3,
-FLUX.1-dev, FLUX.1-fill, HunyuanVideo, PixArt-α/Σ and Sana (diffusers
-directories and single files: LDM, SAI, BFL, HunyuanVideo's and PixArt's;
-Sana's single-file export raises, as the reference's; SD 2.0 depth is not
-ported yet) so far. The calls mirror the reference's trainer and
+FLUX.1-dev, FLUX.1-fill, HunyuanVideo, PixArt-α/Σ, Sana, Würstchen v2
+and Stable Cascade (diffusers directories and single files: LDM, SAI,
+BFL, HunyuanVideo's, PixArt's and Stable Cascade's stage_c; Sana's and
+Würstchen v2's single-file exports raise, as the reference's; SD 2.0
+depth and HiDream are not ported yet) so far. The calls mirror the reference's trainer and
 scripts: `get_family(...)`, then `family.load`, `family.create_setup`,
 `family.make_encode_fns` (the data caches) and `setup.train_step` or
 `family.sample`; `family.save_model` / `save_single_file` write the model, LoRA adapters merged into their
@@ -50,6 +51,7 @@ class ModelFamily:
 _LORA_PARTS = {
     "unet": ("unet_lora", None),
     "transformer": ("transformer_lora", None),
+    "prior": ("prior_lora", None),
     "text_encoder": ("te_lora", clip_torch_key_map),
     "text_encoder_2": ("te2_lora", clip_torch_key_map),
 }
@@ -529,6 +531,79 @@ def _sana_save_single_file(setup, path, save_dtype=None, ema=True):
         "Sana single-file export not implemented; use DIFFUSERS format")
 
 
+# -- Würstchen v2 / Stable Cascade ---------------------------------------------------
+
+def _wuerstchen_load(base_dir, config, device: torch.device | str = "cuda"):
+    """A prior directory (or a Stable Cascade stage_c file), the effnet file
+    `effnet_encoder.model_name` and, for sampling, the decoder directory
+    `decoder.model_name`; the effnet and the text encoder may be missing."""
+    from onetrainer_tpu_torch.io.single_file import load_cascade_single_file
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import (
+        load_wuerstchen_decoder, load_wuerstchen_diffusers,
+    )
+    from onetrainer_tpu_torch.models.wuerstchen_model import WuerstchenModel, attach_decoder
+    kwargs = dict(_load_kwargs(config, device, "prior"),
+                  effnet_path=config.effnet_encoder.model_name or None)
+    if os.path.isfile(base_dir) and config.model_type.is_stable_cascade():
+        loaded = load_cascade_single_file(base_dir, **kwargs)
+    else:
+        loaded = load_wuerstchen_diffusers(base_dir, **kwargs)
+    model = WuerstchenModel(
+        model_type=config.model_type,
+        prior_config=loaded["prior_config"],
+        effnet_config=loaded["effnet_config"],
+        te_config=loaded["te_config"],
+        device="meta",
+        text_encoder_layer_skip=config.text_encoder_layer_skip or 0,
+        tokenizer=loaded["tokenizer_dir"],
+    )
+    _assign(model, loaded, device, optional=("effnet", "text_encoder"))
+    decoder_dir = getattr(config.decoder, "model_name", None)
+    if decoder_dir and os.path.isdir(decoder_dir):
+        attach_decoder(model, load_wuerstchen_decoder(
+            decoder_dir, compute_dtype=kwargs["compute_dtype"], device=device))
+    return model
+
+
+def _wuerstchen_create_setup(model, config, total_steps, steps_per_epoch=100):
+    from onetrainer_tpu_torch.setup.wuerstchen_setup import create_wuerstchen_setup
+    return create_wuerstchen_setup(model, config, total_steps, steps_per_epoch)
+
+
+def _wuerstchen_encode_fns(setup):
+    from onetrainer_tpu_torch.setup.wuerstchen_setup import make_wuerstchen_encode_fns
+    return make_wuerstchen_encode_fns(setup)
+
+
+def _wuerstchen_sample(setup, sample_config, on_progress):
+    from onetrainer_tpu_torch.sampling.wuerstchen_sampler import sample_wuerstchen
+    prior, te, extra = setup.merged_inference_params()
+    return sample_wuerstchen(setup.model, prior, te, setup.tokenizer, sample_config,
+                             extra_embeddings=extra, on_update_progress=on_progress)
+
+
+def _wuerstchen_save_model(setup, out_dir, source_dir, save_dtype=None, ema=True):
+    from onetrainer_tpu_torch.io.wuerstchen_checkpoints import save_wuerstchen_diffusers
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
+    save_wuerstchen_diffusers(out_dir, setup.model, sd["prior"], sd["text_encoder"],
+                              save_dtype=save_dtype or torch.float32, source_dir=source_dir)
+
+
+def _wuerstchen_save_single_file(setup, path, save_dtype=None, ema=True):
+    """Stable Cascade's stage_c file and the text encoder beside it
+    (io/single_file.py:save_cascade_single_file); Würstchen v2 raises, as
+    the reference's saver does."""
+    if not setup.config.model_type.is_stable_cascade():
+        raise NotImplementedError(
+            "Würstchen v2 single-file export is unsupported (reference "
+            "WuerstchenModelSaver.__save_safetensors raises for non-Cascade)")
+    from onetrainer_tpu_torch.io.single_file import save_cascade_single_file
+    sd = merged_state_dicts(setup, ema, save_dtype or torch.float32)
+    save_cascade_single_file(path, sd["prior"], sd["text_encoder"],
+                             save_dtype=save_dtype or torch.float32,
+                             metadata=_modelspec(setup, prediction_type=False))
+
+
 def get_family(model_type: ModelType) -> ModelFamily:
     if model_type.is_stable_diffusion():
         if model_type.has_depth_input():
@@ -595,6 +670,18 @@ def get_family(model_type: ModelType) -> ModelFamily:
             make_encode_fns=_sana_encode_fns, sample=_sana_sample,
             save_model=_sana_save_model, save_single_file=_sana_save_single_file,
             lora_prefixes=sana_prefixes,
+        )
+    if model_type.is_wuerstchen():
+        from onetrainer_tpu_torch.setup.wuerstchen_setup import (
+            LORA_PREFIXES as wuerstchen_prefixes,
+        )
+        return ModelFamily(
+            name="wuerstchen", quantization=128,
+            load=_wuerstchen_load, create_setup=_wuerstchen_create_setup,
+            make_encode_fns=_wuerstchen_encode_fns, sample=_wuerstchen_sample,
+            save_model=_wuerstchen_save_model,
+            save_single_file=_wuerstchen_save_single_file,
+            lora_prefixes=wuerstchen_prefixes,
         )
     raise NotImplementedError(
         f"model family {model_type} is not ported to torch yet")

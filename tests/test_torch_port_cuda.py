@@ -48,6 +48,10 @@ def cuda_device():
     (2, 9216, 9216, 5, 64, False),  # SD 2.1 @768 batch 2: the longest model sequence
     (2, 4250, 4250, 24, 64, False),  # SD3 @1024 batch 2: 154 text + 4096 image rows
     (2, 4173, 4173, 24, 128, False),  # FLUX @1024 batch 2: 77 text + 4096, d=128
+    (4, 576, 658, 32, 64, False),   # Stable Cascade's prior @1024 batch 4: 576 over 658 keys
+    (4, 576, 653, 24, 64, False),   # Würstchen v2's prior @1024 batch 4: 576 over 653 keys
+    (1, 4096, 4173, 10, 64, False),  # DiffNeXt @1024: its 64x64 level over 77 more keys
+    (1, 256, 333, 20, 64, False),   # DiffNeXt's 16x16 level: one q tile, ragged keys
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 128, True),
     (1, 50, 77, 3, 40, True),       # both below one tile
@@ -88,6 +92,8 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, sq, skv, h, d,
     (2, 9216, 9216, 5, 64, False),    # SD 2.1 @768 batch 2: K3 over 144 q tiles
     (2, 4250, 4250, 24, 64, False),   # SD3 @1024: ragged last q and kv tiles
     (2, 4173, 4173, 24, 128, False),  # FLUX @1024: ragged tiles in the 128 slot
+    (4, 576, 658, 32, 64, False),     # Stable Cascade's prior: more keys than queries
+    (4, 576, 653, 24, 64, False),     # Würstchen v2's prior
     (2, 1000, 777, 4, 40, True),
     (1, 512, 300, 4, 80, True),
     (1, 8192, 8192, 2, 128, False),   # the TPU's q-streaming dk/dv domain
@@ -407,6 +413,56 @@ def test_sd3_joint_attention_takes_k1_to_k3_on_card(cuda_device, policy):
             pt_ff.flash_attention_folded_delta.launches) == (
         4 if policy == "full" else 2, 2, 2, 2)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checkpointing", [False, True])
+def test_cascade_prior_attention_takes_k1_to_k3_on_card(cuda_device, checkpointing):
+    """A Stable Cascade prior of one triple per level at stage C's head
+    width (d=64) on a 24x24 latent with 77 text rows, bf16 compute: each of
+    its four attention blocks attends 576 latent rows over 576 + 82 keys,
+    launching K1 once in the forward (twice under checkpointing) and K2, K3
+    and the pre-pass once each in the backward; the output and the
+    gradients agree with plain attention."""
+    from onetrainer_tpu_torch.models.cascade import CascadePriorConfig, StableCascadePrior
+    torch.manual_seed(0)
+    cfg = CascadePriorConfig(c_hidden=(256, 256), nhead=(4, 4), blocks=(1, 1), c_cond=256,
+                             gradient_checkpointing=checkpointing)
+    model = StableCascadePrior(cfg).to(cuda_device)
+    # the eps head (x_in - a) / (|1 - b| + 1e-5) divides by ~1e-5 where a
+    # random head puts b near 1: a tenth of its weights keeps b near 0
+    with torch.no_grad():
+        model.clf[1].weight.mul_(0.1)
+        model.clf[1].bias.zero_()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 24, 24, 16), generator=gen, device=cuda_device)
+    text = torch.randn((2, 77, 1280), generator=gen, device=cuda_device)
+    pooled = torch.randn((2, 1280), generator=gen, device=cuda_device)
+    r = torch.tensor([0.25, 0.75], device=cuda_device)
+    params = [p for p in model.parameters() if p.requires_grad]
+    pt_ff.reset_launch_counts()
+    out = model(x, r, text, pooled)
+    assert pt_ff.flash_attention_folded_fwd.launches == 4
+    grads = torch.autograd.grad(out.square().mean(), params)
+    torch.cuda.synchronize()
+    assert (pt_ff.flash_attention_folded_fwd.launches,
+            pt_ff.flash_attention_folded_dq.launches,
+            pt_ff.flash_attention_folded_dkv.launches,
+            pt_ff.flash_attention_folded_delta.launches) == (8 if checkpointing else 4, 4, 4, 4)
+    kernel = pt_ff.flash_attention_folded
+    pt_ff.flash_attention_folded = lambda q, k, v, h, sm_scale, kv_keep=None: \
+        pt_ff.flash_attention_folded_reference(q, k, v, h, sm_scale=sm_scale,
+                                               kv_keep=kv_keep)[0]
+    try:
+        out_plain = model(x, r, text, pooled)
+        grads_plain = torch.autograd.grad(out_plain.square().mean(), params)
+    finally:
+        pt_ff.flash_attention_folded = kernel
+    assert ((out - out_plain).norm() / out_plain.norm()).item() <= 5e-2
+    flat = torch.cat([g.float().flatten() for g in grads])
+    flat_plain = torch.cat([g.float().flatten() for g in grads_plain])
+    assert torch.isfinite(flat).all()
+    assert ((flat - flat_plain).norm() / flat_plain.norm()).item() <= 1e-2
 
 
 @pytest.mark.cuda

@@ -11,7 +11,10 @@ FLUX.1-fill slice inpaints from PNGs at another size than the sample's and
 takes two LoRA steps on an NF4 transformer with the conditioning latent
 and the 64-channel mask, the PixArt-Σ and Sana slices ("full"
 checkpointing) each sample and take two LoRA steps on an NF4 transformer
-with bf16 adapters, stochastic rounding and cached text, and the train and
+with bf16 adapters, stochastic rounding and cached text, the Stable
+Cascade slice samples through the stand-in and takes two LoRA steps on an
+NF4 prior with bf16 adapters, stochastic rounding, effnet latents and
+cached text with its pooled projection, and the train and
 sample CLIs run a tiny SD 1.5
 checkpoint end to end (load, cache, train, back up, save the LoRA file,
 sample) and a tiny SD 1.5 inpainting checkpoint over PNGs that are not at
@@ -411,6 +414,49 @@ _SCRIPT = textwrap.dedent(f"""
             assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
         assert any(e["lora_up"].abs().max() > 0
                    for e in setup.state.params["transformer_lora"].values())
+    assert {{"onetrainer_tpu_torch.models." + m for m in (
+        "wuerstchen", "cascade", "diffnext", "paella_vq", "wuerstchen_model", "resize")}} | {{
+        "onetrainer_tpu_torch.io.wuerstchen_checkpoints",
+        "onetrainer_tpu_torch.setup.wuerstchen_setup",
+        "onetrainer_tpu_torch.train.wuerstchen_train_step",
+        "onetrainer_tpu_torch.sampling.wuerstchen_sampler"}} <= set(mods)
+    from onetrainer_tpu_torch.io.weights import init_wuerstchen_weights
+    from onetrainer_tpu_torch.models.cascade import CascadePriorConfig
+    from onetrainer_tpu_torch.models.wuerstchen import EffnetConfig
+    from onetrainer_tpu_torch.models.wuerstchen_model import WuerstchenModel
+    cascade = WuerstchenModel(
+        model_type=ModelType.STABLE_CASCADE_1,
+        prior_config=CascadePriorConfig(c_hidden=(64, 64), nhead=(1, 1), blocks=(1, 1),
+                                        c_cond=64, clip_text_in=32, clip_text_pooled_in=32,
+                                        clip_image_in=16),
+        effnet_config=EffnetConfig(), te_config=CLIPTextConfig(
+            hidden_size=32, projection_dim=32, **te), device="meta")
+    init_wuerstchen_weights(cascade, seed=11, device="cpu")
+    config = TrainConfig.default_values()
+    config.model_type = ModelType.STABLE_CASCADE_1
+    config.training_method = TrainingMethod.FINE_TUNE
+    config.prior.train = config.text_encoder.train = False
+    family = get_family(config.model_type)
+    sc.height = sc.width = 128
+    image = family.sample(family.create_setup(cascade, config, 1), sc, None).image
+    assert image.shape == (128, 128, 3) and image.std() > 0
+    config.training_method = TrainingMethod.LORA
+    config.prior.train = True
+    config.prior.weight_dtype = DataType.NFLOAT_4
+    config.lora_weight_dtype = DataType.BFLOAT_16
+    config.optimizer.stochastic_rounding = True
+    setup = family.create_setup(cascade, config, 10)
+    assert sum(is_quantized(getattr(m, "weight", None)) for m in cascade.prior.modules()) >= 10
+    encode_images, encode_text = family.make_encode_fns(setup)
+    text = encode_text("a cat")
+    batch = dict(encode_images(torch.rand((2, 128, 128, 3)) * 2 - 1), loss_weight=torch.ones(2),
+                 **{{k: text[k].expand(2, *text[k].shape) for k in (
+                     "text_encoder_hidden_state", "pooled_text_encoder_output")}})
+    assert batch["latent_image"].shape == (2, 3, 3, 16)
+    for _ in range(2):
+        metrics = setup.train_step(setup.state, batch, gen)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert any(e["lora_up"].abs().max() > 0 for e in setup.state.params["prior_lora"].values())
     leaked = sorted(n for n, m in sys.modules.items()
                     if n.split(".")[0] in {BLOCKED!r} and m is not None)
     assert not leaked, leaked

@@ -314,7 +314,7 @@ def test_sample_script_writes_a_non_constant_image(runs, tmp_path):
     assert image.shape == (32, 32, 3) and image.dtype == np.uint8
     assert np.array_equal(image, out.image) and image.std() > 0
     with pytest.raises(NotImplementedError):   # a family the port has not ported
-        pt_sample.main(["--model-type", "WUERSTCHEN_2", "--base-model-name", runs["base"],
+        pt_sample.main(["--model-type", "HI_DREAM_FULL", "--base-model-name", runs["base"],
                         "--prompt", "a", "--destination", dest, "--device", "cpu"])
 
 
